@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``hullwhite_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+0. setup: the card's name and power limit, the kernels' build from
+   ``hullwhite_tpu_torch/csrc`` (nvcc, sm_90a), TF32 off;
+1. each hand-written kernel against its plain PyTorch version on the card,
+   with stated tolerances, at a few tiles and at the full main-path shape
+   (2^20 pairs); then at the full shape each kernel's device time (with
+   its reduce pass) and its plain version's wall time per call;
+2. the main path at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
+   maturities) through the CLI a user runs, q1, q2 --validate 5 and
+   q3 --validate 5; then the cross-engine gate that feeds the option
+   kernel's own normals through the exact engine; the results are checked
+   against the published reference values and the fp64 oracles;
+3. the launch counters: the main path's three kernels each ran in the
+   phase-2 CLI run (counted before the gate), and the generator's check
+   kernel option_normals ran in its own phase-1 window;
+4. determinism: two ZBC prices and two curves under one key are bitwise
+   equal.
+
+The last two lines are a JSON object of per-kernel numbers and the contract
+line {"ok": true, "device": {...}}.  Without CUDA the script fails before
+printing any result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_ms(fn, n, k):
+    """Device time per call (kernel + its reduce pass), min over k windows.
+    A sleep kernel holds the stream while the host enqueues the n calls, so
+    they run back to back on the card and host work stays out of the
+    window; raises if the host did not finish enqueueing in time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(k):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        stop.synchronize()
+        check(enqueue_ms < 40.0, f"enqueue took {enqueue_ms:.1f} ms: the "
+              "window would time the host")
+        best = min(best, start.elapsed_time(stop) / n)
+    return best
+
+
+def analytic_market(cfg, device):
+    """fp64 oracle curve, as float32 tensors: market data for phase 1 that
+    does not come from the kernels under test."""
+    import numpy as np
+    import torch
+
+    from hullwhite_tpu_torch.models import hull_white as hw
+    from hullwhite_tpu_torch.models import oracles
+
+    Ts = np.linspace(0.0, cfg.t_final, cfg.n_mat)
+    P = np.array([oracles.bond_price(cfg, T) for T in Ts], np.float32)
+    f = np.asarray(oracles.forward_rate(cfg, Ts), np.float32)
+    return hw.MarketCurve(P=torch.as_tensor(P, device=device),
+                          f=torch.as_tensor(f, device=device))
+
+
+def compare(name, k, p):
+    """Kernel output ``k`` against its plain version's ``p``: (the error
+    reported as max_abs_err, a printable summary); raises when a stated
+    tolerance is exceeded."""
+    from hullwhite_tpu_torch.ops.payoffs import cv_estimate
+
+    if name == "option_normals":
+        err = max(float((k[0] - p[0]).abs().max()),
+                  float((k[1] - p[1]).abs().max()))
+        check(err <= 2e-6, f"option_normals disagree: {err:.3e}")
+        return err, f"max|dx| = {err:.3e} (tol 2e-6)"
+    if name == "curve_exact":
+        check(float(k[0]) == float(p[0]), "curve count")
+        rel = float(((k[1:] - p[1:]) / p[1:]).abs().max())
+        dP = float(((k - p) / k[0]).abs().max())  # error of P = sums / count
+        check(rel <= 1e-5, f"curve_exact disagrees: max rel {rel:.3e}")
+        return dP, f"max rel = {rel:.3e} (tol 1e-5), max|dP| = {dP:.3e}"
+    if name == "zbc_exact":
+        check(float(k[5]) == float(p[5]), "zbc count")
+        # price and beta do not depend on P(0,S2), which only uncenters
+        # the control's mean
+        ek, ep = cv_estimate(k, 0.0), cv_estimate(p, 0.0)
+        d_price = abs(float(ek.price) - float(ep.price))
+        d_beta = abs(float(ek.beta) - float(ep.beta))
+        check(d_price <= 1e-6 and d_beta <= 1e-4,
+              f"zbc_exact disagrees: {d_price:.3e}, {d_beta:.3e}")
+        return d_price, (f"|dprice| = {d_price:.3e} (tol 1e-6), |dbeta| = "
+                         f"{d_beta:.3e} (tol 1e-4), price "
+                         f"{float(ek.price):.8f}")
+    assert name == "vega_exact", name
+    check(float(k[1]) == float(p[1]), "vega count")
+    err = abs(float(k[0] / k[1]) - float(p[0] / p[1]))
+    check(err <= 1e-5, f"vega_exact disagrees: {err:.3e}")
+    return err, (f"|dvega| = {err:.3e} (tol 1e-5), vega "
+                 f"{float(k[0] / k[1]):.6f}")
+
+
+def phase1(dev):
+    """Kernels vs plain versions at a few tiles and at the full main-path
+    shape, then times at the full shape.  Returns the errors, the times and
+    the option_normals launches of its own check window."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import hull_white as hw
+    from hullwhite_tpu_torch.utils.timing import bench
+
+    cfg = HWConfig()
+    key = Key(2026)
+    n_live = cfg.n_mat - 1
+    tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+    cp = fused.curve_prepared(cfg, tables)
+    op = fused.option_prepared(cfg, tables, analytic_market(cfg, dev),
+                               cfg.sigma)
+    consts = torch.as_tensor(op.consts, device=dev)  # the plain versions'
+    s = {kind: fused.kernel_seeds(key, kind) for kind in fused.SALTS}
+
+    def pair(name, n_tiles, prec=cfg.matmul_precision):
+        """(kernel call, plain call) of ``name`` over n_tiles tiles."""
+        return {
+            "curve_exact": (
+                lambda: fused.curve_exact(s["curve"], cp.W, cp.c, n_tiles,
+                                          n_live, prec),
+                lambda: fused.curve_exact_plain(s["curve"], cp.W, cp.c,
+                                                n_tiles, n_live, prec)),
+            "zbc_exact": (
+                lambda: fused.zbc_exact(s["zbc"], op, n_tiles),
+                lambda: fused.zbc_exact_plain(s["zbc"], consts, n_tiles)),
+            "vega_exact": (
+                lambda: fused.vega_exact(s["vega"], op, n_tiles),
+                lambda: fused.vega_exact_plain(s["vega"], consts, n_tiles)),
+            "option_normals": (
+                lambda: fused.option_normals(s["zbc"], n_tiles, device=dev),
+                lambda: fused.option_normals_plain(s["zbc"], n_tiles, dev)),
+        }[name]
+
+    n_full = {"curve_exact": cfg.n_paths // fused.CURVE_TILE_PATHS,
+              "option_normals": cfg.n_paths // fused.OPTION_TILE_PATHS}
+    n_full["zbc_exact"] = n_full["vega_exact"] = n_full["option_normals"]
+    n_few = {"curve_exact": 16, "zbc_exact": 8, "vega_exact": 8,
+             "option_normals": 8}
+    full = f"2^{cfg.n_paths.bit_length() - 1} pairs"
+    err = {name: 0.0 for name in n_full}
+    checks = [(name, n_few[name], prec) for name in n_full
+              for prec in (("highest", "default") if name == "curve_exact"
+                           else (cfg.matmul_precision,))]
+    checks += [(name, n_full[name], cfg.matmul_precision) for name in n_full]
+    normals_launches = None
+    for name, n_tiles, prec in checks:
+        kern, plain = pair(name, n_tiles, prec)
+        if name == "option_normals" and normals_launches is None:
+            # the check kernel's own window: the main path never runs it
+            fused.reset_launch_counts()
+            k = kern()
+            normals_launches = fused.launch_counts()["option_normals"]
+        else:
+            k = kern()
+        torch.cuda.synchronize()
+        e, text = compare(name, k, plain())
+        err[name] = max(err[name], e)
+        label = "full shape, " + full if n_tiles == n_full[name] else \
+            f"{n_tiles} tiles"
+        tag = f" [{prec}]" if name == "curve_exact" else ""
+        print(f"[phase 1] {name}{tag} {label}: {text}")
+
+    times = {}
+    for name in n_full:
+        kern, plain = pair(name, n_full[name])
+        # plain, kernel, kernel, plain: each figure is the min of its windows;
+        # the kernel's is device time, the plain version's the caller's wall
+        p1 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+        k1 = device_ms(kern, 20, 3)
+        k2 = device_ms(kern, 20, 3)
+        p2 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+        times[name] = (min(k1, k2), min(p1, p2))
+        print(f"[phase 1] time at {full}: {name}: kernel "
+              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
+              f"(kernel runs {k1:.4f} / {k2:.4f}, plain {p1:.4f} / {p2:.4f})")
+    return err, times, normals_launches
+
+
+def phase2(dev):
+    """The main path at full width through the CLI, then the cross-engine
+    gate; returns the launch counts of the main path alone."""
+    import numpy as np
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key, cli, pricing
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import oracles
+    from hullwhite_tpu_torch.ops import engine_exact, payoffs
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = HWConfig()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fused.reset_launch_counts()
+            for argv in (["q1"], ["q2", "--validate", "5"],
+                         ["q3", "--validate", "5"]):
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["--device", str(dev)])
+                print(f"[phase 2] cli {' '.join(argv)}: rc {rc}, "
+                      f"{time.perf_counter() - t0:.1f} s")
+                check(rc == 0, f"cli {argv[0]} failed")
+            counts = fused.launch_counts()
+            # cross-engine gate: the option kernel's own normals through the
+            # exact engine reproduce its price deterministically
+            key = Key(7)
+            market = cli.hwio.load_market(cfg, device=dev)
+            n_tiles = cfg.n_paths // fused.OPTION_TILE_PATHS
+            x1, x2 = fused.option_normals(fused.kernel_seeds(key, "zbc"),
+                                          n_tiles, device=dev)
+            X = torch.stack([x1.reshape(-1), x2.reshape(-1)], dim=1)
+            tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+            zw = engine_exact.zbc_weights(cfg, tables)
+            ref = payoffs.cv_estimate(
+                payoffs.zbc_moments(cfg, cfg.sigma, market,
+                                    engine_exact.antithetic_state(cfg, zw, X)),
+                market.P[-1])
+            est = pricing.price_zbc(cfg, key, market, device=dev)
+            gate = abs(float(est.price) - float(ref.price))
+            d_beta = abs(float(est.beta) - float(ref.beta))
+            print(f"[phase 2] cross-engine gate at {n_tiles} option tiles: "
+                  f"|dprice| = {gate:.3e} (tol 1e-6), |dbeta| = "
+                  f"{d_beta:.3e} (tol 1e-4)")
+            check(gate <= 1e-6 and d_beta <= 1e-4, "cross-engine gate")
+            res = {name: json.load(open(os.path.join(
+                "data_torch", f"{name}_results.json")))
+                for name in ("q1", "q2a", "q2b", "q3")}
+        finally:
+            os.chdir(cwd)
+
+    P = np.asarray(res["q1"]["P"])
+    Ts = np.linspace(0.0, cfg.t_final, cfg.n_mat)
+    P_true = np.array([oracles.bond_price(cfg, T) for T in Ts])
+    se = 0.1 * P_true / math.sqrt(2 * cfg.n_paths)
+    worst = float(np.max(np.abs(P - P_true) - 5 * se))
+    print(f"[phase 2] P(0,10) = {P[-1]:.6f} (|d| vs 0.876844 = "
+          f"{abs(P[-1] - 0.876844):.2e}, tol 5e-4); worst |P - oracle| - 5 SE "
+          f"= {worst:.2e} (tol 1e-4)")
+    check(abs(P[-1] - 0.876844) < 5e-4 and worst < 1e-4, "Q1 curve")
+    th = res["q2a"]["results"]["max_error"]
+    print(f"[phase 2] theta recovery max error = {th:.3e} (tol 1e-2)")
+    check(th < 1e-2, "Q2a theta recovery")
+    zbc = res["q2b"]["results"]
+    print(f"[phase 2] ZBC (CV) = {zbc['ZBC_control_variate']:.8f} in "
+          f"[0.0353, 0.0357], beta = {zbc['beta_optimal']:.5f} in [0.15, 0.18]")
+    check(0.0353 <= zbc["ZBC_control_variate"] <= 0.0357
+          and 0.15 <= zbc["beta_optimal"] <= 0.18, "Q2b ZBC")
+    q3 = res["q3"]["results"]
+    pw, fd = q3["sensitivity_mc"], q3["sensitivity_fd"]
+    print(f"[phase 2] vega pathwise = {pw:.6f} in [0.225, 0.236], FD-CRN = "
+          f"{fd:.6f}, |pw - fd|/pw = {abs(pw - fd) / pw:.3%} (tol 3%), "
+          f"FD-recalibrated = {q3['sensitivity_fd_recalibrated']:.6f}")
+    check(0.225 <= pw <= 0.236 and abs(pw - fd) / pw < 0.03, "Q3 vega")
+    speed = {q: res[q]["performance"] for q in ("q1", "q2b", "q3")}
+    for q, perf in speed.items():
+        print(f"[phase 2] {q} at {cfg.n_paths} pairs: "
+              f"{perf['simulation_time_ms']} ms, "
+              f"{perf['throughput_Mpaths_per_sec']} M paths/s "
+              f"({perf['device']})")
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from hullwhite_tpu_torch import HWConfig, Key, pricing
+    from hullwhite_tpu_torch.kernels import build
+
+    # phase 0
+    smi = nvidia_smi_line()
+    print(smi)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    print(f"[phase 0] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{kind}, {torch.cuda.device_count()} device(s)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.library()
+    print(f"[phase 0] kernels built in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {build.BUILD_INFO['seconds']:.1f} s): "
+          f"{build.library_path().name}")
+    for line in build.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[phase 0] ptxas: {line.strip()}")
+
+    err, times, normals_launches = phase1(dev)
+    counts = phase2(dev)
+    main_path = ("curve_exact", "zbc_exact", "vega_exact")
+    print(f"[phase 3] launches in the main-path run (the three cli "
+          f"commands): {counts}")
+    for name in main_path:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched by the main path")
+    print(f"[phase 3] option_normals, the generator's check kernel (not on "
+          f"the main path): {normals_launches} launch(es) in its phase-1 "
+          f"check window")
+    check(normals_launches > 0, "option_normals was not launched")
+
+    cfg = HWConfig()
+    market = analytic_market(cfg, dev)
+    a = pricing.price_zbc(cfg, Key(11), market, device=dev)
+    b = pricing.price_zbc(cfg, Key(11), market, device=dev)
+    c1 = pricing.bootstrap_curve(cfg, Key(11), device=dev)
+    c2 = pricing.bootstrap_curve(cfg, Key(11), device=dev)
+    same = (float(a.price) == float(b.price)
+            and bool(torch.equal(c1.P, c2.P)))
+    print(f"[phase 4] rerun determinism: ZBC {float(a.price)!r} == "
+          f"{float(b.price)!r}, curve equal: {bool(torch.equal(c1.P, c2.P))}")
+    check(same, "reruns differ")
+
+    replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
+                "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",
+                "vega_exact": "hullwhite_tpu/pallas/fused.py:555",
+                "option_normals": "hullwhite_tpu/pallas/fused.py:743"}
+
+    def entry(name, launches):
+        return {"name": name, "route": "cuda",
+                "source": "hullwhite_tpu_torch/csrc/fused_exact.cu",
+                "replaces": replaces[name], "launches": launches,
+                "max_abs_err": err[name], "ms": times[name][0],
+                "plain_ms": times[name][1]}
+
+    # kernels: the main path's, launches counted in its run; check_kernels:
+    # the generator's check kernel, launches counted in its own window
+    print(json.dumps({
+        "kernels": [entry(name, counts[name]) for name in main_path],
+        "check_kernels": [entry("option_normals", normals_launches)]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Carry state across from the JAX package, given as numpy arrays.
+
+The port never imports JAX; a caller that holds JAX values (a test, a
+migration script) converts them with ``np.asarray`` and hands them here.
+Each function returns the port's own container on ``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .kernels.fused import PAD, CurvePrepared, OptionPrepared
+from .models.hull_white import MarketCurve
+from .ops.rng import Key
+
+
+def market_curve(P, f, *, device) -> MarketCurve:
+    """``hull_white.MarketCurve`` from its P and f arrays."""
+    return MarketCurve(P=torch.as_tensor(np.array(P, np.float32), device=device),
+                       f=torch.as_tensor(np.array(f, np.float32), device=device))
+
+
+def curve_prepared(prepared, *, device) -> CurvePrepared:
+    """``fused.curve_prepared(..., exact=True)`` output (W (PAD, PAD),
+    c_pad (1, PAD)) as the curve kernel's operands."""
+    W, c_pad = (np.array(a, np.float32) for a in prepared)  # owned copies
+    if W.shape != (PAD, PAD) or c_pad.shape != (1, PAD):
+        raise ValueError("expected W (128, 128) and c (1, 128)")
+    return CurvePrepared(W=torch.as_tensor(W, device=device),
+                         c=torch.as_tensor(c_pad[0], device=device))
+
+
+def option_prepared(prepared, *, device) -> OptionPrepared:
+    """``fused.option_prepared(..., exact=True)`` output ((13,) consts,) as
+    the option kernels' operands."""
+    (consts,) = prepared
+    consts = np.array(consts, np.float32)  # an owned, writable copy
+    if consts.shape != (13,):
+        raise ValueError("expected the 13 exact-kernel consts")
+    return OptionPrepared(consts=consts, device=torch.device(device))
+
+
+def key(key_data) -> Key:
+    """``Key`` from ``jax.random.key_data(key)`` (two uint32 words)."""
+    words = np.asarray(key_data, np.uint32).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError("expected a threefry key's two words")
+    return Key(words=(int(words[0]), int(words[1])))

@@ -1,0 +1,115 @@
+"""Shock shapes and deterministic parts of the linear-functional form
+(PyTorch port of the parts of ``hullwhite_tpu.ops.engine_linear`` that the
+exact-sampling kernels need).
+
+The exact-discretization recursion is affine in the Gaussian shocks:
+
+    r_n = det_r(n) + sig_st * sum_i E^{n-1-i} G_i
+    I_n = det_I(n) + sum_i w(n-1-i) G_i,
+    w(m) = sig_st * dt * [ (1 - E^m)/(1 - E) + E^m / 2 ]     (E = e^{-a dt})
+
+The sigma-independent shapes are built on the host in float64 (E^m in fp32
+through exp/log loses about m ulps) and rounded to float32 once.  The
+deterministic parts are the G = 0 recursion in float32, evaluated on the
+host step by step with the rounding of the JAX package's ``lax.scan``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import HWConfig
+from ..models.hull_white import StepTables, host_tables
+
+
+class ZBCWeights(NamedTuple):
+    U: torch.Tensor    # (n1, 2) columns [dr(S1)/dG_i, dI(S1)/dG_i]
+    det: torch.Tensor  # (4,) [r_det, I_det, dr_det, dI_det] at S1
+    sigma: torch.Tensor
+    sig_st: torch.Tensor
+
+
+@lru_cache(maxsize=None)
+def _shock_shapes(cfg: HWConfig, n: int):
+    """Host fp64 sigma-independent shapes of (dr_n/dG_i, dI_n/dG_i) / sig_st,
+    rounded to float32."""
+    E = host_tables(cfg)["E"]
+    m = (n - 1) - np.arange(n, dtype=np.float64)
+    Em = np.exp(np.log(E) * m)
+    w_shape = cfg.dt * ((1.0 - Em) / (1.0 - E) + 0.5 * Em)
+    return (np.asarray(Em, np.float32), np.asarray(w_shape, np.float32))
+
+
+@lru_cache(maxsize=None)
+def _curve_shape(cfg: HWConfig):
+    """Host fp64 sigma-independent shape of W: W[i, m] = sig_st * shape."""
+    E = host_tables(cfg)["E"]
+    stride, n_mat = cfg.save_stride, cfg.n_mat
+    ii = np.arange(cfg.n_steps, dtype=np.float64)[:, None]
+    nn = (np.arange(n_mat, dtype=np.float64) * stride)[None, :]
+    m = nn - 1.0 - ii
+    Em = np.exp(np.log(E) * m)
+    w = cfg.dt * ((1.0 - Em) / (1.0 - E) + 0.5 * Em)
+    return np.asarray(np.where(ii < nn, w, 0.0), np.float32)
+
+
+def _host32(x: torch.Tensor) -> np.ndarray:
+    return x.detach().to("cpu", torch.float32).numpy()
+
+
+def _fma32(a: float, b: float, c: float) -> float:
+    """float32 fused multiply-add: the float32 product is exact in double."""
+    return float(np.float32(a * b + c))
+
+
+def _det_recursion(cfg: HWConfig, tables: StepTables, n: int, dual: bool):
+    """float32 G = 0 recursion over the first ``n`` steps; returns the
+    per-step rows (r, I, dr, dI) (tangent rows zero unless ``dual``).
+
+    Both updates are fused multiply-adds, as XLA's CPU backend contracts
+    them (r E + drift, and I + (0.5 (r + r')) dt): with them the values
+    equal the JAX package's G = 0 scan bit for bit."""
+    E = float(_host32(tables.exp_adt))
+    dt = float(_host32(tables.dt))
+    drift = _host32(tables.drift)[:n].tolist()
+    drift_s = _host32(tables.drift_sigma)[:n].tolist()
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    r, i_r = f32(cfg.r0), 0.0
+    dr, di_r = 0.0, 0.0
+    out = np.zeros((4, n), np.float32)
+    for k in range(n):
+        r_next = _fma32(r, E, drift[k])
+        i_r = _fma32(f32(0.5 * f32(r + r_next)), dt, i_r)
+        r = r_next
+        if dual:
+            dr_next = _fma32(dr, E, drift_s[k])
+            di_r = _fma32(f32(0.5 * f32(dr + dr_next)), dt, di_r)
+            dr = dr_next
+        out[:, k] = (r, i_r, dr, di_r)
+    return out
+
+
+def det_trajectory(cfg: HWConfig, tables: StepTables):
+    """Deterministic (r_n, I_n) for every step n (G = 0), on the tables'
+    device."""
+    out = _det_recursion(cfg, tables, cfg.n_steps, dual=False)
+    dev = tables.drift.device
+    return (torch.as_tensor(out[0], device=dev),
+            torch.as_tensor(out[1], device=dev))
+
+
+def zbc_weights(cfg: HWConfig, tables: StepTables) -> ZBCWeights:
+    """Functionals for the option leg: the shock columns of r(S1), I(S1)
+    and the deterministic [r, I, dr/dsigma, dI/dsigma] at S1."""
+    n1 = cfg.n_steps_s1
+    dev = tables.drift.device
+    u_shape, w_shape = _shock_shapes(cfg, n1)
+    U = tables.sig_st * torch.as_tensor(np.stack([u_shape, w_shape], 1),
+                                        device=dev)
+    det = _det_recursion(cfg, tables, n1, dual=True)[:, -1]
+    return ZBCWeights(U=U, det=torch.as_tensor(det.copy(), device=dev),
+                      sigma=tables.sigma, sig_st=tables.sig_st)

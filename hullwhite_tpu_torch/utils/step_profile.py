@@ -1,0 +1,110 @@
+"""Where the time of a run step goes, on one CUDA device.
+
+    python -m hullwhite_tpu_torch.utils.step_profile [--calls-q1 20]
+        [--calls-option 200] [--out FILE]
+
+For each product's run step (Q1 ``curve_pricer.run``, Q2b
+``zbc_pricer.run``, Q3 ``vega_pricer.run``) at the reference
+configuration ``HWConfig()``, operands prepared once outside the window:
+
+* ``wall_us_per_call``: one window of back-to-back calls between CUDA
+  events, without the profiler (min of 5 windows);
+* one ``torch.profiler`` window of the same calls (CPU + CUDA activities):
+  device time per call of every device-side event (kernels and copies;
+  host-side operator rows, which repeat their children's device time,
+  are left out), ``device_busy_us_per_call`` their sum, and
+  ``idle_share`` = 1 - busy / wall, the share of the caller's time in
+  which the device does nothing;
+* ``host_us_per_call``: the profiled window's host wall per call.
+
+Prints one JSON object (and writes it to ``--out`` when given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+from functools import partial
+
+import torch
+
+from .timing import bench
+
+
+def _profile(fn, n: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) * 1e6 / n
+    per_name = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            per_name[evt.name][0] += evt.time_range.elapsed_us()
+            per_name[evt.name][1] += 1
+    events = {name: {"us_per_call": us / n, "count_per_call": cnt / n}
+              for name, (us, cnt) in per_name.items()}
+    return {"host_us_per_call": host_us,
+            "device_busy_us_per_call": sum(e["us_per_call"]
+                                           for e in events.values()),
+            "device_events": events}
+
+
+def profile_run_steps(calls_q1: int = 20, calls_option: int = 200) -> dict:
+    from .. import pricing
+    from ..config import HWConfig
+    from ..ops.rng import Key
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = HWConfig()
+    key = Key(cfg.seed)
+    curve = pricing.curve_pricer(cfg, device=dev)
+    market = pricing.bootstrap_curve(cfg, key, device=dev)
+    zbc = pricing.zbc_pricer(cfg, device=dev)
+    vega = pricing.vega_pricer(cfg, device=dev)
+    steps = {
+        "q1": (curve.run, curve.prepare(cfg.sigma, cfg.sigma), calls_q1),
+        "q2b": (zbc.run, zbc.prepare(cfg.sigma, cfg.sigma, market),
+                calls_option),
+        "q3": (vega.run, vega.prepare(cfg.sigma, cfg.sigma, market),
+               calls_option),
+    }
+    out = {"device": torch.cuda.get_device_name(dev),
+           "n_paths": cfg.n_paths}
+    for name, (run, prepared, n) in steps.items():
+        fn = partial(run, key, prepared)  # the CLI's timed call
+        wall = bench(fn, device=dev, n=n, k=5)[0] * 1e6
+        prof = _profile(fn, n)
+        out[name] = {"calls": n, "wall_us_per_call": wall, **prof,
+                     "idle_share": 1.0 - prof["device_busy_us_per_call"] / wall}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls-q1", type=int, default=20)
+    ap.add_argument("--calls-option", type=int, default=200)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("step_profile: torch.cuda.is_available() is False")
+    res = profile_run_steps(args.calls_q1, args.calls_option)
+    text = json.dumps(res, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
