@@ -6,21 +6,26 @@
 Phases (any failure raises and the script exits non-zero):
 
 0. setup: the card's name and power limit, the kernels' build from
-   ``hullwhite_tpu_torch/csrc`` (nvcc, sm_90a), TF32 off;
+   ``hullwhite_tpu_torch/csrc`` (nvcc, sm_90a, one process per source),
+   TF32 off;
 1. each hand-written kernel against its plain PyTorch version on the card,
    with stated tolerances, at a few tiles and at the full main-path shape
    (2^20 pairs); then at the full shape each kernel's device time (with
    its reduce pass) and its plain version's wall time per call;
-2. the main path at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
+2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5 and
-   q3 --validate 5; then the cross-engine gate that feeds the option
-   kernel's own normals through the exact engine; the results are checked
-   against the published reference values and the fp64 oracles;
-3. the launch counters: the main path's three kernels each ran in the
-   phase-2 CLI run (counted before the gate), and the generator's check
-   kernel option_normals ran in its own phase-1 window;
+   q3 --validate 5, first with ``--engine fused_exact`` (exact sampling),
+   then with ``--engine fused`` (full step); after each, its deterministic
+   gate (exact: the option kernel's own normals through the exact engine;
+   full step: the option kernel's own shocks through the linear engine)
+   and the results against the published reference values and the fp64
+   oracles;
+3. the launch counters: each path's three kernels ran in that path's
+   phase-2 CLI run (counts reset just before it and read just after it),
+   and the generator's check kernel option_normals ran in its own phase-1
+   window;
 4. determinism: two ZBC prices and two curves under one key are bitwise
-   equal.
+   equal, in both engines.
 
 The last two lines are a JSON object of per-kernel numbers and the contract
 line {"ok": true, "device": {...}}.  Without CUDA the script fails before
@@ -108,28 +113,29 @@ def compare(name, k, p):
                   float((k[1] - p[1]).abs().max()))
         check(err <= 2e-6, f"option_normals disagree: {err:.3e}")
         return err, f"max|dx| = {err:.3e} (tol 2e-6)"
-    if name == "curve_exact":
-        check(float(k[0]) == float(p[0]), "curve count")
+    product = name.split("_")[0]  # both tiers hold the same tolerances
+    if product == "curve":
+        check(float(k[0]) == float(p[0]), f"{name} count")
         rel = float(((k[1:] - p[1:]) / p[1:]).abs().max())
         dP = float(((k - p) / k[0]).abs().max())  # error of P = sums / count
-        check(rel <= 1e-5, f"curve_exact disagrees: max rel {rel:.3e}")
+        check(rel <= 1e-5, f"{name} disagrees: max rel {rel:.3e}")
         return dP, f"max rel = {rel:.3e} (tol 1e-5), max|dP| = {dP:.3e}"
-    if name == "zbc_exact":
-        check(float(k[5]) == float(p[5]), "zbc count")
+    if product == "zbc":
+        check(float(k[5]) == float(p[5]), f"{name} count")
         # price and beta do not depend on P(0,S2), which only uncenters
         # the control's mean
         ek, ep = cv_estimate(k, 0.0), cv_estimate(p, 0.0)
         d_price = abs(float(ek.price) - float(ep.price))
         d_beta = abs(float(ek.beta) - float(ep.beta))
         check(d_price <= 1e-6 and d_beta <= 1e-4,
-              f"zbc_exact disagrees: {d_price:.3e}, {d_beta:.3e}")
+              f"{name} disagrees: {d_price:.3e}, {d_beta:.3e}")
         return d_price, (f"|dprice| = {d_price:.3e} (tol 1e-6), |dbeta| = "
                          f"{d_beta:.3e} (tol 1e-4), price "
                          f"{float(ek.price):.8f}")
-    assert name == "vega_exact", name
-    check(float(k[1]) == float(p[1]), "vega count")
+    assert product == "vega", name
+    check(float(k[1]) == float(p[1]), f"{name} count")
     err = abs(float(k[0] / k[1]) - float(p[0] / p[1]))
-    check(err <= 1e-5, f"vega_exact disagrees: {err:.3e}")
+    check(err <= 1e-5, f"{name} disagrees: {err:.3e}")
     return err, (f"|dvega| = {err:.3e} (tol 1e-5), vega "
                  f"{float(k[0] / k[1]):.6f}")
 
@@ -149,10 +155,13 @@ def phase1(dev):
     key = Key(2026)
     n_live = cfg.n_mat - 1
     tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+    market = analytic_market(cfg, dev)
     cp = fused.curve_prepared(cfg, tables)
-    op = fused.option_prepared(cfg, tables, analytic_market(cfg, dev),
-                               cfg.sigma)
+    op = fused.option_prepared(cfg, tables, market, cfg.sigma)
     consts = torch.as_tensor(op.consts, device=dev)  # the plain versions'
+    cfp = fused.curve_full_prepared(cfg, tables)
+    ofp = fused.option_full_prepared(cfg, tables, market, cfg.sigma)
+    consts_full = torch.as_tensor(ofp.consts, device=dev)
     s = {kind: fused.kernel_seeds(key, kind) for kind in fused.SALTS}
 
     def pair(name, n_tiles, prec=cfg.matmul_precision):
@@ -172,19 +181,38 @@ def phase1(dev):
             "option_normals": (
                 lambda: fused.option_normals(s["zbc"], n_tiles, device=dev),
                 lambda: fused.option_normals_plain(s["zbc"], n_tiles, dev)),
+            "curve_full": (
+                lambda: fused.curve_full(s["curve"], cfp.W, cfp.exp_c,
+                                         n_tiles, cfg.n_mat, prec),
+                lambda: fused.curve_full_plain(s["curve"], cfp.W, cfp.exp_c,
+                                               n_tiles, cfg.n_mat, prec)),
+            "zbc_full": (
+                lambda: fused.zbc_full(s["zbc"], ofp, n_tiles, prec),
+                lambda: fused.zbc_full_plain(s["zbc"], ofp.W, consts_full,
+                                             n_tiles, prec)),
+            "vega_full": (
+                lambda: fused.vega_full(s["vega"], ofp, n_tiles, prec),
+                lambda: fused.vega_full_plain(s["vega"], ofp.W, consts_full,
+                                              n_tiles, prec)),
         }[name]
 
     n_full = {"curve_exact": cfg.n_paths // fused.CURVE_TILE_PATHS,
-              "option_normals": cfg.n_paths // fused.OPTION_TILE_PATHS}
+              "option_normals": cfg.n_paths // fused.OPTION_TILE_PATHS,
+              "curve_full": cfg.n_paths // fused.CURVE_FULL_TILE_PATHS,
+              "zbc_full": cfg.n_paths // fused.OPTION_FULL_TILE_PATHS}
     n_full["zbc_exact"] = n_full["vega_exact"] = n_full["option_normals"]
+    n_full["vega_full"] = n_full["zbc_full"]
     n_few = {"curve_exact": 16, "zbc_exact": 8, "vega_exact": 8,
-             "option_normals": 8}
+             "option_normals": 8, "curve_full": 16, "zbc_full": 8,
+             "vega_full": 8}
     full = f"2^{cfg.n_paths.bit_length() - 1} pairs"
     err = {name: 0.0 for name in n_full}
     checks = [(name, n_few[name], prec) for name in n_full
-              for prec in (("highest", "default") if name == "curve_exact"
+              for prec in (("highest", "default") if name.startswith("curve")
                            else (cfg.matmul_precision,))]
-    checks += [(name, n_full[name], cfg.matmul_precision) for name in n_full]
+    checks += [(name, n_full[name], prec) for name in n_full
+               for prec in (("highest", "default") if name == "curve_full"
+                            else (cfg.matmul_precision,))]
     normals_launches = None
     for name, n_tiles, prec in checks:
         kern, plain = pair(name, n_tiles, prec)
@@ -200,7 +228,7 @@ def phase1(dev):
         err[name] = max(err[name], e)
         label = "full shape, " + full if n_tiles == n_full[name] else \
             f"{n_tiles} tiles"
-        tag = f" [{prec}]" if name == "curve_exact" else ""
+        tag = f" [{prec}]" if name.startswith("curve") else ""
         print(f"[phase 1] {name}{tag} {label}: {text}")
 
     times = {}
@@ -219,17 +247,51 @@ def phase1(dev):
     return err, times, normals_launches
 
 
-def phase2(dev):
-    """The main path at full width through the CLI, then the cross-engine
-    gate; returns the launch counts of the main path alone."""
-    import numpy as np
+def deterministic_gate(cfg, dev, engine, market):
+    """The option kernel's own random field fed through an engine that
+    takes it as an argument reproduces the kernel's ZBC price: exact tier,
+    its normals through the exact engine at 2^20 pairs; full step, its
+    shocks (raws, Hadamard mix, D scramble) through the linear engine at 8
+    option tiles.  Returns (|dprice|, |dbeta|, tiles)."""
     import torch
 
-    from hullwhite_tpu_torch import HWConfig, Key, cli, pricing
+    from hullwhite_tpu_torch import Key, pricing
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import hull_white as hw
+    from hullwhite_tpu_torch.ops import engine_exact, engine_linear, payoffs
+
+    key = Key(7)
+    seeds = fused.kernel_seeds(key, "zbc")
+    tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+    if engine == "fused_exact":
+        n_tiles = cfg.n_paths // fused.OPTION_TILE_PATHS
+        x1, x2 = fused.option_normals(seeds, n_tiles, device=dev)
+        G = torch.stack([x1.reshape(-1), x2.reshape(-1)], dim=1)
+        eng = engine_exact
+        est = pricing.price_zbc(cfg, key, market, device=dev)
+    else:
+        n_tiles = 8
+        G = fused.option_full_shocks(seeds, n_tiles, cfg.n_steps_s1, dev)
+        eng = engine_linear
+        op = fused.option_full_prepared(cfg, tables, market, cfg.sigma)
+        est = payoffs.cv_estimate(fused.zbc_full(seeds, op, n_tiles),
+                                  float(op.consts[5]))
+    state = eng.antithetic_state(cfg, eng.zbc_weights(cfg, tables), G)
+    ref = payoffs.cv_estimate(
+        payoffs.zbc_moments(cfg, cfg.sigma, market, state), market.P[-1])
+    return (abs(float(est.price) - float(ref.price)),
+            abs(float(est.beta) - float(ref.beta)), n_tiles)
+
+
+def phase2(dev, engine):
+    """One main path at full width through the CLI with ``--engine
+    engine``, then its deterministic gate; returns the launch counts of the
+    CLI run alone (reset just before it, read just after it)."""
+    import numpy as np
+
+    from hullwhite_tpu_torch import HWConfig, cli
     from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.models import oracles
-    from hullwhite_tpu_torch.ops import engine_exact, payoffs
-    from hullwhite_tpu_torch.models import hull_white as hw
 
     cfg = HWConfig()
     cwd = os.getcwd()
@@ -240,64 +302,58 @@ def phase2(dev):
             for argv in (["q1"], ["q2", "--validate", "5"],
                          ["q3", "--validate", "5"]):
                 t0 = time.perf_counter()
-                rc = cli.main(argv + ["--device", str(dev)])
-                print(f"[phase 2] cli {' '.join(argv)}: rc {rc}, "
+                rc = cli.main(argv + ["--engine", engine,
+                                      "--device", str(dev)])
+                print(f"[phase 2] {engine}: cli {' '.join(argv)}: rc {rc}, "
                       f"{time.perf_counter() - t0:.1f} s")
-                check(rc == 0, f"cli {argv[0]} failed")
+                check(rc == 0, f"cli {argv[0]} --engine {engine} failed")
             counts = fused.launch_counts()
-            # cross-engine gate: the option kernel's own normals through the
-            # exact engine reproduce its price deterministically
-            key = Key(7)
             market = cli.hwio.load_market(cfg, device=dev)
-            n_tiles = cfg.n_paths // fused.OPTION_TILE_PATHS
-            x1, x2 = fused.option_normals(fused.kernel_seeds(key, "zbc"),
-                                          n_tiles, device=dev)
-            X = torch.stack([x1.reshape(-1), x2.reshape(-1)], dim=1)
-            tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
-            zw = engine_exact.zbc_weights(cfg, tables)
-            ref = payoffs.cv_estimate(
-                payoffs.zbc_moments(cfg, cfg.sigma, market,
-                                    engine_exact.antithetic_state(cfg, zw, X)),
-                market.P[-1])
-            est = pricing.price_zbc(cfg, key, market, device=dev)
-            gate = abs(float(est.price) - float(ref.price))
-            d_beta = abs(float(est.beta) - float(ref.beta))
-            print(f"[phase 2] cross-engine gate at {n_tiles} option tiles: "
-                  f"|dprice| = {gate:.3e} (tol 1e-6), |dbeta| = "
-                  f"{d_beta:.3e} (tol 1e-4)")
-            check(gate <= 1e-6 and d_beta <= 1e-4, "cross-engine gate")
+            d_price, d_beta, n_tiles = deterministic_gate(cfg, dev, engine,
+                                                          market)
+            print(f"[phase 2] {engine}: deterministic gate at {n_tiles} "
+                  f"option tiles: |dprice| = {d_price:.3e} (tol 1e-6), "
+                  f"|dbeta| = {d_beta:.3e} (tol 1e-4)")
+            check(d_price <= 1e-6 and d_beta <= 1e-4,
+                  f"{engine} deterministic gate")
             res = {name: json.load(open(os.path.join(
                 "data_torch", f"{name}_results.json")))
                 for name in ("q1", "q2a", "q2b", "q3")}
         finally:
             os.chdir(cwd)
 
+    check(all(res[q]["results"].get("engine", engine) == engine
+              for q in res), "results name another engine")
     P = np.asarray(res["q1"]["P"])
     Ts = np.linspace(0.0, cfg.t_final, cfg.n_mat)
     P_true = np.array([oracles.bond_price(cfg, T) for T in Ts])
     se = 0.1 * P_true / math.sqrt(2 * cfg.n_paths)
     worst = float(np.max(np.abs(P - P_true) - 5 * se))
-    print(f"[phase 2] P(0,10) = {P[-1]:.6f} (|d| vs 0.876844 = "
+    print(f"[phase 2] {engine}: P(0,10) = {P[-1]:.6f} (|d| vs 0.876844 = "
           f"{abs(P[-1] - 0.876844):.2e}, tol 5e-4); worst |P - oracle| - 5 SE "
           f"= {worst:.2e} (tol 1e-4)")
-    check(abs(P[-1] - 0.876844) < 5e-4 and worst < 1e-4, "Q1 curve")
+    check(abs(P[-1] - 0.876844) < 5e-4 and worst < 1e-4, f"{engine} Q1 curve")
     th = res["q2a"]["results"]["max_error"]
-    print(f"[phase 2] theta recovery max error = {th:.3e} (tol 1e-2)")
-    check(th < 1e-2, "Q2a theta recovery")
+    print(f"[phase 2] {engine}: theta recovery max error = {th:.3e} "
+          "(tol 1e-2)")
+    check(th < 1e-2, f"{engine} Q2a theta recovery")
     zbc = res["q2b"]["results"]
-    print(f"[phase 2] ZBC (CV) = {zbc['ZBC_control_variate']:.8f} in "
-          f"[0.0353, 0.0357], beta = {zbc['beta_optimal']:.5f} in [0.15, 0.18]")
+    print(f"[phase 2] {engine}: ZBC (CV) = {zbc['ZBC_control_variate']:.8f} "
+          f"in [0.0353, 0.0357], beta = {zbc['beta_optimal']:.5f} in "
+          "[0.15, 0.18]")
     check(0.0353 <= zbc["ZBC_control_variate"] <= 0.0357
-          and 0.15 <= zbc["beta_optimal"] <= 0.18, "Q2b ZBC")
+          and 0.15 <= zbc["beta_optimal"] <= 0.18, f"{engine} Q2b ZBC")
     q3 = res["q3"]["results"]
     pw, fd = q3["sensitivity_mc"], q3["sensitivity_fd"]
-    print(f"[phase 2] vega pathwise = {pw:.6f} in [0.225, 0.236], FD-CRN = "
-          f"{fd:.6f}, |pw - fd|/pw = {abs(pw - fd) / pw:.3%} (tol 3%), "
-          f"FD-recalibrated = {q3['sensitivity_fd_recalibrated']:.6f}")
-    check(0.225 <= pw <= 0.236 and abs(pw - fd) / pw < 0.03, "Q3 vega")
-    speed = {q: res[q]["performance"] for q in ("q1", "q2b", "q3")}
-    for q, perf in speed.items():
-        print(f"[phase 2] {q} at {cfg.n_paths} pairs: "
+    print(f"[phase 2] {engine}: vega pathwise = {pw:.6f} in [0.225, 0.236], "
+          f"FD-CRN = {fd:.6f}, |pw - fd|/pw = {abs(pw - fd) / pw:.3%} "
+          f"(tol 3%), FD-recalibrated = "
+          f"{q3['sensitivity_fd_recalibrated']:.6f}")
+    check(0.225 <= pw <= 0.236 and abs(pw - fd) / pw < 0.03,
+          f"{engine} Q3 vega")
+    for q in ("q1", "q2b", "q3"):
+        perf = res[q]["performance"]
+        print(f"[phase 2] {engine}: {q} at {cfg.n_paths} pairs: "
               f"{perf['simulation_time_ms']} ms, "
               f"{perf['throughput_Mpaths_per_sec']} M paths/s "
               f"({perf['device']})")
@@ -333,13 +389,17 @@ def main() -> int:
             print(f"[phase 0] ptxas: {line.strip()}")
 
     err, times, normals_launches = phase1(dev)
-    counts = phase2(dev)
-    main_path = ("curve_exact", "zbc_exact", "vega_exact")
-    print(f"[phase 3] launches in the main-path run (the three cli "
-          f"commands): {counts}")
-    for name in main_path:
-        check(counts[name] > 0,
-              f"kernel {name} was not launched by the main path")
+    paths = {"fused_exact": ("curve_exact", "zbc_exact", "vega_exact"),
+             "fused": ("curve_full", "zbc_full", "vega_full")}
+    counts = {engine: phase2(dev, engine) for engine in paths}
+    launches = {}
+    for engine, kernels in paths.items():
+        print(f"[phase 3] launches in the {engine} main-path run (its three "
+              f"cli commands): {counts[engine]}")
+        for name in kernels:
+            check(counts[engine][name] > 0,
+                  f"kernel {name} was not launched by the {engine} path")
+            launches[name] = counts[engine][name]
     print(f"[phase 3] option_normals, the generator's check kernel (not on "
           f"the main path): {normals_launches} launch(es) in its phase-1 "
           f"check window")
@@ -347,32 +407,40 @@ def main() -> int:
 
     cfg = HWConfig()
     market = analytic_market(cfg, dev)
-    a = pricing.price_zbc(cfg, Key(11), market, device=dev)
-    b = pricing.price_zbc(cfg, Key(11), market, device=dev)
-    c1 = pricing.bootstrap_curve(cfg, Key(11), device=dev)
-    c2 = pricing.bootstrap_curve(cfg, Key(11), device=dev)
-    same = (float(a.price) == float(b.price)
-            and bool(torch.equal(c1.P, c2.P)))
-    print(f"[phase 4] rerun determinism: ZBC {float(a.price)!r} == "
-          f"{float(b.price)!r}, curve equal: {bool(torch.equal(c1.P, c2.P))}")
-    check(same, "reruns differ")
+    for engine in paths:
+        a = pricing.price_zbc(cfg, Key(11), market, engine=engine, device=dev)
+        b = pricing.price_zbc(cfg, Key(11), market, engine=engine, device=dev)
+        c1 = pricing.bootstrap_curve(cfg, Key(11), engine=engine, device=dev)
+        c2 = pricing.bootstrap_curve(cfg, Key(11), engine=engine, device=dev)
+        same_curve = bool(torch.equal(c1.P, c2.P))
+        print(f"[phase 4] {engine}: rerun determinism: ZBC "
+              f"{float(a.price)!r} == {float(b.price)!r}, curve equal: "
+              f"{same_curve}")
+        check(float(a.price) == float(b.price) and same_curve,
+              f"{engine} reruns differ")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",
                 "vega_exact": "hullwhite_tpu/pallas/fused.py:555",
-                "option_normals": "hullwhite_tpu/pallas/fused.py:743"}
+                "option_normals": "hullwhite_tpu/pallas/fused.py:743",
+                "curve_full": "hullwhite_tpu/pallas/fused.py:320",
+                "zbc_full": "hullwhite_tpu/pallas/fused.py:522",
+                "vega_full": "hullwhite_tpu/pallas/fused.py:612"}
 
-    def entry(name, launches):
+    def entry(name, n):
+        source = "fused_full.cu" if name.endswith("_full") else \
+            "fused_exact.cu"
         return {"name": name, "route": "cuda",
-                "source": "hullwhite_tpu_torch/csrc/fused_exact.cu",
-                "replaces": replaces[name], "launches": launches,
+                "source": f"hullwhite_tpu_torch/csrc/{source}",
+                "replaces": replaces[name], "launches": n,
                 "max_abs_err": err[name], "ms": times[name][0],
                 "plain_ms": times[name][1]}
 
-    # kernels: the main path's, launches counted in its run; check_kernels:
-    # the generator's check kernel, launches counted in its own window
+    # kernels: the main paths', launches counted in each path's run;
+    # check_kernels: the generator's check kernel, launches counted in its
+    # own window
     print(json.dumps({
-        "kernels": [entry(name, counts[name]) for name in main_path],
+        "kernels": [entry(name, n) for name, n in launches.items()],
         "check_kernels": [entry("option_normals", normals_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,12 +3,15 @@
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
+    python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
     python -m hullwhite_tpu_torch.cli q1 --device cpu --paths 32768
 
 The default device is ``cuda``; without a card the commands fail rather
 than compute on the CPU, which is asked for with ``--device cpu`` (plain
-versions of the kernels, slow).  ``--paths`` must be a multiple of 32768,
-the option kernels' tile.  Results go to ``data_torch/``.
+versions of the kernels, slow).  ``--engine`` picks the kernels:
+``fused_exact`` (default, exact sampling) or ``fused`` (full step, one
+random value per path per time step).  ``--paths`` must be a multiple of
+32768, the exact option kernels' tile.  Results go to ``data_torch/``.
 """
 
 from __future__ import annotations
@@ -60,13 +63,13 @@ def cmd_q1(args):
     cfg = _cfg(args)
     dev = pricing.resolve_device(args.device)
     key = _key(cfg, args)
-    print(f"--- Q1: Zero-coupon bond curve bootstrap [fused_exact on "
+    print(f"--- Q1: Zero-coupon bond curve bootstrap [{args.engine} on "
           f"{_device_name(dev)}] ---")
     print(f"paths: {cfg.n_paths} x2 antithetic, steps: {cfg.n_steps}, "
           f"maturities: {cfg.n_mat}")
     # operands prepare once outside the timed loop (the reference's
     # compute_constants also runs before its cudaEvent window)
-    pricer = pricing.curve_pricer(cfg, device=dev)
+    pricer = pricing.curve_pricer(cfg, engine=args.engine, device=dev)
     prep = pricer.prepare(cfg.sigma, cfg.sigma)
     dt, sums = bench(pricer.run, key, prep, device=dev, n=args.reps)
     P = sums / (2.0 * cfg.n_paths)
@@ -91,7 +94,7 @@ def cmd_q1(args):
         hwio.DATA_DIR / "q1_results.json", "Q1: Bond Pricing", cfg,
         results={"P_0_0": float(Pn[0]), "P_0_10": float(Pn[-1]),
                  "f_0_0": float(fn[0]), "validation_pass": ok,
-                 "engine": "fused_exact"},
+                 "engine": args.engine},
         performance=_perf(ms, 2 * cfg.n_paths, dev),
         arrays={"P": Pn, "f": fn})
     hwio.summary_init(cfg)
@@ -111,7 +114,7 @@ def cmd_q2(args):
     dev = pricing.resolve_device(args.device)
     key = _key(cfg, args).fold_in(54321)
     market = hwio.load_market(cfg, device=dev)
-    print(f"--- Q2: Theta recovery & ZBC option pricing [fused_exact on "
+    print(f"--- Q2: Theta recovery & ZBC option pricing [{args.engine} on "
           f"{_device_name(dev)}] ---")
 
     rec = pricing.theta_recovery(cfg, market)
@@ -132,7 +135,7 @@ def cmd_q2(args):
                              "mean_error": rec.mean_error,
                              "success": bool(rec.success)})
 
-    pricer = pricing.zbc_pricer(cfg, device=dev)
+    pricer = pricing.zbc_pricer(cfg, engine=args.engine, device=dev)
     prep = pricer.prepare(cfg.sigma, cfg.sigma, market)
     dt, m = bench(pricer.run, key, prep, device=dev, n=args.reps)
     est = cv_estimate(m, market.P[-1])
@@ -156,7 +159,7 @@ def cmd_q2(args):
                  "ZBC_raw": float(est.price_raw),
                  "beta_optimal": float(est.beta),
                  "correlation": float(est.correlation),
-                 "engine": "fused_exact"},
+                 "engine": args.engine},
         performance=_perf(ms, 2 * cfg.n_paths, dev))
     lines = [f"Theta recovery: {'SUCCESS' if rec.success else 'FAILED'} "
              f"(max error {rec.max_error:.2e})",
@@ -164,16 +167,17 @@ def cmd_q2(args):
              f"beta* = {float(est.beta):.6f}, "
              f"rho = {float(est.correlation):.4f}"]
     if args.validate:
-        lines += _validate_zbc(cfg, key, market, dev, args.validate)
+        lines += _validate_zbc(cfg, key, market, dev, args.validate,
+                               args.engine)
     hwio.summary_append("Q2: THETA RECOVERY & OPTION PRICING", lines)
     return 0 if rec.success else 1
 
 
-def _validate_zbc(cfg, key, market, dev, n_runs):
+def _validate_zbc(cfg, key, market, dev, n_runs, engine):
     """n-run statistical validation (keys fold_in(key, 1000 + i))."""
     print(f"\n[Q2b] statistical validation: {n_runs} independent runs...")
     est = pricing.validate_zbc_runs(cfg, key, market, n_runs=n_runs,
-                                    device=dev, offset=1000)
+                                    engine=engine, device=dev, offset=1000)
     adj, raw, betas, corrs = (list(map(float, x)) for x in
                               (est.price, est.price_raw, est.beta,
                                est.correlation))
@@ -216,10 +220,10 @@ def cmd_q3(args):
     dev = pricing.resolve_device(args.device)
     key = _key(cfg, args).fold_in(777)
     market = hwio.load_market(cfg, device=dev)
-    print(f"--- Q3: Sensitivity analysis (vega) [fused_exact on "
+    print(f"--- Q3: Sensitivity analysis (vega) [{args.engine} on "
           f"{_device_name(dev)}] ---")
 
-    pricer = pricing.vega_pricer(cfg, device=dev)
+    pricer = pricing.vega_pricer(cfg, engine=args.engine, device=dev)
     prep = pricer.prepare(cfg.sigma, cfg.sigma, market)
     dt, v = bench(pricer.run, key, prep, device=dev, n=args.reps)
     vega_pw = float(v[0] / v[1])
@@ -229,14 +233,15 @@ def cmd_q3(args):
     print(f"computation: {ms:.3f} ms   throughput: "
           f"{cfg.n_paths/dt/1e6:.0f} M paths/sec")
 
-    fd = greeks.fd_vega_crn(cfg, key, market, eps=args.eps, device=dev)
+    fd = greeks.fd_vega_crn(cfg, key, market, eps=args.eps,
+                            engine=args.engine, device=dev)
     print(f"\n[finite difference, CRN] eps = {args.eps}:")
     print(f"ZBC(sigma-eps) = {float(fd.price_minus):.8f}")
     print(f"ZBC(sigma+eps) = {float(fd.price_plus):.8f}")
     print(f"FD vega = {float(fd.vega):.6f}   (reference: 0.230316)")
 
     fdr = greeks.fd_vega_recalibrated(cfg, key, key.fold_in(5), eps=args.eps,
-                                      device=dev)
+                                      engine=args.engine, device=dev)
     print("\n[finite difference, full market recalibration]:")
     print(f"FD vega (recalibrated) = {float(fdr.vega):.6f}")
     print("note: recalibration injects curve-level MC noise "
@@ -252,14 +257,15 @@ def cmd_q3(args):
     results = {"sensitivity_mc": vega_pw, "sensitivity_fd": float(fd.vega),
                "sensitivity_fd_recalibrated": float(fdr.vega),
                "abs_diff": abs(vega_pw - float(fd.vega)),
-               "engine": "fused_exact"}
+               "engine": args.engine}
     lines = [f"Sens (MC): {vega_pw:.6f}", f"Sens (FD): {float(fd.vega):.6f}",
              f"Sens (FD recal): {float(fdr.vega):.6f}"]
 
     if args.validate:
         print(f"\nstatistical validation: {args.validate} independent runs...")
         samples = [float(x) for x in pricing.validate_vega_runs(
-            cfg, key, market, n_runs=args.validate, device=dev, offset=2000)]
+            cfg, key, market, n_runs=args.validate, engine=args.engine,
+            device=dev, offset=2000)]
         s = hwstats.summarize(samples)
         print(f"mean vega: {s.mean:.6f}   sd: {s.std:.6f}   "
               f"SE: {s.std_error:.6f}")
@@ -299,6 +305,11 @@ def main(argv=None):
                         choices=["default", "high", "highest"],
                         help="Q1 sampling-product precision (see "
                              "HWConfig.matmul_precision)")
+    common.add_argument("--engine", default="fused_exact",
+                        choices=list(pricing.ENGINES),
+                        help="fused_exact: exact sampling (default); fused: "
+                             "full step, one random value per path per "
+                             "time step")
     common.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.fused import PAD, CurvePrepared, OptionPrepared
+from .kernels.fused import (PAD, CurveFullPrepared, CurvePrepared,
+                            OptionFullPrepared, OptionPrepared)
 from .models.hull_white import MarketCurve
 from .ops.rng import Key
 
@@ -39,6 +40,28 @@ def option_prepared(prepared, *, device) -> OptionPrepared:
     if consts.shape != (13,):
         raise ValueError("expected the 13 exact-kernel consts")
     return OptionPrepared(consts=consts, device=torch.device(device))
+
+
+def curve_full_prepared(prepared, *, device) -> CurveFullPrepared:
+    """``fused.curve_prepared(..., exact=False)`` output (W (nb * 128, PAD),
+    exp_c (PAD,)) as the full-step curve kernel's operands."""
+    W, exp_c = (np.array(a, np.float32) for a in prepared)  # owned copies
+    if W.ndim != 2 or W.shape[1] != PAD or W.shape[0] % 128 or \
+            exp_c.shape != (PAD,):
+        raise ValueError("expected W (nb * 128, 128) and exp_c (128,)")
+    return CurveFullPrepared(W=torch.as_tensor(W, device=device),
+                             exp_c=torch.as_tensor(exp_c, device=device))
+
+
+def option_full_prepared(prepared, *, device) -> OptionFullPrepared:
+    """``fused.option_prepared(..., exact=False)`` output (W (8, nb * 128),
+    (10,) consts) as the full-step option kernels' operands."""
+    W, consts = (np.array(a, np.float32) for a in prepared)
+    if W.ndim != 2 or W.shape[0] != 8 or W.shape[1] % 128 or \
+            consts.shape != (10,):
+        raise ValueError("expected W (8, nb * 128) and the 10 consts")
+    return OptionFullPrepared(W=torch.as_tensor(W, device=device),
+                              consts=consts)
 
 
 def key(key_data) -> Key:

@@ -12,10 +12,8 @@
 //   vega_exact_kernel     <- _vega_exact_kernel + _vega_terms
 //   option_normals_kernel <- the inner kernel of dump_option_normals
 //
-// The TPU kernels accumulate into one output block across a sequential
-// grid.  Here blocks run in parallel in no order: each CTA writes its
-// partial sums to a scratch buffer and reduce_kernel sums them in a fixed
-// order.  No float atomics, so reruns are bitwise identical.
+// Each CTA writes partial sums that reduce_kernel (hw_reduce.cuh) sums in
+// a fixed order: no float atomics, so reruns are bitwise identical.
 //
 // What bounds them on the H100:
 //   * curve_exact: fp32 FMA.  Each path samples k = n_mat - 1 normals and
@@ -28,11 +26,11 @@
 // partials per call (persistent CTAs); 28 of 128 column threads idle in
 // the Q1 product when n_mat - 1 = 100.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hw_device.cuh"
+#include "hw_reduce.cuh"
 
 namespace {
 
@@ -55,39 +53,12 @@ constexpr int OPT_THREADS = 256;
 constexpr int OPT_PER_THREAD = 8;
 constexpr int OPT_PER_CTA = OPT_THREADS * OPT_PER_THREAD;  // 2048
 
-constexpr int REDUCE_THREADS = 256;
 constexpr int NORMALS_THREADS = 256;
 
 // Layout of fused._zbc_consts + the sampling factor (fused.py:450, :638).
 struct OptConsts {
   float c_r, c_i, A, B, K, P0S2, c_dr, c_di, sigma, q, l11, l21, l22;
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Fixed-order block sum of N values per thread; thread v < N of warp 0
-// returns total v.  Deterministic: shuffle tree, then warps in order.
-template <int N, int THREADS>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* out) {
-  __shared__ float warp_part[N][THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xFFFFFFFFu, s, o);
-    if (lane == 0) warp_part[i][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += warp_part[threadIdx.x][w];
-    out[threadIdx.x] = s;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Q1: per-maturity sums of t + 1/t, t = exp(-z), z = X (sig_st L^T).
@@ -108,7 +79,7 @@ curve_exact_kernel(hw::Seeds sd, const float* __restrict__ W, int ldw, int k,
   const int tid = threadIdx.x;
   for (int i = tid; i < k * k; i += CURVE_THREADS) {
     const float w = W[(i / k) * ldw + (i % k)];
-    Ws[i] = BF16 ? round_bf16(w) : w;
+    Ws[i] = BF16 ? hw::round_bf16(w) : w;
   }
   const int m = tid % PAD;
   const int g = tid / PAD;
@@ -124,8 +95,8 @@ curve_exact_kernel(hw::Seeds sd, const float* __restrict__ W, int ldw, int k,
       const int r = p / k, col = p % k;
       float z0, z1;
       hw::box_muller(s0, sd.s1, (row0 + r) * PAD + col, z0, z1);
-      Xs[col * CHUNK_PATHS + r] = BF16 ? round_bf16(z0) : z0;
-      Xs[col * CHUNK_PATHS + CHUNK_ROWS + r] = BF16 ? round_bf16(z1) : z1;
+      Xs[col * CHUNK_PATHS + r] = BF16 ? hw::round_bf16(z0) : z0;
+      Xs[col * CHUNK_PATHS + CHUNK_ROWS + r] = BF16 ? hw::round_bf16(z1) : z1;
     }
     __syncthreads();
     if (m < k) {
@@ -177,23 +148,8 @@ zbc_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
     const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
     float x1, x2;
     hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
-    const float z_r = c.l11 * x1;
-    const float z_i = c.l21 * x1 + c.l22 * x2;
-    const float t_r = expf(-c.B * z_r);
-    const float t_i = expf(-z_i);
-    float P = P_base * t_r;
-    float disc = d_base * t_i;
-    const float xa = disc * fmaxf(P - c.K, 0.0f);
-    const float ya = disc * P - c.P0S2;
-    P = P_base * __frcp_rn(t_r);
-    disc = d_base * __frcp_rn(t_i);
-    const float xb = disc * fmaxf(P - c.K, 0.0f);
-    const float yb = disc * P - c.P0S2;
-    s[0] += xa + xb;
-    s[1] += ya + yb;
-    s[2] += xa * xa + xb * xb;
-    s[3] += ya * ya + yb * yb;
-    s[4] += xa * ya + xb * yb;
+    hw::zbc_pair_moments(c, P_base, d_base, c.l11 * x1,
+                         c.l21 * x1 + c.l22 * x2, s);
   }
   block_sum<5, OPT_THREADS>(s, partials + blockIdx.x * 5);
 }
@@ -213,18 +169,7 @@ vega_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
     const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
     float x1, x2;
     hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
-    const float z_r = c.l11 * x1;
-    const float z_i = c.l21 * x1 + c.l22 * x2;
-    const float r = c.c_r + z_r;
-    const float i_r = c.c_i + z_i;
-    const float dr = c.c_dr + z_r / c.sigma;
-    const float di = c.c_di + z_i / c.sigma;
-    const float P = c.A * expf(-c.B * r);
-    const float disc = expf(-i_r);
-    const float dP = -P * c.B * (c.q + dr);
-    const float term1 = P > c.K ? dP * disc : 0.0f;
-    const float term2 = di * disc * fmaxf(P - c.K, 0.0f);
-    s[0] += term1 - term2;
+    s[0] += hw::vega_term(c, c.l11 * x1, c.l21 * x1 + c.l22 * x2);
   }
   block_sum<1, OPT_THREADS>(s, partials + blockIdx.x);
 }
@@ -244,34 +189,8 @@ option_normals_kernel(hw::Seeds sd, long long n,
   x2[e] = b;
 }
 
-// Second pass: out[out_off + v] = (sum_b part[b * stride + v]) * scale_v,
-// scale_v = exp(-c[v]) when c is given (Q1's deterministic discount), else
-// 1; out[count_idx] = count.  One CTA per value, fixed summation order.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_kernel(const float* __restrict__ part, int n_parts, int stride,
-              const float* __restrict__ c, float* __restrict__ out,
-              int out_off, float count, int count_idx) {
-  const int v = blockIdx.x;
-  float s[1] = {0.0f};
-  for (int b = threadIdx.x; b < n_parts; b += REDUCE_THREADS)
-    s[0] += part[static_cast<long long>(b) * stride + v];
-  __shared__ float total;
-  block_sum<1, REDUCE_THREADS>(s, &total);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    out[out_off + v] = c != nullptr ? total * expf(-c[v]) : total;
-    if (v == 0) out[count_idx] = count;
-  }
-}
-
 int curve_ctas(int n_tiles) { return n_tiles * (CHUNKS_PER_TILE / CHUNKS_PER_CTA); }
 int option_ctas(int n_tiles) { return n_tiles * (OPT_TILE_ELEMS / OPT_PER_CTA); }
-
-// The int32 triple of ops.rng.key_seed, reinterpreted as uint32 (the TPU
-// kernels' int32 arithmetic wraps like uint32).
-hw::Seeds make_seeds(int32_t s0, int32_t s1, int32_t s2) {
-  return {static_cast<uint32_t>(s0), static_cast<uint32_t>(s1), static_cast<uint32_t>(s2)};
-}
 
 OptConsts load_consts(const float* h) {
   OptConsts c;
@@ -315,7 +234,7 @@ int hw_curve_exact(int32_t s0, int32_t s1, int32_t s2, const float* W,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<k, REDUCE_THREADS, 0, st>>>(partials, ctas, PAD, c, out, 1, count, 0);
+  reduce_kernel<<<k, REDUCE_THREADS, 0, st>>>(partials, ctas, PAD, c, nullptr, out, 1, count, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,7 +248,7 @@ int hw_zbc_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
   zbc_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_consts(consts_host), partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<5, REDUCE_THREADS, 0, st>>>(partials, ctas, 5, nullptr, out, 0, count, 5);
+  reduce_kernel<<<5, REDUCE_THREADS, 0, st>>>(partials, ctas, 5, nullptr, nullptr, out, 0, count, 5);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,7 +262,7 @@ int hw_vega_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
   vega_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_consts(consts_host), partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, out, 0, count, 1);
+  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, nullptr, out, 0, count, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
-// Shared device helpers of the exact-sampling kernels: the counter-hash
-// generator and the Box-Muller transform of hullwhite_tpu/pallas/fused.py
-// (_mix, the interpret branch of _tile_rng, _bits_float12, _cospi_sinpi,
-// _box_muller).
+// Shared device helpers of the fused kernels: the counter-hash generator,
+// the Box-Muller transform and the full-step raws of
+// hullwhite_tpu/pallas/fused.py (_mix, the interpret branch of _tile_rng,
+// _bits_float12, _cospi_sinpi, _box_muller, _raw_block), and the option
+// payoff tails (_legs_pair, _vega_terms).
 //
 // Every random word is a pure function of (seeds, global tile, row, col,
 // salt): elements are hashed by the JAX kernels' logical coordinates, never
@@ -13,6 +14,7 @@
 // reciprocals are IEEE round-to-nearest (pl.reciprocal(approx=False)).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace hw {
@@ -49,6 +51,12 @@ __device__ __forceinline__ uint32_t tile_draw(uint32_t s0, uint32_t s1,
   return mix32(x ^ s0);
 }
 
+// x rounded to bf16 (round to nearest even) and back: the operand of the
+// one bf16 pass that non-"highest" precision stands for.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // [1, 2) float from the top 23 of 32 random bits (mantissa trick).
 __device__ __forceinline__ float bits_float12(uint32_t b) {
   return __uint_as_float((b >> 9) | 0x3F800000u);
@@ -83,6 +91,64 @@ __device__ __forceinline__ void box_muller(uint32_t s0, uint32_t s1,
   cospi_sinpi(x, c, s);
   z0 = rad * c;
   z1 = rad * s;
+}
+
+// The two full-step raws of one random word (_raw_block): each 16-bit
+// half is the bf16 v = +/- (1 + m/128) 16^c with sign, 7-bit mantissa m
+// and c = b8 & (b9 | b10) of that half; adding c << 9 adds 4 to the
+// exponent.  lo is the low half, hi the high half (the bitcast puts them
+// in rows 2i and 2i+1).  Exact in float32.
+__device__ __forceinline__ void raw_pair(uint32_t b, float& lo, float& hi) {
+  const uint32_t base = (b & 0x807F807Fu) | 0x3F803F80u;
+  const uint32_t c = ((b >> 8) & ((b >> 9) | (b >> 10))) & 0x00010001u;
+  const uint32_t bits = base + (c << 9);
+  lo = __uint_as_float(bits << 16);
+  hi = __uint_as_float(bits & 0xFFFF0000u);
+}
+
+// Payoff tails shared by the exact and full-step option kernels.  C is a
+// consts struct with the fields of fused._zbc_consts (fused.py:450).
+
+// One antithetic pair of the ZBC control-variate estimator (_legs_pair +
+// _moment_accum rows 0-4): both legs share one exp per process,
+//   P(+/-) = A e^{-B c_r} t_r^{+/-1},  disc(+/-) = e^{-c_I} t_i^{+/-1},
+// with P_base = A e^{-B c_r} and d_base = e^{-c_I}.
+template <class C>
+__device__ __forceinline__ void zbc_pair_moments(const C& c, float P_base,
+                                                 float d_base, float z_r,
+                                                 float z_i, float (&s)[5]) {
+  const float t_r = expf(-c.B * z_r);
+  const float t_i = expf(-z_i);
+  float P = P_base * t_r;
+  float disc = d_base * t_i;
+  const float xa = disc * fmaxf(P - c.K, 0.0f);
+  const float ya = disc * P - c.P0S2;
+  P = P_base * __frcp_rn(t_r);
+  disc = d_base * __frcp_rn(t_i);
+  const float xb = disc * fmaxf(P - c.K, 0.0f);
+  const float yb = disc * P - c.P0S2;
+  s[0] += xa + xb;
+  s[1] += ya + yb;
+  s[2] += xa * xa + xb * xb;
+  s[3] += ya * ya + yb * yb;
+  s[4] += xa * ya + xb * yb;
+}
+
+// Single-leg pathwise vega term (_vega_terms):
+//   v = 1{P>K} (-P B (q + dr)) disc - dI disc (P - K)^+,
+//   dr = c_dr + z_r / sigma,  dI = c_dI + z_I / sigma.
+template <class C>
+__device__ __forceinline__ float vega_term(const C& c, float z_r, float z_i) {
+  const float r = c.c_r + z_r;
+  const float i_r = c.c_i + z_i;
+  const float dr = c.c_dr + z_r / c.sigma;
+  const float di = c.c_di + z_i / c.sigma;
+  const float P = c.A * expf(-c.B * r);
+  const float disc = expf(-i_r);
+  const float dP = -P * c.B * (c.q + dr);
+  const float term1 = P > c.K ? dP * disc : 0.0f;
+  const float term2 = di * disc * fmaxf(P - c.K, 0.0f);
+  return term1 - term2;
 }
 
 }  // namespace hw

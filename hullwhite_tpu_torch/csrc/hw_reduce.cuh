@@ -1,0 +1,77 @@
+// Shared reduction pieces of the fused kernels: the fixed-order block sum,
+// the second-pass reduce kernel and the seed triple.
+//
+// The TPU kernels accumulate into one output block across a sequential
+// grid.  Here blocks run in parallel in no order: each CTA writes its
+// partial sums to a scratch buffer and reduce_kernel sums them in a fixed
+// order.  No float atomics, so reruns are bitwise identical.
+//
+// Everything sits in an anonymous namespace: a kernel defined in one
+// translation unit cannot be launched from another without -rdc, so each
+// .cu that includes this header gets its own copy.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hw_device.cuh"
+
+namespace {
+
+constexpr int REDUCE_THREADS = 256;
+
+// Fixed-order block sum of N values per thread; thread v < N of warp 0
+// returns total v.  Deterministic: shuffle tree, then warps in order.
+template <int N, int THREADS>
+__device__ __forceinline__ void block_sum(float (&v)[N], float* out) {
+  __shared__ float warp_part[N][THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = v[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xFFFFFFFFu, s, o);
+    if (lane == 0) warp_part[i][warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) s += warp_part[threadIdx.x][w];
+    out[threadIdx.x] = s;
+  }
+}
+
+// Second pass: out[out_off + v] = (sum_b part[b * stride + v]) * f_v with
+// f_v = exp(-c[v]) when c is given (the exact curve's deterministic
+// discount), scale[v] when scale is given (the full-step curve's e^{-c}),
+// else 1; out[count_idx] = count.  One CTA per value, fixed summation
+// order.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+reduce_kernel(const float* __restrict__ part, int n_parts, int stride,
+              const float* __restrict__ c, const float* __restrict__ scale,
+              float* __restrict__ out, int out_off, float count,
+              int count_idx) {
+  const int v = blockIdx.x;
+  float s[1] = {0.0f};
+  for (int b = threadIdx.x; b < n_parts; b += REDUCE_THREADS)
+    s[0] += part[static_cast<long long>(b) * stride + v];
+  __shared__ float total;
+  block_sum<1, REDUCE_THREADS>(s, &total);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = total;
+    if (c != nullptr) t = total * expf(-c[v]);
+    else if (scale != nullptr) t = total * scale[v];
+    out[out_off + v] = t;
+    if (v == 0) out[count_idx] = count;
+  }
+}
+
+// The int32 triple of ops.rng.key_seed, reinterpreted as uint32 (the TPU
+// kernels' int32 arithmetic wraps like uint32).
+hw::Seeds make_seeds(int32_t s0, int32_t s1, int32_t s2) {
+  return {static_cast<uint32_t>(s0), static_cast<uint32_t>(s1), static_cast<uint32_t>(s2)};
+}
+
+}  // namespace

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds.  The library is built at first use, into ``build/hullwhite_tpu_torch/``
-beside the package, and named by a hash of the sources and flags, so an
-edited source never loads a stale library.  Nothing here runs at import
-time.
+The sources are compiled with ``nvcc``, one process per ``.cu`` file, all
+started together, and linked into a shared library with a plain C
+interface that is loaded with ``ctypes``: no PyTorch headers, so a build
+takes seconds.  The library is built at first use, into
+``build/hullwhite_tpu_torch/`` beside the package, and named by a hash of
+the sources and flags, so an edited source never loads a stale library.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "hullwhite_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -35,6 +36,12 @@ _SIGNATURES = {
     "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_option_normals": ([_I, _I, _I, _I, _P, _P, _P], _I),
+    "hw_curve_full_partials": ([_I], _I),
+    "hw_option_full_partials": ([_I, _I], _I),
+    "hw_curve_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
+                      _I),
+    "hw_zbc_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
+    "hw_vega_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
     "hw_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -68,6 +75,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhw_fused_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, logdir: Path, tag: str):
+    """Run the commands concurrently; (return codes, logs) in order."""
+    logs = [logdir / f"{tag}{i}.log" for i in range(len(cmds))]
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT))
+    finally:
+        codes = [p.wait() for p in procs]
+    return codes, [log.read_text() for log in logs]
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     so = library_path()
@@ -75,19 +96,29 @@ def build() -> Path:
         BUILD_INFO["seconds"] = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_INFO['log']}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [tmp / f"{src.stem}.o" for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                 str(src)] for src, obj in zip(srcs, objs)]
+        codes, logs = _run_all(cmds, tmp, "nvcc")
+        if all(c == 0 for c in codes):
+            lib = tmp / so.name
+            cmds.append([nvcc, "-shared", "-o", str(lib), *map(str, objs)])
+            link_codes, link_logs = _run_all(cmds[-1:], tmp, "link")
+            codes += link_codes
+            logs += link_logs
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
+        BUILD_INFO["log"] = "".join(logs)
+        for cmd, code, log in zip(cmds, codes, logs):
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        # atomic: a concurrent loader never sees half a file
+        os.replace(lib, so)
     return so
 
 

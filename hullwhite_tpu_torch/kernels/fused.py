@@ -1,30 +1,41 @@
-"""Fused exact-sampling kernels: wrappers, plain versions and preparation
-(PyTorch port of the exact tier of ``hullwhite_tpu.pallas.fused``).
+"""Fused Monte Carlo kernels: wrappers, plain versions and preparation
+(PyTorch port of ``hullwhite_tpu.pallas.fused``), in two tiers:
 
-Each kernel hashes its own normals from (seeds, global tile, row, column,
-salt) with the generator of the TPU kernels' interpret mode (murmur3
-counter hash + Box-Muller), transforms them and reduces them on the chip,
-so no Gaussian field ever reaches device memory.
+* exact sampling (``curve_exact``, ``zbc_exact``, ``vega_exact``,
+  ``option_normals``; JAX engine ``"pallas_exact"``): Box-Muller normals
+  through the Cholesky factor of each product's functionals;
+* full step (``curve_full``, ``zbc_full``, ``vega_full``; JAX engine
+  ``"pallas"``): one fresh raw value per path per time step over all
+  n_steps, mixed into unit shocks by a scaled Hadamard matrix whose mix is
+  pre-folded into the weights (``_premix_curve``, ``_premix_opt``).
+
+Each kernel hashes its own random words from (seeds, global tile, row,
+column, salt) with the generator of the TPU kernels' interpret mode
+(murmur3 counter hash), transforms them and reduces them on the chip, so
+no random field ever reaches device memory.
 
 Every kernel has two versions here:
 
-* the wrapper (``curve_exact``, ``zbc_exact``, ``vega_exact``,
-  ``option_normals``): on a CUDA device it launches the hand-written
-  kernel of ``csrc/fused_exact.cu`` or raises; on the CPU it runs the
-  plain version.  There is no other fallback.  Each wrapper counts its
-  kernel launches (``launch_counts``).  The seed triple (``kernel_seeds``)
-  and the option consts stay on the host and go to the kernels by value.
+* the wrapper: on a CUDA device it launches the hand-written kernel of
+  ``csrc/fused_exact.cu`` or ``csrc/fused_full.cu`` or raises; on the CPU
+  it runs the plain version.  There is no other fallback.  Each wrapper
+  counts its kernel launches (``launch_counts``).  The seed triple
+  (``kernel_seeds``) and the option consts stay on the host and go to the
+  kernels by value.
 * the plain version (``*_plain``): the same arithmetic in PyTorch, tile
   chunk by tile chunk, used by the CPU tests and compared with the kernel
   on the card.
 
 Tile geometry and salts equal the JAX package's, because they fix the
-random stream: curve tiles are 2 x (TILE_EXACT, PAD) normals (8192 paths),
-option tiles (TILE_OPT, PAD) pairs of normals (32768 paths).
+random stream: exact curve tiles are 2 x (TILE_EXACT, PAD) normals (8192
+paths), exact option tiles (TILE_OPT, PAD) pairs of normals (32768 paths),
+full-step curve tiles TILE_FULL paths and full-step option tiles
+TILE_FULL_OPT paths, with the 128-step block index as the draw salt.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -41,7 +52,23 @@ TILE_EXACT = 4096      # curve kernel: Box-Muller rows per tile
 TILE_OPT = 256         # option kernels: (TILE_OPT, PAD) pairs per tile
 CURVE_TILE_PATHS = 2 * TILE_EXACT
 OPTION_TILE_PATHS = TILE_OPT * PAD
+TILE_FULL = 2048       # full-step curve kernel: paths per tile
+TILE_FULL_OPT = 4096   # full-step option kernels: paths per tile
+CURVE_FULL_TILE_PATHS = TILE_FULL
+OPTION_FULL_TILE_PATHS = TILE_FULL_OPT
 SALTS = {"curve": 101, "zbc": 202, "vega": 303}
+
+# Full-step generator: each u32 word gives two bf16 raws
+# v = +/- (1 + m/128) 16^c, c ~ Bernoulli(3/8), and each block of 128 raws
+# is mixed by H q0 (H the 128 x 128 Sylvester-Hadamard matrix).  The mix
+# shapes are those of the JAX package (fused.py:191-196), copied exactly:
+# the D scramble and the variance scale are part of the estimator's law.
+_MIX_BLOCK = 128
+# E[v^2] = mean((1+k/128)^2) * (0.625 + 0.375*256) over the 7-bit grid
+_MIX_E2 = 224.3269920349121
+_MIX_Q0 = float(np.float32(0.005889892578125))  # bf16(1/sqrt(128 E[v^2]))
+_MIX_W_SCALE = 1.0 / math.sqrt(128 * _MIX_Q0 * _MIX_Q0 * _MIX_E2)
+_MIX_D_SEED = 12345
 
 # Degree-5 Chebyshev fits in y = x^2 on [0, 1]:
 #   cos(pi x) ~ sum COS5[k] y^k,   sin(pi x)/x ~ sum SIN5[k] y^k.
@@ -51,7 +78,9 @@ _SIN5 = [3.1415924582721866, -5.167698654480206, 2.5499982307289915,
          -0.5985505692547316, 0.08074781848280516, -0.006089474441873218]
 
 _M32 = 0xFFFFFFFF
-_TILES_PER_CHUNK = {"curve": 2, "option": 8}  # plain versions' chunking
+# plain versions' chunking (tiles per chunk)
+_TILES_PER_CHUNK = {"curve": 2, "option": 8, "curve_full": 16,
+                    "option_full": 8}
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +141,99 @@ def option_prepared(cfg: HWConfig, tables: hw.StepTables,
                                             dtype=torch.float32)
     return OptionPrepared(consts=torch.cat([consts, lvec]).numpy(),
                           device=tables.drift.device)
+
+
+class CurveFullPrepared(NamedTuple):
+    """Sigma-dependent operands of the full-step curve kernel."""
+
+    W: torch.Tensor      # (nb * 128, PAD) premixed weights, zero beyond
+                         # n_steps rows and n_mat columns
+    exp_c: torch.Tensor  # (PAD,) e^{-c}, c the deterministic I(T_m)
+
+
+class OptionFullPrepared(NamedTuple):
+    """Operands of the full-step option kernels: the premixed weight rows
+    (row 0 the r(S1) shape, row 1 the I(S1) shape) on the kernels' device,
+    and the consts [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q]."""
+
+    W: torch.Tensor     # (8, nb * 128), rows 2-7 zero
+    consts: np.ndarray  # (10,) float32 on the host, passed by value
+
+
+def _mix_d(n: int):
+    """Fixed pseudorandom +/-1 spectrum scrambler for n step rows."""
+    return np.random.default_rng(_MIX_D_SEED).choice([-1.0, 1.0], n)
+
+
+def _hadamard_np():
+    """(128, 128) fp64 Sylvester-Hadamard scaled by the bf16-exact q0."""
+    H = np.array([[1.0]], np.float64)
+    while H.shape[0] < _MIX_BLOCK:
+        H = np.block([[H, H], [H, -H]])
+    return H * _MIX_Q0
+
+
+def _premix_curve(Wsh: np.ndarray) -> np.ndarray:
+    """Path-major premix: rows q*128:(q+1)*128 become (H q0) @ W_q, so
+    z = sum_q U_q (H W_q) is the mixed-generator z (fp64)."""
+    H = _hadamard_np()
+    out = np.empty_like(Wsh, dtype=np.float64)
+    for q in range(Wsh.shape[0] // _MIX_BLOCK):
+        s = slice(q * _MIX_BLOCK, (q + 1) * _MIX_BLOCK)
+        out[s] = H @ Wsh[s]
+    return out
+
+
+def _premix_opt(Up: np.ndarray) -> np.ndarray:
+    """Transposed premix: columns q*128:(q+1)*128 of the (8, nb*128)
+    weight rows become W_q @ (H q0) (H symmetric)."""
+    H = _hadamard_np()
+    out = np.empty_like(Up, dtype=np.float64)
+    for q in range(Up.shape[1] // _MIX_BLOCK):
+        s = slice(q * _MIX_BLOCK, (q + 1) * _MIX_BLOCK)
+        out[:, s] = Up[:, s] @ H
+    return out
+
+
+def _n_blocks(n_steps: int) -> int:
+    return -(-n_steps // _MIX_BLOCK)
+
+
+def curve_full_prepared(cfg: HWConfig,
+                        tables: hw.StepTables) -> CurveFullPrepared:
+    """Premixed weights sig_st * W_SCALE * (H q0) (D * W_q) per block, and
+    e^{-c}: the weights are built in fp64 on the host and rounded once."""
+    nm = cfg.n_mat
+    if nm > PAD:
+        raise ValueError("n_mat must be <= 128 for the full-step kernel")
+    dev = tables.drift.device
+    nb = _n_blocks(cfg.n_steps)
+    Wsh = np.zeros((nb * _MIX_BLOCK, PAD), np.float64)
+    Wsh[: cfg.n_steps, :nm] = engine_linear._curve_shape(cfg)
+    Wsh *= _mix_d(nb * _MIX_BLOCK)[:, None]  # spectrum scrambler
+    W = (tables.sig_st * _MIX_W_SCALE) * torch.as_tensor(
+        _premix_curve(Wsh), dtype=torch.float32, device=dev)
+    c = torch.zeros(PAD, dtype=torch.float32, device=dev)
+    c[:nm] = engine_linear.curve_weights(cfg, tables).c
+    return CurveFullPrepared(W=W, exp_c=torch.exp(-c))
+
+
+def option_full_prepared(cfg: HWConfig, tables: hw.StepTables,
+                         market: hw.MarketCurve, sigma) -> OptionFullPrepared:
+    """Premixed (8, nb*128) weight rows on the tables' device and the 10
+    consts, computed on the host in float32."""
+    n1 = cfg.n_steps_s1
+    tables_cpu = hw.StepTables(*(t.cpu() for t in tables))
+    consts = _zbc_consts(cfg, tables_cpu, market.to("cpu"), sigma)
+    u_shape, w_shape = engine_linear._shock_shapes(cfg, n1)
+    nb = _n_blocks(n1)
+    Up = np.zeros((8, nb * _MIX_BLOCK), np.float64)
+    Up[0, :n1] = u_shape
+    Up[1, :n1] = w_shape
+    Up *= _mix_d(nb * _MIX_BLOCK)[None, :]  # spectrum scrambler
+    W = (tables.sig_st * _MIX_W_SCALE) * torch.as_tensor(
+        _premix_opt(Up), dtype=torch.float32, device=tables.drift.device)
+    return OptionFullPrepared(W=W, consts=consts.numpy())
 
 
 def kernel_seeds(key: Key, kind: str, base_tile: int = 0) -> np.ndarray:
@@ -215,62 +337,180 @@ def curve_exact_plain(seeds, W: torch.Tensor, c: torch.Tensor, n_tiles: int,
                                   int(seeds[1]), idx)
         for t in range(n):
             X = torch.cat([z0[t], z1[t]])
-            e = torch.exp(-engine_exact._dot(X, W, precision))
+            e = torch.exp(-engine_linear.dot(X, W, precision))
             acc += (e + torch.reciprocal(e)).sum(0) * scale
     count = torch.tensor([2.0 * n_tiles * CURVE_TILE_PATHS],
                          dtype=torch.float32, device=dev)
     return torch.cat([count, acc[:n_live]])
 
 
-def _opt_scalars(consts: torch.Tensor):
-    return [consts[i] for i in range(13)]
+def _zbc_moment_sums(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """(5,) CV moment sums [X, Yc, X^2, Yc^2, X Yc] over both antithetic
+    legs of the state z (``_legs_pair`` + ``_moment_accum`` arithmetic):
+    one exp per process, P(+/-) = A e^{-B c_r} t_r^{+/-1},
+    disc(+/-) = e^{-c_I} t_i^{+/-1}."""
+    c_r, c_i, A, B, K, P0S2 = consts[:6]
+    P_base = A * torch.exp(-B * c_r)
+    d_base = torch.exp(-c_i)
+    t_r, t_i = torch.exp(-B * z_r), torch.exp(-z_i)
+    legs = []
+    for tr, ti in ((t_r, t_i), (torch.reciprocal(t_r), torch.reciprocal(t_i))):
+        P = P_base * tr
+        disc = d_base * ti
+        legs.append((disc * torch.clamp(P - K, min=0.0), disc * P - P0S2))
+    (xa, ya), (xb, yb) = legs
+    return torch.stack([(xa + xb).sum(), (ya + yb).sum(),
+                        (xa * xa + xb * xb).sum(), (ya * ya + yb * yb).sum(),
+                        (xa * ya + xb * yb).sum()])
+
+
+def _vega_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """Sum of the single-leg pathwise vega terms of the state z
+    (``_vega_terms`` arithmetic)."""
+    c_r, c_i, A, B, K, _, c_dr, c_di, sigma, q = consts[:10]
+    r, i_r = c_r + z_r, c_i + z_i
+    dr, di = c_dr + z_r / sigma, c_di + z_i / sigma
+    P = A * torch.exp(-B * r)
+    disc = torch.exp(-i_r)
+    dP = -P * B * (q + dr)
+    term1 = torch.where(P > K, dP * disc, torch.zeros_like(P))
+    term2 = di * disc * torch.clamp(P - K, min=0.0)
+    return (term1 - term2).sum()
+
+
+def _count(value: float, device) -> torch.Tensor:
+    return torch.tensor([value], dtype=torch.float32, device=device)
 
 
 def zbc_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
     """(6,) CV moments [sum X, sum Yc, sum X^2, sum Yc^2, sum X Yc, count]
-    over both antithetic legs (``_legs_pair`` arithmetic)."""
-    c_r, c_i, A, B, K, P0S2, _, _, _, _, l11, l21, l22 = _opt_scalars(consts)
-    P_base = A * torch.exp(-B * c_r)
-    d_base = torch.exp(-c_i)
+    over both antithetic legs."""
+    c = consts.unbind()
+    l11, l21, l22 = c[10:13]
     acc = torch.zeros(5, dtype=torch.float32, device=consts.device)
     for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
-        z_r = l11 * x1
-        z_i = l21 * x1 + l22 * x2
-        t_r, t_i = torch.exp(-B * z_r), torch.exp(-z_i)
-        legs = []
-        for tr, ti in ((t_r, t_i), (torch.reciprocal(t_r), torch.reciprocal(t_i))):
-            P = P_base * tr
-            disc = d_base * ti
-            legs.append((disc * torch.clamp(P - K, min=0.0), disc * P - P0S2))
-        (xa, ya), (xb, yb) = legs
-        acc += torch.stack([(xa + xb).sum(), (ya + yb).sum(),
-                            (xa * xa + xb * xb).sum(), (ya * ya + yb * yb).sum(),
-                            (xa * ya + xb * yb).sum()])
-    count = torch.tensor([2.0 * n_tiles * OPTION_TILE_PATHS],
-                         dtype=torch.float32, device=consts.device)
-    return torch.cat([acc, count])
+        acc += _zbc_moment_sums(c, l11 * x1, l21 * x1 + l22 * x2)
+    return torch.cat([acc, _count(2.0 * n_tiles * OPTION_TILE_PATHS,
+                                  consts.device)])
 
 
 def vega_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
-    """(2,) [sum of pathwise vega terms, count], single leg
-    (``_vega_terms`` arithmetic)."""
-    c_r, c_i, A, B, K, _, c_dr, c_di, sigma, q, l11, l21, l22 = \
-        _opt_scalars(consts)
+    """(2,) [sum of pathwise vega terms, count], single leg."""
+    c = consts.unbind()
+    l11, l21, l22 = c[10:13]
     acc = torch.zeros(1, dtype=torch.float32, device=consts.device)
     for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
-        z_r = l11 * x1
-        z_i = l21 * x1 + l22 * x2
-        r, i_r = c_r + z_r, c_i + z_i
-        dr, di = c_dr + z_r / sigma, c_di + z_i / sigma
-        P = A * torch.exp(-B * r)
-        disc = torch.exp(-i_r)
-        dP = -P * B * (q + dr)
-        term1 = torch.where(P > K, dP * disc, torch.zeros_like(P))
-        term2 = di * disc * torch.clamp(P - K, min=0.0)
-        acc += (term1 - term2).sum()
-    count = torch.tensor([1.0 * n_tiles * OPTION_TILE_PATHS],
-                         dtype=torch.float32, device=consts.device)
-    return torch.cat([acc, count])
+        acc += _vega_term_sum(c, l11 * x1, l21 * x1 + l22 * x2)
+    return torch.cat([acc, _count(1.0 * n_tiles * OPTION_TILE_PATHS,
+                                  consts.device)])
+
+
+def raw_block_plain(s0: torch.Tensor, s1: int, idx: torch.Tensor, salt: int):
+    """Full-step raws of the words ``idx`` (..., R, C) as float32
+    (..., 2R, C): row 2i is the low and row 2i+1 the high bf16 half of word
+    row i, the row order of the TPU kernel's u32 -> bf16 bitcast
+    (``_raw_block``).  Each half is v = +/- (1 + m/128) 16^c with sign,
+    7-bit mantissa m and c = b8 & (b9 | b10) from the half's own bits."""
+    b = tile_draw_plain(s0, s1, idx, salt)
+    base = (b & 0x807F807F) | 0x3F803F80
+    c = ((b >> 8) & ((b >> 9) | (b >> 10))) & 0x00010001
+    bits = base + (c << 9)  # exponent + 4 where c = 1: the raw times 16
+    halves = torch.stack([(bits & 0xFFFF) << 16, bits & 0xFFFF0000], dim=-2)
+    halves = halves - ((halves >> 31) << 32)  # int32 range (sign bit)
+    raws = halves.to(torch.int32).view(torch.float32)
+    return raws.reshape(*raws.shape[:-3], -1, raws.shape[-1])
+
+
+def _words(rows: int, cols: int, device):
+    return torch.arange(rows * cols, dtype=torch.int64,
+                        device=device).reshape(rows, cols)
+
+
+def _round_weights(W: torch.Tensor, precision: str) -> torch.Tensor:
+    """The weights a product of exact bf16 raws uses: W itself for
+    "highest", W rounded to bf16 otherwise (fp32 accumulation both ways)."""
+    if precision == "highest":
+        return W
+    return W.to(torch.bfloat16).to(torch.float32)
+
+
+def curve_full_plain(seeds, W: torch.Tensor, exp_c: torch.Tensor,
+                     n_tiles: int, n_mat: int, precision: str = "highest"):
+    """(n_mat,) [count, e^{-c_m} sum (t + 1/t)], t = e^{-z},
+    z = sum_q U_q W_q over the 128-step blocks q (U_q: (TILE_FULL, 128)
+    raws, paths in rows)."""
+    dev = W.device
+    Wr = _round_weights(W, precision)
+    idx = _words(TILE_FULL // 2, _MIX_BLOCK, dev)
+    acc = torch.zeros(PAD, dtype=torch.float32, device=dev)
+    for first, n in _chunks(n_tiles, _TILES_PER_CHUNK["curve_full"]):
+        s0 = _tile_s0(seeds, first, n, dev)
+        z = torch.zeros(n, TILE_FULL, PAD, dtype=torch.float32, device=dev)
+        for q in range(W.shape[0] // _MIX_BLOCK):
+            U = raw_block_plain(s0, int(seeds[1]), idx, q)
+            z += U @ Wr[q * _MIX_BLOCK:(q + 1) * _MIX_BLOCK]
+        t = torch.exp(-z)
+        acc += (t + torch.reciprocal(t)).sum((0, 1))
+    sums = acc * exp_c
+    sums[0] = 2.0 * n_tiles * TILE_FULL
+    return sums[:n_mat]
+
+
+def _option_full_states(seeds, W: torch.Tensor, n_tiles: int,
+                        precision: str):
+    """(z_r, z_i), each (n, TILE_FULL_OPT), chunk by chunk: rows 0 and 1 of
+    sum_q W_q U_q (U_q: (128, TILE_FULL_OPT) raws, steps in rows)."""
+    dev = W.device
+    Wr = _round_weights(W[:2], precision)
+    idx = _words(_MIX_BLOCK // 2, TILE_FULL_OPT, dev)
+    for first, n in _chunks(n_tiles, _TILES_PER_CHUNK["option_full"]):
+        s0 = _tile_s0(seeds, first, n, dev)
+        z = torch.zeros(n, 2, TILE_FULL_OPT, dtype=torch.float32, device=dev)
+        for q in range(W.shape[1] // _MIX_BLOCK):
+            U = raw_block_plain(s0, int(seeds[1]), idx, q)
+            z += Wr[:, q * _MIX_BLOCK:(q + 1) * _MIX_BLOCK] @ U
+        yield z[:, 0], z[:, 1]
+
+
+def zbc_full_plain(seeds, W: torch.Tensor, consts: torch.Tensor,
+                   n_tiles: int, precision: str = "highest"):
+    """(6,) CV moments over both antithetic legs of the full-step state."""
+    c = consts.unbind()
+    acc = torch.zeros(5, dtype=torch.float32, device=W.device)
+    for z_r, z_i in _option_full_states(seeds, W, n_tiles, precision):
+        acc += _zbc_moment_sums(c, z_r, z_i)
+    return torch.cat([acc, _count(2.0 * n_tiles * TILE_FULL_OPT, W.device)])
+
+
+def vega_full_plain(seeds, W: torch.Tensor, consts: torch.Tensor,
+                    n_tiles: int, precision: str = "highest"):
+    """(2,) [sum of pathwise vega terms, count], single leg."""
+    c = consts.unbind()
+    acc = torch.zeros(1, dtype=torch.float32, device=W.device)
+    for z_r, z_i in _option_full_states(seeds, W, n_tiles, precision):
+        acc += _vega_term_sum(c, z_r, z_i)
+    return torch.cat([acc, _count(1.0 * n_tiles * TILE_FULL_OPT, W.device)])
+
+
+def option_full_shocks(seeds, n_tiles: int, n_steps: int, device="cpu"):
+    """(n_tiles * TILE_FULL_OPT, n_steps) float32 unit shocks G that the
+    full-step option kernels consume under ``seeds``: per 128-step block,
+    G_q = W_SCALE * (U_q^T (H q0)) with column k scaled by D[q*128 + k]
+    (fp64, rounded once).  Fed through ``engine_linear`` they reproduce
+    the kernels' estimates deterministically: the premix identity
+    sum_q W'_q U_q = G @ w with W'_q = (w_q D_q)^T H q0."""
+    nb = _n_blocks(n_steps)
+    H = torch.as_tensor(_hadamard_np(), device=device)
+    D = torch.as_tensor(_mix_d(nb * _MIX_BLOCK), device=device)
+    idx = _words(_MIX_BLOCK // 2, TILE_FULL_OPT, device)
+    s0 = _tile_s0(seeds, 0, n_tiles, device)
+    blocks = []
+    for q in range(nb):
+        U = raw_block_plain(s0, int(seeds[1]), idx, q).to(torch.float64)
+        G = (U.transpose(1, 2) @ H).reshape(-1, _MIX_BLOCK)
+        blocks.append(G * (_MIX_W_SCALE * D[q * _MIX_BLOCK:
+                                             (q + 1) * _MIX_BLOCK]))
+    return torch.cat(blocks, dim=1)[:, :n_steps].to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +655,101 @@ def option_normals(seeds, n_tiles: int, *, device):
     return x1, x2
 
 
+def _check_blocks(n: int, name: str) -> int:
+    """Number of 128-step blocks of a weight axis of length n."""
+    if n < _MIX_BLOCK or n % _MIX_BLOCK:
+        raise ValueError(f"{name} must hold a positive multiple of "
+                         f"{_MIX_BLOCK} steps, got {n}")
+    return n // _MIX_BLOCK
+
+
+def curve_full(seeds, W: torch.Tensor, exp_c: torch.Tensor, n_tiles: int,
+               n_mat: int, precision: str = "highest"):
+    """Full-step Q1 kernel: (n_mat,) [count, per-maturity discount sums]
+    over n_tiles tiles of TILE_FULL paths (kernel of ``_curve_kernel``),
+    on W's device."""
+    s = _seed_triple(seeds)
+    dev = W.device
+    if W.dim() != 2:
+        raise ValueError("W must be (nb * 128, 128)")
+    nb = _check_blocks(W.shape[0], "W")
+    _check(W, "W", torch.float32, (nb * _MIX_BLOCK, PAD), dev)
+    _check(exp_c, "exp_c", torch.float32, (PAD,), dev)
+    _check_tiles(n_tiles)
+    if not 2 <= n_mat <= PAD:
+        raise ValueError("n_mat must be in [2, 128]")
+    if not _route(dev):
+        return curve_full_plain(s, W, exp_c, n_tiles, n_mat, precision)
+    if W.data_ptr() % 16:
+        raise ValueError("W must be 16-byte aligned (the kernel reads "
+                         "float4)")
+    from .build import check
+
+    lib, stream = _launch_env(dev)
+    partials = torch.empty(lib.hw_curve_full_partials(n_tiles),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty(n_mat, dtype=torch.float32, device=dev)
+    code = lib.hw_curve_full(
+        *s, W.data_ptr(), nb, exp_c.data_ptr(), n_mat, n_tiles,
+        int(precision != "highest"), 2.0 * n_tiles * TILE_FULL,
+        partials.data_ptr(), out.data_ptr(), stream)
+    check(code, "curve_full")
+    curve_full.launches += 1
+    return out
+
+
+def _option_full_kernel(kind: str, seeds, prepared: OptionFullPrepared,
+                        n_tiles: int, precision: str):
+    s = _seed_triple(seeds)
+    W = prepared.W
+    dev = W.device
+    if W.dim() != 2:
+        raise ValueError("prepared.W must be (8, nb * 128)")
+    nb = _check_blocks(W.shape[1], "prepared.W")
+    _check(W, "prepared.W", torch.float32, (8, nb * _MIX_BLOCK), dev)
+    consts = np.ascontiguousarray(prepared.consts, np.float32)
+    if consts.shape != (10,):
+        raise ValueError("prepared.consts must hold the 10 consts")
+    _check_tiles(n_tiles)
+    if not _route(dev):
+        plain = zbc_full_plain if kind == "zbc" else vega_full_plain
+        return plain(s, W, torch.from_numpy(consts), n_tiles, precision)
+    from .build import check
+
+    lib, stream = _launch_env(dev)
+    n_out, per_leg = (6, 2.0) if kind == "zbc" else (2, 1.0)
+    partials = torch.empty(lib.hw_option_full_partials(n_tiles, n_out - 1),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty(n_out, dtype=torch.float32, device=dev)
+    entry = lib.hw_zbc_full if kind == "zbc" else lib.hw_vega_full
+    code = entry(*s, W.data_ptr(), nb, consts.ctypes.data, n_tiles,
+                 int(precision != "highest"),
+                 per_leg * n_tiles * TILE_FULL_OPT, partials.data_ptr(),
+                 out.data_ptr(), stream)
+    check(code, f"{kind}_full")
+    (zbc_full if kind == "zbc" else vega_full).launches += 1
+    return out
+
+
+def zbc_full(seeds, prepared: OptionFullPrepared, n_tiles: int,
+             precision: str = "highest"):
+    """Full-step Q2b kernel: (6,) CV moments over n_tiles tiles of
+    TILE_FULL_OPT paths (kernel of ``_zbc_full_kernel``), on the weights'
+    device."""
+    return _option_full_kernel("zbc", seeds, prepared, n_tiles, precision)
+
+
+def vega_full(seeds, prepared: OptionFullPrepared, n_tiles: int,
+              precision: str = "highest"):
+    """Full-step Q3 kernel: (2,) [pathwise vega sum, count] (kernel of
+    ``_vega_full_kernel``)."""
+    return _option_full_kernel("vega", seeds, prepared, n_tiles, precision)
+
+
 _WRAPPERS = {"curve_exact": curve_exact, "zbc_exact": zbc_exact,
-             "vega_exact": vega_exact, "option_normals": option_normals}
+             "vega_exact": vega_exact, "option_normals": option_normals,
+             "curve_full": curve_full, "zbc_full": zbc_full,
+             "vega_full": vega_full}
 for _w in _WRAPPERS.values():
     _w.launches = 0
 

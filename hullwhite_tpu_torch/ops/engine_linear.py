@@ -1,6 +1,5 @@
-"""Shock shapes and deterministic parts of the linear-functional form
-(PyTorch port of the parts of ``hullwhite_tpu.ops.engine_linear`` that the
-exact-sampling kernels need).
+"""The linear-functional form: shock shapes, deterministic parts and the
+block evaluators (PyTorch port of ``hullwhite_tpu.ops.engine_linear``).
 
 The exact-discretization recursion is affine in the Gaussian shocks:
 
@@ -12,6 +11,11 @@ The sigma-independent shapes are built on the host in float64 (E^m in fp32
 through exp/log loses about m ulps) and rounded to float32 once.  The
 deterministic parts are the G = 0 recursion in float32, evaluated on the
 host step by step with the rounding of the JAX package's ``lax.scan``.
+
+The block evaluators take the shock block G as an argument, so the
+full-step kernels' own shocks (rebuilt from ``kernels.fused.raw_block_plain``
+and the Hadamard mix) can be fed through them: the deterministic
+full-step gate.
 """
 
 from __future__ import annotations
@@ -26,11 +30,34 @@ from ..config import HWConfig
 from ..models.hull_white import StepTables, host_tables
 
 
+class CurveWeights(NamedTuple):
+    W: torch.Tensor  # (n_steps, n_mat) dI(T_m)/dG_i
+    c: torch.Tensor  # (n_mat,) deterministic I(T_m)
+
+
 class ZBCWeights(NamedTuple):
     U: torch.Tensor    # (n1, 2) columns [dr(S1)/dG_i, dI(S1)/dG_i]
     det: torch.Tensor  # (4,) [r_det, I_det, dr_det, dI_det] at S1
     sigma: torch.Tensor
     sig_st: torch.Tensor
+
+
+class PathState(NamedTuple):
+    """(r, I) at S1 for both antithetic legs."""
+
+    r_p: torch.Tensor
+    r_m: torch.Tensor
+    i_p: torch.Tensor
+    i_m: torch.Tensor
+
+
+class DualState(NamedTuple):
+    """(r, dr/dsigma, I, dI/dsigma) at S1, single leg."""
+
+    r: torch.Tensor
+    dr: torch.Tensor
+    i_r: torch.Tensor
+    di_r: torch.Tensor
 
 
 @lru_cache(maxsize=None)
@@ -102,6 +129,20 @@ def det_trajectory(cfg: HWConfig, tables: StepTables):
             torch.as_tensor(out[1], device=dev))
 
 
+def det_curve(cfg: HWConfig, tables: StepTables) -> torch.Tensor:
+    """(n_mat,) deterministic curve c[m] = det I(T_m), c[0] = 0."""
+    integrals = det_trajectory(cfg, tables)[1]
+    return torch.cat([integrals.new_zeros(1),
+                      integrals[cfg.save_stride - 1::cfg.save_stride]])
+
+
+def curve_weights(cfg: HWConfig, tables: StepTables) -> CurveWeights:
+    """W[i, m] = dI(T_m)/dG_i and the deterministic curve c[m] = det I(T_m)."""
+    W = tables.sig_st * torch.as_tensor(_curve_shape(cfg),
+                                        device=tables.drift.device)
+    return CurveWeights(W=W, c=det_curve(cfg, tables))
+
+
 def zbc_weights(cfg: HWConfig, tables: StepTables) -> ZBCWeights:
     """Functionals for the option leg: the shock columns of r(S1), I(S1)
     and the deterministic [r, I, dr/dsigma, dI/dsigma] at S1."""
@@ -113,3 +154,44 @@ def zbc_weights(cfg: HWConfig, tables: StepTables) -> ZBCWeights:
     det = _det_recursion(cfg, tables, n1, dual=True)[:, -1]
     return ZBCWeights(U=U, det=torch.as_tensor(det.copy(), device=dev),
                       sigma=tables.sigma, sig_st=tables.sig_st)
+
+
+# ---------------------------------------------------------------------------
+# Block evaluators: G is a (paths, steps) block of unit shocks
+# ---------------------------------------------------------------------------
+
+def dot(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+    """x @ w with float32 accumulation.  "highest" multiplies in true fp32;
+    any other precision rounds both operands to bf16 first (one bf16 pass,
+    the only other mode the TPU kernels have)."""
+    if precision != "highest":
+        x = x.to(torch.bfloat16).to(torch.float32)
+        w = w.to(torch.bfloat16).to(torch.float32)
+    return x @ w
+
+
+def curve_discount_sums(cfg: HWConfig, cw: CurveWeights, G: torch.Tensor):
+    """(n_mat,) per-maturity discount sums over both antithetic legs; entry
+    0 (I = 0 on every path) is the exact count."""
+    z = dot(G, cw.W, cfg.matmul_precision)
+    c = cw.c[None, :]
+    sums = (torch.exp(-(c + z)) + torch.exp(-(c - z))).sum(0)
+    sums[0] = 2.0 * G.shape[0]
+    return sums
+
+
+def antithetic_state(cfg: HWConfig, zw: ZBCWeights, G: torch.Tensor) -> PathState:
+    """Final (r, I) at S1 for both legs from one product."""
+    z = dot(G, zw.U, cfg.matmul_precision)
+    c_r, c_i = zw.det[0], zw.det[1]
+    return PathState(r_p=c_r + z[:, 0], r_m=c_r - z[:, 0],
+                     i_p=c_i + z[:, 1], i_m=c_i - z[:, 1])
+
+
+def dual_state(cfg: HWConfig, zw: ZBCWeights, G: torch.Tensor) -> DualState:
+    """(r, dr/dsigma, I, dI/dsigma) at S1, single +G leg: the tangent's
+    stochastic part is z / sigma."""
+    z = dot(G, zw.U, cfg.matmul_precision)
+    c_r, c_i, c_dr, c_di = zw.det[0], zw.det[1], zw.det[2], zw.det[3]
+    return DualState(r=c_r + z[:, 0], dr=c_dr + z[:, 0] / zw.sigma,
+                     i_r=c_i + z[:, 1], di_r=c_di + z[:, 1] / zw.sigma)

@@ -16,7 +16,7 @@ import torch
 
 from ..config import HWConfig
 from ..models.hull_white import MarketCurve, dp_bond_dsigma, p_bond
-from .engine_exact import DualState, PathState
+from .engine_linear import DualState, PathState
 
 # Moment vector layout: [ sum X, sum Yc, sum X^2, sum Yc^2, sum X*Yc, count ]
 N_MOMENTS = 6

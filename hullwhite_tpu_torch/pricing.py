@@ -2,12 +2,21 @@
 ZBC pricing with an optimal-beta control variate (Q2b), pathwise vega (Q3)
 (PyTorch port of ``hullwhite_tpu.pricing``).
 
-One engine so far, ``"fused_exact"``: the exact-sampling kernels of
-``kernels.fused`` (the JAX package's ``"pallas_exact"``).  Each product is
-split into a prepare step (sigma-dependent tables and consts, built on the
-host) and a run step (one kernel launch and its reduction), so a timed loop
-runs only the kernel.  On a CUDA device the run step launches the
-hand-written kernels; on the CPU it runs their plain versions.
+Two engines, both kernels of ``kernels.fused``:
+
+* ``"fused_exact"`` (the JAX package's ``"pallas_exact"``): exact sampling
+  of each product's functionals, 2 normals per option path and
+  n_mat - 1 per curve path;
+* ``"fused"`` (the JAX package's ``"pallas"``): the full-step tier, one
+  fresh raw value per path per time step over all n_steps (the CUDA
+  reference's stepwise semantics), mixed into unit shocks by the
+  premixed Hadamard weights.
+
+Each product is split into a prepare step (sigma-dependent tables, weights
+and consts, built on the host) and a run step (one kernel launch and its
+reduction), so a timed loop runs only the kernel.  On a CUDA device the
+run step launches the hand-written kernels; on the CPU it runs their plain
+versions.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from .ops import payoffs
 from .ops.payoffs import CVEstimate
 from .ops.rng import Key
 
-ENGINES = ("fused_exact",)
+ENGINES = ("fused_exact", "fused")
 
 
 def resolve_device(device) -> torch.device:
@@ -60,15 +69,21 @@ def _tiles(cfg: HWConfig, paths_per_tile: int) -> int:
 def _curve_prep(cfg: HWConfig, engine: str, sigma, sigma0, *, device):
     _check_engine(engine)
     tables = hw.step_tables(cfg, sigma, sigma0, device=resolve_device(device))
+    if engine == "fused":
+        return fused.curve_full_prepared(cfg, tables)
     return fused.curve_prepared(cfg, tables)
 
 
-def _curve_run(cfg: HWConfig, engine: str, key: Key,
-               prepared: fused.CurvePrepared):
+def _curve_run(cfg: HWConfig, engine: str, key: Key, prepared):
     """(n_mat,) [2 n_paths, per-maturity discount sums]."""
     _check_engine(engine)
-    return fused.curve_exact(fused.kernel_seeds(key, "curve"), prepared.W,
-                             prepared.c, _tiles(cfg, fused.CURVE_TILE_PATHS),
+    seeds = fused.kernel_seeds(key, "curve")
+    if engine == "fused":
+        return fused.curve_full(seeds, prepared.W, prepared.exp_c,
+                                _tiles(cfg, fused.CURVE_FULL_TILE_PATHS),
+                                cfg.n_mat, cfg.matmul_precision)
+    return fused.curve_exact(seeds, prepared.W, prepared.c,
+                             _tiles(cfg, fused.CURVE_TILE_PATHS),
                              cfg.n_mat - 1, cfg.matmul_precision)
 
 
@@ -111,19 +126,26 @@ def theta_recovery(cfg: HWConfig, market: MarketCurve,
 
 def _option_prep(cfg: HWConfig, engine: str, sigma, sigma0,
                  market: MarketCurve, *, device):
-    """Consts of the option kernels (the same for the zbc and vega runs)."""
+    """Operands of the option kernels (the same for the zbc and vega
+    runs); ``prepared.consts[5]`` is P(0,S2) in both engines."""
     _check_engine(engine)
     tables = hw.step_tables(cfg, sigma, sigma0, device=resolve_device(device))
+    if engine == "fused":
+        return fused.option_full_prepared(cfg, tables, market, sigma)
     return fused.option_prepared(cfg, tables, market, sigma)
 
 
-def _option_run(cfg: HWConfig, engine: str, kind: str, key: Key,
-                prepared: fused.OptionPrepared):
+def _option_run(cfg: HWConfig, engine: str, kind: str, key: Key, prepared):
     """(6,) CV moments (kind "zbc") or (2,) [vega sum, count] ("vega")."""
     _check_engine(engine)
+    seeds = fused.kernel_seeds(key, kind)
+    if engine == "fused":
+        kernel = fused.zbc_full if kind == "zbc" else fused.vega_full
+        return kernel(seeds, prepared,
+                      _tiles(cfg, fused.OPTION_FULL_TILE_PATHS),
+                      cfg.matmul_precision)
     kernel = fused.zbc_exact if kind == "zbc" else fused.vega_exact
-    return kernel(fused.kernel_seeds(key, kind), prepared,
-                  _tiles(cfg, fused.OPTION_TILE_PATHS))
+    return kernel(seeds, prepared, _tiles(cfg, fused.OPTION_TILE_PATHS))
 
 
 def price_zbc(cfg: HWConfig, key: Key, market: MarketCurve, *, sigma=None,

@@ -1,11 +1,12 @@
 """Where the time of a run step goes, on one CUDA device.
 
-    python -m hullwhite_tpu_torch.utils.step_profile [--calls-q1 20]
-        [--calls-option 200] [--out FILE]
+    python -m hullwhite_tpu_torch.utils.step_profile [--engine fused]
+        [--calls-q1 20] [--calls-option 200] [--out FILE]
 
 For each product's run step (Q1 ``curve_pricer.run``, Q2b
-``zbc_pricer.run``, Q3 ``vega_pricer.run``) at the reference
-configuration ``HWConfig()``, operands prepared once outside the window:
+``zbc_pricer.run``, Q3 ``vega_pricer.run``) of one engine (``--engine``,
+default ``fused_exact``) at the reference configuration ``HWConfig()``,
+operands prepared once outside the window:
 
 * ``wall_us_per_call``: one window of back-to-back calls between CUDA
   events, without the profiler (min of 5 windows);
@@ -59,7 +60,8 @@ def _profile(fn, n: int) -> dict:
             "device_events": events}
 
 
-def profile_run_steps(calls_q1: int = 20, calls_option: int = 200) -> dict:
+def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
+                      engine: str = "fused_exact") -> dict:
     from .. import pricing
     from ..config import HWConfig
     from ..ops.rng import Key
@@ -67,10 +69,10 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = HWConfig()
     key = Key(cfg.seed)
-    curve = pricing.curve_pricer(cfg, device=dev)
-    market = pricing.bootstrap_curve(cfg, key, device=dev)
-    zbc = pricing.zbc_pricer(cfg, device=dev)
-    vega = pricing.vega_pricer(cfg, device=dev)
+    curve = pricing.curve_pricer(cfg, engine=engine, device=dev)
+    market = pricing.bootstrap_curve(cfg, key, engine=engine, device=dev)
+    zbc = pricing.zbc_pricer(cfg, engine=engine, device=dev)
+    vega = pricing.vega_pricer(cfg, engine=engine, device=dev)
     steps = {
         "q1": (curve.run, curve.prepare(cfg.sigma, cfg.sigma), calls_q1),
         "q2b": (zbc.run, zbc.prepare(cfg.sigma, cfg.sigma, market),
@@ -78,7 +80,7 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200) -> dict:
         "q3": (vega.run, vega.prepare(cfg.sigma, cfg.sigma, market),
                calls_option),
     }
-    out = {"device": torch.cuda.get_device_name(dev),
+    out = {"device": torch.cuda.get_device_name(dev), "engine": engine,
            "n_paths": cfg.n_paths}
     for name, (run, prepared, n) in steps.items():
         fn = partial(run, key, prepared)  # the CLI's timed call
@@ -91,13 +93,16 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", default="fused_exact",
+                    choices=["fused_exact", "fused"],
+                    help="the pricing engine whose run steps are profiled")
     ap.add_argument("--calls-q1", type=int, default=20)
     ap.add_argument("--calls-option", type=int, default=200)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: torch.cuda.is_available() is False")
-    res = profile_run_steps(args.calls_q1, args.calls_option)
+    res = profile_run_steps(args.calls_q1, args.calls_option, args.engine)
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:
