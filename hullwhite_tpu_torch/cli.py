@@ -1,9 +1,10 @@
-"""Command-line entry points of the port: q1 / q2 / q3 / all.
+"""Command-line entry points of the port: q1 / q2 / q3 / all / grid.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
     python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
+    python -m hullwhite_tpu_torch.cli grid               # 5 x 5 option surface
     python -m hullwhite_tpu_torch.cli q1 --device cpu --paths 32768
 
 The default device is ``cuda``; without a card the commands fail rather
@@ -11,7 +12,8 @@ than compute on the CPU, which is asked for with ``--device cpu`` (plain
 versions of the kernels, slow).  ``--engine`` picks the kernels:
 ``fused_exact`` (default, exact sampling) or ``fused`` (full step, one
 random value per path per time step).  ``--paths`` must be a multiple of
-32768, the exact option kernels' tile.  Results go to ``data_torch/``.
+32768, the exact option kernels' tile.  Results go to ``data_torch/``;
+q2, q3 and grid read the market curve q1 wrote there.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from . import greeks, pricing
+from . import greeks, grid, pricing
 from .config import HWConfig
 from .models import hull_white as hw
 from .ops.payoffs import cv_estimate
@@ -290,6 +292,44 @@ def cmd_q3(args):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# grid — strike x maturity option surface from shared paths
+# ---------------------------------------------------------------------------
+
+def grid_axes(cfg: HWConfig):
+    """The surface ``grid`` prices: strikes cfg.strike (1 + s) for
+    s in +/-3%, +/-1.5%, 0, and bond maturities S2 = 6 .. 10."""
+    Ks = [cfg.strike * (1 + s) for s in (-0.03, -0.015, 0.0, 0.015, 0.03)]
+    return Ks, [6.0, 7.0, 8.0, 9.0, 10.0]
+
+
+def cmd_grid(args):
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(3333)
+    market = hwio.load_market(cfg, device=dev)
+    Ks, S2s = grid_axes(cfg)
+    print(f"--- ZBC option surface: {len(Ks)} strikes x {len(S2s)} "
+          f"maturities, shared paths [{args.engine} on {_device_name(dev)}] "
+          "---")
+    g = grid.price_zbc_grid(cfg, key, market, Ks, S2s, engine=args.engine,
+                            device=dev)
+    price, beta, se = (x.cpu().numpy() for x in
+                       (g.price, g.beta, g.std_error_raw))
+    print("prices (rows = strikes, cols = S2):")
+    print(np.array2string(price, precision=6))
+    print("beta* (rows = strikes, cols = S2):")
+    print(np.array2string(beta, precision=4))
+    print("not ported: the vega surface (needs the XLA exact engine with "
+          "forward-mode AD) and the G2++ surfaces (models/g2pp.py)")
+    hwio.write_json(
+        hwio.DATA_DIR / "grid_results.json", "Option surface", cfg,
+        results={"strikes": [float(x) for x in Ks], "maturities": S2s,
+                 "engine": args.engine},
+        arrays={"price": price, "beta": beta, "std_error_raw": se})
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="hullwhite_tpu_torch",
                                  description=__doc__.splitlines()[0])
@@ -314,6 +354,7 @@ def main(argv=None):
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
     sub.add_parser("q1", parents=[common])
+    sub.add_parser("grid", parents=[common])
     for name in ("q2", "q3", "all"):
         p = sub.add_parser(name, parents=[common])
         p.add_argument("--validate", type=int, default=0, metavar="N",
@@ -329,6 +370,8 @@ def main(argv=None):
         return cmd_q2(args)
     if args.cmd == "q3":
         return cmd_q3(args)
+    if args.cmd == "grid":
+        return cmd_grid(args)
     rc = cmd_q1(args)
     rc |= cmd_q2(args)
     rc |= cmd_q3(args)

@@ -10,8 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import HWConfig
 from .kernels.fused import (PAD, CurveFullPrepared, CurvePrepared,
-                            OptionFullPrepared, OptionPrepared)
+                            GridPrepared, OptionFullPrepared, OptionPrepared,
+                            grid_bs)
 from .models.hull_white import MarketCurve
 from .ops.rng import Key
 
@@ -40,6 +42,30 @@ def option_prepared(prepared, *, device) -> OptionPrepared:
     if consts.shape != (13,):
         raise ValueError("expected the 13 exact-kernel consts")
     return OptionPrepared(consts=consts, device=torch.device(device))
+
+
+def delta_prepared(prepared, *, device) -> OptionPrepared:
+    """``fused.option_prepared(..., exact=True, kind="delta",
+    extra_consts=(dr_dr0, di_dr0))`` output ((15,) consts,) as the delta
+    kernel's operands."""
+    (consts,) = prepared
+    consts = np.array(consts, np.float32)
+    if consts.shape != (15,):
+        raise ValueError("expected the 15 delta-kernel consts")
+    return OptionPrepared(consts=consts, device=torch.device(device))
+
+
+def grid_prepared(cfg: HWConfig, consts, Ks, S2s, *, device) -> GridPrepared:
+    """The consts of ``fused.grid_local_fn`` ([c_r, c_I, l11, l21, l22,
+    A_j.., P0_j..]) and its strikes and maturities as the surface kernel's
+    operands; B_j is rebuilt from ``S2s`` in fp64 as the JAX kernel bakes
+    it in."""
+    consts = np.array(consts, np.float32)
+    if consts.shape != (5 + 2 * len(S2s),):
+        raise ValueError("expected 5 + 2 nS2 surface consts")
+    return GridPrepared(consts=consts, Bs=grid_bs(cfg, S2s),
+                        Ks=np.array([float(k) for k in Ks], np.float32),
+                        device=torch.device(device))
 
 
 def curve_full_prepared(prepared, *, device) -> CurveFullPrepared:

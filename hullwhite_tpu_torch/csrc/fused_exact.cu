@@ -1,15 +1,16 @@
 // Exact-sampling Monte Carlo kernels for Hopper (sm_90a): Q1 curve sums,
-// Q2b ZBC control-variate moments, Q3 pathwise vega, and the option
-// kernels' normals.  Plain C interface, loaded with ctypes
+// Q2b ZBC control-variate moments, Q3 pathwise vega, pathwise delta, and
+// the option kernels' normals.  Plain C interface, loaded with ctypes
 // (hullwhite_tpu_torch/kernels/build.py); the Python wrappers in
 // hullwhite_tpu_torch/kernels/fused.py allocate every buffer and pass the
-// current stream.  The seed triple and the 13 option consts go to the
-// kernels by value, so a launch copies nothing to the card.
+// current stream.  The seed triple and the 13 (delta: 15) option consts go
+// to the kernels by value, so a launch copies nothing to the card.
 //
 // Replaces (hullwhite_tpu/pallas/fused.py):
 //   curve_exact_kernel    <- _curve_exact_kernel (Q1)
 //   zbc_exact_kernel      <- _zbc_exact_kernel + _legs_pair + _moment_accum
 //   vega_exact_kernel     <- _vega_exact_kernel + _vega_terms
+//   delta_exact_kernel    <- _delta_exact_kernel
 //   option_normals_kernel <- the inner kernel of dump_option_normals
 //
 // Each CTA writes partial sums that reduce_kernel (hw_reduce.cuh) sums in
@@ -19,7 +20,7 @@
 //   * curve_exact: fp32 FMA.  Each path samples k = n_mat - 1 normals and
 //     multiplies them by the k x k factor sig_st L^T: 2^20 paths x 100 x 100
 //     MACs per call at the reference size, on the CUDA cores.
-//   * zbc/vega/normals: per-element SFU work (2 hashes, log, sqrt, 2-4 exp,
+//   * zbc/vega/delta/normals: per-element SFU work (2 hashes, log, sqrt, 2-4 exp,
 //     2 reciprocals) and no memory traffic at all.
 // What this simple design leaves for later work: a tensor-core (wgmma/mma)
 // product for Q1 with the normals staged as bf16x3 or TF32 splits; fewer
@@ -48,16 +49,18 @@ constexpr int GROUP_PATHS = CHUNK_PATHS / (CURVE_THREADS / PAD);  // 32
 constexpr int CHUNKS_PER_TILE = TILE_EXACT / CHUNK_ROWS;          // 128
 constexpr int CHUNKS_PER_CTA = 8;
 
-// Q2b/Q3: one element per thread per step, OPT_PER_THREAD steps.
+// Q2b/Q3/delta: one element per thread per step, OPT_PER_THREAD steps.
 constexpr int OPT_THREADS = 256;
 constexpr int OPT_PER_THREAD = 8;
 constexpr int OPT_PER_CTA = OPT_THREADS * OPT_PER_THREAD;  // 2048
 
 constexpr int NORMALS_THREADS = 256;
 
-// Layout of fused._zbc_consts + the sampling factor (fused.py:450, :638).
+// Layout of fused._zbc_consts + the sampling factor (fused.py:450, :638),
+// then the delta kernel's [dr/dr0, dI/dr0] (zero for the other kernels).
 struct OptConsts {
   float c_r, c_i, A, B, K, P0S2, c_dr, c_di, sigma, q, l11, l21, l22;
+  float dr_dr0, di_dr0;
 };
 
 // ---------------------------------------------------------------------------
@@ -174,6 +177,28 @@ vega_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
   block_sum<1, OPT_THREADS>(s, partials + blockIdx.x);
 }
 
+// ---------------------------------------------------------------------------
+// Pathwise delta (d price / d r0), both antithetic legs (hw::delta_pair):
+// the ZBC kernel's state and exps with another tail, one accumulator.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(OPT_THREADS)
+delta_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
+  const float P_base = c.A * expf(-c.B * c.c_r);
+  const float d_base = expf(-c.c_i);
+  float s[1] = {0.0f};
+  for (int j = 0; j < OPT_PER_THREAD; ++j) {
+    const long long e = static_cast<long long>(blockIdx.x) * OPT_PER_CTA +
+                        j * OPT_THREADS + threadIdx.x;
+    const uint32_t tile = sd.s2 + static_cast<uint32_t>(e / OPT_TILE_ELEMS);
+    const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
+    float x1, x2;
+    hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
+    s[0] += hw::delta_pair(c, P_base, d_base, c.l11 * x1,
+                           c.l21 * x1 + c.l22 * x2);
+  }
+  block_sum<1, OPT_THREADS>(s, partials + blockIdx.x);
+}
+
 // (x1, x2) of every element of n_tiles option tiles, row-major
 // (n_tiles * TILE_OPT, PAD) like dump_option_normals.
 __global__ void __launch_bounds__(NORMALS_THREADS)
@@ -197,6 +222,13 @@ OptConsts load_consts(const float* h) {
   c.c_r = h[0]; c.c_i = h[1]; c.A = h[2]; c.B = h[3]; c.K = h[4];
   c.P0S2 = h[5]; c.c_dr = h[6]; c.c_di = h[7]; c.sigma = h[8]; c.q = h[9];
   c.l11 = h[10]; c.l21 = h[11]; c.l22 = h[12];
+  c.dr_dr0 = 0.0f; c.di_dr0 = 0.0f;
+  return c;
+}
+
+OptConsts load_delta_consts(const float* h) {
+  OptConsts c = load_consts(h);
+  c.dr_dr0 = h[13]; c.di_dr0 = h[14];
   return c;
 }
 
@@ -208,6 +240,7 @@ extern "C" {
 int hw_curve_partials(int n_tiles) { return curve_ctas(n_tiles) * PAD; }
 int hw_zbc_partials(int n_tiles) { return option_ctas(n_tiles) * 5; }
 int hw_vega_partials(int n_tiles) { return option_ctas(n_tiles); }
+int hw_delta_partials(int n_tiles) { return option_ctas(n_tiles); }
 
 // out (k + 1): [count, e^{-c_m} sum_paths (t + 1/t) for m < k].
 int hw_curve_exact(int32_t s0, int32_t s1, int32_t s2, const float* W,
@@ -260,6 +293,20 @@ int hw_vega_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ctas = option_ctas(n_tiles);
   vega_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_consts(consts_host), partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, nullptr, out, 0, count, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (2): [sum of delta terms over both legs, count]; consts_host (15).
+int hw_delta_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
+                   int n_tiles, float count, float* partials, float* out,
+                   void* stream) {
+  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ctas = option_ctas(n_tiles);
+  delta_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_delta_consts(consts_host), partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, nullptr, out, 0, count, 1);

@@ -2,7 +2,7 @@
 // the Box-Muller transform and the full-step raws of
 // hullwhite_tpu/pallas/fused.py (_mix, the interpret branch of _tile_rng,
 // _bits_float12, _cospi_sinpi, _box_muller, _raw_block), and the option
-// payoff tails (_legs_pair, _vega_terms).
+// payoff tails (_legs_pair, _vega_terms, the tail of _delta_exact_kernel).
 //
 // Every random word is a pure function of (seeds, global tile, row, col,
 // salt): elements are hashed by the JAX kernels' logical coordinates, never
@@ -132,6 +132,27 @@ __device__ __forceinline__ void zbc_pair_moments(const C& c, float P_base,
   s[2] += xa * xa + xb * xb;
   s[3] += ya * ya + yb * yb;
   s[4] += xa * ya + xb * yb;
+}
+
+// Pathwise delta (d payoff / d r0) of one antithetic pair, both legs from
+// one exp per process as in zbc_pair_moments (_delta_exact_kernel):
+//   per leg 1{P>K} (-P B dr/dr0) disc - dI/dr0 disc (P - K)^+,
+// with C's fields dr_dr0, di_dr0 the host fp64 sensitivities.
+template <class C>
+__device__ __forceinline__ float delta_pair(const C& c, float P_base,
+                                            float d_base, float z_r,
+                                            float z_i) {
+  const float t_r = expf(-c.B * z_r);
+  const float t_i = expf(-z_i);
+  float P = P_base * t_r;
+  float disc = d_base * t_i;
+  const float da = (P > c.K ? -P * c.B * c.dr_dr0 * disc : 0.0f) -
+                   c.di_dr0 * disc * fmaxf(P - c.K, 0.0f);
+  P = P_base * __frcp_rn(t_r);
+  disc = d_base * __frcp_rn(t_i);
+  const float db = (P > c.K ? -P * c.B * c.dr_dr0 * disc : 0.0f) -
+                   c.di_dr0 * disc * fmaxf(P - c.K, 0.0f);
+  return da + db;
 }
 
 // Single-leg pathwise vega term (_vega_terms):

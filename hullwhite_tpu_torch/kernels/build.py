@@ -35,6 +35,11 @@ _SIGNATURES = {
                        _I),
     "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
+    "hw_delta_partials": ([_I], _I),
+    "hw_delta_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
+    "hw_grid_partials": ([_I, _I, _I], _I),
+    "hw_grid_exact": ([_I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+                      _I),
     "hw_option_normals": ([_I, _I, _I, _I, _P, _P, _P], _I),
     "hw_curve_full_partials": ([_I], _I),
     "hw_option_full_partials": ([_I, _I], _I),

@@ -2,8 +2,9 @@
 (PyTorch port of ``hullwhite_tpu.pallas.fused``), in two tiers:
 
 * exact sampling (``curve_exact``, ``zbc_exact``, ``vega_exact``,
-  ``option_normals``; JAX engine ``"pallas_exact"``): Box-Muller normals
-  through the Cholesky factor of each product's functionals;
+  ``delta_exact``, ``grid_exact``, ``option_normals``; JAX engine
+  ``"pallas_exact"``): Box-Muller normals through the Cholesky factor of
+  each product's functionals;
 * full step (``curve_full``, ``zbc_full``, ``vega_full``; JAX engine
   ``"pallas"``): one fresh raw value per path per time step over all
   n_steps, mixed into unit shocks by a scaled Hadamard matrix whose mix is
@@ -17,8 +18,9 @@ no random field ever reaches device memory.
 Every kernel has two versions here:
 
 * the wrapper: on a CUDA device it launches the hand-written kernel of
-  ``csrc/fused_exact.cu`` or ``csrc/fused_full.cu`` or raises; on the CPU
-  it runs the plain version.  There is no other fallback.  Each wrapper
+  ``csrc/fused_exact.cu``, ``csrc/fused_grid.cu`` or ``csrc/fused_full.cu``
+  or raises; on the CPU it runs the plain version.  There is no other
+  fallback.  Each wrapper
   counts its kernel launches (``launch_counts``).  The seed triple
   (``kernel_seeds``) and the option consts stay on the host and go to the
   kernels by value.
@@ -56,7 +58,10 @@ TILE_FULL = 2048       # full-step curve kernel: paths per tile
 TILE_FULL_OPT = 4096   # full-step option kernels: paths per tile
 CURVE_FULL_TILE_PATHS = TILE_FULL
 OPTION_FULL_TILE_PATHS = TILE_FULL_OPT
-SALTS = {"curve": 101, "zbc": 202, "vega": 303}
+SALTS = {"curve": 101, "zbc": 202, "vega": 303, "delta": 404, "grid": 505}
+# surface bound of the CUDA grid kernel (its consts go by value)
+GRID_MAX_K = 16
+GRID_MAX_S2 = 16
 
 # Full-step generator: each u32 word gives two bf16 raws
 # v = +/- (1 + m/128) 16^c, c ~ Bernoulli(3/8), and each block of 128 raws
@@ -96,10 +101,22 @@ class CurvePrepared(NamedTuple):
 
 class OptionPrepared(NamedTuple):
     """Consts of the option kernels, laid out as
-    [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q, l11, l21, l22], and the
-    device the kernels run on."""
+    [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q, l11, l21, l22], followed
+    by [dr(S1)/dr0, dI(S1)/dr0] for the delta kernel, and the device the
+    kernels run on."""
 
-    consts: np.ndarray    # (13,) float32 on the host, passed by value
+    consts: np.ndarray    # (13,) or (15,) float32 on the host, by value
+    device: torch.device
+
+
+class GridPrepared(NamedTuple):
+    """Operands of the surface kernel: consts [c_r, c_I, l11, l21, l22,
+    A_1..A_nS2, P0_1..P0_nS2], the bond factors B_j and strikes K_i, all
+    float32 on the host and passed by value, and the device."""
+
+    consts: np.ndarray  # (5 + 2 nS2,)
+    Bs: np.ndarray      # (nS2,) B(S1, S2_j), fp64 rounded once
+    Ks: np.ndarray      # (nK,)
     device: torch.device
 
 
@@ -141,6 +158,42 @@ def option_prepared(cfg: HWConfig, tables: hw.StepTables,
                                             dtype=torch.float32)
     return OptionPrepared(consts=torch.cat([consts, lvec]).numpy(),
                           device=tables.drift.device)
+
+
+def delta_prepared(cfg: HWConfig, tables: hw.StepTables,
+                   market: hw.MarketCurve, sigma) -> OptionPrepared:
+    """The 13 option consts followed by [dr(S1)/dr0, dI(S1)/dr0] (host fp64,
+    rounded once to float32), for the delta kernel."""
+    op = option_prepared(cfg, tables, market, sigma)
+    extra = np.asarray(engine_linear.r0_sensitivities(cfg), np.float32)
+    return op._replace(consts=np.concatenate([op.consts, extra]))
+
+
+def grid_bs(cfg: HWConfig, S2s: Sequence[float]) -> np.ndarray:
+    """B(S1, S2_j) = (1 - e^{-a (S2_j - S1)}) / a in fp64, rounded once to
+    float32 (the JAX surface kernel bakes them in as Python floats)."""
+    return np.array([(1.0 - math.exp(-cfg.a * (float(t) - cfg.s1))) / cfg.a
+                     for t in S2s], np.float32)
+
+
+def grid_prepared(cfg: HWConfig, tables: hw.StepTables,
+                  market: hw.MarketCurve, sigma, Ks: Sequence[float],
+                  S2s: Sequence[float]) -> GridPrepared:
+    """Operands of the surface kernel over strikes ``Ks`` x bond maturities
+    ``S2s``, computed on the host: c_r, c_I and the sampling factor as the
+    ZBC kernel's, A and P(0,S2) on the float32 maturities."""
+    tables_cpu = hw.StepTables(*(t.cpu() for t in tables))
+    market = market.to("cpu")
+    S2 = torch.tensor([float(t) for t in S2s], dtype=torch.float32)
+    det = engine_linear.zbc_weights(cfg, tables_cpu).det
+    lvec = tables_cpu.sig_st * torch.tensor(engine_exact.zbc_chol(cfg),
+                                            dtype=torch.float32)
+    A = hw.a_hw(cfg, sigma, market, cfg.s1, S2)
+    P0 = hw.interp_curve(market.P, S2, cfg)
+    consts = torch.cat([det[:2], lvec, A, P0]).to(torch.float32)
+    return GridPrepared(consts=consts.numpy(), Bs=grid_bs(cfg, S2s),
+                        Ks=np.array([float(k) for k in Ks], np.float32),
+                        device=tables.drift.device)
 
 
 class CurveFullPrepared(NamedTuple):
@@ -238,7 +291,7 @@ def option_full_prepared(cfg: HWConfig, tables: hw.StepTables,
 
 def kernel_seeds(key: Key, kind: str, base_tile: int = 0) -> np.ndarray:
     """int32[3] seed triple of ``key`` for the kernels of ``kind``
-    ("curve", "zbc" or "vega"; salts ``SALTS``), starting at ``base_tile``."""
+    (a key of ``SALTS``), starting at ``base_tile``."""
     return key_seed(key, base_tile, SALTS[kind])
 
 
@@ -403,6 +456,83 @@ def vega_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
         acc += _vega_term_sum(c, l11 * x1, l21 * x1 + l22 * x2)
     return torch.cat([acc, _count(1.0 * n_tiles * OPTION_TILE_PATHS,
                                   consts.device)])
+
+
+def _delta_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """Sum of the pathwise delta terms over both antithetic legs of the
+    state z (``_delta_exact_kernel`` arithmetic): per leg
+    1{P>K} (-P B dr/dr0) disc - dI/dr0 disc (P - K)^+."""
+    c_r, c_i, A, B, K = consts[:5]
+    dr_dr0, di_dr0 = consts[13:15]
+    P_base = A * torch.exp(-B * c_r)
+    d_base = torch.exp(-c_i)
+    t_r, t_i = torch.exp(-B * z_r), torch.exp(-z_i)
+    total = 0.0
+    for tr, ti in ((t_r, t_i), (torch.reciprocal(t_r), torch.reciprocal(t_i))):
+        P = P_base * tr
+        disc = d_base * ti
+        term1 = torch.where(P > K, -P * B * dr_dr0 * disc, torch.zeros_like(P))
+        term2 = di_dr0 * disc * torch.clamp(P - K, min=0.0)
+        total = total + (term1 - term2).sum()
+    return total
+
+
+def delta_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
+    """(2,) [sum of pathwise delta terms, count] over both antithetic legs."""
+    c = consts.unbind()
+    l11, l21, l22 = c[10:13]
+    acc = torch.zeros(1, dtype=torch.float32, device=consts.device)
+    for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
+        acc += _delta_term_sum(c, l11 * x1, l21 * x1 + l22 * x2)
+    return torch.cat([acc, _count(2.0 * n_tiles * OPTION_TILE_PATHS,
+                                  consts.device)])
+
+
+def grid_rows(n_k: int, n_s2: int) -> int:
+    """Output rows of the surface kernel: count, sy and syy per maturity,
+    sx, sxx and sxy per cell."""
+    return 1 + 2 * n_s2 + 3 * n_k * n_s2
+
+
+def grid_exact_plain(seeds, consts: torch.Tensor, Bs: torch.Tensor,
+                     Ks: torch.Tensor, n_tiles: int):
+    """(grid_rows,) surface moments [count | sy_j | syy_j | sx_ij | sxx_ij |
+    sxy_ij] over both antithetic legs, the (i, j) blocks row-major
+    (``_grid_exact_kernel`` arithmetic): one t_I per pair gives disc+/-;
+    per maturity t_r = e^{-B_j z_r}, P+/- = A_j e^{-B_j c_r} t_r^{+/-1},
+    y+/- = disc+/- P+/- - P0_j; per strike x+/- = disc+/- (P+/- - K_i)^+."""
+    n_k, n_s2 = Ks.shape[0], Bs.shape[0]
+    c = consts.unbind()
+    c_r, c_i, l11, l21, l22 = c[:5]
+    A, P0 = c[5:5 + n_s2], c[5 + n_s2:5 + 2 * n_s2]
+    Bl, Kl = Bs.unbind(), Ks.unbind()
+    d_base = torch.exp(-c_i)
+    acc = torch.zeros(grid_rows(n_k, n_s2) - 1, dtype=torch.float32,
+                      device=consts.device)
+    base = 2 * n_s2
+    cells = n_k * n_s2
+    for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
+        z_r, z_i = l11 * x1, l21 * x1 + l22 * x2
+        t_i = torch.exp(-z_i)
+        disc_p, disc_m = d_base * t_i, d_base * torch.reciprocal(t_i)
+        rows = [None] * acc.shape[0]
+        for j in range(n_s2):
+            t_r = torch.exp(-Bl[j] * z_r)
+            P_base = A[j] * torch.exp(-Bl[j] * c_r)
+            P_p, P_m = P_base * t_r, P_base * torch.reciprocal(t_r)
+            y_p, y_m = disc_p * P_p - P0[j], disc_m * P_m - P0[j]
+            rows[j] = (y_p + y_m).sum()
+            rows[n_s2 + j] = (y_p * y_p + y_m * y_m).sum()
+            for i in range(n_k):
+                x_p = disc_p * torch.clamp(P_p - Kl[i], min=0.0)
+                x_m = disc_m * torch.clamp(P_m - Kl[i], min=0.0)
+                cell = base + i * n_s2 + j
+                rows[cell] = (x_p + x_m).sum()
+                rows[cells + cell] = (x_p * x_p + x_m * x_m).sum()
+                rows[2 * cells + cell] = (x_p * y_p + x_m * y_m).sum()
+        acc += torch.stack(rows)
+    return torch.cat([_count(2.0 * n_tiles * OPTION_TILE_PATHS,
+                             consts.device), acc])
 
 
 def raw_block_plain(s0: torch.Tensor, s1: int, idx: torch.Tensor, salt: int):
@@ -594,30 +724,34 @@ def curve_exact(seeds, W: torch.Tensor, c: torch.Tensor, n_tiles: int,
     return out
 
 
+# kind: (plain version, number of consts, outputs, legs per pair)
+_OPTION_KINDS = {"zbc": (zbc_exact_plain, 13, 6, 2.0),
+                 "vega": (vega_exact_plain, 13, 2, 1.0),
+                 "delta": (delta_exact_plain, 15, 2, 2.0)}
+
+
 def _option_kernel(kind: str, seeds, prepared: OptionPrepared, n_tiles):
     s = _seed_triple(seeds)
+    plain, n_consts, n_out, per_leg = _OPTION_KINDS[kind]
     consts = np.ascontiguousarray(prepared.consts, np.float32)
-    if consts.shape != (13,):
-        raise ValueError("prepared.consts must hold the 13 consts")
+    if consts.shape != (n_consts,):
+        raise ValueError(f"prepared.consts must hold the {n_consts} consts "
+                         f"of the {kind} kernel")
     dev = torch.device(prepared.device)
     _check_tiles(n_tiles)
     if not _route(dev):
-        plain = zbc_exact_plain if kind == "zbc" else vega_exact_plain
         return plain(s, torch.from_numpy(consts), n_tiles)
     from .build import check
 
     lib, stream = _launch_env(dev)
-    n_out, per_leg = (6, 2.0) if kind == "zbc" else (2, 1.0)
-    n_part = (lib.hw_zbc_partials if kind == "zbc"
-              else lib.hw_vega_partials)(n_tiles)
-    partials = torch.empty(n_part, dtype=torch.float32, device=dev)
+    partials = torch.empty(getattr(lib, f"hw_{kind}_partials")(n_tiles),
+                           dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    entry = lib.hw_zbc_exact if kind == "zbc" else lib.hw_vega_exact
-    code = entry(*s, consts.ctypes.data, n_tiles,
-                 per_leg * n_tiles * OPTION_TILE_PATHS, partials.data_ptr(),
-                 out.data_ptr(), stream)
+    code = getattr(lib, f"hw_{kind}_exact")(
+        *s, consts.ctypes.data, n_tiles, per_leg * n_tiles * OPTION_TILE_PATHS,
+        partials.data_ptr(), out.data_ptr(), stream)
     check(code, f"{kind}_exact")
-    (zbc_exact if kind == "zbc" else vega_exact).launches += 1
+    _WRAPPERS[f"{kind}_exact"].launches += 1
     return out
 
 
@@ -631,6 +765,54 @@ def vega_exact(seeds, prepared: OptionPrepared, n_tiles: int):
     """Q3 kernel: (2,) [pathwise vega sum, count] (kernel of
     ``_vega_exact_kernel``)."""
     return _option_kernel("vega", seeds, prepared, n_tiles)
+
+
+def delta_exact(seeds, prepared: OptionPrepared, n_tiles: int):
+    """Pathwise delta kernel: (2,) [sum of d payoff / d r0 over both legs,
+    count] (kernel of ``_delta_exact_kernel``); ``prepared`` from
+    ``delta_prepared``."""
+    return _option_kernel("delta", seeds, prepared, n_tiles)
+
+
+def grid_exact(seeds, prepared: GridPrepared, n_tiles: int):
+    """Surface kernel: (grid_rows(nK, nS2),) moments of the strike x
+    maturity surface over n_tiles option tiles (kernel of
+    ``_grid_exact_kernel``), on ``prepared.device``.  At most GRID_MAX_K
+    strikes and GRID_MAX_S2 maturities on every device (``grid_exact_plain``
+    itself is unbounded)."""
+    s = _seed_triple(seeds)
+    Bs = np.ascontiguousarray(prepared.Bs, np.float32)
+    Ks = np.ascontiguousarray(prepared.Ks, np.float32)
+    consts = np.ascontiguousarray(prepared.consts, np.float32)
+    n_k, n_s2 = Ks.size, Bs.size
+    if Bs.shape != (n_s2,) or Ks.shape != (n_k,) or not (n_k and n_s2):
+        raise ValueError("prepared.Bs and prepared.Ks must be non-empty "
+                         "vectors")
+    if not (n_k <= GRID_MAX_K and n_s2 <= GRID_MAX_S2):
+        raise ValueError(f"the grid kernel takes at most {GRID_MAX_K} "
+                         f"strikes x {GRID_MAX_S2} maturities, got {n_k} x "
+                         f"{n_s2}")
+    if consts.shape != (5 + 2 * n_s2,):
+        raise ValueError(f"prepared.consts must hold 5 + 2 x {n_s2} consts")
+    dev = torch.device(prepared.device)
+    _check_tiles(n_tiles)
+    if not _route(dev):
+        return grid_exact_plain(s, torch.from_numpy(consts),
+                                torch.from_numpy(Bs), torch.from_numpy(Ks),
+                                n_tiles)
+    from .build import check
+
+    lib, stream = _launch_env(dev)
+    partials = torch.empty(lib.hw_grid_partials(n_tiles, n_k, n_s2),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty(grid_rows(n_k, n_s2), dtype=torch.float32, device=dev)
+    code = lib.hw_grid_exact(*s, consts.ctypes.data, Bs.ctypes.data,
+                             Ks.ctypes.data, n_k, n_s2, n_tiles,
+                             2.0 * n_tiles * OPTION_TILE_PATHS,
+                             partials.data_ptr(), out.data_ptr(), stream)
+    check(code, "grid_exact")
+    grid_exact.launches += 1
+    return out
 
 
 def option_normals(seeds, n_tiles: int, *, device):
@@ -747,7 +929,8 @@ def vega_full(seeds, prepared: OptionFullPrepared, n_tiles: int,
 
 
 _WRAPPERS = {"curve_exact": curve_exact, "zbc_exact": zbc_exact,
-             "vega_exact": vega_exact, "option_normals": option_normals,
+             "vega_exact": vega_exact, "delta_exact": delta_exact,
+             "grid_exact": grid_exact, "option_normals": option_normals,
              "curve_full": curve_full, "zbc_full": zbc_full,
              "vega_full": vega_full}
 for _w in _WRAPPERS.values():

@@ -20,6 +20,7 @@ full-step gate.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -82,6 +83,17 @@ def _curve_shape(cfg: HWConfig):
     Em = np.exp(np.log(E) * m)
     w = cfg.dt * ((1.0 - Em) / (1.0 - E) + 0.5 * Em)
     return np.asarray(np.where(ii < nn, w, 0.0), np.float32)
+
+
+def r0_sensitivities(cfg: HWConfig):
+    """Deterministic (dr(S1)/dr0, dI(S1)/dr0) in float64 on the host
+    (``hullwhite_tpu.pricing._r0_sensitivities``): r0 enters every path
+    affinely, r_n = E^n r0 + ..., and the trapezoid integral sums it."""
+    E = math.exp(-cfg.a * cfg.dt)
+    n1 = cfg.n_steps_s1
+    dr = E ** n1
+    di = cfg.dt * (0.5 + sum(E ** k for k in range(1, n1)) + 0.5 * E ** n1)
+    return dr, di
 
 
 def _host32(x: torch.Tensor) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Payoff, control-variate and vega integrands (PyTorch port of
+"""Payoff, control-variate, vega and delta integrands (PyTorch port of
 ``hullwhite_tpu.ops.payoffs``).
 
 Moment conditioning: the control variate Y = discount * P(S1,S2) has
@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import HWConfig
-from ..models.hull_white import MarketCurve, dp_bond_dsigma, p_bond
+from ..models.hull_white import MarketCurve, b_func, dp_bond_dsigma, p_bond
 from .engine_linear import DualState, PathState
 
 # Moment vector layout: [ sum X, sum Yc, sum X^2, sum Yc^2, sum X*Yc, count ]
@@ -77,6 +77,29 @@ def cv_estimate(moments: torch.Tensor, p0_s2) -> CVEstimate:
         var_y=var_y,
         n=n,
     )
+
+
+def delta_sum(cfg: HWConfig, sigma, market: MarketCurve, state: PathState,
+              dr_dr0: float, di_dr0: float):
+    """Pathwise delta (d price / d r0) contributions, both antithetic legs:
+    r0 enters every path affinely with the deterministic dr(S1)/dr0 and
+    dI(S1)/dr0 (``engine_linear.r0_sensitivities``), so
+    d/dr0 [e^{-I} (P - K)^+] = 1{P>K} (-P B) dr/dr0 e^{-I}
+    - dI/dr0 e^{-I} (P - K)^+."""
+    B = b_func(cfg.s1, cfg.s2, cfg.a)
+
+    def leg(r, integral):
+        P = p_bond(cfg, sigma, market, cfg.s1, cfg.s2, r)
+        disc = torch.exp(-integral)
+        term1 = torch.where(P > cfg.strike, -P * B * dr_dr0 * disc,
+                            torch.zeros_like(P))
+        term2 = di_dr0 * disc * torch.clamp(P - cfg.strike, min=0.0)
+        return (term1 - term2).sum()
+
+    total = leg(state.r_p, state.i_p) + leg(state.r_m, state.i_m)
+    return torch.stack([
+        total, torch.tensor(2.0 * state.r_p.shape[0], dtype=torch.float32,
+                            device=total.device)])
 
 
 def vega_sum(cfg: HWConfig, sigma, market: MarketCurve, state: DualState):

@@ -1,6 +1,6 @@
 """Host entry points and estimators: curve bootstrap (Q1), theta recovery (Q2a),
 ZBC pricing with an optimal-beta control variate (Q2b), pathwise vega (Q3)
-(PyTorch port of ``hullwhite_tpu.pricing``).
+and pathwise delta (PyTorch port of ``hullwhite_tpu.pricing``).
 
 Two engines, both kernels of ``kernels.fused``:
 
@@ -167,6 +167,23 @@ def pathwise_vega(cfg: HWConfig, key: Key, market: MarketCurve, *,
     prepared = _option_prep(cfg, engine, sigma, cfg.sigma, market,
                             device=device)
     sums = _option_run(cfg, engine, "vega", key, prepared)
+    return sums[0] / sums[1]
+
+
+def pathwise_delta(cfg: HWConfig, key: Key, market: MarketCurve, *,
+                   sigma=None, engine: str = "fused_exact", device):
+    """Pathwise d price / d r0 over both antithetic legs (sensitivity to the
+    initial short rate at fixed market data), on the exact tier's delta
+    kernel; the full-step tier has none."""
+    sigma = cfg.sigma if sigma is None else sigma
+    if engine == "fused":
+        raise ValueError("pathwise_delta runs on engine 'fused_exact' only: "
+                         "the full-step tier has no delta kernel")
+    _check_engine(engine)
+    tables = hw.step_tables(cfg, sigma, cfg.sigma, device=resolve_device(device))
+    sums = fused.delta_exact(fused.kernel_seeds(key, "delta"),
+                             fused.delta_prepared(cfg, tables, market, sigma),
+                             _tiles(cfg, fused.OPTION_TILE_PATHS))
     return sums[0] / sums[1]
 
 

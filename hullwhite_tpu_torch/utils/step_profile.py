@@ -4,9 +4,11 @@
         [--calls-q1 20] [--calls-option 200] [--out FILE]
 
 For each product's run step (Q1 ``curve_pricer.run``, Q2b
-``zbc_pricer.run``, Q3 ``vega_pricer.run``) of one engine (``--engine``,
-default ``fused_exact``) at the reference configuration ``HWConfig()``,
-operands prepared once outside the window:
+``zbc_pricer.run``, Q3 ``vega_pricer.run``; on ``fused_exact`` also the
+pathwise delta's and the ``cli grid`` surface's kernel call with its
+seeds) of one engine (``--engine``, default ``fused_exact``) at the
+reference configuration ``HWConfig()``, operands prepared once outside the
+window:
 
 * ``wall_us_per_call``: one window of back-to-back calls between CUDA
   events, without the profiler (min of 5 windows);
@@ -62,8 +64,10 @@ def _profile(fn, n: int) -> dict:
 
 def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
                       engine: str = "fused_exact") -> dict:
-    from .. import pricing
+    from .. import cli, pricing
     from ..config import HWConfig
+    from ..kernels import fused
+    from ..models import hull_white as hw
     from ..ops.rng import Key
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -80,6 +84,23 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
         "q3": (vega.run, vega.prepare(cfg.sigma, cfg.sigma, market),
                calls_option),
     }
+    if engine == "fused_exact":
+        tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+        n_tiles = cfg.n_paths // fused.OPTION_TILE_PATHS
+
+        def delta_run(key, prepared):  # pricing.pathwise_delta's kernel call
+            return fused.delta_exact(fused.kernel_seeds(key, "delta"),
+                                     prepared, n_tiles)
+
+        def grid_run(key, prepared):  # grid.price_zbc_grid's kernel call
+            return fused.grid_exact(fused.kernel_seeds(key, "grid"),
+                                    prepared, n_tiles)
+
+        steps["delta"] = (delta_run, fused.delta_prepared(
+            cfg, tables, market, cfg.sigma), calls_option)
+        steps["grid"] = (grid_run, fused.grid_prepared(
+            cfg, tables, market, cfg.sigma, *cli.grid_axes(cfg)),
+            calls_option)
     out = {"device": torch.cuda.get_device_name(dev), "engine": engine,
            "n_paths": cfg.n_paths}
     for name, (run, prepared, n) in steps.items():

@@ -21,6 +21,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import hullwhite_tpu_torch, hullwhite_tpu_torch.pricing, "
             "hullwhite_tpu_torch.cli, hullwhite_tpu_torch.greeks, "
+            "hullwhite_tpu_torch.grid, "
             "hullwhite_tpu_torch.convert, hullwhite_tpu_torch.kernels.build, "
             "hullwhite_tpu_torch.utils.step_profile\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
