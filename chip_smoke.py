@@ -10,9 +10,11 @@ Phases (any failure raises and the script exits non-zero):
    TF32 off;
 1. each hand-written kernel against its plain PyTorch version on the card,
    with stated tolerances, at a few tiles and at the full main-path shape
-   (2^20 pairs; the surface kernel at the CLI's 5 x 5 surface); then at
-   the full shape each kernel's device time (with its reduce pass) and its
-   plain version's wall time per call;
+   (2^20 pairs; the surface kernel at the CLI's 5 x 5 surface; the three
+   unit walls' lanes bit for bit, their checksums within a tolerance
+   below one word's share where fp32 can resolve one); then at the full shape
+   each kernel's device time (with its reduce pass) and its plain
+   version's wall time per call;
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
    q3 --validate 5 and grid, first with ``--engine fused_exact`` (exact
@@ -28,16 +30,24 @@ Phases (any failure raises and the script exits non-zero):
    forms, and two deterministic gates at 2^20 pairs: the delta kernel's
    and the surface kernel's own normals through the exact engine
    (``payoffs.delta_sum``, ``grid._grid_moments``);
+   then ``cli benchmark --roofline`` at full width, as a user runs it:
+   its JSON, every fraction finite and > 0, its tier times within 5% of
+   phase 1's;
 3. the launch counters: each path's kernels ran in that path's run
    (counts reset just before it and read just after it: the CLI run of
-   each engine, the delta/gamma step), and the generator's check kernel
-   option_normals ran in its own phase-1 window;
+   each engine, the delta/gamma step, the roofline run), and the
+   generator's check kernel option_normals ran in its own phase-1 window;
 4. determinism: two ZBC prices, two curves, two deltas and two surfaces
    under one key are bitwise equal (prices and curves in both engines).
 
-The last two lines are a JSON object of per-kernel numbers and the contract
-line {"ok": true, "device": {...}}.  Without CUDA the script fails before
-printing any result.  It imports nothing of JAX.
+Then each kernel's bound (``kernels.roofline.kernel_bounds``: the
+function's work, its integer instructions per word those of the unit walls
+in this build's SASS, at this card's SMs and maximum SM clock), which its
+phase-1 time must not beat, and, as a diagnostic, the pipe mix of the
+full-step kernels' innermost loops.  The last two lines are a JSON object of
+per-kernel numbers and the contract line {"ok": true, "device": {...}}.
+Without CUDA the script fails before printing any result.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -68,30 +78,12 @@ def nvidia_smi_line() -> str:
 
 
 def device_ms(fn, n, k):
-    """Device time per call (kernel + its reduce pass), min over k windows.
-    A sleep kernel holds the stream while the host enqueues the n calls, so
-    they run back to back on the card and host work stays out of the
-    window; raises if the host did not finish enqueueing in time."""
-    import torch
+    """Device time per call (kernel + its reduce pass), min over k windows,
+    each queued behind a sleep kernel (``bench(hold=True)``), so the n
+    calls run back to back on the card and host work stays out of it."""
+    from hullwhite_tpu_torch.utils.timing import bench
 
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(k):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        stop.synchronize()
-        check(enqueue_ms < 40.0, f"enqueue took {enqueue_ms:.1f} ms: the "
-              "window would time the host")
-        best = min(best, start.elapsed_time(stop) / n)
-    return best
+    return bench(fn, device="cuda", n=n, k=k, hold=True)[0] * 1e3
 
 
 def analytic_market(cfg, device):
@@ -171,6 +163,30 @@ def compare(name, k, p):
                  f"{float(k[0] / k[1]):.6f}")
 
 
+def compare_peak(name, k, p):
+    """A unit wall against its plain version: the per-lane values (exact
+    raw sums, integer digests of the row accumulators) bit for bit, which
+    any skipped word fails; the kernel's float32 checksum within
+    max(0.01, 2 ulp of its value) of the plain version's exact sum.  A
+    word's mean share of the checksum is about 1 (raw: two raws), 0.25
+    (draw) and 0.33 (bitops); the tolerance is below it except where the
+    total outgrows float32's resolution of one word (bitops at 2^20
+    lanes), where the lanes alone see a word."""
+    import numpy as np
+    import torch
+
+    lanes = torch.equal(k.lanes, p.lanes)
+    count = float(k.out[1]) == float(p.out[1])
+    got, want = float(k.out[0]), float(p.out[0])
+    tol = max(0.01, 2 * float(np.spacing(np.float32(abs(want)))))
+    err = abs(got - want)
+    check(lanes and count and err <= tol,
+          f"{name} disagrees: lanes equal {lanes}, [checksum, lanes] "
+          f"{k.out.tolist()} vs {p.out.tolist()} (tol {tol:.3g})")
+    return err, (f"{k.lanes.numel()} lanes bit for bit, checksum {got!r} vs "
+                 f"exact {want!r}: |d| = {err:.3g} (tol {tol:.3g})")
+
+
 def phase1(dev):
     """Kernels vs plain versions at a few tiles and at the full main-path
     shape, then times at the full shape.  Returns the errors, the times and
@@ -200,6 +216,7 @@ def phase1(dev):
     grid_ops = [torch.as_tensor(x, device=dev)
                 for x in (gp.consts, gp.Bs, gp.Ks)]
     s = {kind: fused.kernel_seeds(key, kind) for kind in fused.SALTS}
+    _, nb = fused._peak_geometry(cfg)
 
     def pair(name, n_tiles, prec=cfg.matmul_precision):
         """(kernel call, plain call) of ``name`` over n_tiles tiles."""
@@ -239,6 +256,21 @@ def phase1(dev):
                 lambda: fused.vega_full(s["vega"], ofp, n_tiles, prec),
                 lambda: fused.vega_full_plain(s["vega"], ofp.W, consts_full,
                                               n_tiles, prec)),
+            "raw_peak": (
+                lambda: fused.raw_peak(s["raw_peak"], n_tiles, nb,
+                                       device=dev),
+                lambda: fused.raw_peak_plain(s["raw_peak"], n_tiles, nb,
+                                             dev)),
+            "draw_peak": (
+                lambda: fused.draw_peak(s["draw_peak"], n_tiles, nb,
+                                        device=dev),
+                lambda: fused.draw_peak_plain(s["draw_peak"], n_tiles, nb,
+                                              dev)),
+            "bitops_peak": (
+                lambda: fused.bitops_peak(s["bitops_peak"], n_tiles,
+                                          device=dev),
+                lambda: fused.bitops_peak_plain(s["bitops_peak"], n_tiles,
+                                                dev)),
         }[name]
 
     n_full = {"curve_exact": cfg.n_paths // fused.CURVE_TILE_PATHS,
@@ -247,10 +279,12 @@ def phase1(dev):
               "zbc_full": cfg.n_paths // fused.OPTION_FULL_TILE_PATHS}
     for name in ("zbc_exact", "vega_exact", "delta_exact", "grid_exact"):
         n_full[name] = n_full["option_normals"]
-    n_full["vega_full"] = n_full["zbc_full"]
+    for name in ("vega_full", "raw_peak", "draw_peak", "bitops_peak"):
+        n_full[name] = n_full["zbc_full"]
     n_few = {"curve_exact": 16, "zbc_exact": 8, "vega_exact": 8,
              "delta_exact": 8, "grid_exact": 8, "option_normals": 8,
-             "curve_full": 16, "zbc_full": 8, "vega_full": 8}
+             "curve_full": 16, "zbc_full": 8, "vega_full": 8,
+             "raw_peak": 8, "draw_peak": 8, "bitops_peak": 8}
     full = f"2^{cfg.n_paths.bit_length() - 1} pairs"
     err = {name: 0.0 for name in n_full}
     checks = [(name, n_few[name], prec) for name in n_full
@@ -270,7 +304,8 @@ def phase1(dev):
         else:
             k = kern()
         torch.cuda.synchronize()
-        e, text = compare(name, k, plain())
+        e, text = (compare_peak if name.endswith("_peak") else compare)(
+            name, k, plain())
         err[name] = max(err[name], e)
         label = "full shape, " + full if n_tiles == n_full[name] else \
             f"{n_tiles} tiles"
@@ -516,6 +551,58 @@ def phase2_delta(dev):
     return counts
 
 
+def phase2_roofline(dev, times):
+    """``cli benchmark --roofline`` at full width with its default windows:
+    its return code, the JSON it writes, every fraction finite and > 0,
+    and its three tier times within 5% of the same kernels' phase-1 device
+    times.  Returns the launch counts of the CLI run alone."""
+    from hullwhite_tpu_torch import cli
+    from hullwhite_tpu_torch.kernels import fused
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fused.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["benchmark", "--roofline", "--device", str(dev)])
+            counts = fused.launch_counts()
+            print(f"[phase 2] cli benchmark --roofline: rc {rc}, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check(rc == 0, "cli benchmark --roofline failed")
+            doc = json.load(open(os.path.join("data_torch",
+                                              "fullstep_roofline.json")))
+        finally:
+            os.chdir(cwd)
+    res = doc["results"]
+    print(f"[phase 2] roofline JSON device: {res['device']}")
+    check(res["device"]["name"] and res["device"]["power_limit"],
+          "the roofline JSON names no card")
+    for name, kernel in (("q1_fullstep", "curve_full"),
+                         ("zbc_fullstep", "zbc_full"),
+                         ("vega_fullstep", "vega_full")):
+        t = res["tiers"][name]
+        fr = {k: v for k, v in t.items() if k.startswith("fraction_of_")}
+        check(all(math.isfinite(v) and v > 0 for v in fr.values()),
+              f"{name}: fractions {fr}")
+        rel = t["ms"] / times[kernel][0] - 1.0
+        print(f"[phase 2] roofline {name}: {t['ms']:.4f} ms (phase-1 device "
+              f"time {times[kernel][0]:.4f} ms, {rel:+.2%}, tol 5%), "
+              + ", ".join(f"{k} {v:.4f}" for k, v in fr.items())
+              + f", serial sum {t['serial_occupancy_sum']:.4f}, limiting "
+              f"unit {t['limiting_unit']}")
+        check(abs(rel) <= 0.05, f"{name}: roofline time {t['ms']:.4f} ms vs "
+              f"phase-1 device time {times[kernel][0]:.4f} ms")
+    print(f"[phase 2] roofline walls: "
+          f"{res['raw_wall_peak_raws_per_sec'] / 1e9:.2f} G raws/s, "
+          f"{res['generator_peak_words_per_sec'] / 1e9:.2f} G words/s, "
+          f"{res['int_alu_peak_ops_per_sec'] / 1e12:.4f} T ALU-pipe "
+          f"instructions/s ({res['int_op_counts_origin']}; "
+          f"{res['bitops_alu_ops_per_lane']:.0f} per lane); wall ms "
+          f"{res['wall_ms']}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -550,14 +637,17 @@ def main() -> int:
     paths = {"fused_exact": ("curve_exact", "zbc_exact", "vega_exact",
                              "grid_exact"),
              "fused": ("curve_full", "zbc_full", "vega_full", "grid_exact"),
-             "delta/gamma": ("delta_exact",)}
+             "delta/gamma": ("delta_exact",),
+             "roofline": ("raw_peak", "draw_peak", "bitops_peak")}
     engines = ("fused_exact", "fused")
     counts = {engine: phase2(dev, engine) for engine in engines}
     counts["delta/gamma"] = phase2_delta(dev)
+    counts["roofline"] = phase2_roofline(dev, times)
     launches = {}
     for run, kernels in paths.items():
-        what = "its cli commands" if run != "delta/gamma" else \
-            "pathwise_delta + gamma_zbc"
+        what = {"delta/gamma": "pathwise_delta + gamma_zbc",
+                "roofline": "cli benchmark --roofline"}.get(
+                    run, "its cli commands")
         print(f"[phase 3] launches in the {run} main-path run ({what}): "
               f"{counts[run]}")
         for name in kernels:
@@ -604,16 +694,53 @@ def main() -> int:
                 "option_normals": "hullwhite_tpu/pallas/fused.py:743",
                 "curve_full": "hullwhite_tpu/pallas/fused.py:320",
                 "zbc_full": "hullwhite_tpu/pallas/fused.py:522",
-                "vega_full": "hullwhite_tpu/pallas/fused.py:612"}
+                "vega_full": "hullwhite_tpu/pallas/fused.py:612",
+                "raw_peak": "hullwhite_tpu/pallas/fused.py:933",
+                "draw_peak": "hullwhite_tpu/pallas/fused.py:971",
+                "bitops_peak": "hullwhite_tpu/pallas/fused.py:1025"}
+    # bounds at the shapes timed in phase 1: the reference configuration,
+    # the surface at the CLI's 5 x 5, this card's SMs and maximum SM clock,
+    # integer instructions per word from the walls in this build's SASS
+    # where cuobjdump is at hand
+    from hullwhite_tpu_torch.benchmarks import card
+    from hullwhite_tpu_torch.kernels import roofline, sass
+
+    hw = card(dev)
+    counts_ops = roofline.op_counts()
+    print(f"[bounds] integer instructions per word of the walls "
+          f"({counts_ops['origin']}): "
+          + str({w: counts_ops[w] for w in ("generator", "raw", "bitops")}))
+    bounds = roofline.kernel_bounds(cfg, hw["sm_clock_max_mhz"], hw["sms"],
+                                    counts_ops)
+    for name in ("bm_peak", "exp_peak", "recip_peak"):  # not ported yet
+        b = bounds[name]
+        print(f"[bounds] {name} (not ported): {b['bound_ms']:.5f} ms "
+              f"({b['bound_unit']}, integer counts {b['origin']})")
+    tool = sass.cuobjdump()
+    if tool:  # diagnostic: what the full-step kernels' loops issue
+        funcs = sass.parse(sass.disassemble(build.library_path(), tool))
+        for name in ("curve_full", "zbc_full", "vega_full"):
+            for loop in sass.kernel_loops(funcs, f"{name}_kernel", "ILb0E"):
+                print(f"[sass] {name} innermost loop: {loop}")
 
     def entry(name, n):
-        source = "fused_full.cu" if name.endswith("_full") else \
-            "fused_grid.cu" if name == "grid_exact" else "fused_exact.cu"
+        source = {"_full": "fused_full.cu", "_peak": "fused_peak.cu"}.get(
+            name[-5:], "fused_grid.cu" if name == "grid_exact"
+            else "fused_exact.cu")
+        b = bounds[name]
+        print(f"[bounds] {name}: {b['bound_ms']:.5f} ms ({b['bound_unit']}, "
+              f"{b['origin']}; {times[name][0]:.5f} ms measured, "
+              f"{b['bound_ms'] / times[name][0]:.1%} of bound); pipes ms "
+              + str({u: round(v, 5) for u, v in b["pipes_ms"].items()}))
+        check(b["bound_ms"] <= times[name][0], f"{name} ran faster than its "
+              "bound: the count is wrong")
         return {"name": name, "route": "cuda",
                 "source": f"hullwhite_tpu_torch/csrc/{source}",
                 "replaces": replaces[name], "launches": n,
                 "max_abs_err": err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "plain_ms": times[name][1], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "bound_unit": b["bound_unit"],
+                "library_ms": None}
 
     # kernels: the main paths', launches counted in each path's run (the
     # surface kernel's summed over both engines' cli grid);

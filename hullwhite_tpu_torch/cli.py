@@ -1,10 +1,12 @@
-"""Command-line entry points of the port: q1 / q2 / q3 / all / grid.
+"""Command-line entry points of the port: q1 / q2 / q3 / all / grid /
+benchmark --roofline.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
     python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
     python -m hullwhite_tpu_torch.cli grid               # 5 x 5 option surface
+    python -m hullwhite_tpu_torch.cli benchmark --roofline  # GPU only
     python -m hullwhite_tpu_torch.cli q1 --device cpu --paths 32768
 
 The default device is ``cuda``; without a card the commands fail rather
@@ -330,6 +332,25 @@ def cmd_grid(args):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# benchmark — the full-step roofline (the rest waits for the XLA engines)
+# ---------------------------------------------------------------------------
+
+def cmd_benchmark(args):
+    """``--roofline``: the full-step tier's roofline on the card.  The rest
+    of the JAX subcommand (the engine-tier table, ``--sweep``, ``--ab``)
+    runs the scan/linear/exact engines, which are not ported: it refuses."""
+    if args.ab or not args.roofline:
+        raise SystemExit("benchmark: the engine-tier table, --sweep or --ab "
+                         "is not ported (they need the scan/linear/exact "
+                         "engines); run benchmark --roofline")
+    from .benchmarks import run_roofline
+
+    cfg = _cfg(args)
+    return run_roofline(cfg, _key(cfg, args), reps=args.reps,
+                        device=args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="hullwhite_tpu_torch",
                                  description=__doc__.splitlines()[0])
@@ -361,8 +382,18 @@ def main(argv=None):
                        help="run N-run statistical validation")
         if name != "q2":
             p.add_argument("--eps", type=float, default=1e-3)
+    pb = sub.add_parser("benchmark", parents=[common])
+    pb.add_argument("--roofline", action="store_true",
+                    help="full-step tier: fractions of the fp32 peak and of "
+                         "the raw, generator and integer-ALU walls (GPU) -> "
+                         "data_torch/fullstep_roofline.json")
+    pb.add_argument("--ab", choices=["rng", "precision", "fullstep"],
+                    default=None,
+                    help="not ported (needs the scan/linear/exact engines)")
 
     args = ap.parse_args(argv)
+    if args.cmd == "benchmark":
+        return cmd_benchmark(args)
     pricing.resolve_device(args.device)
     if args.cmd == "q1":
         return cmd_q1(args)

@@ -47,6 +47,10 @@ _SIGNATURES = {
                       _I),
     "hw_zbc_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
     "hw_vega_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
+    "hw_peak_partials": ([_I], _I),
+    "hw_raw_peak": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_draw_peak": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_bitops_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_error_string": ([_I], ctypes.c_char_p),
 }
 

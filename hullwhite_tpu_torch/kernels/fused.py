@@ -8,7 +8,11 @@
 * full step (``curve_full``, ``zbc_full``, ``vega_full``; JAX engine
   ``"pallas"``): one fresh raw value per path per time step over all
   n_steps, mixed into unit shocks by a scaled Hadamard matrix whose mix is
-  pre-folded into the weights (``_premix_curve``, ``_premix_opt``).
+  pre-folded into the weights (``_premix_curve``, ``_premix_opt``);
+
+and the full-step tier's unit walls (``raw_peak``, ``draw_peak``,
+``bitops_peak``; ``csrc/fused_peak.cu``), which ``benchmarks.run_roofline``
+times on the option tiers' geometry.
 
 Each kernel hashes its own random words from (seeds, global tile, row,
 column, salt) with the generator of the TPU kernels' interpret mode
@@ -58,7 +62,8 @@ TILE_FULL = 2048       # full-step curve kernel: paths per tile
 TILE_FULL_OPT = 4096   # full-step option kernels: paths per tile
 CURVE_FULL_TILE_PATHS = TILE_FULL
 OPTION_FULL_TILE_PATHS = TILE_FULL_OPT
-SALTS = {"curve": 101, "zbc": 202, "vega": 303, "delta": 404, "grid": 505}
+SALTS = {"curve": 101, "zbc": 202, "vega": 303, "delta": 404, "grid": 505,
+         "raw_peak": 505, "draw_peak": 606, "bitops_peak": 707}
 # surface bound of the CUDA grid kernel (its consts go by value)
 GRID_MAX_K = 16
 GRID_MAX_S2 = 16
@@ -83,6 +88,8 @@ _SIN5 = [3.1415924582721866, -5.167698654480206, 2.5499982307289915,
          -0.5985505692547316, 0.08074781848280516, -0.006089474441873218]
 
 _M32 = 0xFFFFFFFF
+# op-mix rounds of the integer-ALU wall (csrc/fused_peak.cu; fused.py:1021)
+_BITOPS_ROUNDS = 16
 # plain versions' chunking (tiles per chunk)
 _TILES_PER_CHUNK = {"curve": 2, "option": 8, "curve_full": 16,
                     "option_full": 8}
@@ -643,6 +650,95 @@ def option_full_shocks(seeds, n_tiles: int, n_steps: int, device="cpu"):
     return torch.cat(blocks, dim=1)[:, :n_steps].to(torch.float32)
 
 
+class PeakOut(NamedTuple):
+    """Result of a unit-wall kernel over n_tiles tiles of TILE_FULL_OPT
+    lanes."""
+
+    out: torch.Tensor    # (2,) float32 [checksum, number of lanes]
+    lanes: torch.Tensor  # (n_tiles * TILE_FULL_OPT,) one value per lane:
+                         # float32 raw sums (raw_peak) or the int32 bits of
+                         # uint32 row-accumulator digests (draw/bitops_peak)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 of the same bits (int64)."""
+    return x - ((x >> 31) << 32)
+
+
+def _peak_result(lanes: torch.Tensor, checksum: float) -> PeakOut:
+    """The kernels' [checksum, lanes] with the checksum summed exactly (the
+    kernels sum it in float32, so theirs differs by its rounding)."""
+    out = torch.tensor([checksum, float(lanes.numel())], dtype=torch.float32,
+                       device=lanes.device)
+    return PeakOut(out, lanes)
+
+
+def _peak_chunks(seeds, n_tiles: int, device):
+    """(n, s0) per chunk of tiles: its size and (n, 1, 1) tile seeds."""
+    for first, n in _chunks(n_tiles, _TILES_PER_CHUNK["option_full"]):
+        yield n, _tile_s0(seeds, first, n, device)
+
+
+def raw_peak_plain(seeds, n_tiles: int, nb: int, device="cpu") -> PeakOut:
+    """Raw wall: per lane the sum of all its 128 nb raws (blocks 0 .. nb-1
+    of ``raw_block_plain``), exact in float32."""
+    idx = _words(_MIX_BLOCK // 2, TILE_FULL_OPT, device)
+    lanes = []
+    for n, s0 in _peak_chunks(seeds, n_tiles, device):
+        acc = torch.zeros(n, TILE_FULL_OPT, dtype=torch.float32, device=device)
+        for q in range(nb):
+            acc += raw_block_plain(s0, int(seeds[1]), idx, q).sum(-2)
+        lanes.append(acc.reshape(-1))
+    lanes = torch.cat(lanes)
+    # lane sums are multiples of 2^-7 below 2^14: float64 sums them exactly
+    return _peak_result(lanes, float(lanes.to(torch.float64).sum()))
+
+
+def _digest(acc: torch.Tensor) -> torch.Tensor:
+    """int32 bits of the wrapping uint32 sum over the word rows of acc
+    (n, rows, lanes) -> (n * lanes,)."""
+    return _as_int32(acc.sum(-2) & _M32).to(torch.int32).reshape(-1)
+
+
+def _checksum_term(acc: torch.Tensor) -> int:
+    """Sum over all rows and lanes of int32(acc), exactly: the TPU kernels'
+    checksum is this times 2^-32."""
+    return int(_as_int32(acc).sum())
+
+
+def draw_peak_plain(seeds, n_tiles: int, nb: int, device="cpu") -> PeakOut:
+    """Generator wall: per word row of a lane the xor of its words in blocks
+    0 .. nb-1; lanes hold their digests, the checksum the TPU kernel's."""
+    idx = _words(_MIX_BLOCK // 2, TILE_FULL_OPT, device)
+    lanes, total = [], 0
+    for n, s0 in _peak_chunks(seeds, n_tiles, device):
+        acc = torch.zeros(n, *idx.shape, dtype=torch.int64, device=device)
+        for q in range(nb):
+            acc ^= tile_draw_plain(s0, int(seeds[1]), idx, q)
+        lanes.append(_digest(acc))
+        total += _checksum_term(acc)
+    return _peak_result(torch.cat(lanes), total * 2.0 ** -32)
+
+
+def bitops_peak_plain(seeds, n_tiles: int, device="cpu") -> PeakOut:
+    """Integer-ALU wall: each word (salt 0) runs _BITOPS_ROUNDS rounds of the
+    octave op mix, xor-accumulated (``_bitops_peak_kernel``)."""
+    idx = _words(_MIX_BLOCK // 2, TILE_FULL_OPT, device)
+    lanes, total = [], 0
+    for _, s0 in _peak_chunks(seeds, n_tiles, device):
+        x = tile_draw_plain(s0, int(seeds[1]), idx, 0)
+        acc = torch.zeros_like(x)
+        for _ in range(_BITOPS_ROUNDS):
+            base = (x & 0x807F807F) | 0x3F803F80
+            c = ((x >> 8) & ((x >> 9) | (x >> 10))) & 0x00010001
+            v = base + (c << 9)
+            acc ^= v
+            x = v ^ (x >> 1)
+        lanes.append(_digest(acc))
+        total += _checksum_term(acc)
+    return _peak_result(torch.cat(lanes), total * 2.0 ** -32)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the kernel on CUDA tensors, the plain version on CPU tensors
 # ---------------------------------------------------------------------------
@@ -928,11 +1024,115 @@ def vega_full(seeds, prepared: OptionFullPrepared, n_tiles: int,
     return _option_full_kernel("vega", seeds, prepared, n_tiles, precision)
 
 
+# the raw wall's lane sums are exact in float32 up to this many blocks
+_RAW_PEAK_MAX_BLOCKS = 32
+
+
+def _peak_kernel(kind: str, seeds, n_tiles: int, nb: int, device) -> PeakOut:
+    s = _seed_triple(seeds)
+    dev = torch.device(device)
+    _check_tiles(n_tiles)
+    if nb < 1 or (kind == "raw" and nb > _RAW_PEAK_MAX_BLOCKS):
+        raise ValueError(f"nb must be >= 1 (raw wall: <= "
+                         f"{_RAW_PEAK_MAX_BLOCKS}), got {nb}")
+    if not _route(dev):
+        if kind == "bitops":
+            return bitops_peak_plain(s, n_tiles, dev)
+        plain = raw_peak_plain if kind == "raw" else draw_peak_plain
+        return plain(s, n_tiles, nb, dev)
+    from .build import check
+
+    lib, stream = _launch_env(dev)
+    n_lanes = n_tiles * TILE_FULL_OPT
+    lanes = torch.empty(n_lanes, device=dev,
+                        dtype=torch.float32 if kind == "raw" else torch.int32)
+    partials = torch.empty(lib.hw_peak_partials(n_tiles), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    tail = (float(n_lanes), lanes.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), stream)
+    if kind == "bitops":
+        code = lib.hw_bitops_peak(*s, n_tiles, *tail)
+    else:
+        entry = lib.hw_raw_peak if kind == "raw" else lib.hw_draw_peak
+        code = entry(*s, nb, n_tiles, *tail)
+    check(code, f"{kind}_peak")
+    _WRAPPERS[f"{kind}_peak"].launches += 1
+    return PeakOut(out, lanes)
+
+
+def raw_peak(seeds, n_tiles: int, nb: int, *, device) -> PeakOut:
+    """Raw wall (kernel of ``_raw_peak_kernel``, every word consumed): per
+    lane the exact float32 sum of its 128 nb full-step raws, on
+    ``device``."""
+    return _peak_kernel("raw", seeds, n_tiles, nb, device)
+
+
+def draw_peak(seeds, n_tiles: int, nb: int, *, device) -> PeakOut:
+    """Generator wall (kernel of ``_draw_peak_kernel``): nb blocks of 64
+    words per lane, xor-accumulated per word row, on ``device``."""
+    return _peak_kernel("draw", seeds, n_tiles, nb, device)
+
+
+def bitops_peak(seeds, n_tiles: int, *, device) -> PeakOut:
+    """Integer-ALU wall (kernel of ``_bitops_peak_kernel``): one word per row
+    and lane, then _BITOPS_ROUNDS rounds of the octave op mix in
+    registers, on ``device``."""
+    return _peak_kernel("bitops", seeds, n_tiles, 1, device)
+
+
+def _peak_geometry(cfg: HWConfig):
+    """(tiles, blocks) of the full-step option tiers at ``cfg``."""
+    if cfg.n_paths % TILE_FULL_OPT:
+        raise ValueError(f"n_paths must be a multiple of {TILE_FULL_OPT}")
+    return cfg.n_paths // TILE_FULL_OPT, _n_blocks(cfg.n_steps_s1)
+
+
+def raw_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, raws per lane): the raw wall over the
+    full-step option tiers' tiles and blocks."""
+    n_tiles, nb = _peak_geometry(cfg)
+
+    def fn(key: Key, device):
+        return raw_peak(kernel_seeds(key, "raw_peak"), n_tiles, nb,
+                        device=device).out[0]
+
+    return fn, nb * _MIX_BLOCK
+
+
+def draw_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, generator words per lane) over the
+    full-step option tiers' geometry."""
+    n_tiles, nb = _peak_geometry(cfg)
+
+    def fn(key: Key, device):
+        return draw_peak(kernel_seeds(key, "draw_peak"), n_tiles, nb,
+                         device=device).out[0]
+
+    return fn, nb * (_MIX_BLOCK // 2)
+
+
+def bitops_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, ALU-pipe instructions per lane): the
+    count is ``roofline.op_counts()``'s, read from the built kernel's SASS
+    where the card's toolkit is at hand, else counted from the source."""
+    from .roofline import bitops_alu_ops_per_lane
+
+    n_tiles, _ = _peak_geometry(cfg)
+
+    def fn(key: Key, device):
+        return bitops_peak(kernel_seeds(key, "bitops_peak"), n_tiles,
+                           device=device).out[0]
+
+    return fn, bitops_alu_ops_per_lane()
+
+
 _WRAPPERS = {"curve_exact": curve_exact, "zbc_exact": zbc_exact,
              "vega_exact": vega_exact, "delta_exact": delta_exact,
              "grid_exact": grid_exact, "option_normals": option_normals,
              "curve_full": curve_full, "zbc_full": zbc_full,
-             "vega_full": vega_full}
+             "vega_full": vega_full, "raw_peak": raw_peak,
+             "draw_peak": draw_peak, "bitops_peak": bitops_peak}
 for _w in _WRAPPERS.values():
     _w.launches = 0
 
