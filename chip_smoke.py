@@ -10,11 +10,15 @@ Phases (any failure raises and the script exits non-zero):
    TF32 off;
 1. each hand-written kernel against its plain PyTorch version on the card,
    with stated tolerances, at a few tiles and at the full main-path shape
-   (2^20 pairs; the surface kernel at the CLI's 5 x 5 surface; the three
-   unit walls' lanes bit for bit, their checksums within a tolerance
-   below one word's share where fp32 can resolve one); then at the full shape
-   each kernel's device time (with its reduce pass) and its plain
-   version's wall time per call;
+   (2^20 pairs; the surface kernel at the CLI's 5 x 5 surface; the
+   full-step unit walls' lanes bit for bit, their checksums within a
+   tolerance below one word's share where fp32 can resolve one; the exact
+   tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
+   the exp and reciprocal walls at 1 tile, 2^20 and 2^24 pairs, their
+   checksums within a float32 summation bound, ``compare_exact_wall``);
+   then at the timed shape (2^20 pairs; the exp and reciprocal walls at
+   2^24, as the roofline times them) each kernel's device time (with its
+   reduce pass) and its plain version's wall time per call;
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
    q3 --validate 5 and grid, first with ``--engine fused_exact`` (exact
@@ -31,8 +35,9 @@ Phases (any failure raises and the script exits non-zero):
    and the surface kernel's own normals through the exact engine
    (``payoffs.delta_sum``, ``grid._grid_moments``);
    then ``cli benchmark --roofline`` at full width, as a user runs it:
-   its JSON, every fraction finite and > 0, its tier times within 5% of
-   phase 1's;
+   both JSON files (full step and exact tier), every fraction finite and
+   > 0 where its count is, no exact-tier fraction of a wall above 1.02,
+   the full-step tier times and the exact Q1 time within 5% of phase 1's;
 3. the launch counters: each path's kernels ran in that path's run
    (counts reset just before it and read just after it: the CLI run of
    each engine, the delta/gamma step, the roofline run), and the
@@ -40,11 +45,13 @@ Phases (any failure raises and the script exits non-zero):
 4. determinism: two ZBC prices, two curves, two deltas and two surfaces
    under one key are bitwise equal (prices and curves in both engines).
 
-Then each kernel's bound (``kernels.roofline.kernel_bounds``: the
-function's work, its integer instructions per word those of the unit walls
-in this build's SASS, at this card's SMs and maximum SM clock), which its
-phase-1 time must not beat, and, as a diagnostic, the pipe mix of the
-full-step kernels' innermost loops.  The last two lines are a JSON object of
+Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
+shape: the function's work, its integer instructions per word and its
+fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
+of the unit walls in this build's SASS, at this card's SMs and maximum SM
+clock), which its phase-1 time must not beat, and, as a diagnostic, the
+pipe mix of the full-step kernels' and the exact-tier walls' innermost
+loops.  The last two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
 nothing of JAX.
@@ -68,6 +75,13 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+# the exact tier's unit walls; the exp and reciprocal walls are timed at
+# the 2^24 pairs of the roofline's option rows (at 2^20 they hold 4 us of
+# MUFU work, a launch's overhead)
+EXACT_WALLS = ("bm_peak", "exp_peak", "recip_peak")
+WALL_PAIRS = 1 << 24
 
 
 def nvidia_smi_line() -> str:
@@ -187,6 +201,48 @@ def compare_peak(name, k, p):
                  f"exact {want!r}: |d| = {err:.3g} (tol {tol:.3g})")
 
 
+def compare_exact_wall(name, k, p):
+    """An exact-tier wall against its plain version, per lane:
+    * recip_peak bit for bit: __frcp_rn and torch's 1/(x + 1) both round to
+      nearest, and so does x + 1;
+    * exp_peak within 8 ulp of the fixed point x* = 0.567 (8 x 2^-24 =
+      4.8e-7): CUDA's expf is within 2 ulp, and the chain contracts by
+      |f'(x*)| = 0.567, so a gap settles near 3 ulp / (1 - 0.567);
+    * bm_peak within BM_LANE_ROWS x 2 x 2e-6 = 1.28e-4: a lane sums 32
+      elements of two normals each, and the kernel's normals equal the
+      plain version's to 2e-6 (option_normals); a dropped element moves its
+      lane by |z0 + z1|, 1.13 on average.
+    The float32 checksum is the fixed-order sum of the kernel's own lanes:
+    it must be within 2^-16 x sum |lanes| of their exact sum, a first-order
+    bound on the rounding of any summation tree of depth <= 256 (the
+    kernel's, with 256-thread blocks, is 26 + n_lanes / 65536 deep at
+    most, < 256 at every checked size)."""
+    import torch
+
+    from hullwhite_tpu_torch.kernels import fused
+
+    tol = {"bm_peak": fused.BM_LANE_ROWS * 2 * 2e-6,
+           "exp_peak": 8 * 2.0 ** -24, "recip_peak": 0.0}[name]
+    n = k.lanes.numel()
+    count = float(k.out[1]) == float(p.out[1]) == n == p.lanes.numel()
+    err = float((k.lanes - p.lanes).abs().max())
+    lanes_ok = (torch.equal(k.lanes, p.lanes) if name == "recip_peak"
+                else err <= tol)
+    lanes64 = k.lanes.to(torch.float64)
+    exact = float(lanes64.sum())
+    c_tol = 2.0 ** -16 * float(lanes64.abs().sum())
+    c_err = abs(float(k.out[0]) - exact)
+    check(count and lanes_ok and c_err <= c_tol,
+          f"{name} disagrees: count {count}, max lane |d| {err:.3e} (tol "
+          f"{tol:.3e}), checksum {float(k.out[0])!r} vs {exact!r} (tol "
+          f"{c_tol:.3g})")
+    return err, (f"{n} lanes, max |d| = {err:.3e} (tol {tol:.3e}"
+                 f"{', bit for bit' if name == 'recip_peak' else ''}), "
+                 f"checksum {float(k.out[0])!r} vs its lanes' exact sum "
+                 f"{exact!r}: |d| = {c_err:.3g} (tol {c_tol:.3g}); plain "
+                 f"checksum {float(p.out[0])!r}")
+
+
 def phase1(dev):
     """Kernels vs plain versions at a few tiles and at the full main-path
     shape, then times at the full shape.  Returns the errors, the times and
@@ -271,23 +327,50 @@ def phase1(dev):
                                           device=dev),
                 lambda: fused.bitops_peak_plain(s["bitops_peak"], n_tiles,
                                                 dev)),
+            "bm_peak": (
+                lambda: fused.bm_peak(s["bm_peak"], n_tiles, device=dev),
+                lambda: fused.bm_peak_plain(s["bm_peak"], n_tiles, dev)),
+            "exp_peak": (
+                lambda: fused.exp_peak(s["exp_peak"], n_tiles, device=dev),
+                lambda: fused.exp_peak_plain(s["exp_peak"], n_tiles, dev)),
+            "recip_peak": (
+                lambda: fused.recip_peak(s["recip_peak"], n_tiles,
+                                         device=dev),
+                lambda: fused.recip_peak_plain(s["recip_peak"], n_tiles,
+                                               dev)),
         }[name]
 
-    n_full = {"curve_exact": cfg.n_paths // fused.CURVE_TILE_PATHS,
-              "option_normals": cfg.n_paths // fused.OPTION_TILE_PATHS,
-              "curve_full": cfg.n_paths // fused.CURVE_FULL_TILE_PATHS,
-              "zbc_full": cfg.n_paths // fused.OPTION_FULL_TILE_PATHS}
+    # pairs per tile; every kernel is timed at 2^20 pairs but the exp and
+    # reciprocal walls, timed at 2^24 as the roofline times them
+    tile_pairs = {"curve_exact": fused.CURVE_TILE_PATHS,
+                  "option_normals": fused.OPTION_TILE_PATHS,
+                  "curve_full": fused.CURVE_FULL_TILE_PATHS,
+                  "zbc_full": fused.OPTION_FULL_TILE_PATHS,
+                  "bm_peak": fused.CURVE_TILE_PATHS,
+                  "exp_peak": fused.CHAIN_TILE_PATHS,
+                  "recip_peak": fused.CHAIN_TILE_PATHS}
     for name in ("zbc_exact", "vega_exact", "delta_exact", "grid_exact"):
-        n_full[name] = n_full["option_normals"]
+        tile_pairs[name] = tile_pairs["option_normals"]
     for name in ("vega_full", "raw_peak", "draw_peak", "bitops_peak"):
-        n_full[name] = n_full["zbc_full"]
-    n_few = {"curve_exact": 16, "zbc_exact": 8, "vega_exact": 8,
-             "delta_exact": 8, "grid_exact": 8, "option_normals": 8,
-             "curve_full": 16, "zbc_full": 8, "vega_full": 8,
-             "raw_peak": 8, "draw_peak": 8, "bitops_peak": 8}
-    full = f"2^{cfg.n_paths.bit_length() - 1} pairs"
+        tile_pairs[name] = tile_pairs["zbc_full"]
+    n_full = {name: (WALL_PAIRS if name in ("exp_peak", "recip_peak")
+                     else cfg.n_paths) // tp
+              for name, tp in tile_pairs.items()}
+    n_few = {"curve_exact": (16,), "zbc_exact": (8,), "vega_exact": (8,),
+             "delta_exact": (8,), "grid_exact": (8,), "option_normals": (8,),
+             "curve_full": (16,), "zbc_full": (8,), "vega_full": (8,),
+             "raw_peak": (8,), "draw_peak": (8,), "bitops_peak": (8,),
+             "bm_peak": (8,),
+             "exp_peak": (1, cfg.n_paths // fused.CHAIN_TILE_PATHS),
+             "recip_peak": (1, cfg.n_paths // fused.CHAIN_TILE_PATHS)}
+
+    def pairs_of(name, n_tiles):
+        n = n_tiles * tile_pairs[name]
+        return f"2^{n.bit_length() - 1} pairs" if n & (n - 1) == 0 else \
+            f"{n} pairs"
+
     err = {name: 0.0 for name in n_full}
-    checks = [(name, n_few[name], prec) for name in n_full
+    checks = [(name, n, prec) for name in n_full for n in n_few[name]
               for prec in (("highest", "default") if name.startswith("curve")
                            else (cfg.matmul_precision,))]
     checks += [(name, n_full[name], prec) for name in n_full
@@ -304,11 +387,13 @@ def phase1(dev):
         else:
             k = kern()
         torch.cuda.synchronize()
-        e, text = (compare_peak if name.endswith("_peak") else compare)(
-            name, k, plain())
+        compare_fn = (compare_exact_wall if name in EXACT_WALLS else
+                      compare_peak if name.endswith("_peak") else compare)
+        e, text = compare_fn(name, k, plain())
         err[name] = max(err[name], e)
-        label = "full shape, " + full if n_tiles == n_full[name] else \
-            f"{n_tiles} tiles"
+        label = f"{n_tiles} tiles, {pairs_of(name, n_tiles)}"
+        if n_tiles == n_full[name]:
+            label = "timed shape, " + label
         tag = f" [{prec}]" if name.startswith("curve") else ""
         print(f"[phase 1] {name}{tag} {label}: {text}")
 
@@ -322,7 +407,8 @@ def phase1(dev):
         k2 = device_ms(kern, 20, 3)
         p2 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
         times[name] = (min(k1, k2), min(p1, p2))
-        print(f"[phase 1] time at {full}: {name}: kernel "
+        print(f"[phase 1] time at {pairs_of(name, n_full[name])}: {name}: "
+              f"kernel "
               f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
               f"(kernel runs {k1:.4f} / {k2:.4f}, plain {p1:.4f} / {p2:.4f})")
     return err, times, normals_launches
@@ -553,9 +639,12 @@ def phase2_delta(dev):
 
 def phase2_roofline(dev, times):
     """``cli benchmark --roofline`` at full width with its default windows:
-    its return code, the JSON it writes, every fraction finite and > 0,
-    and its three tier times within 5% of the same kernels' phase-1 device
-    times.  Returns the launch counts of the CLI run alone."""
+    its return code, the two JSON files it writes, every fraction finite
+    and > 0 where its count is, no exact-tier fraction of a wall or peak
+    above 1.02 (a tier above its wall means a count is wrong), and its
+    full-step tier times and exact Q1 time within 5% of the same kernels'
+    phase-1 device times.  Returns the launch counts of the CLI run
+    alone."""
     from hullwhite_tpu_torch import cli
     from hullwhite_tpu_torch.kernels import fused
 
@@ -570,8 +659,9 @@ def phase2_roofline(dev, times):
             print(f"[phase 2] cli benchmark --roofline: rc {rc}, "
                   f"{time.perf_counter() - t0:.1f} s")
             check(rc == 0, "cli benchmark --roofline failed")
-            doc = json.load(open(os.path.join("data_torch",
-                                              "fullstep_roofline.json")))
+            doc, ex_doc = (json.load(open(os.path.join("data_torch", f)))
+                           for f in ("fullstep_roofline.json",
+                                     "exact_roofline.json"))
         finally:
             os.chdir(cwd)
     res = doc["results"]
@@ -600,7 +690,37 @@ def phase2_roofline(dev, times):
           f"instructions/s ({res['int_op_counts_origin']}; "
           f"{res['bitops_alu_ops_per_lane']:.0f} per lane); wall ms "
           f"{res['wall_ms']}")
+    check_exact_roofline(ex_doc["results"], times)
     return counts
+
+
+def check_exact_roofline(ex, times):
+    """The exact-tier table of ``exact_roofline.json`` (phase2_roofline)."""
+    check(ex["device"]["name"] and ex["device"]["power_limit"],
+          "the exact roofline JSON names no card")
+    print(f"[phase 2] exact roofline walls: "
+          + ", ".join(f"{w} {v['per_sec'] / 1e9:.2f} G/s in {v['ms']:.4f} ms "
+                      f"at {v['wall_pairs']} pairs"
+                      for w, v in ex["walls"].items())
+          + f" ({ex['int_op_counts_origin']}; per item {ex['math_counts']})")
+    from hullwhite_tpu_torch.benchmarks import EXACT_FRACTIONS as counted
+
+    check({"q1_exact", "zbc_exact", "vega_exact"} <= set(ex["tiers"]),
+          f"exact roofline rows: {sorted(ex['tiers'])}")
+    for name, t in ex["tiers"].items():
+        fr = {f: t[f] for f in counted}
+        check(all(math.isfinite(v) and (v > 0) == (t[counted[f]] > 0)
+                  and v <= 1.02 for f, v in fr.items()),
+              f"{name}: fractions {fr}")
+        print(f"[phase 2] exact roofline {name} at {t['pairs']} pairs: "
+              f"{t['ms']:.4f} ms, "
+              + ", ".join(f"{k[12:]} {v:.4f}" for k, v in fr.items())
+              + f", serial sum {t['serial_occupancy_sum']:.4f}, limiting "
+              f"unit {t['limiting_unit']}")
+    rel = ex["tiers"]["q1_exact"]["ms"] / times["curve_exact"][0] - 1.0
+    print(f"[phase 2] exact roofline q1_exact: phase-1 device time "
+          f"{times['curve_exact'][0]:.4f} ms, {rel:+.2%} (tol 5%)")
+    check(abs(rel) <= 0.05, f"q1_exact: roofline time vs phase 1 {rel:+.2%}")
 
 
 def main() -> int:
@@ -638,7 +758,8 @@ def main() -> int:
                              "grid_exact"),
              "fused": ("curve_full", "zbc_full", "vega_full", "grid_exact"),
              "delta/gamma": ("delta_exact",),
-             "roofline": ("raw_peak", "draw_peak", "bitops_peak")}
+             "roofline": ("raw_peak", "draw_peak", "bitops_peak",
+                          *EXACT_WALLS)}
     engines = ("fused_exact", "fused")
     counts = {engine: phase2(dev, engine) for engine in engines}
     counts["delta/gamma"] = phase2_delta(dev)
@@ -697,11 +818,14 @@ def main() -> int:
                 "vega_full": "hullwhite_tpu/pallas/fused.py:612",
                 "raw_peak": "hullwhite_tpu/pallas/fused.py:933",
                 "draw_peak": "hullwhite_tpu/pallas/fused.py:971",
-                "bitops_peak": "hullwhite_tpu/pallas/fused.py:1025"}
-    # bounds at the shapes timed in phase 1: the reference configuration,
-    # the surface at the CLI's 5 x 5, this card's SMs and maximum SM clock,
-    # integer instructions per word from the walls in this build's SASS
-    # where cuobjdump is at hand
+                "bitops_peak": "hullwhite_tpu/pallas/fused.py:1025",
+                "bm_peak": "hullwhite_tpu/pallas/fused.py:1079",
+                "exp_peak": "hullwhite_tpu/pallas/fused.py:1111",
+                "recip_peak": "hullwhite_tpu/pallas/fused.py:1142"}
+    # bounds at the shapes timed in phase 1: the reference configuration
+    # (the exp and reciprocal walls at 2^24 pairs), the surface at the
+    # CLI's 5 x 5, this card's SMs and maximum SM clock, the walls' counts
+    # from this build's SASS where cuobjdump is at hand
     from hullwhite_tpu_torch.benchmarks import card
     from hullwhite_tpu_torch.kernels import roofline, sass
 
@@ -710,17 +834,23 @@ def main() -> int:
     print(f"[bounds] integer instructions per word of the walls "
           f"({counts_ops['origin']}): "
           + str({w: counts_ops[w] for w in ("generator", "raw", "bitops")}))
+    print(f"[bounds] fp32 and MUFU instructions per Box-Muller element, "
+          f"exp and reciprocal ({counts_ops['origin']}): "
+          + str({w: counts_ops[w] for w in ("bm", "exp", "recip")}))
     bounds = roofline.kernel_bounds(cfg, hw["sm_clock_max_mhz"], hw["sms"],
                                     counts_ops)
-    for name in ("bm_peak", "exp_peak", "recip_peak"):  # not ported yet
-        b = bounds[name]
-        print(f"[bounds] {name} (not ported): {b['bound_ms']:.5f} ms "
-              f"({b['bound_unit']}, integer counts {b['origin']})")
+    big = cfg.replace(n_paths=WALL_PAIRS, path_block=1 << 19)
+    bounds_big = roofline.kernel_bounds(big, hw["sm_clock_max_mhz"],
+                                        hw["sms"], counts_ops)
+    for name in ("exp_peak", "recip_peak"):
+        bounds[name] = bounds_big[name]
     tool = sass.cuobjdump()
-    if tool:  # diagnostic: what the full-step kernels' loops issue
+    if tool:  # diagnostic: what the full-step kernels' and walls' loops issue
         funcs = sass.parse(sass.disassemble(build.library_path(), tool))
-        for name in ("curve_full", "zbc_full", "vega_full"):
-            for loop in sass.kernel_loops(funcs, f"{name}_kernel", "ILb0E"):
+        for name, tmpl in (("curve_full", "ILb0E"), ("zbc_full", "ILb0E"),
+                           ("vega_full", "ILb0E"), ("bm_peak", ""),
+                           ("exp_peak", ""), ("recip_peak", "")):
+            for loop in sass.kernel_loops(funcs, f"{name}_kernel", tmpl):
                 print(f"[sass] {name} innermost loop: {loop}")
 
     def entry(name, n):

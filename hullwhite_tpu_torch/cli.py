@@ -333,11 +333,12 @@ def cmd_grid(args):
 
 
 # ---------------------------------------------------------------------------
-# benchmark — the full-step roofline (the rest waits for the XLA engines)
+# benchmark — the roofline (the rest waits for the XLA engines)
 # ---------------------------------------------------------------------------
 
 def cmd_benchmark(args):
-    """``--roofline``: the full-step tier's roofline on the card.  The rest
+    """``--roofline``: the full-step and exact tiers' roofline on the card.
+    The rest
     of the JAX subcommand (the engine-tier table, ``--sweep``, ``--ab``)
     runs the scan/linear/exact engines, which are not ported: it refuses."""
     if args.ab or not args.roofline:
@@ -384,9 +385,12 @@ def main(argv=None):
             p.add_argument("--eps", type=float, default=1e-3)
     pb = sub.add_parser("benchmark", parents=[common])
     pb.add_argument("--roofline", action="store_true",
-                    help="full-step tier: fractions of the fp32 peak and of "
-                         "the raw, generator and integer-ALU walls (GPU) -> "
-                         "data_torch/fullstep_roofline.json")
+                    help="each tier's fractions of the fp32 peak and of "
+                         "the unit walls (GPU): full step vs the raw, "
+                         "generator and integer-ALU walls -> "
+                         "data_torch/fullstep_roofline.json; exact vs the "
+                         "Box-Muller, exp, reciprocal and integer-ALU walls "
+                         "-> data_torch/exact_roofline.json")
     pb.add_argument("--ab", choices=["rng", "precision", "fullstep"],
                     default=None,
                     help="not ported (needs the scan/linear/exact engines)")

@@ -58,6 +58,8 @@ constexpr int NORMALS_THREADS = 256;
 
 // Layout of fused._zbc_consts + the sampling factor (fused.py:450, :638),
 // then the delta kernel's [dr/dr0, dI/dr0] (zero for the other kernels).
+// P0S2 centers the control: it is market.P[-1] = P(0, t_final), as in the
+// JAX package, and equals P(0,S2) only when S2 = t_final.
 struct OptConsts {
   float c_r, c_i, A, B, K, P0S2, c_dr, c_di, sigma, q, l11, l21, l22;
   float dr_dr0, di_dr0;

@@ -1,7 +1,9 @@
-// Unit-wall microbenchmarks of the full-step tier for Hopper (sm_90a): the
-// raw wall (draw + octave spread), the generator wall (the 3-round murmur3
+// Unit-wall microbenchmarks for Hopper (sm_90a).  Full-step tier: the raw
+// wall (draw + octave spread), the generator wall (the 3-round murmur3
 // counter hash alone) and the integer-ALU wall (the octave op mix held in
-// registers).  Plain C interface, loaded with ctypes
+// registers).  Exact tier: the Box-Muller wall, the exp wall and the
+// reciprocal wall (after the full-step walls below).  Plain C interface,
+// loaded with ctypes
 // (hullwhite_tpu_torch/kernels/build.py); the Python wrappers in
 // hullwhite_tpu_torch/kernels/fused.py allocate every buffer and pass the
 // current stream.  The seed triple goes to the kernels by value.
@@ -10,6 +12,9 @@
 //   raw_peak_kernel    <- _raw_peak_kernel
 //   draw_peak_kernel   <- _draw_peak_kernel
 //   bitops_peak_kernel <- _bitops_peak_kernel
+//   bm_peak_kernel     <- _bm_peak_kernel
+//   exp_peak_kernel    <- _exp_peak_kernel
+//   recip_peak_kernel  <- _recip_peak_kernel
 //
 // Geometry is the TPU kernels', which is the full-step option tiers': n_tiles
 // tiles of 64 word rows x 4096 lanes; word idx = row * 4096 + lane of global
@@ -161,16 +166,129 @@ bitops_peak_kernel(hw::Seeds sd, uint32_t* __restrict__ lanes, float* __restrict
   block_sum<1, PEAK_THREADS>(v, partials + blockIdx.x);
 }
 
+// ---------------------------------------------------------------------------
+// Exact-tier walls.  The device math is the tiers' own, so a wall measures
+// what the tiers execute: hw::box_muller (logf, sqrtf and the degree-5
+// polynomials), expf (not __expf) and __frcp_rn, which the payoff tails use;
+// the build has no --use_fast_math.
+//
+// Box-Muller wall: a tile is the exact curve tile, (TILE_EXACT, PAD)
+// elements, element idx = row * PAD + col hashed under salts 0 and 1.  A
+// lane is BM_LANE_ROWS rows of one column; it sums z0 + z1 of its elements,
+// so a dropped element moves its lane by |z0 + z1| (mean ~1.13).  Lanes are
+// row-major per tile (lane = (row / BM_LANE_ROWS) * PAD + col), one thread
+// each, BM_IN_FLIGHT elements in flight (the TPU kernel's consumer sums
+// whole columns; its checksum, the sum of all lanes, is the same number).
+// Bound on the H100: the two words' hash on the integer pipes (ALU), then
+// the log and sqrt on the MUFU.
+//
+// exp and recip walls: a tile is an exact option tile, (TILE_OPT, PAD)
+// lanes; lane idx starts from x0 = [1, 2) float of its word (salt 0) minus
+// 1 and runs CHAIN_ROUNDS chained x <- e^{-x} or x <- 1/(x + 1).  Each chain
+// is serial, so each thread keeps CHAINS_IN_FLIGHT lanes in flight (lanes
+// base + i * CHAIN_THREADS + tid, coalesced per i) on top of the warps'
+// parallelism.  Bound: the MUFU (one EX2 or RCP per round, 16 per clock per
+// SM); a lane writes its final x.
+//
+// Each innermost loop (elements for BM, rounds for the chains) is what
+// kernels/sass.py reads to count the card's instructions per Box-Muller
+// element, per exp and per reciprocal.
+// ---------------------------------------------------------------------------
+
+constexpr int PAD = 128;             // fused.PAD
+constexpr int TILE_EXACT = 4096;     // fused.TILE_EXACT: BM rows per tile
+constexpr int TILE_OPT = 256;        // fused.TILE_OPT: chain lane rows per tile
+constexpr int BM_LANE_ROWS = 32;     // fused.BM_LANE_ROWS
+constexpr int BM_THREADS = 256;
+constexpr int BM_IN_FLIGHT = 4;
+constexpr int BM_TILE_LANES = TILE_EXACT / BM_LANE_ROWS * PAD;  // 16384
+constexpr int BM_CTAS_PER_TILE = BM_TILE_LANES / BM_THREADS;    // 64
+constexpr int CHAIN_ROUNDS = 32;     // fused.CHAIN_ROUNDS (fused.py:1108)
+constexpr int CHAIN_THREADS = 256;
+constexpr int CHAINS_IN_FLIGHT = 4;
+constexpr int CHAIN_TILE_LANES = TILE_OPT * PAD;  // 32768
+constexpr int CHAIN_CTA_LANES = CHAIN_THREADS * CHAINS_IN_FLIGHT;
+constexpr int CHAIN_CTAS_PER_TILE = CHAIN_TILE_LANES / CHAIN_CTA_LANES;  // 32
+static_assert(BM_IN_FLIGHT == 4 && BM_LANE_ROWS % BM_IN_FLIGHT == 0,
+              "bm_peak_kernel folds four accumulators");
+
+__global__ void __launch_bounds__(BM_THREADS)
+bm_peak_kernel(hw::Seeds sd, float* __restrict__ lanes, float* __restrict__ partials) {
+  const uint32_t tile = sd.s2 + static_cast<uint32_t>(blockIdx.x / BM_CTAS_PER_TILE);
+  const uint32_t s0 = hw::tile_seed(sd.s0, tile);
+  const uint32_t lane = static_cast<uint32_t>(blockIdx.x % BM_CTAS_PER_TILE) * BM_THREADS +
+                        threadIdx.x;
+  const uint32_t col = lane % PAD;
+  const uint32_t row0 = (lane / PAD) * BM_LANE_ROWS;
+  float acc[BM_IN_FLIGHT];
+#pragma unroll
+  for (int i = 0; i < BM_IN_FLIGHT; ++i) acc[i] = 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < BM_LANE_ROWS; r += BM_IN_FLIGHT) {
+#pragma unroll
+    for (int i = 0; i < BM_IN_FLIGHT; ++i) {
+      float z0, z1;
+      hw::box_muller(s0, sd.s1, (row0 + r + i) * PAD + col, z0, z1);
+      acc[i] += z0 + z1;
+    }
+  }
+  float v[1] = {(acc[0] + acc[1]) + (acc[2] + acc[3])};
+  lanes[static_cast<long long>(blockIdx.x) * BM_THREADS + threadIdx.x] = v[0];
+  block_sum<1, BM_THREADS>(v, partials + blockIdx.x);
+}
+
+// One CTA's CHAIN_CTA_LANES chains: x0 from the lane's word, then
+// CHAIN_ROUNDS steps of x <- e^{-x} (RECIP false) or x <- 1/(x + 1).
+template <bool RECIP>
+__device__ __forceinline__ void chain_lanes(hw::Seeds sd, float* __restrict__ lanes,
+                                            float* __restrict__ partials) {
+  const uint32_t tile = sd.s2 + static_cast<uint32_t>(blockIdx.x / CHAIN_CTAS_PER_TILE);
+  const uint32_t s0 = hw::tile_seed(sd.s0, tile);
+  const uint32_t base = static_cast<uint32_t>(blockIdx.x % CHAIN_CTAS_PER_TILE) *
+                        CHAIN_CTA_LANES + threadIdx.x;
+  float x[CHAINS_IN_FLIGHT];
+#pragma unroll
+  for (int i = 0; i < CHAINS_IN_FLIGHT; ++i)
+    x[i] = hw::bits_float12(hw::tile_draw(s0, sd.s1, base + i * CHAIN_THREADS, 0u)) - 1.0f;
+#pragma unroll 1
+  for (int k = 0; k < CHAIN_ROUNDS; ++k) {
+#pragma unroll
+    for (int i = 0; i < CHAINS_IN_FLIGHT; ++i)
+      x[i] = RECIP ? __frcp_rn(x[i] + 1.0f) : expf(-x[i]);
+  }
+  float* out = lanes + static_cast<long long>(blockIdx.x / CHAIN_CTAS_PER_TILE) *
+                           CHAIN_TILE_LANES + base;
+  float v[1] = {0.0f};
+#pragma unroll
+  for (int i = 0; i < CHAINS_IN_FLIGHT; ++i) {  // lanes in order
+    out[i * CHAIN_THREADS] = x[i];
+    v[0] += x[i];
+  }
+  block_sum<1, CHAIN_THREADS>(v, partials + blockIdx.x);
+}
+
+__global__ void __launch_bounds__(CHAIN_THREADS)
+exp_peak_kernel(hw::Seeds sd, float* __restrict__ lanes, float* __restrict__ partials) {
+  chain_lanes<false>(sd, lanes, partials);
+}
+
+__global__ void __launch_bounds__(CHAIN_THREADS)
+recip_peak_kernel(hw::Seeds sd, float* __restrict__ lanes, float* __restrict__ partials) {
+  chain_lanes<true>(sd, lanes, partials);
+}
+
 int peak_ctas(int n_tiles) { return n_tiles * CTAS_PER_TILE; }
+int bm_ctas(int n_tiles) { return n_tiles * BM_CTAS_PER_TILE; }
+int chain_ctas(int n_tiles) { return n_tiles * CHAIN_CTAS_PER_TILE; }
 
 // out (2): [checksum, count], the checksum the fixed-order sum of the
-// CTAs' partials.
-cudaError_t reduce_peak(const float* partials, int n_tiles, float count, float* out,
+// n_ctas CTAs' partials.
+cudaError_t reduce_peak(const float* partials, int n_ctas, float count, float* out,
                         cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, peak_ctas(n_tiles), 1, nullptr,
-                                              nullptr, out, 0, count, 1);
+  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, n_ctas, 1, nullptr, nullptr, out, 0,
+                                              count, 1);
   return cudaGetLastError();
 }
 
@@ -188,7 +306,7 @@ int hw_raw_peak(int32_t s0, int32_t s1, int32_t s2, int nb, int n_tiles, float c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   raw_peak_kernel<<<peak_ctas(n_tiles), PEAK_THREADS, 0, st>>>(make_seeds(s0, s1, s2), nb,
                                                                 lanes, partials);
-  return static_cast<int>(reduce_peak(partials, n_tiles, count, out, st));
+  return static_cast<int>(reduce_peak(partials, peak_ctas(n_tiles), count, out, st));
 }
 
 // lanes (n_tiles * 4096) uint32: each lane's digest of its row accumulators.
@@ -198,7 +316,7 @@ int hw_draw_peak(int32_t s0, int32_t s1, int32_t s2, int nb, int n_tiles, float 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   draw_peak_kernel<<<peak_ctas(n_tiles), PEAK_THREADS, 0, st>>>(
       make_seeds(s0, s1, s2), nb, static_cast<uint32_t*>(lanes), partials);
-  return static_cast<int>(reduce_peak(partials, n_tiles, count, out, st));
+  return static_cast<int>(reduce_peak(partials, peak_ctas(n_tiles), count, out, st));
 }
 
 int hw_bitops_peak(int32_t s0, int32_t s1, int32_t s2, int n_tiles, float count, void* lanes,
@@ -207,7 +325,41 @@ int hw_bitops_peak(int32_t s0, int32_t s1, int32_t s2, int n_tiles, float count,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bitops_peak_kernel<<<peak_ctas(n_tiles), PEAK_THREADS, 0, st>>>(
       make_seeds(s0, s1, s2), static_cast<uint32_t*>(lanes), partials);
-  return static_cast<int>(reduce_peak(partials, n_tiles, count, out, st));
+  return static_cast<int>(reduce_peak(partials, peak_ctas(n_tiles), count, out, st));
+}
+
+// Scratch sizes (floats) of the exact-tier walls' partial sums.
+int hw_bm_peak_partials(int n_tiles) { return bm_ctas(n_tiles); }
+int hw_exp_peak_partials(int n_tiles) { return chain_ctas(n_tiles); }
+int hw_recip_peak_partials(int n_tiles) { return chain_ctas(n_tiles); }
+
+// lanes (n_tiles * 16384) float: each lane's sum of z0 + z1 over its rows.
+int hw_bm_peak(int32_t s0, int32_t s1, int32_t s2, int n_tiles, float count, float* lanes,
+               float* partials, float* out, void* stream) {
+  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bm_peak_kernel<<<bm_ctas(n_tiles), BM_THREADS, 0, st>>>(make_seeds(s0, s1, s2), lanes,
+                                                           partials);
+  return static_cast<int>(reduce_peak(partials, bm_ctas(n_tiles), count, out, st));
+}
+
+// lanes (n_tiles * 32768) float: each chain's final x.
+int hw_exp_peak(int32_t s0, int32_t s1, int32_t s2, int n_tiles, float count, float* lanes,
+                float* partials, float* out, void* stream) {
+  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  exp_peak_kernel<<<chain_ctas(n_tiles), CHAIN_THREADS, 0, st>>>(make_seeds(s0, s1, s2),
+                                                                  lanes, partials);
+  return static_cast<int>(reduce_peak(partials, chain_ctas(n_tiles), count, out, st));
+}
+
+int hw_recip_peak(int32_t s0, int32_t s1, int32_t s2, int n_tiles, float count, float* lanes,
+                  float* partials, float* out, void* stream) {
+  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  recip_peak_kernel<<<chain_ctas(n_tiles), CHAIN_THREADS, 0, st>>>(make_seeds(s0, s1, s2),
+                                                                    lanes, partials);
+  return static_cast<int>(reduce_peak(partials, chain_ctas(n_tiles), count, out, st));
 }
 
 }  // extern "C"

@@ -51,6 +51,12 @@ _SIGNATURES = {
     "hw_raw_peak": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_draw_peak": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_bitops_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_bm_peak_partials": ([_I], _I),
+    "hw_exp_peak_partials": ([_I], _I),
+    "hw_recip_peak_partials": ([_I], _I),
+    "hw_bm_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_exp_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_recip_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_error_string": ([_I], ctypes.c_char_p),
 }
 

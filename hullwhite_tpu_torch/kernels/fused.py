@@ -10,9 +10,11 @@
   n_steps, mixed into unit shocks by a scaled Hadamard matrix whose mix is
   pre-folded into the weights (``_premix_curve``, ``_premix_opt``);
 
-and the full-step tier's unit walls (``raw_peak``, ``draw_peak``,
-``bitops_peak``; ``csrc/fused_peak.cu``), which ``benchmarks.run_roofline``
-times on the option tiers' geometry.
+and the unit walls of ``csrc/fused_peak.cu``, which
+``benchmarks.run_roofline`` times: the full-step tier's (``raw_peak``,
+``draw_peak``, ``bitops_peak``) on the full-step option tiers' geometry,
+and the exact tier's (``bm_peak``, ``exp_peak``, ``recip_peak``) on the
+exact curve and option tiles.
 
 Each kernel hashes its own random words from (seeds, global tile, row,
 column, salt) with the generator of the TPU kernels' interpret mode
@@ -22,8 +24,8 @@ no random field ever reaches device memory.
 Every kernel has two versions here:
 
 * the wrapper: on a CUDA device it launches the hand-written kernel of
-  ``csrc/fused_exact.cu``, ``csrc/fused_grid.cu`` or ``csrc/fused_full.cu``
-  or raises; on the CPU it runs the plain version.  There is no other
+  ``csrc/fused_exact.cu``, ``csrc/fused_grid.cu``, ``csrc/fused_full.cu``
+  or ``csrc/fused_peak.cu`` or raises; on the CPU it runs the plain version.  There is no other
   fallback.  Each wrapper
   counts its kernel launches (``launch_counts``).  The seed triple
   (``kernel_seeds``) and the option consts stay on the host and go to the
@@ -63,7 +65,8 @@ TILE_FULL_OPT = 4096   # full-step option kernels: paths per tile
 CURVE_FULL_TILE_PATHS = TILE_FULL
 OPTION_FULL_TILE_PATHS = TILE_FULL_OPT
 SALTS = {"curve": 101, "zbc": 202, "vega": 303, "delta": 404, "grid": 505,
-         "raw_peak": 505, "draw_peak": 606, "bitops_peak": 707}
+         "raw_peak": 505, "draw_peak": 606, "bitops_peak": 707,
+         "bm_peak": 808, "exp_peak": 909, "recip_peak": 1010}
 # surface bound of the CUDA grid kernel (its consts go by value)
 GRID_MAX_K = 16
 GRID_MAX_S2 = 16
@@ -90,6 +93,13 @@ _SIN5 = [3.1415924582721866, -5.167698654480206, 2.5499982307289915,
 _M32 = 0xFFFFFFFF
 # op-mix rounds of the integer-ALU wall (csrc/fused_peak.cu; fused.py:1021)
 _BITOPS_ROUNDS = 16
+# exact-tier walls: Box-Muller rows summed into one lane of the BM wall, and
+# the chained exps or reciprocals per lane of the exp and recip walls
+# (fused.py:1108)
+BM_LANE_ROWS = 32
+CHAIN_ROUNDS = 32
+BM_TILE_LANES = TILE_EXACT // BM_LANE_ROWS * PAD  # 16384 lanes per tile
+CHAIN_TILE_PATHS = 2 * TILE_OPT * PAD             # 65536 pairs per tile
 # plain versions' chunking (tiles per chunk)
 _TILES_PER_CHUNK = {"curve": 2, "option": 8, "curve_full": 16,
                     "option_full": 8}
@@ -110,7 +120,9 @@ class OptionPrepared(NamedTuple):
     """Consts of the option kernels, laid out as
     [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q, l11, l21, l22], followed
     by [dr(S1)/dr0, dI(S1)/dr0] for the delta kernel, and the device the
-    kernels run on."""
+    kernels run on.  P0S2, the control's centering constant, is
+    ``market.P[-1]`` = P(0, t_final), as in the JAX package: it equals
+    P(0,S2) only when S2 = t_final."""
 
     consts: np.ndarray    # (13,) or (15,) float32 on the host, by value
     device: torch.device
@@ -144,7 +156,9 @@ def curve_prepared(cfg: HWConfig, tables: hw.StepTables) -> CurvePrepared:
 
 def _zbc_consts(cfg: HWConfig, tables: hw.StepTables, market: hw.MarketCurve,
                 sigma) -> torch.Tensor:
-    """(10,) [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q] in float32."""
+    """(10,) [c_r, c_I, A, B, K, P0S2, c_dr, c_dI, sigma, q] in float32;
+    P0S2 is ``market.P[-1]`` = P(0, t_final), which is P(0,S2) only when
+    S2 = t_final (the JAX package centers the control the same way)."""
     sigma = hw._f32(sigma).cpu()
     A = hw.a_hw(cfg, sigma, market, cfg.s1, cfg.s2)
     B = hw.b_func(cfg.s1, cfg.s2, cfg.a)
@@ -651,13 +665,16 @@ def option_full_shocks(seeds, n_tiles: int, n_steps: int, device="cpu"):
 
 
 class PeakOut(NamedTuple):
-    """Result of a unit-wall kernel over n_tiles tiles of TILE_FULL_OPT
-    lanes."""
+    """Result of a unit-wall kernel over n_tiles tiles: TILE_FULL_OPT lanes
+    per tile (full-step walls), BM_TILE_LANES (Box-Muller wall) or
+    TILE_OPT * PAD (exp and recip walls)."""
 
     out: torch.Tensor    # (2,) float32 [checksum, number of lanes]
-    lanes: torch.Tensor  # (n_tiles * TILE_FULL_OPT,) one value per lane:
-                         # float32 raw sums (raw_peak) or the int32 bits of
-                         # uint32 row-accumulator digests (draw/bitops_peak)
+    lanes: torch.Tensor  # (n_tiles * lanes per tile,) one value per lane:
+                         # float32 raw sums (raw_peak), the int32 bits of
+                         # uint32 row-accumulator digests (draw/bitops_peak),
+                         # float32 sums of BM_LANE_ROWS z0 + z1 (bm_peak) or
+                         # the float32 ends of the chains (exp/recip_peak)
 
 
 def _as_int32(x: torch.Tensor) -> torch.Tensor:
@@ -737,6 +754,49 @@ def bitops_peak_plain(seeds, n_tiles: int, device="cpu") -> PeakOut:
         lanes.append(_digest(acc))
         total += _checksum_term(acc)
     return _peak_result(torch.cat(lanes), total * 2.0 ** -32)
+
+
+def bm_peak_plain(seeds, n_tiles: int, device="cpu") -> PeakOut:
+    """Box-Muller wall: each tile's (TILE_EXACT, PAD) elements (draw salts 0
+    and 1) give z0 + z1; lane (b, col) of a tile sums rows b * BM_LANE_ROWS
+    .. (b + 1) * BM_LANE_ROWS - 1 of column col (lanes row-major)."""
+    idx = _idx(TILE_EXACT, device)
+    lanes = []
+    for first, n in _chunks(n_tiles, _TILES_PER_CHUNK["curve"]):
+        z0, z1 = box_muller_plain(_tile_s0(seeds, first, n, device),
+                                  int(seeds[1]), idx)
+        lanes.append((z0 + z1).reshape(n, -1, BM_LANE_ROWS, PAD).sum(2)
+                     .reshape(-1))
+    lanes = torch.cat(lanes)
+    return _peak_result(lanes, float(lanes.to(torch.float64).sum()))
+
+
+def _chain_plain(seeds, n_tiles: int, device, step) -> PeakOut:
+    """Each lane of n_tiles (TILE_OPT, PAD) tiles starts from x0 = [1, 2)
+    float of its word (salt 0) minus 1 and runs CHAIN_ROUNDS steps."""
+    idx = _idx(TILE_OPT, device)
+    lanes = []
+    for first, n in _chunks(n_tiles, _TILES_PER_CHUNK["option"]):
+        x = _bits_float12(tile_draw_plain(_tile_s0(seeds, first, n, device),
+                                          int(seeds[1]), idx, 0)) - 1.0
+        for _ in range(CHAIN_ROUNDS):
+            x = step(x)
+        lanes.append(x.reshape(-1))
+    lanes = torch.cat(lanes)
+    return _peak_result(lanes, float(lanes.to(torch.float64).sum()))
+
+
+def exp_peak_plain(seeds, n_tiles: int, device="cpu") -> PeakOut:
+    """exp wall: CHAIN_ROUNDS chained x <- e^{-x} per lane
+    (``_exp_peak_kernel``)."""
+    return _chain_plain(seeds, n_tiles, device, lambda x: torch.exp(-x))
+
+
+def recip_peak_plain(seeds, n_tiles: int, device="cpu") -> PeakOut:
+    """Reciprocal wall: CHAIN_ROUNDS chained x <- 1 / (x + 1), rounded to
+    nearest (``_recip_peak_kernel``)."""
+    return _chain_plain(seeds, n_tiles, device,
+                        lambda x: torch.reciprocal(x + 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -1081,6 +1141,55 @@ def bitops_peak(seeds, n_tiles: int, *, device) -> PeakOut:
     return _peak_kernel("bitops", seeds, n_tiles, 1, device)
 
 
+# wall: (plain version, C entry, lanes per tile)
+_EXACT_WALLS = {"bm": (bm_peak_plain, "hw_bm_peak", BM_TILE_LANES),
+                "exp": (exp_peak_plain, "hw_exp_peak", TILE_OPT * PAD),
+                "recip": (recip_peak_plain, "hw_recip_peak", TILE_OPT * PAD)}
+
+
+def _exact_wall(kind: str, seeds, n_tiles: int, device) -> PeakOut:
+    s = _seed_triple(seeds)
+    dev = torch.device(device)
+    _check_tiles(n_tiles)
+    plain, entry, per_tile = _EXACT_WALLS[kind]
+    if not _route(dev):
+        return plain(s, n_tiles, dev)
+    from .build import check
+
+    lib, stream = _launch_env(dev)
+    n_lanes = n_tiles * per_tile
+    lanes = torch.empty(n_lanes, dtype=torch.float32, device=dev)
+    partials = torch.empty(getattr(lib, f"{entry}_partials")(n_tiles),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    code = getattr(lib, entry)(*s, n_tiles, float(n_lanes), lanes.data_ptr(),
+                               partials.data_ptr(), out.data_ptr(), stream)
+    check(code, f"{kind}_peak")
+    _WRAPPERS[f"{kind}_peak"].launches += 1
+    return PeakOut(out, lanes)
+
+
+def bm_peak(seeds, n_tiles: int, *, device) -> PeakOut:
+    """Box-Muller wall (kernel of ``_bm_peak_kernel``, every normal
+    consumed): per lane the float32 sum of z0 + z1 over BM_LANE_ROWS rows of
+    one column of a (TILE_EXACT, PAD) tile, on ``device``."""
+    return _exact_wall("bm", seeds, n_tiles, device)
+
+
+def exp_peak(seeds, n_tiles: int, *, device) -> PeakOut:
+    """exp wall (kernel of ``_exp_peak_kernel``): per lane of the
+    (TILE_OPT, PAD) tiles, the end of CHAIN_ROUNDS chained x <- e^{-x}, on
+    ``device``."""
+    return _exact_wall("exp", seeds, n_tiles, device)
+
+
+def recip_peak(seeds, n_tiles: int, *, device) -> PeakOut:
+    """Reciprocal wall (kernel of ``_recip_peak_kernel``): per lane the end
+    of CHAIN_ROUNDS chained x <- 1 / (x + 1), rounded to nearest, on
+    ``device``."""
+    return _exact_wall("recip", seeds, n_tiles, device)
+
+
 def _peak_geometry(cfg: HWConfig):
     """(tiles, blocks) of the full-step option tiers at ``cfg``."""
     if cfg.n_paths % TILE_FULL_OPT:
@@ -1127,12 +1236,59 @@ def bitops_peak_fn(cfg: HWConfig):
     return fn, bitops_alu_ops_per_lane()
 
 
+def _wall_tiles(cfg: HWConfig, tile_paths: int) -> int:
+    """Tiles of ``tile_paths`` pairs in ``cfg.n_paths``; raises unless it
+    is a positive multiple (the JAX ``*_peak_fn`` floor-divide, and run 0
+    tiles below one)."""
+    if cfg.n_paths < tile_paths or cfg.n_paths % tile_paths:
+        raise ValueError(f"n_paths must be a positive multiple of "
+                         f"{tile_paths}, got {cfg.n_paths}")
+    return cfg.n_paths // tile_paths
+
+
+def bm_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, normals per call): the Box-Muller wall
+    over n_paths / CURVE_TILE_PATHS exact curve tiles."""
+    n_tiles = _wall_tiles(cfg, CURVE_TILE_PATHS)
+
+    def fn(key: Key, device):
+        return bm_peak(kernel_seeds(key, "bm_peak"), n_tiles,
+                       device=device).out[0]
+
+    return fn, n_tiles * 2 * TILE_EXACT * PAD
+
+
+def _chain_fn(kind: str, cfg: HWConfig):
+    n_tiles = _wall_tiles(cfg, CHAIN_TILE_PATHS)
+    wall = exp_peak if kind == "exp" else recip_peak
+
+    def fn(key: Key, device):
+        return wall(kernel_seeds(key, f"{kind}_peak"), n_tiles,
+                    device=device).out[0]
+
+    return fn, n_tiles * CHAIN_ROUNDS * TILE_OPT * PAD
+
+
+def exp_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, exps per call) over n_paths /
+    CHAIN_TILE_PATHS tiles of (TILE_OPT, PAD) lanes."""
+    return _chain_fn("exp", cfg)
+
+
+def recip_peak_fn(cfg: HWConfig):
+    """(fn(key, device) -> checksum, reciprocals per call), the exp wall's
+    geometry."""
+    return _chain_fn("recip", cfg)
+
+
 _WRAPPERS = {"curve_exact": curve_exact, "zbc_exact": zbc_exact,
              "vega_exact": vega_exact, "delta_exact": delta_exact,
              "grid_exact": grid_exact, "option_normals": option_normals,
              "curve_full": curve_full, "zbc_full": zbc_full,
              "vega_full": vega_full, "raw_peak": raw_peak,
-             "draw_peak": draw_peak, "bitops_peak": bitops_peak}
+             "draw_peak": draw_peak, "bitops_peak": bitops_peak,
+             "bm_peak": bm_peak, "exp_peak": exp_peak,
+             "recip_peak": recip_peak}
 for _w in _WRAPPERS.values():
     _w.launches = 0
 

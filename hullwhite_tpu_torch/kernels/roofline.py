@@ -1,6 +1,7 @@
 """What the H100 needs at least for each kernel's work: the Hopper
-re-derivation of ``hullwhite_tpu.pallas.fused``'s ``fullstep_roofline``
-and ``vpu_ops_accounting``, plus a bound for every kernel of the port.
+re-derivation of ``hullwhite_tpu.pallas.fused``'s ``fullstep_roofline``,
+``vpu_ops_accounting`` and ``exact_tier_accounting``, plus a bound for
+every kernel of the port.
 
 The TPU package counts MXU passes and VPU ops; none of that applies here.
 On this card the full-step product is fp32 FFMA on the CUDA cores in both
@@ -11,9 +12,9 @@ instructions, so a kernel that executes more than it needs reads further
 from its bound:
 
 * fp32: one FMA per nonzero weight per pair for the products (the live
-  FMAs; zero steps and zero columns are not work), plus the elementwise
-  math of the exact tier (Box-Muller, exp, reciprocal, payoffs) counted
-  from the CUDA source;
+  FMAs; zero steps and zero columns are not work), the payoffs' math
+  counted from the CUDA source, and the Box-Muller elements, exps and
+  reciprocals at the exact tier's unit walls' cost (below);
 * integer: the words the function hashes times the fewest integer
   instructions per word the card has shown, those of the unit walls
   (``csrc/fused_peak.cu``): a generator word costs the generator wall's
@@ -23,7 +24,13 @@ from its bound:
   built library's SASS (``kernels/sass.py``), or, where no library or no
   ``cuobjdump`` is at hand, from the source, one operation per
   instruction (origin ``"source count"``); never a mix of the two;
-* MUFU: one per log, sqrt, exp and reciprocal of the source;
+* MUFU: the Box-Muller elements, exps and reciprocals (an IEEE division
+  is a reciprocal: without fast math it issues one MUFU.RCP and its
+  refinement) at the exact tier's walls' cost: their fp32 and MUFU
+  instructions per element, per exp and per reciprocal, from the loops of
+  ``bm_peak_kernel``, ``exp_peak_kernel`` and ``recip_peak_kernel`` less
+  the walls' own consumers (BM's z0 + z1 and its accumulate, the recip
+  chain's x + 1), or from the source where the integer counts are;
 * bytes: inputs read once, outputs written once.
 
 A bound is the largest of the pipe times, with the per-SM rates of the
@@ -66,23 +73,22 @@ _SOURCE_WALLS = {
     "bitops": {"alu": _HASH["alu"] + 16 * 13.0 + 1.0, "imad": _HASH["imad"]},
 }
 
-# Elementwise math (source counts, fp32 FMA-pipe instructions and MUFU):
-# expf, __frcp_rn and IEEE division each one MUFU and its refinement; a
+# The exact tier's walls, whose loops give the fp32 and MUFU instructions of
+# one Box-Muller element, one exp and one reciprocal: (kernel, the loop's
+# unit, units per item, fp32 instructions per item of the wall's own
+# consumer, which are not the item's).
+_MATH_WALLS = {"bm": ("bm_peak_kernel", "words", 2.0, 2.0),
+               "exp": ("exp_peak_kernel", "ex2", 1.0, 0.0),
+               "recip": ("recip_peak_kernel", "rcp", 1.0, 1.0)}
+# Source counts of the same (fp32 FMA-pipe instructions and MUFU): expf,
+# __frcp_rn and IEEE division each one MUFU and its refinement; a
 # Box-Muller element (2 words -> 2 normals) log and sqrt on the MUFU, the
 # degree-5 sin/cos polynomials and the products.
-_EXP = {"fp32": 2.0, "xu": 1.0}
-_BM = {"fp32": 18.0, "xu": 2.0}
+_SOURCE_MATH = {"bm": {"fp32": 18.0, "xu": 2.0},
+                "exp": {"fp32": 2.0, "xu": 1.0},
+                "recip": {"fp32": 2.0, "xu": 1.0}}
 # the surface of ``cli grid`` (``cli.grid_axes``): strikes x maturities
 _SURFACE = (5, 5)
-
-
-def _math(n: float, *parts) -> dict:
-    """n times the sum of the per-unit counts ``parts``."""
-    out = {"fp32": 0.0, "xu": 0.0}
-    for p in parts:
-        for k, v in p.items():
-            out[k] += n * v
-    return out
 
 
 def _curve_live_blocks(cfg: HWConfig) -> int:
@@ -118,90 +124,121 @@ def fullstep_roofline(cfg: HWConfig) -> dict:
 def work(cfg: HWConfig) -> dict:
     """Per kernel at ``cfg`` (the surface at ``cli grid``'s 5 x 5): the
     words it must hash by kind (``"generator"``, ``"raw"``, ``"bitops"``
-    rows), its fp32 and MUFU instructions and the bytes it must move."""
+    rows), its Box-Muller elements (``"bm"``), exps and reciprocals, its
+    other fp32 instructions and the bytes it must move."""
     P = cfg.n_paths
     k = cfg.n_mat - 1
     n_k, n_s2 = _SURFACE
     f4 = 4.0
     roof = fullstep_roofline(cfg)
     q1, opt = roof["q1_fullstep"], roof["zbc_fullstep"]
-    # per pair of an option kernel: a Box-Muller element, exps and
-    # reciprocals of the two legs, the payoff's flops; its output sums
-    option = {name: {"generator": 2 * P, **_math(P, _BM, _EXP, _EXP, _EXP,
-                                                 _EXP, {"fp32": flops}),
-                     "bytes": f4 * n_out}
+    # per pair of an option kernel: a Box-Muller element, the two legs'
+    # exps and reciprocals (vega: its two divisions by sigma), the payoff's
+    # flops; its output sums
+    option = {name: {"generator": 2 * P, "bm": P, "exp": 2 * P,
+                     "recip": 2 * P, "fp32": P * flops, "bytes": f4 * n_out}
               for name, flops, n_out in (("zbc_exact", 27.0, 6),
                                          ("vega_exact", 17.0, 2),
                                          ("delta_exact", 23.0, 2))}
     out = {
         # k normals per pair, the product with the upper-triangular L^T,
         # then per maturity an exp, a reciprocal and t + 1/t
-        "curve_exact": {"generator": P * k,
-                        **_math(1.0, {"fp32": P * k * (k + 1) / 2},
-                                _math(P * k / 2, _BM),
-                                _math(P * k, _EXP, _EXP, {"fp32": 2.0})),
+        "curve_exact": {"generator": P * k, "bm": P * k / 2, "exp": P * k,
+                        "recip": P * k,
+                        "fp32": P * k * (k + 1) / 2 + P * k * 2.0,
                         "bytes": f4 * (fused.PAD * fused.PAD + fused.PAD
                                        + cfg.n_mat)},
         **option,
-        "option_normals": {"generator": 2 * P, **_math(P, _BM),
-                           "bytes": f4 * 2 * P},
-        # per pair t_I; per maturity its exp, reciprocal and 8 flops; per
-        # cell 10 flops
-        "grid_exact": {"generator": 2 * P,
-                       **_math(1.0, _math(P, _BM, _EXP, _EXP, {"fp32": 5.0}),
-                               _math(P * n_s2, _EXP, _EXP, {"fp32": 8.0}),
-                               {"fp32": P * n_k * n_s2 * 10.0}),
+        "option_normals": {"generator": 2 * P, "bm": P, "bytes": f4 * 2 * P},
+        # per pair t_I, its exp and reciprocal and 5 flops; per maturity an
+        # exp, a reciprocal and 8 flops; per cell 10 flops
+        "grid_exact": {"generator": 2 * P, "bm": P, "exp": P * (1 + n_s2),
+                       "recip": P * (1 + n_s2),
+                       "fp32": P * (5.0 + 8.0 * n_s2 + 10.0 * n_k * n_s2),
                        "bytes": f4 * fused.grid_rows(n_k, n_s2)},
         "curve_full": {"raw": P * q1["words_per_pair"],
-                       **_math(P, {"fp32": q1["fma_per_pair_live"]}),
+                       "fp32": P * q1["fma_per_pair_live"],
                        "bytes": f4 * (q1["fma_per_pair_executed"] + fused.PAD
                                       + cfg.n_mat)},
         "zbc_full": {"raw": P * opt["words_per_pair"],
-                     **_math(P, {"fp32": opt["fma_per_pair_live"]}),
+                     "fp32": P * opt["fma_per_pair_live"],
                      "bytes": f4 * (8 * opt["raws_per_pair"] + 6)},
         "vega_full": {"raw": P * opt["words_per_pair"],
-                      **_math(P, {"fp32": opt["fma_per_pair_live"]}),
+                      "fp32": P * opt["fma_per_pair_live"],
                       "bytes": f4 * (8 * opt["raws_per_pair"] + 2)},
         # one add per raw
         "raw_peak": {"raw": P * opt["words_per_pair"],
-                     **_math(P, {"fp32": opt["raws_per_pair"]}),
-                     "bytes": f4 * (P + 2)},
+                     "fp32": P * opt["raws_per_pair"], "bytes": f4 * (P + 2)},
         "draw_peak": {"generator": P * opt["words_per_pair"],
-                      **_math(0.0), "bytes": f4 * (P + 2)},
-        "bitops_peak": {"bitops": P * 64, **_math(0.0),
-                        "bytes": f4 * (P + 2)},
-        # The exact tier's walls, not ported yet, from the JAX kernels
-        # (fused.py:1079-1169): P / 8192 tiles of (4096, 128) Box-Muller
-        # elements, each summed; P / 65536 tiles of (256, 128) lanes, each
-        # a word, its mantissa trick, then 32 chained exps or reciprocals.
-        "bm_peak": {"generator": P * fused.PAD,
-                    **_math(P * fused.PAD / 2, _BM, {"fp32": 1.0}),
-                    "bytes": f4 * fused.PAD},
-        "exp_peak": {"generator": P / 2,
-                     **_math(1.0, {"fp32": P / 2},
-                             _math(16 * P, _EXP, {"fp32": 1.0})),
-                     "bytes": f4 * fused.PAD},
-        "recip_peak": {"generator": P / 2,
-                       **_math(1.0, {"fp32": P / 2},
-                               _math(16 * P, _EXP, {"fp32": 1.0})),
-                       "bytes": f4 * fused.PAD},
+                      "bytes": f4 * (P + 2)},
+        "bitops_peak": {"bitops": P * 64, "bytes": f4 * (P + 2)},
+        # the exact tier's walls: P / 8192 tiles of (4096, 128) Box-Muller
+        # elements (64 P), each z0 + z1 added into its lane (2 P lanes of 32
+        # rows); P / 65536 tiles of (256, 128) lanes (P / 2), each a word,
+        # x0 = its [1, 2) float - 1, then 32 chained exps or 32 chained
+        # (x + 1, reciprocal)
+        "bm_peak": {"generator": P * fused.PAD, "bm": 64 * P,
+                    "fp32": 128 * P, "bytes": f4 * (2 * P + 2)},
+        "exp_peak": {"generator": P / 2, "exp": 16 * P, "fp32": P / 2,
+                     "bytes": f4 * (P / 2 + 2)},
+        "recip_peak": {"generator": P / 2, "recip": 16 * P,
+                       "fp32": P / 2 + 16 * P, "bytes": f4 * (P / 2 + 2)},
     }
     return out
 
 
-def _sass_walls(funcs: dict) -> dict:
-    """Integer instructions per word of each wall from parsed SASS: its
-    hashing loop's; raises if a wall or its loop is missing."""
+# exact tier: (kernel of the tier, paths per pair: Q1 and ZBC count both
+# antithetic legs, vega one, as the JAX rows do)
+_EXACT_TIERS = {"q1_exact": ("curve_exact", 2), "zbc_exact": ("zbc_exact", 2),
+                "vega_exact": ("vega_exact", 1)}
+
+
+def exact_tier_accounting(cfg: HWConfig) -> dict:
+    """Per path of each exact tier (``work()``'s counts of its kernel over
+    its paths): normals, generator words, exps, reciprocals (vega's two
+    divisions by sigma among them) and the fp32 instructions that are
+    neither Box-Muller nor exp nor reciprocal: Q1's live FMAs (k(k+1)/2
+    per pair, k = n_mat - 1, the upper-triangular factor) and t + 1/t, the
+    options' payoff flops.  Q1 draws and multiplies k columns, not the
+    TPU's PAD, on the CUDA cores in fp32 in both precisions."""
+    w = work(cfg)
+    out = {}
+    for tier, (kernel, legs) in _EXACT_TIERS.items():
+        e = w[kernel]
+        paths = legs * cfg.n_paths
+        out[tier] = {"paths_per_pair": legs,
+                     "normals_per_path": 2 * e["bm"] / paths,
+                     "words_per_path": e["generator"] / paths,
+                     "exps_per_path": e["exp"] / paths,
+                     "recips_per_path": e["recip"] / paths,
+                     "fp32_per_path": e["fp32"] / paths}
+    return out
+
+
+def _wall_loop(funcs: dict, kernel: str, unit: str) -> dict:
+    """Pipe counts per ``unit`` of the kernel's innermost loop with the
+    most of it; raises if the kernel or such a loop is missing."""
     from . import sass
 
+    loops = [p for p in sass.kernel_loops(funcs, kernel) if p[unit] >= 1]
+    if not loops:
+        raise KeyError(f"no loop with {unit} in {kernel}'s SASS")
+    return sass.per_unit(max(loops, key=lambda p: p[unit]), unit)
+
+
+def _sass_walls(funcs: dict) -> dict:
+    """From parsed SASS: each full-step wall's integer instructions per
+    word (its hashing loop's) and each exact-tier wall's fp32 and MUFU
+    instructions per Box-Muller element, exp or reciprocal, less the
+    wall's own consumer; raises if a wall or its loop is missing."""
     out = {}
     for wall, kernel in _WALLS.items():
-        hashing = [p for p in sass.kernel_loops(funcs, kernel)
-                   if p["words"] >= 1]
-        if not hashing:
-            raise KeyError(f"no hashing loop in {kernel}'s SASS")
-        per = sass.per_unit(max(hashing, key=lambda p: p["words"]), "words")
+        per = _wall_loop(funcs, kernel, "words")
         out[wall] = {p: per[p] for p in _INT_PIPES}
+    for wall, (kernel, unit, per_item, own_fp32) in _MATH_WALLS.items():
+        per = _wall_loop(funcs, kernel, unit)
+        out[wall] = {"fp32": max(per_item * per["fp32"] - own_fp32, 0.0),
+                     "xu": per_item * per["xu"]}
     return out
 
 
@@ -213,17 +250,21 @@ def _library_walls(lib: str, tool: str) -> dict:
 
 
 def op_counts() -> dict:
-    """{"generator" | "raw" | "bitops": {pipe: instructions per word},
-    "origin"}: the unit walls' integer instructions per word, from the SASS
-    of the built library where it and ``cuobjdump`` exist (origin
-    ``"sass"``), else from the source (``"source count"``)."""
+    """{"generator" | "raw" | "bitops": {pipe: integer instructions per
+    word}, "bm" | "exp" | "recip": {"fp32", "xu": instructions per
+    Box-Muller element, exp or reciprocal}, "origin"}: the unit walls'
+    counts, all from the SASS of the built library where it and
+    ``cuobjdump`` exist (origin ``"sass"``), else all from the source
+    (``"source count"``)."""
     from . import build, sass
 
     lib, tool = build.library_path(), sass.cuobjdump()
     if lib.exists() and tool:
         return {**_library_walls(str(lib), tool), "origin": "sass"}
     return {**{w: {p: c.get(p, 0.0) for p in _INT_PIPES}
-               for w, c in _SOURCE_WALLS.items()}, "origin": "source count"}
+               for w, c in _SOURCE_WALLS.items()},
+            **{w: dict(c) for w, c in _SOURCE_MATH.items()},
+            "origin": "source count"}
 
 
 def pipe_seconds(instr: dict, n_bytes: float, clock_mhz: float,
@@ -246,7 +287,10 @@ def pipe_seconds(instr: dict, n_bytes: float, clock_mhz: float,
 
 def _instructions(w: dict, counts: dict) -> dict:
     """A kernel's work ``w`` (``work()``'s entry) in instructions by pipe."""
-    ins = {"fp32": w["fp32"], "xu": w["xu"]}
+    ins = {"fp32": w.get("fp32", 0.0), "xu": 0.0}
+    for kind in _MATH_WALLS:
+        for p in ("fp32", "xu"):
+            ins[p] += w.get(kind, 0.0) * counts[kind][p]
     for p in _INT_PIPES:
         ins[p] = sum(w.get(kind, 0.0) * counts[kind][p] for kind in _WALLS)
     return ins

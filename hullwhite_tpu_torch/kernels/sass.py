@@ -5,9 +5,11 @@ A loop is a backward branch; this module takes a kernel's innermost loops,
 classes each instruction of their bodies by the pipe that executes it, and
 normalises the body by the work it does: the random words it hashes (each
 word runs three murmur3 rounds, so its first multiplier, 0x85EBCA6B,
-appears three times per word) or, in a loop without hashing, its FFMAs.
-``kernels.roofline`` takes the unit walls' hashing loops as the cost of a
-word; the other kernels' loops are a diagnostic of what they issue.
+appears three times per word), its MUFU exps (``MUFU.EX2``) or
+reciprocals (``MUFU.RCP``), or its FFMAs.  ``kernels.roofline`` takes the
+unit walls' loops as the cost of a word, a Box-Muller element, an exp and
+a reciprocal; the other kernels' loops are a diagnostic of what they
+issue.
 
 Pipe classes (sm_90):
 
@@ -116,18 +118,22 @@ def innermost_loops(instrs) -> list:
 
 
 def profile(body) -> dict:
-    """Pipe counts of a loop body, with the words it hashes and its FFMAs."""
+    """Pipe counts of a loop body, with the words it hashes, its MUFU exps
+    and reciprocals and its FFMAs."""
     counts = Counter(pipe_of(op) for _, op, _ in body)
     c1 = sum(1 for _, op, args in body if op.startswith("IMAD")
              and any(k in args.lower() for k in _MURMUR_C1))
     return {"pipes": {p: counts.get(p, 0) for p in PIPES},
             "instructions": len(body), "words": c1 / 3.0,
+            "ex2": sum(1 for _, op, _ in body if op == "MUFU.EX2"),
+            "rcp": sum(1 for _, op, _ in body if op == "MUFU.RCP"),
             "ffma": sum(1 for _, op, _ in body if op.startswith("FFMA"))}
 
 
 def per_unit(body_profile: dict, unit: str) -> dict:
-    """A loop body's pipe counts per hashed word (``unit="words"``) or per
-    FFMA (``unit="ffma"``)."""
+    """A loop body's pipe counts per hashed word (``unit="words"``), per
+    MUFU exp (``"ex2"``) or reciprocal (``"rcp"``), or per FFMA
+    (``"ffma"``)."""
     n = body_profile[unit]
     return {p: c / n for p, c in body_profile["pipes"].items()}
 

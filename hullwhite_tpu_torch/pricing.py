@@ -127,7 +127,9 @@ def theta_recovery(cfg: HWConfig, market: MarketCurve,
 def _option_prep(cfg: HWConfig, engine: str, sigma, sigma0,
                  market: MarketCurve, *, device):
     """Operands of the option kernels (the same for the zbc and vega
-    runs); ``prepared.consts[5]`` is P(0,S2) in both engines."""
+    runs); ``prepared.consts[5]`` is the control's centering constant
+    ``market.P[-1]`` = P(0, t_final) in both engines, as in the JAX package
+    (P(0,S2) only when S2 = t_final)."""
     _check_engine(engine)
     tables = hw.step_tables(cfg, sigma, sigma0, device=resolve_device(device))
     if engine == "fused":
