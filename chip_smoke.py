@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
    checksums within a float32 summation bound, ``compare_exact_wall``);
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
-   reduce pass) and its plain version's wall time per call;
+   reduce pass; the full-step curve kernel's in both precisions) and its
+   plain version's wall time per call;
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
    q3 --validate 5 and grid, first with ``--engine fused_exact`` (exact
@@ -36,8 +37,9 @@ Phases (any failure raises and the script exits non-zero):
    (``payoffs.delta_sum``, ``grid._grid_moments``);
    then ``cli benchmark --roofline`` at full width, as a user runs it:
    both JSON files (full step and exact tier), every fraction finite and
-   > 0 where its count is, no exact-tier fraction of a wall above 1.02,
-   the full-step tier times and the exact Q1 time within 5% of phase 1's;
+   > 0 where its count is, no exact-tier fraction of a wall and no
+   full-step fraction of the tensor peak above 1.02, the full-step tier
+   times and the exact Q1 time within 5% of phase 1's;
 3. the launch counters: each path's kernels ran in that path's run
    (counts reset just before it and read just after it: the CLI run of
    each engine, the delta/gamma step, the roofline run), and the
@@ -51,7 +53,8 @@ fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
 of the unit walls in this build's SASS, at this card's SMs and maximum SM
 clock), which its phase-1 time must not beat, and, as a diagnostic, the
 pipe mix of the full-step kernels' and the exact-tier walls' innermost
-loops.  The last two lines are a JSON object of
+loops (the curve kernel's must hold tensor-core instructions and no FFMA
+loop).  The last two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
 nothing of JAX.
@@ -300,8 +303,8 @@ def phase1(dev):
                 lambda: fused.option_normals(s["zbc"], n_tiles, device=dev),
                 lambda: fused.option_normals_plain(s["zbc"], n_tiles, dev)),
             "curve_full": (
-                lambda: fused.curve_full(s["curve"], cfp.W, cfp.exp_c,
-                                         n_tiles, cfg.n_mat, prec),
+                lambda: fused.curve_full(s["curve"], cfp, n_tiles,
+                                         cfg.n_mat, prec),
                 lambda: fused.curve_full_plain(s["curve"], cfp.W, cfp.exp_c,
                                                n_tiles, cfg.n_mat, prec)),
             "zbc_full": (
@@ -411,6 +414,12 @@ def phase1(dev):
               f"kernel "
               f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
               f"(kernel runs {k1:.4f} / {k2:.4f}, plain {p1:.4f} / {p2:.4f})")
+        if name == "curve_full":  # one bf16 pass instead of three
+            kern, _ = pair(name, n_full[name], "default")
+            print(f"[phase 1] time at {pairs_of(name, n_full[name])}: "
+                  f"{name} [default]: kernel "
+                  f"{min(device_ms(kern, 20, 3), device_ms(kern, 20, 3)):.4f}"
+                  f" ms")
     return err, times, normals_launches
 
 
@@ -641,10 +650,10 @@ def phase2_roofline(dev, times):
     """``cli benchmark --roofline`` at full width with its default windows:
     its return code, the two JSON files it writes, every fraction finite
     and > 0 where its count is, no exact-tier fraction of a wall or peak
-    above 1.02 (a tier above its wall means a count is wrong), and its
-    full-step tier times and exact Q1 time within 5% of the same kernels'
-    phase-1 device times.  Returns the launch counts of the CLI run
-    alone."""
+    and no full-step fraction of the tensor peak above 1.02 (a tier above
+    its wall means a count is wrong), and its full-step tier times and
+    exact Q1 time within 5% of the same kernels' phase-1 device times.
+    Returns the launch counts of the CLI run alone."""
     from hullwhite_tpu_torch import cli
     from hullwhite_tpu_torch.kernels import fused
 
@@ -664,6 +673,8 @@ def phase2_roofline(dev, times):
                                      "exact_roofline.json"))
         finally:
             os.chdir(cwd)
+    from hullwhite_tpu_torch.benchmarks import FULLSTEP_FRACTIONS as counted
+
     res = doc["results"]
     print(f"[phase 2] roofline JSON device: {res['device']}")
     check(res["device"]["name"] and res["device"]["power_limit"],
@@ -672,13 +683,16 @@ def phase2_roofline(dev, times):
                          ("zbc_fullstep", "zbc_full"),
                          ("vega_fullstep", "vega_full")):
         t = res["tiers"][name]
-        fr = {k: v for k, v in t.items() if k.startswith("fraction_of_")}
-        check(all(math.isfinite(v) and v > 0 for v in fr.values()),
+        fr = {f: t[f] for f in counted}
+        check(all(math.isfinite(v) and (v > 0) == (t[counted[f]] > 0)
+                  for f, v in fr.items())
+              and max(t["fraction_of_tensor_peak"],
+                      t["fraction_of_tensor_peak_live"]) <= 1.02,
               f"{name}: fractions {fr}")
         rel = t["ms"] / times[kernel][0] - 1.0
         print(f"[phase 2] roofline {name}: {t['ms']:.4f} ms (phase-1 device "
               f"time {times[kernel][0]:.4f} ms, {rel:+.2%}, tol 5%), "
-              + ", ".join(f"{k} {v:.4f}" for k, v in fr.items())
+              + ", ".join(f"{k[12:]} {v:.4f}" for k, v in fr.items())
               + f", serial sum {t['serial_occupancy_sum']:.4f}, limiting "
               f"unit {t['limiting_unit']}")
         check(abs(rel) <= 0.05, f"{name}: roofline time {t['ms']:.4f} ms vs "
@@ -847,11 +861,20 @@ def main() -> int:
     tool = sass.cuobjdump()
     if tool:  # diagnostic: what the full-step kernels' and walls' loops issue
         funcs = sass.parse(sass.disassemble(build.library_path(), tool))
-        for name, tmpl in (("curve_full", "ILb0E"), ("zbc_full", "ILb0E"),
+        for name, tmpl in (("curve_full", "ILi3EE"), ("zbc_full", "ILb0E"),
                            ("vega_full", "ILb0E"), ("bm_peak", ""),
                            ("exp_peak", ""), ("recip_peak", "")):
-            for loop in sass.kernel_loops(funcs, f"{name}_kernel", tmpl):
+            loops = sass.kernel_loops(funcs, f"{name}_kernel", tmpl)
+            for loop in loops:
                 print(f"[sass] {name} innermost loop: {loop}")
+            if name == "curve_full":  # the product is the tensor cores'
+                (whole,) = [sass.profile(body) for k, body in funcs.items()
+                            if f"17curve_full_kernel{tmpl}" in k]
+                print(f"[sass] curve_full whole kernel: {whole}")
+                check(whole["mma"] > 0
+                      and not any(loop["ffma"] for loop in loops),
+                      "curve_full issues no tensor instructions or loops "
+                      "over an FFMA product")
 
     def entry(name, n):
         source = {"_full": "fused_full.cu", "_peak": "fused_peak.cu"}.get(

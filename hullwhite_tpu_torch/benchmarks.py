@@ -8,8 +8,10 @@ Full-step half: it times the three full-step tiers (Q1 ``curve_full``, Q2b
 full-step tier's three unit walls on the option tiers' geometry: the raw
 wall (draw + octave spread, raws/s), the generator wall (the 3-round
 murmur3 counter hash, words/s) and the integer-ALU wall (the octave op mix
-in registers, ALU-pipe instructions/s).  Each tier's fraction of the fp32
-FMA peak and of each wall, the serial sum and the limiting unit go to
+in registers, ALU-pipe instructions/s).  Each tier's fraction of the peak
+of the pipe its product runs on (Q1: the tensor cores' dense bf16 peak,
+its bf16 passes of the split W; Q2b/Q3: the fp32 FMA peak) and of each
+wall, the serial sum and the limiting unit go to
 ``data_torch/fullstep_roofline.json``.
 
 Exact half: it times the exact tiers (Q1 ``curve_exact`` at ``cfg``, and
@@ -83,13 +85,16 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
     tiers and theirs (``run_exact_roofline``).
 
     Fractions per tier: of the published fp32 peak (executed FFMAs; the
-    live ones beside them), of the raw and generator walls (raws and words
-    per second), and of the integer-ALU wall (the words' ALU-pipe
+    live ones beside them) and of the published dense bf16 tensor peak
+    (executed and live tensor-core FMAs, Q1's product), each 0 where the
+    tier has no such product; of the raw and generator walls (raws and
+    words per second), and of the integer-ALU wall (the words' ALU-pipe
     instructions at the raw wall's count per word, over the wall's; both
     counts from one ``roofline.op_counts``, so of one origin; IMAD runs on
     the FMA pipe and is in neither).  The generator's instructions are
     integer instructions, so the generator fraction is a part of the ALU
-    one: the serial sum adds the two pipes' shares, fp32 and ALU."""
+    one: the serial sum adds the three pipes' shares, fp32, tensor and
+    ALU."""
     dev = pricing.resolve_device(device)
     if dev.type != "cuda":
         raise SystemExit("benchmark --roofline times the CUDA kernels on the "
@@ -104,13 +109,16 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
         raise RuntimeError(f"the tiers' integer counts ({origins}) and the "
                            f"wall's ({counts['origin']}) differ in origin")
     fma_peak = roofline.FP32_PEAK_TFLOPS * 1e12 / 2
+    mma_peak = roofline.TENSOR_PEAK_TFLOPS * 1e12 / 2
     print(f"--- Full-step roofline [{hw['name']}, power limit "
           f"{hw['power_limit']}, max SM clock {hw['sm_clock_max_mhz']:.0f} "
-          f"MHz; fp32 peak {roofline.FP32_PEAK_TFLOPS:.0f} Tflop/s "
-          f"(published, 700 W); integer counts: "
+          f"MHz; fp32 peak {roofline.FP32_PEAK_TFLOPS:.0f} Tflop/s, "
+          f"tensor peak {roofline.TENSOR_PEAK_TFLOPS:.0f} Tflop/s dense "
+          f"bf16 (published, 700 W); integer counts: "
           f"{counts['origin']}] ---")
     out = {"device": hw, "matmul_precision": cfg.matmul_precision,
            "fp32_peak_tflops": roofline.FP32_PEAK_TFLOPS,
+           "tensor_peak_tflops": roofline.TENSOR_PEAK_TFLOPS,
            "int_op_counts_origin": counts["origin"],
            "tiers": {}}
 
@@ -127,25 +135,34 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
         runs[f"{kind}_fullstep"] = (p.run, p.prepare(cfg.sigma, cfg.sigma,
                                                      market))
     print(f"{'tier':14s} {'ms':>8s} {'M pairs/s':>10s} {'FMA/pair':>9s} "
-          f"{'Tflop/s':>8s} {'% fp32':>7s} {'G raws/s':>9s}")
+          f"{'MMA/pair':>9s} {'Tflop/s':>8s} {'% fp32':>7s} {'% tensor':>9s} "
+          f"{'G raws/s':>9s}")
     for name, (run, prep) in runs.items():
         dt, _ = bench(run, key, prep, device=dev, n=reps, hold=True)
         r = roof[name]
         pairs_s = cfg.n_paths / dt
         fma_s = pairs_s * r["fma_per_pair_executed"]
+        mma_s = pairs_s * r["mma_fma_per_pair_executed"]
         out["tiers"][name] = {
             "ms": dt * 1e3, "pairs_per_sec": pairs_s, **r,
             "achieved_fp32_tflops": 2 * fma_s / 1e12,
+            "achieved_tensor_tflops": 2 * mma_s / 1e12,
             "fraction_of_fp32_peak": fma_s / fma_peak,
             "fraction_of_fp32_peak_live":
                 pairs_s * r["fma_per_pair_live"] / fma_peak,
+            "fraction_of_tensor_peak": mma_s / mma_peak,
+            "fraction_of_tensor_peak_live":
+                pairs_s * r["mma_fma_per_pair_live"] / mma_peak,
             "raws_per_sec": pairs_s * r["raws_per_pair"],
             **{k: ints[name][k] for k in ("alu_ops_per_pair",
                                            "int_ops_per_pair_by_pipe",
                                            "origin")}}
         print(f"{name:14s} {dt * 1e3:8.3f} {pairs_s / 1e6:10.1f} "
-              f"{r['fma_per_pair_executed']:9d} {2 * fma_s / 1e12:8.2f} "
+              f"{r['fma_per_pair_executed']:9d} "
+              f"{r['mma_fma_per_pair_executed']:9d} "
+              f"{2 * (fma_s + mma_s) / 1e12:8.2f} "
               f"{100 * fma_s / fma_peak:6.1f}% "
+              f"{100 * mma_s / mma_peak:8.1f}% "
               f"{pairs_s * r['raws_per_pair'] / 1e9:9.1f}")
 
     walls = {}
@@ -167,8 +184,9 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
           f"{walls['int_alu'][1] / 1e12:.2f} T ALU-pipe instructions/s "
           f"[{hw['name']}, {hw['power_limit']}]")
 
-    print(f"\n{'tier':14s} {'% fp32':>7s} {'% raw':>6s} {'% gen':>6s} "
-          f"{'% int-ALU':>10s} {'serial sum':>11s}  limiting unit")
+    print(f"\n{'tier':14s} {'% fp32':>7s} {'% tensor':>9s} {'% raw':>6s} "
+          f"{'% gen':>6s} {'% int-ALU':>10s} {'serial sum':>11s}  limiting "
+          f"unit")
     for name, t in out["tiers"].items():
         pairs_s = t["pairs_per_sec"]
         t["fraction_of_raw_wall"] = t["raws_per_sec"] / walls["raw"][1]
@@ -177,23 +195,22 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
         t["fraction_of_int_alu_wall"] = (
             pairs_s * t["alu_ops_per_pair"] / walls["int_alu"][1])
         units = {"fp32": t["fraction_of_fp32_peak"],
+                 "tensor": t["fraction_of_tensor_peak"],
                  "generator": t["fraction_of_generator_wall"],
                  "int_alu": t["fraction_of_int_alu_wall"]}
-        t["serial_occupancy_sum"] = units["fp32"] + units["int_alu"]
+        t["serial_occupancy_sum"] = (units["fp32"] + units["tensor"]
+                                     + units["int_alu"])
         t["limiting_unit"] = max(units, key=units.get)
         print(f"{name:14s} {100 * units['fp32']:6.1f}% "
+              f"{100 * units['tensor']:8.1f}% "
               f"{100 * t['fraction_of_raw_wall']:5.1f}% "
               f"{100 * units['generator']:5.1f}% "
               f"{100 * units['int_alu']:9.1f}% "
               f"{100 * t['serial_occupancy_sum']:10.1f}%  "
               f"{t['limiting_unit']}")
-    print("serial sum = fp32 + ALU-pipe shares if the two never overlapped "
-          "(the generator's share is part of the ALU one)")
-    _finite_fractions(out["tiers"], {
-        "fraction_of_fp32_peak": "fma_per_pair_executed",
-        "fraction_of_raw_wall": "raws_per_pair",
-        "fraction_of_generator_wall": "words_per_pair",
-        "fraction_of_int_alu_wall": "alu_ops_per_pair"})
+    print("serial sum = fp32 + tensor + ALU-pipe shares if the three never "
+          "overlapped (the generator's share is part of the ALU one)")
+    _finite_fractions(out["tiers"], FULLSTEP_FRACTIONS)
     path = hwio.write_json(hwio.DATA_DIR / "fullstep_roofline.json",
                            "Full-step roofline", cfg, results=out)
     print(f"saved {path}")
@@ -201,6 +218,16 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
                        walls["int_alu"][1], reps)
     return 0
 
+
+# each fraction of the full-step table and the per-pair count it divides
+FULLSTEP_FRACTIONS = {
+    "fraction_of_fp32_peak": "fma_per_pair_executed",
+    "fraction_of_fp32_peak_live": "fma_per_pair_live",
+    "fraction_of_tensor_peak": "mma_fma_per_pair_executed",
+    "fraction_of_tensor_peak_live": "mma_fma_per_pair_live",
+    "fraction_of_raw_wall": "raws_per_pair",
+    "fraction_of_generator_wall": "words_per_pair",
+    "fraction_of_int_alu_wall": "alu_ops_per_pair"}
 
 # each fraction of the exact-tier table and the per-path count it divides
 EXACT_FRACTIONS = {"fraction_of_bm_peak": "normals_per_path",

@@ -13,7 +13,7 @@ import torch
 from .config import HWConfig
 from .kernels.fused import (PAD, CurveFullPrepared, CurvePrepared,
                             GridPrepared, OptionFullPrepared, OptionPrepared,
-                            grid_bs)
+                            curve_full_operands, grid_bs)
 from .models.hull_white import MarketCurve
 from .ops.rng import Key
 
@@ -70,13 +70,17 @@ def grid_prepared(cfg: HWConfig, consts, Ks, S2s, *, device) -> GridPrepared:
 
 def curve_full_prepared(prepared, *, device) -> CurveFullPrepared:
     """``fused.curve_prepared(..., exact=False)`` output (W (nb * 128, PAD),
-    exp_c (PAD,)) as the full-step curve kernel's operands."""
+    exp_c (PAD,)) as the full-step curve kernel's operands, with the
+    kernel's split of W and live mask built from it
+    (``fused.curve_full_operands``)."""
     W, exp_c = (np.array(a, np.float32) for a in prepared)  # owned copies
     if W.ndim != 2 or W.shape[1] != PAD or W.shape[0] % 128 or \
             exp_c.shape != (PAD,):
         raise ValueError("expected W (nb * 128, 128) and exp_c (128,)")
-    return CurveFullPrepared(W=torch.as_tensor(W, device=device),
-                             exp_c=torch.as_tensor(exp_c, device=device))
+    W = torch.as_tensor(W)
+    return CurveFullPrepared(
+        W.to(device), torch.as_tensor(exp_c, device=device),
+        *(a.to(device) for a in curve_full_operands(W)))
 
 
 def option_full_prepared(prepared, *, device) -> OptionFullPrepared:

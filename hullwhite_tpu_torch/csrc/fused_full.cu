@@ -7,13 +7,13 @@
 // go to the kernels by value.
 //
 // Replaces (hullwhite_tpu/pallas/fused.py):
-//   curve_full_kernel <- _curve_kernel (Q1 full step)
+//   curve_full_kernel <- _curve_kernel (:320, Q1 full step)
 //   zbc_full_kernel   <- _zbc_full_kernel + _legs_pair + _moment_accum
 //   vega_full_kernel  <- _vega_full_kernel + _vega_terms
 //
 // The generator is _raw_block behind the interpret-mode _tile_rng: per
 // 128-step block q (the draw salt) each u32 word gives two exact bf16 raws
-// (hw::raw_pair).  The Hadamard mix is pre-folded into the weights on the
+// (hw::raw_bits).  The Hadamard mix is pre-folded into the weights on the
 // host, so each kernel runs one product per block on the raws:
 //   curve:   z (paths, 128 maturities) += U_q (paths, 128 steps) @ W_q;
 //            word i * 128 + k of block q holds steps k of paths 2i (low
@@ -21,27 +21,59 @@
 //   options: (z_r, z_i) = rows 0 and 1 of sum_q W_q (2, 128) @ U_q;
 //            word j * 4096 + p holds steps 2j (low) and 2j + 1 (high) of
 //            path p.
-// "highest" multiplies the exact raws by the fp32 weights; any other
-// precision rounds the weights to bf16 first; both accumulate in fp32.
 // Each CTA writes partial sums that reduce_kernel (hw_reduce.cuh) sums in
 // a fixed order: no float atomics, so reruns are bitwise identical.
 //
-// What bounds them on the H100:
-//   * curve_full: fp32 FMA on the CUDA cores, 2^20 paths x 1024 steps x 128
-//     columns per call at the reference size (1.4e11 FMAs, of which 100 of
-//     128 columns and 1000 of 1024 steps are live).  The design keeps the
-//     product's operands in shared memory and registers: per 64-step stage
-//     a CTA stages 64 x 128 weights and 64 x 128 raws (64 KB); each thread
-//     holds a 16-path x 4-column register tile, so one broadcast float4
-//     load feeds 16 FMAs and one weight load 16.  Hashing costs one word
-//     per path pair per step, about a tenth of the FMA issue slots.
-//   * zbc_full/vega_full: integer ALU (three murmur3 rounds per word, one
-//     word per two steps) plus 4 FMAs per word; the weight rows (2 x 512
-//     floats) sit in shared memory and every read is a broadcast.
-// What this simple design leaves for later work: the raws are exact bf16,
-// so the curve product can run on the tensor cores (mma/wgmma with bf16
-// hi/mid/lo splits of W for "highest", one bf16 pass otherwise); the
-// 28 dead columns and 24 dead steps are multiplied as zeros.
+// curve_full: the product on the tensor cores, the hash on the ALU pipe.
+//   * Bound: the hash.  At 2^20 paths the kernel hashes 2^29 words at
+//     about 28 ALU-pipe instructions each (the raw wall's count): ~0.90 ms
+//     on 64 ALU lanes x 132 SMs x 1980 MHz.  The live product, 56,960
+//     weights per path x 3 passes for "highest", is ~0.33 ms on the tensor
+//     pipe at 2048 dense bf16 FMAs per SM per clock ("default": 0.11 ms).
+//   * Raws straight into A: a warp owns 16 paths (8 word pairs); fragment
+//     row g is path 2 pair_g (the words' low halves), row g + 8 path
+//     2 pair_g + 1 (the high halves), so each thread hashes exactly the 4
+//     words of its own A fragment per 16-step chunk, and two byte permutes
+//     of two words' packed bf16x2 are its A registers.  The raws never pass
+//     through shared memory and no barrier waits on them.
+//   * The split: W = lo + mid + hi exactly in bf16 (kernels/fused.py,
+//     split_bf16), one pass per part, small to large; "default" runs hi
+//     = bf16(W) alone.  The TPU splits both operands (6 MXU passes); the
+//     raws are exact bf16, so three passes give the fp32 product up to
+//     the accumulation.
+//   * Route: wgmma.mma_async m64n32k16, A from the warpgroup's registers
+//     (64 paths), B from shared memory, so the tensor core reads B once
+//     per 64 paths and issues no shared loads.  It is asynchronous: a warp
+//     issues a half-block's product, hashes the next half's words while
+//     the tensor core runs it, then waits.  The first route,
+//     mma.sync.m16n8k16 with B fragments loaded per warp, ran 2.29 ms
+//     ("highest") / 1.71 ms ("default") at 2^20 paths on an H100 80GB
+//     HBM3 at 700 W: its tensor rate there is half of wgmma's and each
+//     warp stalled on its own mma chains instead of hashing.
+//   * The skip: a per-block mask of live 8-column groups, computed on the
+//     host from W's nonzeros.  The product runs on quads of 4 groups
+//     (wgmma's n32), those with a live group; a dead group's tiles in a
+//     live quad are zeros.  At the reference size 24 of 32 block-quads
+//     run (62 of 128 n8 groups are live): the T = 0 column's and columns
+//     104-127's groups and the blocks after T_m are skipped.
+//   * No promotion: the tensor core's fp32 sums run over all blocks (the
+//     chains' length is 8 x 8 x 3 wgmma).  Measured on the card with the
+//     mma.sync route at 2^20 paths ("highest"), against the plain fp32
+//     product: max rel 1.67e-6 with a per-block fp32 promotion and
+//     without, mean signed rel -1.9e-9 with and -9.3e-8 without; the
+//     tolerance is 1e-5.  Promotion would need a second 64-float sum per
+//     thread, which 16 warps of 128 registers cannot hold.
+//   * W staging: a CTA owns 256 paths of one tile and copies each block's
+//     live quads once (cp.async, double-buffered, two barriers per block):
+//     about 0.6 MB of split per CTA, 2.4 GB of L2 reads per call.
+// What stays open: the hash's own issue slots (index math, the A packing)
+// and the tensor time the hash does not hide.
+
+// zbc_full/vega_full: integer ALU (three murmur3 rounds per word, one word
+// per two steps) plus 4 FMAs per word; the weight rows (2 x 512 floats)
+// sit in shared memory and every read is a broadcast.  "highest" multiplies
+// the exact raws by the fp32 weights; any other precision rounds the
+// weights to bf16 first; both accumulate in fp32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,18 +88,32 @@ constexpr int MIX_BLOCK = 128;       // fused._MIX_BLOCK: steps per block (the d
 constexpr int TILE_FULL = 2048;      // fused.TILE_FULL: curve paths per tile
 constexpr int TILE_FULL_OPT = 4096;  // fused.TILE_FULL_OPT: option paths per tile
 
-// Q1: a CTA owns CURVE_PATHS paths of one tile and walks every block in
-// stages of SUB steps.  Warp w owns paths 16w .. 16w + 15; lane l owns
-// columns l, l + 32, l + 64, l + 96.
-constexpr int CURVE_THREADS = 256;
-constexpr int CURVE_PATHS = 128;
-constexpr int CURVE_WARPS = CURVE_THREADS / 32;
-constexpr int WARP_PATHS = CURVE_PATHS / CURVE_WARPS;  // 16
-constexpr int LANE_COLS = PAD / 32;                    // 4
-constexpr int SUB = 64;                                // steps per stage
-constexpr int CURVE_PAIRS = CURVE_PATHS / 2;           // words per step per CTA
-constexpr int CURVE_CTAS_PER_TILE = TILE_FULL / CURVE_PATHS;  // 16
-constexpr int CURVE_SMEM = static_cast<int>(sizeof(float)) * (SUB * PAD + SUB * CURVE_PATHS);
+// Q1 geometry.  Per block the split W is (SPLIT_PASSES, GROUPS, CHUNKS)
+// tiles of TILE_BYTES: pass lo, mid, hi; n8 column group j; 16-step chunk
+// kc; each tile the two 8 x 8 core matrices of wgmma's K-major B, steps
+// 0-7 then 8-15, 8 columns of 16 bytes each (kernels/fused.py,
+// split_tiles).
+constexpr int SPLIT_PASSES = 3;
+constexpr int GROUPS = PAD / 8;           // n8 tiles of the 128 columns
+constexpr int CHUNKS = MIX_BLOCK / 16;    // k16 chunks of a block
+constexpr int TILE_BYTES = 16 * 8 * 2;
+constexpr int CORE_BYTES = TILE_BYTES / 2;                           // 8 x 16 B
+constexpr int GROUP_BYTES = CHUNKS * TILE_BYTES;                     // 2 KB
+constexpr int PASS_BYTES = GROUPS * GROUP_BYTES;                     // 32 KB
+constexpr int BLOCK_BYTES = SPLIT_PASSES * PASS_BYTES;               // 96 KB
+// A warp owns 8 word pairs, 16 paths (fragment rows g and g + 8), a
+// warpgroup 64 paths (wgmma's m64), a CTA 16 warps, 256 paths of one tile.
+constexpr int CURVE_WARPS = 16;
+constexpr int CURVE_THREADS = 32 * CURVE_WARPS;
+constexpr int WARP_PAIRS = 8;
+constexpr int CURVE_PAIRS = CURVE_WARPS * WARP_PAIRS;
+constexpr int CURVE_CTAS_PER_TILE = TILE_FULL / (2 * CURVE_PAIRS);  // 8
+static_assert(CURVE_WARPS == GROUPS, "warp j copies group j of a stage");
+// Blocks run in halves of HALF_CHUNKS chunks; the product runs on quads of
+// QUAD n8 groups (wgmma's n32), those with a live group.
+constexpr int HALF_CHUNKS = CHUNKS / 2;
+constexpr int QUAD = 4;
+constexpr int HALF_WORDS = 4 * HALF_CHUNKS;  // a thread's words per half
 
 // Q2b/Q3: one path per thread.
 constexpr int OPT_THREADS = 256;
@@ -80,98 +126,210 @@ struct FullConsts {
 
 // ---------------------------------------------------------------------------
 // Q1: per-maturity sums of t + 1/t, t = exp(-z), z = sum_q U_q W_q.
-// Shared memory per stage: Ws[k][m] the stage's weight rows (bf16-rounded
-// for non-"highest" precision) and Xs[k][p] the raws of its 128 paths,
-// both step-major.
 // ---------------------------------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(CURVE_THREADS, 2)
-curve_full_kernel(hw::Seeds sd, const float* __restrict__ W, int nb,
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// All but the newest group of this thread's copies have landed, and are
+// visible to the tensor core's (async proxy's) reads once the CTA syncs.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching v across an in-flight wgmma.
+__device__ __forceinline__ void fence_operand(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// Shared-memory descriptor of a K-major B operand without swizzle: start
+// address, LBO = CORE_BYTES (steps 0-7 -> 8-15), SBO = GROUP_BYTES (n8
+// group -> the next, whose tile of the same chunk sits a group further),
+// all in 16-byte units.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(CORE_BYTES >> 4) << 16) |
+         (static_cast<uint64_t>(GROUP_BYTES >> 4) << 32);
+}
+
+// d (64 x 32 fp32 over the warpgroup, as four n8 groups d0 .. d3; this
+// warp's rows 16w + g, 16w + g + 8) += A (64 x 16 bf16 from the warps'
+// registers, mma.m16n8k16's A layout per warp) B (16 x 32 bf16 in shared
+// memory), asynchronously.
+__device__ __forceinline__ void wgmma_n32(float (&d0)[4], float (&d1)[4], float (&d2)[4],
+                                          float (&d3)[4], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d1[0]), "+f"(d1[1]),
+        "+f"(d1[2]), "+f"(d1[3]), "+f"(d2[0]), "+f"(d2[1]), "+f"(d2[2]), "+f"(d2[3]),
+        "+f"(d3[0]), "+f"(d3[1]), "+f"(d3[2]), "+f"(d3[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// Warp j copies group j of block q's last PASSES passes into a stage laid
+// out [pass slot][group][chunk][tile] if its quad has a live group (a dead
+// group's tiles are zeros, which its quad's product then adds); the groups
+// of dead quads stay untouched.
+template <int PASSES>
+__device__ __forceinline__ void stage_split(uint32_t stage, const char* Wq, uint32_t live) {
+  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (!((live >> (j & ~(QUAD - 1))) & 0xFu)) return;
+#pragma unroll
+  for (int s = 0; s < PASSES; ++s)
+#pragma unroll
+    for (int i = lane; i < GROUP_BYTES / 16; i += 32)
+      cp_async16(stage + (s * GROUPS + j) * GROUP_BYTES + 16 * i,
+                 Wq + ((SPLIT_PASSES - PASSES + s) * GROUPS + j) * GROUP_BYTES + 16 * i);
+}
+
+// The packed raws of word i of half-block hh for the pair of idx0: chunk
+// HALF_CHUNKS (hh % 2) + i / 4, step (i % 2) + 8 ((i / 2) % 2) of it.
+__device__ __forceinline__ uint32_t half_word(hw::Seeds sd, uint32_t s0, uint32_t idx0,
+                                              int hh, int i) {
+  const uint32_t q = static_cast<uint32_t>(hh >> 1);
+  const uint32_t idx = idx0 + ((hh & 1) * HALF_CHUNKS + (i >> 2)) * 16 + (i & 1) +
+                       8 * ((i >> 1) & 1);
+  uint32_t x = hw::mix32(idx ^ (q * hw::SALT_MULT) ^ s0);
+  x = hw::mix32(x + sd.s1);
+  return hw::raw_bits(hw::mix32(x ^ s0));
+}
+
+// A fragments of a half from its words: rows g (low halves), g + 8 (high
+// halves); steps 2t, 2t + 1 | 2t + 8, 2t + 9 of each chunk.
+__device__ __forceinline__ void pack_fragments(const uint32_t (&w)[HALF_WORDS],
+                                               uint32_t (&a)[HALF_CHUNKS][4]) {
+#pragma unroll
+  for (int c = 0; c < HALF_CHUNKS; ++c) {
+    a[c][0] = __byte_perm(w[4 * c], w[4 * c + 1], 0x5410);
+    a[c][1] = __byte_perm(w[4 * c], w[4 * c + 1], 0x7632);
+    a[c][2] = __byte_perm(w[4 * c + 2], w[4 * c + 3], 0x5410);
+    a[c][3] = __byte_perm(w[4 * c + 2], w[4 * c + 3], 0x7632);
+  }
+}
+
+// Each CTA owns CURVE_PAIRS word pairs of one tile; warp w owns pairs
+// 8w .. 8w + 7 of them, lane (g, t) = (lane / 4, lane % 4) the words of
+// pair 8w + g at steps 2t, 2t + 1, 2t + 8, 2t + 9 of each 16-step chunk
+// and the sums of its fragment rows g, g + 8 at columns 8j + 2t, 8j + 2t + 1.
+// Per half-block: issue the half's product (per live quad, chunk and pass
+// one asynchronous wgmma), hash the next half's words while the tensor
+// core runs it, wait, and pack the words into the next A fragments.
+template <int PASSES>
+__global__ void __launch_bounds__(CURVE_THREADS, 1)
+curve_full_kernel(hw::Seeds sd, const char* __restrict__ Wf,
+                  const int* __restrict__ live_mask, int nb,
                   float* __restrict__ partials) {
+  constexpr int STAGE = PASSES * PASS_BYTES;
   extern __shared__ float4 curve_smem[];
-  float* Ws = reinterpret_cast<float*>(curve_smem);  // [SUB][PAD]
-  float* Xs = Ws + SUB * PAD;                         // [SUB][CURVE_PATHS]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(curve_smem));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const uint32_t tile = sd.s2 + static_cast<uint32_t>(blockIdx.x / CURVE_CTAS_PER_TILE);
-  const uint32_t pair0 = static_cast<uint32_t>(blockIdx.x % CURVE_CTAS_PER_TILE) * CURVE_PAIRS;
   const uint32_t s0 = hw::tile_seed(sd.s0, tile);
-  // the word's pair and first step row of this thread's draws
-  const int pair = tid % CURVE_PAIRS;
-  const int row0 = tid / CURVE_PAIRS;
+  const uint32_t pair = static_cast<uint32_t>(blockIdx.x % CURVE_CTAS_PER_TILE) * CURVE_PAIRS +
+                        warp * WARP_PAIRS + g;
+  const uint32_t idx0 = pair * MIX_BLOCK + 2 * t;
 
-  float acc[WARP_PATHS][LANE_COLS];
+  float acc[GROUPS][4];
 #pragma unroll
-  for (int r = 0; r < WARP_PATHS; ++r)
+  for (int j = 0; j < GROUPS; ++j)
 #pragma unroll
-    for (int c = 0; c < LANE_COLS; ++c) acc[r][c] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 
-  for (int q = 0; q < nb; ++q) {
-    for (int h = 0; h < MIX_BLOCK / SUB; ++h) {
-      __syncthreads();  // the previous stage is consumed
-      const float4* Wg = reinterpret_cast<const float4*>(
-          W + static_cast<size_t>(q * MIX_BLOCK + h * SUB) * PAD);
-      float4* Ws4 = reinterpret_cast<float4*>(Ws);
-      for (int i = tid; i < SUB * PAD / 4; i += CURVE_THREADS) {
-        float4 w = Wg[i];
-        if (BF16) {
-          w.x = hw::round_bf16(w.x);
-          w.y = hw::round_bf16(w.y);
-          w.z = hw::round_bf16(w.z);
-          w.w = hw::round_bf16(w.w);
-        }
-        Ws4[i] = w;
+  // the next half's words and the current half's A fragments
+  uint32_t w[HALF_WORDS], a[HALF_CHUNKS][4];
+#pragma unroll
+  for (int i = 0; i < HALF_WORDS; ++i) w[i] = half_word(sd, s0, idx0, 0, i);
+  pack_fragments(w, a);
+
+  stage_split<PASSES>(sbase, Wf, static_cast<uint32_t>(__ldg(live_mask)));
+  cp_async_commit();
+  for (int hh = 0; hh < 2 * nb; ++hh) {
+    const int q = hh >> 1;
+    if (!(hh & 1)) {
+      if (q + 1 < nb)
+        stage_split<PASSES>(sbase + ((q + 1) & 1) * STAGE,
+                            Wf + static_cast<size_t>(q + 1) * BLOCK_BYTES,
+                            static_cast<uint32_t>(__ldg(live_mask + q + 1)));
+      cp_async_commit();
+      cp_async_wait_prior();
+      __syncthreads();  // block q's split has landed for every thread
+    }
+    const uint32_t live = static_cast<uint32_t>(__ldg(live_mask + q));
+    const uint64_t desc =
+        b_desc(sbase + (q & 1) * STAGE + (hh & 1) * HALF_CHUNKS * TILE_BYTES);
+    wgmma_fence();  // a and acc were written by ordinary instructions
+    const bool more = hh + 1 < 2 * nb;
+#pragma unroll
+    for (int j = 0; j < GROUPS; j += QUAD) {
+      if ((live >> j) & 0xFu) {
+#pragma unroll
+        for (int c = 0; c < HALF_CHUNKS; ++c)
+#pragma unroll
+          for (int p = 0; p < PASSES; ++p)
+            wgmma_n32(acc[j], acc[j + 1], acc[j + 2], acc[j + 3], a[c],
+                      desc + (((p * GROUPS + j) * GROUP_BYTES + c * TILE_BYTES) >> 4));
       }
-      for (int k = row0; k < SUB; k += CURVE_THREADS / CURVE_PAIRS) {
-        const uint32_t idx = (pair0 + pair) * MIX_BLOCK + h * SUB + k;
-        float lo, hi;
-        hw::raw_pair(hw::tile_draw(s0, sd.s1, idx, static_cast<uint32_t>(q)), lo, hi);
-        *reinterpret_cast<float2*>(Xs + k * CURVE_PATHS + 2 * pair) = make_float2(lo, hi);
-      }
-      __syncthreads();
-      const float* xw = Xs + warp * WARP_PATHS;
-#pragma unroll 2
-      for (int k = 0; k < SUB; ++k) {
-        float w[LANE_COLS];
+      // a quarter of the next half's words while the tensor core runs
+      if (more) {
 #pragma unroll
-        for (int c = 0; c < LANE_COLS; ++c) w[c] = Ws[k * PAD + lane + 32 * c];
-        const float4* x4 = reinterpret_cast<const float4*>(xw + k * CURVE_PATHS);
-#pragma unroll
-        for (int r4 = 0; r4 < WARP_PATHS / 4; ++r4) {
-          const float4 x = x4[r4];
-#pragma unroll
-          for (int c = 0; c < LANE_COLS; ++c) {
-            acc[4 * r4 + 0][c] = fmaf(x.x, w[c], acc[4 * r4 + 0][c]);
-            acc[4 * r4 + 1][c] = fmaf(x.y, w[c], acc[4 * r4 + 1][c]);
-            acc[4 * r4 + 2][c] = fmaf(x.z, w[c], acc[4 * r4 + 2][c]);
-            acc[4 * r4 + 3][c] = fmaf(x.w, w[c], acc[4 * r4 + 3][c]);
-          }
-        }
+        for (int i = j; i < j + QUAD; ++i) w[i] = half_word(sd, s0, idx0, hh + 1, i);
       }
     }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_operand(acc[j][e]);
+    pack_fragments(w, a);
+    if (hh & 1) __syncthreads();  // the stage is consumed before block q + 2's copy
   }
 
   // antithetic pair from one exp: e^{-(c+z)} + e^{-(c-z)} = e^{-c}(t + 1/t);
-  // e^{-c} is applied in the second pass
-  float colsum[LANE_COLS];
+  // e^{-c} is applied in the second pass.  Rows g and g + 8, then the 8
+  // row groups of the warp in a fixed shuffle order.
+  float* red = reinterpret_cast<float*>(curve_smem);  // [CURVE_WARPS][PAD]
 #pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c) {
-    colsum[c] = 0.0f;
+  for (int j = 0; j < GROUPS; ++j)
 #pragma unroll
-    for (int r = 0; r < WARP_PATHS; ++r) {
-      const float t = expf(-acc[r][c]);
-      colsum[c] += t + __frcp_rn(t);
+    for (int e = 0; e < 2; ++e) {
+      const float t0 = expf(-acc[j][e]), t1 = expf(-acc[j][e + 2]);
+      float s = (t0 + __frcp_rn(t0)) + (t1 + __frcp_rn(t1));
+      s += __shfl_xor_sync(0xFFFFFFFFu, s, 4);
+      s += __shfl_xor_sync(0xFFFFFFFFu, s, 8);
+      s += __shfl_xor_sync(0xFFFFFFFFu, s, 16);
+      if (g == 0) red[warp * PAD + 8 * j + 2 * t + e] = s;
     }
-  }
-  __syncthreads();  // Xs is free: it takes the warps' column sums
-  float* red = Xs;  // [CURVE_WARPS][PAD]
-#pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c) red[warp * PAD + lane + 32 * c] = colsum[c];
   __syncthreads();
-  if (tid < PAD) {
+  if (threadIdx.x < PAD) {
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < CURVE_WARPS; ++w) s += red[w * PAD + tid];
-    partials[static_cast<size_t>(blockIdx.x) * PAD + tid] = s;
+    for (int w = 0; w < CURVE_WARPS; ++w) s += red[w * PAD + threadIdx.x];
+    partials[static_cast<size_t>(blockIdx.x) * PAD + threadIdx.x] = s;
   }
 }
 
@@ -259,6 +417,20 @@ cudaError_t launch_option(Kernel kernel, int n_tiles, int nb, cudaStream_t st,
   return cudaGetLastError();
 }
 
+template <int PASSES>
+cudaError_t launch_curve(int n_tiles, int nb, cudaStream_t st, hw::Seeds sd,
+                         const char* Wf, const int* live, float* partials) {
+  constexpr int smem = 2 * PASSES * PASS_BYTES;  // two stages; then the warps' sums
+  static_assert(smem >= CURVE_WARPS * PAD * static_cast<int>(sizeof(float)),
+                "the epilogue's sums fit in the stages");
+  const cudaError_t err = cudaFuncSetAttribute(
+      curve_full_kernel<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  curve_full_kernel<PASSES><<<curve_full_ctas(n_tiles), CURVE_THREADS, smem, st>>>(
+      sd, Wf, live, nb, partials);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,28 +442,24 @@ int hw_option_full_partials(int n_tiles, int n_values) {
 }
 
 // out (n_mat): [count, exp_c[m] * sum_paths (t + 1/t) for 1 <= m < n_mat].
-// W is (nb * 128, PAD) row-major; exp_c is (PAD,).
-int hw_curve_full(int32_t s0, int32_t s1, int32_t s2, const float* W, int nb,
-                  const float* exp_c, int n_mat, int n_tiles, int bf16,
-                  float count, float* partials, float* out, void* stream) {
-  if (nb < 1 || n_mat < 2 || n_mat > PAD || n_tiles < 1)
+// w_split is W's split as (nb, 3, 16, 8, 64) uint32 wgmma B tiles
+// (kernels/fused.py, split_tiles), 16-byte aligned; live (nb,) the blocks'
+// masks of live 8-column groups; exp_c is (PAD,).
+int hw_curve_full(int32_t s0, int32_t s1, int32_t s2, const void* w_split,
+                  const int32_t* live, int nb, const float* exp_c, int n_mat,
+                  int n_tiles, int bf16, float count, float* partials,
+                  float* out, void* stream) {
+  if (nb < 1 || n_mat < 2 || n_mat > PAD || n_tiles < 1 ||
+      reinterpret_cast<uintptr_t>(w_split) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ctas = curve_full_ctas(n_tiles);
-  cudaError_t err;
-  if (bf16) {
-    err = cudaFuncSetAttribute(curve_full_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, CURVE_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    curve_full_kernel<true><<<ctas, CURVE_THREADS, CURVE_SMEM, st>>>(make_seeds(s0, s1, s2), W, nb, partials);
-  } else {
-    err = cudaFuncSetAttribute(curve_full_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, CURVE_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    curve_full_kernel<false><<<ctas, CURVE_THREADS, CURVE_SMEM, st>>>(make_seeds(s0, s1, s2), W, nb, partials);
-  }
-  err = cudaGetLastError();
+  const hw::Seeds sd = make_seeds(s0, s1, s2);
+  const char* Wf = static_cast<const char*>(w_split);
+  const cudaError_t err =
+      bf16 ? launch_curve<1>(n_tiles, nb, st, sd, Wf, live, partials)
+           : launch_curve<3>(n_tiles, nb, st, sd, Wf, live, partials);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctas = curve_full_ctas(n_tiles);
   // column 0 (T = 0) is the count: partial column m + 1 goes to out[1 + m]
   reduce_kernel<<<n_mat - 1, REDUCE_THREADS, 0, st>>>(partials + 1, ctas, PAD, nullptr,
                                                      exp_c + 1, out, 1, count, 0);

@@ -97,11 +97,17 @@ __device__ __forceinline__ void box_muller(uint32_t s0, uint32_t s1,
 // half is the bf16 v = +/- (1 + m/128) 16^c with sign, 7-bit mantissa m
 // and c = b8 & (b9 | b10) of that half; adding c << 9 adds 4 to the
 // exponent.  lo is the low half, hi the high half (the bitcast puts them
-// in rows 2i and 2i+1).  Exact in float32.
-__device__ __forceinline__ void raw_pair(uint32_t b, float& lo, float& hi) {
+// in rows 2i and 2i+1).  Exact in float32.  raw_bits is the packed bf16x2
+// of the two raws (low half lo, high half hi), a tensor-core operand as it
+// stands.
+__device__ __forceinline__ uint32_t raw_bits(uint32_t b) {
   const uint32_t base = (b & 0x807F807Fu) | 0x3F803F80u;
   const uint32_t c = ((b >> 8) & ((b >> 9) | (b >> 10))) & 0x00010001u;
-  const uint32_t bits = base + (c << 9);
+  return base + (c << 9);
+}
+
+__device__ __forceinline__ void raw_pair(uint32_t b, float& lo, float& hi) {
+  const uint32_t bits = raw_bits(b);
   lo = __uint_as_float(bits << 16);
   hi = __uint_as_float(bits & 0xFFFF0000u);
 }

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "hw_option_normals": ([_I, _I, _I, _I, _P, _P, _P], _I),
     "hw_curve_full_partials": ([_I], _I),
     "hw_option_full_partials": ([_I, _I], _I),
-    "hw_curve_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
-                      _I),
+    "hw_curve_full": ([_I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _F, _P, _P,
+                       _P], _I),
     "hw_zbc_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
     "hw_vega_full": ([_I, _I, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P], _I),
     "hw_peak_partials": ([_I], _I),

@@ -218,11 +218,17 @@ def grid_prepared(cfg: HWConfig, tables: hw.StepTables,
 
 
 class CurveFullPrepared(NamedTuple):
-    """Sigma-dependent operands of the full-step curve kernel."""
+    """Sigma-dependent operands of the full-step curve kernel: the weights
+    (the plain version's), e^{-c}, and the kernel's own operands built from
+    W once (``curve_full_operands``)."""
 
-    W: torch.Tensor      # (nb * 128, PAD) premixed weights, zero beyond
-                         # n_steps rows and n_mat columns
-    exp_c: torch.Tensor  # (PAD,) e^{-c}, c the deterministic I(T_m)
+    W: torch.Tensor        # (nb * 128, PAD) premixed weights, zero beyond
+                           # n_steps rows and n_mat columns
+    exp_c: torch.Tensor    # (PAD,) e^{-c}, c the deterministic I(T_m)
+    w_split: torch.Tensor  # split_shape(nb) int32: W's bf16 parts lo, mid,
+                           # hi as the kernel's wgmma B tiles
+    live: torch.Tensor     # (nb,) int32: bit j of block q set where columns
+                           # 8j .. 8j + 7 of its rows hold a nonzero weight
 
 
 class OptionFullPrepared(NamedTuple):
@@ -273,6 +279,70 @@ def _n_blocks(n_steps: int) -> int:
     return -(-n_steps // _MIX_BLOCK)
 
 
+# The full-step curve kernel's operands.  W = hi + mid + lo in three bf16
+# parts; each wgmma pass multiplies the exact bf16 raws by one part
+# ("default" runs hi = bf16(W) alone).  The kernel skips 8-column groups of
+# a block whose weights are all zero.
+SPLIT_PASSES = 3
+N8 = 8              # columns of an n8 tile: the skip's granularity
+_K16 = 16           # steps of a k16 chunk
+
+
+def split_shape(nb: int) -> tuple:
+    """Shape of ``w_split`` over nb blocks: (block, pass lo/mid/hi, n8
+    group, k16 chunk, the tile's 64 int32 words = 128 bf16)."""
+    return (nb, SPLIT_PASSES, PAD // N8, _MIX_BLOCK // _K16, 64)
+
+
+def split_bf16(W: torch.Tensor) -> torch.Tensor:
+    """(3, *W.shape) bfloat16 parts (lo, mid, hi) of float32 W, rounded to
+    nearest, with lo + mid + hi == W exactly: hi = bf16(W), mid = bf16(W -
+    hi), lo = W - hi - mid (each difference is exact in float32, and the
+    last has at most 8 significant bits)."""
+    W = W.to(torch.float32)
+    hi = W.to(torch.bfloat16)
+    r = W - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([lo, mid, hi])
+
+
+def live_groups(W: torch.Tensor) -> torch.Tensor:
+    """(nb,) int32 masks of the (nb * 128, PAD) weights: bit j of block q is
+    set where any of W[128 q: 128 (q + 1), 8 j: 8 (j + 1)] is nonzero.  From
+    the weights themselves, so a skip never drops a live weight."""
+    nb = _check_blocks(W.shape[0], "W")
+    nz = (W != 0).reshape(nb, _MIX_BLOCK, PAD // N8, N8).any(3).any(1)
+    bit = torch.arange(PAD // N8, dtype=torch.int64, device=W.device)
+    return (nz.to(torch.int64) << bit).sum(1).to(torch.int32)
+
+
+def split_tiles(parts: torch.Tensor) -> torch.Tensor:
+    """The (3, nb * 128, PAD) bf16 parts as wgmma B tiles,
+    ``split_shape(nb)`` int32: tile [q, p, j, kc] is the K-major 16 x 8
+    operand of steps 128 q + 16 kc .. + 15 and columns 8 j .. 8 j + 7 of
+    part p, without swizzle: two 8 x 8 core matrices (steps 0-7, then
+    8-15), each 8 columns of 8 steps (16 bytes), so bf16 element
+    64 kh + 8 n + k holds step 16 kc + 8 kh + k of column 8 j + n."""
+    nb = parts.shape[1] // _MIX_BLOCK
+    bits = parts.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    # rows 128 q + 16 kc + 8 kh + k, columns 8 j + n
+    x = bits.reshape(SPLIT_PASSES, nb, _MIX_BLOCK // _K16, 2, 8, PAD // N8,
+                     N8)                               # p q kc kh k j n
+    x = x.permute(1, 0, 5, 2, 3, 6, 4).reshape(*split_shape(nb), 2)
+    words = x[..., 0] | (x[..., 1] << 16)              # low half: even k
+    words = words - ((words >> 31) << 32)              # int32 range
+    return words.to(torch.int32).contiguous()
+
+
+def curve_full_operands(W: torch.Tensor):
+    """(w_split, live) of the weights W, on W's device, computed on the
+    host once per prepare."""
+    Wc = W.detach().to("cpu", torch.float32)
+    return (split_tiles(split_bf16(Wc)).to(W.device),
+            live_groups(Wc).to(W.device))
+
+
 def curve_full_prepared(cfg: HWConfig,
                         tables: hw.StepTables) -> CurveFullPrepared:
     """Premixed weights sig_st * W_SCALE * (H q0) (D * W_q) per block, and
@@ -289,7 +359,7 @@ def curve_full_prepared(cfg: HWConfig,
         _premix_curve(Wsh), dtype=torch.float32, device=dev)
     c = torch.zeros(PAD, dtype=torch.float32, device=dev)
     c[:nm] = engine_linear.curve_weights(cfg, tables).c
-    return CurveFullPrepared(W=W, exp_c=torch.exp(-c))
+    return CurveFullPrepared(W, torch.exp(-c), *curve_full_operands(W))
 
 
 def option_full_prepared(cfg: HWConfig, tables: hw.StepTables,
@@ -1001,26 +1071,32 @@ def _check_blocks(n: int, name: str) -> int:
     return n // _MIX_BLOCK
 
 
-def curve_full(seeds, W: torch.Tensor, exp_c: torch.Tensor, n_tiles: int,
-               n_mat: int, precision: str = "highest"):
+def curve_full(seeds, prepared: CurveFullPrepared, n_tiles: int, n_mat: int,
+               precision: str = "highest"):
     """Full-step Q1 kernel: (n_mat,) [count, per-maturity discount sums]
     over n_tiles tiles of TILE_FULL paths (kernel of ``_curve_kernel``),
-    on W's device."""
+    on the weights' device: the kernel multiplies ``prepared.w_split``'s
+    three parts ("highest") or hi alone, over ``prepared.live``'s groups;
+    the plain version multiplies ``prepared.W``."""
     s = _seed_triple(seeds)
+    W, exp_c = prepared.W, prepared.exp_c
     dev = W.device
     if W.dim() != 2:
-        raise ValueError("W must be (nb * 128, 128)")
-    nb = _check_blocks(W.shape[0], "W")
-    _check(W, "W", torch.float32, (nb * _MIX_BLOCK, PAD), dev)
-    _check(exp_c, "exp_c", torch.float32, (PAD,), dev)
+        raise ValueError("prepared.W must be (nb * 128, 128)")
+    nb = _check_blocks(W.shape[0], "prepared.W")
+    _check(W, "prepared.W", torch.float32, (nb * _MIX_BLOCK, PAD), dev)
+    _check(exp_c, "prepared.exp_c", torch.float32, (PAD,), dev)
+    _check(prepared.w_split, "prepared.w_split", torch.int32, split_shape(nb),
+           dev)
+    _check(prepared.live, "prepared.live", torch.int32, (nb,), dev)
     _check_tiles(n_tiles)
     if not 2 <= n_mat <= PAD:
         raise ValueError("n_mat must be in [2, 128]")
     if not _route(dev):
         return curve_full_plain(s, W, exp_c, n_tiles, n_mat, precision)
-    if W.data_ptr() % 16:
-        raise ValueError("W must be 16-byte aligned (the kernel reads "
-                         "float4)")
+    if prepared.w_split.data_ptr() % 16:
+        raise ValueError("prepared.w_split must be 16-byte aligned (the "
+                         "kernel copies it in 16-byte pieces)")
     from .build import check
 
     lib, stream = _launch_env(dev)
@@ -1028,9 +1104,9 @@ def curve_full(seeds, W: torch.Tensor, exp_c: torch.Tensor, n_tiles: int,
                            dtype=torch.float32, device=dev)
     out = torch.empty(n_mat, dtype=torch.float32, device=dev)
     code = lib.hw_curve_full(
-        *s, W.data_ptr(), nb, exp_c.data_ptr(), n_mat, n_tiles,
-        int(precision != "highest"), 2.0 * n_tiles * TILE_FULL,
-        partials.data_ptr(), out.data_ptr(), stream)
+        *s, prepared.w_split.data_ptr(), prepared.live.data_ptr(), nb,
+        exp_c.data_ptr(), n_mat, n_tiles, int(precision != "highest"),
+        2.0 * n_tiles * TILE_FULL, partials.data_ptr(), out.data_ptr(), stream)
     check(code, "curve_full")
     curve_full.launches += 1
     return out

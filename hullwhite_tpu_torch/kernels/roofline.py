@@ -3,18 +3,24 @@ re-derivation of ``hullwhite_tpu.pallas.fused``'s ``fullstep_roofline``,
 ``vpu_ops_accounting`` and ``exact_tier_accounting``, plus a bound for
 every kernel of the port.
 
-The TPU package counts MXU passes and VPU ops; none of that applies here.
-On this card the full-step product is fp32 FFMA on the CUDA cores in both
-precisions ("default" only rounds W to bf16), the generator is the murmur3
-counter hash on the integer pipes, and transcendentals go to the MUFU
-(XU) pipe.  A bound counts the function's work, never a kernel's own
-instructions, so a kernel that executes more than it needs reads further
-from its bound:
+The TPU package counts MXU passes and VPU ops; here each product runs on
+the pipe its kernel uses.  The full-step curve product (``curve_full``)
+runs on the tensor cores: the raws are exact bf16, so "highest" is three
+bf16 passes (W = hi + mid + lo) and any other precision one (hi =
+bf16(W)); the TPU splits both operands, 6 MXU passes.  The full-step
+option products and the exact tier's products are fp32 FFMA on the CUDA
+cores in both precisions ("default" only rounds the weights to bf16).  The
+generator is the murmur3 counter hash on the integer pipes, and
+transcendentals go to the MUFU (XU) pipe.  A bound counts the function's
+work, never a kernel's own instructions, so a kernel that executes more
+than it needs reads further from its bound:
 
-* fp32: one FMA per nonzero weight per pair for the products (the live
-  FMAs; zero steps and zero columns are not work), the payoffs' math
-  counted from the CUDA source, and the Box-Muller elements, exps and
-  reciprocals at the exact tier's unit walls' cost (below);
+* tensor: the curve product's live bf16 FMAs, one per nonzero weight per
+  pair and pass (zero steps and zero columns are not work);
+* fp32: one FMA per nonzero weight per pair for the other products, the
+  payoffs' math counted from the CUDA source (the curve's t + 1/t and its
+  sum), and the Box-Muller elements, exps and reciprocals at the exact
+  tier's unit walls' cost (below);
 * integer: the words the function hashes times the fewest integer
   instructions per word the card has shown, those of the unit walls
   (``csrc/fused_peak.cu``): a generator word costs the generator wall's
@@ -35,8 +41,9 @@ from its bound:
 
 A bound is the largest of the pipe times, with the per-SM rates of the
 CUDA C++ Programming Guide's throughput table for compute capability 9.0
-(fp32 FMA 128 lanes, 32-bit integer ALU 64, MUFU 16) at the card's
-maximum SM clock, and 3.35 TB/s for the bytes.  IMAD issues on the FMA
+(fp32 FMA 128 lanes, 32-bit integer ALU 64, MUFU 16), the tensor cores'
+2048 dense bf16 FMAs per SM per clock (below), at the card's maximum SM
+clock, and 3.35 TB/s for the bytes.  IMAD issues on the FMA
 pipe's 64-lane heavy half (beside the FFMAs on the whole pipe); VIADD,
 whose pipe is not documented, is charged only to the integer pipes taken
 together.  Issue slots are not a term: what a kernel's own loops issue
@@ -51,11 +58,13 @@ from ..config import HWConfig
 from . import fused
 
 FP32_PEAK_TFLOPS = 67.0   # published H100 SXM fp32 (CUDA cores) at 700 W
+TENSOR_PEAK_TFLOPS = 989.0  # published H100 SXM dense bf16 (tensor cores)
 HBM_BYTES_PER_S = 3.35e12  # published H100 SXM HBM3
 H100_SMS = 132
 H100_MAX_SM_MHZ = 1980.0   # nvidia-smi clocks.max.sm of an H100 SXM
-# per SM per clock, compute capability 9.0
-_LANES = {"fp32": 128, "fma_heavy": 64, "alu": 64, "xu": 16}
+# per SM per clock, compute capability 9.0; tensor: dense bf16 FMAs, the
+# data sheet's 989 TFLOP/s / 2 / 132 SMs / 1830 MHz (its boost clock) = 2048
+_LANES = {"fp32": 128, "fma_heavy": 64, "alu": 64, "xu": 16, "tensor": 2048}
 _INT_PIPES = ("alu", "imad", "viadd")
 
 # the unit walls whose loops give the integer instructions per word
@@ -100,24 +109,49 @@ def _curve_live_blocks(cfg: HWConfig) -> int:
                for m in range(1, n_live + 1))
 
 
+def _curve_live_quads(cfg: HWConfig) -> int:
+    """Block-quads the curve kernel multiplies: per 128-step block the
+    quads of 4 n8 column groups (32 columns) holding a column m whose T_m
+    lies beyond the block's start (the live columns of
+    ``_curve_live_blocks``)."""
+    n_live = cfg.n_mat - 1
+    nb = fused._n_blocks(cfg.n_steps)
+    last = [fused._n_blocks(-(-m * cfg.n_steps // n_live))
+            for m in range(1, n_live + 1)]
+    quad_cols = 4 * fused.N8
+    return sum(len({m // quad_cols for m, n in zip(range(1, n_live + 1), last)
+                    if q < n}) for q in range(nb))
+
+
+def matmul_passes(cfg: HWConfig) -> int:
+    """bf16 passes of the curve kernel's product: the three parts of W for
+    "highest", bf16(W) alone otherwise (the raws are exact bf16)."""
+    return fused.SPLIT_PASSES if cfg.matmul_precision == "highest" else 1
+
+
 def fullstep_roofline(cfg: HWConfig) -> dict:
-    """Per antithetic pair of each full-step tier: the product's FFMAs as
-    executed (the premixed weights over all nb x 128 steps and, for Q1, all
-    128 columns) and live (the nonzero premixed weights: Q1's maturity m
-    only over the blocks before T_m, the options' two rows over all
-    blocks), the raws and the generator words."""
+    """Per antithetic pair of each full-step tier: the product's FFMAs on
+    the CUDA cores as executed and live (the options' two rows over all
+    blocks, every weight nonzero; Q1 has none), Q1's tensor-core FMAs as
+    executed (its live block-quads, 32 columns x 128 steps each) and live
+    (the nonzero premixed weights: maturity m only over the blocks before
+    T_m), both times ``matmul_passes``, the raws and the generator words."""
     nb_c = fused._n_blocks(cfg.n_steps)
     nb_o = fused._n_blocks(cfg.n_steps_s1)
 
-    def tier(tile, nb, executed, live):
-        return {"pairs_per_tile": tile, "fma_per_pair_executed": executed,
-                "fma_per_pair_live": live, "raws_per_pair": nb * 128,
+    def tier(tile, nb, ffma, mma_executed, mma_live, passes):
+        return {"pairs_per_tile": tile, "fma_per_pair_executed": ffma,
+                "fma_per_pair_live": ffma,
+                "mma_fma_per_pair_executed": mma_executed * passes,
+                "mma_fma_per_pair_live": mma_live * passes,
+                "matmul_passes": passes, "raws_per_pair": nb * 128,
                 "words_per_pair": nb * 64}
 
-    opt = (fused.TILE_FULL_OPT, nb_o, 2 * nb_o * 128, 2 * nb_o * 128)
-    return {"q1_fullstep": tier(fused.TILE_FULL, nb_c,
-                                nb_c * 128 * fused.PAD,
-                                128 * _curve_live_blocks(cfg)),
+    opt = (fused.TILE_FULL_OPT, nb_o, 2 * nb_o * 128, 0, 0, 0)
+    return {"q1_fullstep": tier(fused.TILE_FULL, nb_c, 0,
+                                128 * 4 * fused.N8 * _curve_live_quads(cfg),
+                                128 * _curve_live_blocks(cfg),
+                                matmul_passes(cfg)),
             "zbc_fullstep": tier(*opt), "vega_fullstep": tier(*opt)}
 
 
@@ -125,7 +159,8 @@ def work(cfg: HWConfig) -> dict:
     """Per kernel at ``cfg`` (the surface at ``cli grid``'s 5 x 5): the
     words it must hash by kind (``"generator"``, ``"raw"``, ``"bitops"``
     rows), its Box-Muller elements (``"bm"``), exps and reciprocals, its
-    other fp32 instructions and the bytes it must move."""
+    tensor-core bf16 FMAs, its other fp32 instructions and the bytes it
+    must move."""
     P = cfg.n_paths
     k = cfg.n_mat - 1
     n_k, n_s2 = _SURFACE
@@ -156,10 +191,15 @@ def work(cfg: HWConfig) -> dict:
                        "recip": P * (1 + n_s2),
                        "fp32": P * (5.0 + 8.0 * n_s2 + 10.0 * n_k * n_s2),
                        "bytes": f4 * fused.grid_rows(n_k, n_s2)},
+        # the product's live bf16 FMAs on the tensor cores; per pair and
+        # maturity an exp, a reciprocal, t + 1/t and its sum; the split
+        # weights it multiplies (bf16), e^{-c}, the masks, the sums
         "curve_full": {"raw": P * q1["words_per_pair"],
-                       "fp32": P * q1["fma_per_pair_live"],
-                       "bytes": f4 * (q1["fma_per_pair_executed"] + fused.PAD
-                                      + cfg.n_mat)},
+                       "tensor": P * q1["mma_fma_per_pair_live"],
+                       "exp": P * k, "recip": P * k, "fp32": P * k * 2.0,
+                       "bytes": 2.0 * q1["mma_fma_per_pair_executed"]
+                       + f4 * (fused.PAD + fused._n_blocks(cfg.n_steps)
+                               + cfg.n_mat)},
         "zbc_full": {"raw": P * opt["words_per_pair"],
                      "fp32": P * opt["fma_per_pair_live"],
                      "bytes": f4 * (8 * opt["raws_per_pair"] + 6)},
@@ -269,8 +309,9 @@ def op_counts() -> dict:
 
 def pipe_seconds(instr: dict, n_bytes: float, clock_mhz: float,
                  sms: int = H100_SMS) -> dict:
-    """Least time per pipe for the given thread instructions and bytes."""
-    g = {p: instr.get(p, 0.0) for p in ("fp32", "xu") + _INT_PIPES}
+    """Least time per pipe for the given thread instructions (tensor: bf16
+    FMAs) and bytes."""
+    g = {p: instr.get(p, 0.0) for p in ("fp32", "xu", "tensor") + _INT_PIPES}
     hz = sms * clock_mhz * 1e6
     clocks = {
         "alu": g["alu"] / _LANES["alu"],
@@ -279,6 +320,7 @@ def pipe_seconds(instr: dict, n_bytes: float, clock_mhz: float,
         "int": (g["alu"] + g["imad"] + g["viadd"])
         / (_LANES["alu"] + _LANES["fma_heavy"]),
         "xu": g["xu"] / _LANES["xu"],
+        "tensor": g["tensor"] / _LANES["tensor"],
     }
     out = {unit: c / hz for unit, c in clocks.items()}
     out["bytes"] = n_bytes / HBM_BYTES_PER_S
@@ -287,7 +329,8 @@ def pipe_seconds(instr: dict, n_bytes: float, clock_mhz: float,
 
 def _instructions(w: dict, counts: dict) -> dict:
     """A kernel's work ``w`` (``work()``'s entry) in instructions by pipe."""
-    ins = {"fp32": w.get("fp32", 0.0), "xu": 0.0}
+    ins = {"fp32": w.get("fp32", 0.0), "xu": 0.0,
+           "tensor": w.get("tensor", 0.0)}
     for kind in _MATH_WALLS:
         for p in ("fp32", "xu"):
             ins[p] += w.get(kind, 0.0) * counts[kind][p]

@@ -6,7 +6,8 @@ classes each instruction of their bodies by the pipe that executes it, and
 normalises the body by the work it does: the random words it hashes (each
 word runs three murmur3 rounds, so its first multiplier, 0x85EBCA6B,
 appears three times per word), its MUFU exps (``MUFU.EX2``) or
-reciprocals (``MUFU.RCP``), or its FFMAs.  ``kernels.roofline`` takes the
+reciprocals (``MUFU.RCP``), its FFMAs, or its tensor-core instructions
+(``HMMA``, ``HGMMA``).  ``kernels.roofline`` takes the
 unit walls' loops as the cost of a word, a Box-Muller element, an exp and
 a reciprocal; the other kernels' loops are a diagnostic of what they
 issue.
@@ -21,8 +22,10 @@ Pipe classes (sm_90):
 * ``alu``: the other integer, logic, shift, compare and select instructions
   (LOP3, SHF, IADD3, ISETP, LEA, SEL, I2FP, ...; 64 lanes per SM);
 * ``xu``: MUFU and the I2F/F2I/F2F conversions (16 lanes per SM);
-* ``other``: memory, branches, barriers, shuffles and the uniform datapath,
-  which take issue slots only.
+* ``tensor``: the tensor cores' HMMA (mma.sync) and HGMMA (wgmma);
+* ``other``: memory, branches, barriers (the warpgroup fences and waits
+  among them), shuffles and the uniform datapath, which take issue slots
+  only.
 
 Nothing here runs at import time; ``cuobjdump`` comes from the CUDA toolkit
 or, where the toolkit lacks it, from Triton's package.
@@ -36,16 +39,18 @@ import subprocess
 from collections import Counter
 from pathlib import Path
 
-PIPES = ("fp32", "imad", "viadd", "alu", "xu", "other")
+PIPES = ("fp32", "imad", "viadd", "alu", "xu", "tensor", "other")
 _MURMUR_C1 = ("0x85ebca6b", "-0x7a143595")  # signed and unsigned forms
 _FP32 = {"FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I", "HFMA2",
          "HADD2", "HMUL2"}
 _XU = {"MUFU", "I2F", "F2I", "F2F", "FRND"}
+_TENSOR = {"HMMA", "HGMMA"}
 _OTHER = {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "LDSM", "ATOM",
           "ATOMS", "ATOMG", "RED", "BAR", "BRA", "EXIT", "BSSY", "BSYNC",
           "CALL", "RET", "NOP", "SHFL", "S2R", "S2UR", "CS2R", "MEMBAR",
           "WARPSYNC", "YIELD", "DEPBAR", "LDGSTS", "LDGDEPBAR", "ERRBAR",
-          "CCTL", "VOTE", "VOTEU", "MATCH", "R2UR", "REDUX", "ULDC"}
+          "CCTL", "VOTE", "VOTEU", "MATCH", "R2UR", "REDUX", "ULDC",
+          "WARPGROUP", "FENCE"}
 
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
@@ -99,6 +104,8 @@ def pipe_of(opcode: str) -> str:
         return "viadd"
     if base in _XU:
         return "xu"
+    if base in _TENSOR:
+        return "tensor"
     if base in _OTHER or base.startswith("U"):
         return "other"
     return "alu"
@@ -119,7 +126,7 @@ def innermost_loops(instrs) -> list:
 
 def profile(body) -> dict:
     """Pipe counts of a loop body, with the words it hashes, its MUFU exps
-    and reciprocals and its FFMAs."""
+    and reciprocals, its FFMAs and its tensor-core instructions."""
     counts = Counter(pipe_of(op) for _, op, _ in body)
     c1 = sum(1 for _, op, args in body if op.startswith("IMAD")
              and any(k in args.lower() for k in _MURMUR_C1))
@@ -127,13 +134,14 @@ def profile(body) -> dict:
             "instructions": len(body), "words": c1 / 3.0,
             "ex2": sum(1 for _, op, _ in body if op == "MUFU.EX2"),
             "rcp": sum(1 for _, op, _ in body if op == "MUFU.RCP"),
-            "ffma": sum(1 for _, op, _ in body if op.startswith("FFMA"))}
+            "ffma": sum(1 for _, op, _ in body if op.startswith("FFMA")),
+            "mma": counts.get("tensor", 0)}
 
 
 def per_unit(body_profile: dict, unit: str) -> dict:
     """A loop body's pipe counts per hashed word (``unit="words"``), per
-    MUFU exp (``"ex2"``) or reciprocal (``"rcp"``), or per FFMA
-    (``"ffma"``)."""
+    MUFU exp (``"ex2"``) or reciprocal (``"rcp"``), per FFMA (``"ffma"``)
+    or per tensor-core instruction (``"mma"``)."""
     n = body_profile[unit]
     return {p: c / n for p, c in body_profile["pipes"].items()}
 

@@ -79,7 +79,7 @@ def _curve_run(cfg: HWConfig, engine: str, key: Key, prepared):
     _check_engine(engine)
     seeds = fused.kernel_seeds(key, "curve")
     if engine == "fused":
-        return fused.curve_full(seeds, prepared.W, prepared.exp_c,
+        return fused.curve_full(seeds, prepared,
                                 _tiles(cfg, fused.CURVE_FULL_TILE_PATHS),
                                 cfg.n_mat, cfg.matmul_precision)
     return fused.curve_exact(seeds, prepared.W, prepared.c,

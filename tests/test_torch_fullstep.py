@@ -160,9 +160,8 @@ def test_curve_full_plain_matches_jax_kernel(precision):
         jax.random.key(SEED), 0, jc.n_blocks))
     cp = convert.curve_full_prepared((np.asarray(W), np.asarray(exp_c)),
                                      device="cpu")
-    got = tfused.curve_full(tfused.kernel_seeds(Key(SEED), "curve"), cp.W,
-                            cp.exp_c, CURVE_TILES, jc.n_mat,
-                            precision).numpy()
+    got = tfused.curve_full(tfused.kernel_seeds(Key(SEED), "curve"), cp,
+                            CURVE_TILES, jc.n_mat, precision).numpy()
     assert got[0] == want[0] == 2.0 * jc.n_paths
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
@@ -287,11 +286,18 @@ def test_cli_all_fused_on_cpu(tmp_path, monkeypatch, capsys):
 def test_full_wrappers_check_their_operands():
     seeds = tfused.kernel_seeds(Key(1), "curve")
     W, e = torch.zeros(256, tfused.PAD), torch.zeros(tfused.PAD)
-    for bad in (dict(W=W[:200]), dict(exp_c=e[:64]), dict(n_mat=129),
-                dict(n_tiles=0), dict(W=W.t().contiguous())):
-        args = dict(W=W, exp_c=e, n_tiles=1, n_mat=11) | bad
-        with pytest.raises(ValueError):
-            tfused.curve_full(seeds, **args)
+    cp = tfused.CurveFullPrepared(W, e, *tfused.curve_full_operands(W))
+    ws = cp.w_split
+    for bad, args in ((dict(W=W[:200]), {}), (dict(exp_c=e[:64]), {}),
+                      ({}, dict(n_mat=129)), ({}, dict(n_tiles=0)),
+                      (dict(W=W.t().contiguous()), {}),
+                      (dict(w_split=ws[:1]), {}),
+                      (dict(w_split=ws.view(torch.float32)), {}),
+                      (dict(live=cp.live[:1]), {}),
+                      (dict(live=torch.zeros(2, 16, dtype=torch.int32)), {})):
+        with pytest.raises((ValueError, TypeError)):
+            tfused.curve_full(seeds, cp._replace(**bad),
+                              **(dict(n_tiles=1, n_mat=11) | args))
     op = tfused.OptionFullPrepared(W=torch.zeros(8, 256),
                                    consts=np.ones(10, np.float32))
     for bad in (dict(consts=np.ones(13, np.float32)),
