@@ -10,15 +10,15 @@ Phases (any failure raises and the script exits non-zero):
    TF32 off;
 1. each hand-written kernel against its plain PyTorch version on the card,
    with stated tolerances, at a few tiles and at the full main-path shape
-   (2^20 pairs; the surface kernel at the CLI's 5 x 5 surface; the
-   full-step unit walls' lanes bit for bit, their checksums within a
-   tolerance below one word's share where fp32 can resolve one; the exact
-   tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
+   (2^20 pairs, the curve kernels in both precisions; the surface kernel
+   at the CLI's 5 x 5 surface; the full-step unit walls' lanes bit for
+   bit, their checksums within a tolerance below one word's share where
+   fp32 can resolve one; the exact tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
    the exp and reciprocal walls at 1 tile, 2^20 and 2^24 pairs, their
    checksums within a float32 summation bound, ``compare_exact_wall``);
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
-   reduce pass; the full-step curve kernel's in both precisions) and its
+   reduce pass; the curve kernels' in both precisions) and its
    plain version's wall time per call;
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
@@ -52,9 +52,11 @@ shape: the function's work, its integer instructions per word and its
 fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
 of the unit walls in this build's SASS, at this card's SMs and maximum SM
 clock), which its phase-1 time must not beat, and, as a diagnostic, the
-pipe mix of the full-step kernels' and the exact-tier walls' innermost
-loops (the curve kernel's must hold tensor-core instructions and no FFMA
-loop).  The last two lines are a JSON object of
+pipe mix of the curve kernels', the full-step option kernels' and the
+exact-tier walls' innermost loops (each curve kernel must hold
+tensor-core instructions, the full-step one no FFMA loop, and no
+instance of the exact one, when built in this run, may spill).  The last
+two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
 nothing of JAX.
@@ -92,6 +94,23 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def spill_bytes(log, kernel):
+    """[(spill stores, spill loads)] in bytes of each instance of
+    ``kernel`` in nvcc's -Xptxas -v log, None for an empty log (a library
+    built before this run)."""
+    import re
+
+    if not log:
+        return None
+    out, lines = [], log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          " ".join(lines[i:i + 4]))
+            out.append((int(m.group(1)), int(m.group(2))) if m else (-1, -1))
+    return out
 
 
 def device_ms(fn, n, k):
@@ -140,10 +159,12 @@ def compare(name, k, p):
     product = name.split("_")[0]  # both tiers hold the same tolerances
     if product == "curve":
         check(float(k[0]) == float(p[0]), f"{name} count")
-        rel = float(((k[1:] - p[1:]) / p[1:]).abs().max())
+        rels = (k[1:] - p[1:]) / p[1:]
+        rel, mean = float(rels.abs().max()), float(rels.mean())
         dP = float(((k - p) / k[0]).abs().max())  # error of P = sums / count
         check(rel <= 1e-5, f"{name} disagrees: max rel {rel:.3e}")
-        return dP, f"max rel = {rel:.3e} (tol 1e-5), max|dP| = {dP:.3e}"
+        return dP, (f"max rel = {rel:.3e} (tol 1e-5), mean signed rel = "
+                    f"{mean:.3e}, max|dP| = {dP:.3e}")
     if product == "zbc":
         check(float(k[5]) == float(p[5]), f"{name} count")
         # price and beta do not depend on P(0,S2), which only uncenters
@@ -281,8 +302,8 @@ def phase1(dev):
         """(kernel call, plain call) of ``name`` over n_tiles tiles."""
         return {
             "curve_exact": (
-                lambda: fused.curve_exact(s["curve"], cp.W, cp.c, n_tiles,
-                                          n_live, prec),
+                lambda: fused.curve_exact(s["curve"], cp, n_tiles, n_live,
+                                          prec),
                 lambda: fused.curve_exact_plain(s["curve"], cp.W, cp.c,
                                                 n_tiles, n_live, prec)),
             "zbc_exact": (
@@ -377,7 +398,7 @@ def phase1(dev):
               for prec in (("highest", "default") if name.startswith("curve")
                            else (cfg.matmul_precision,))]
     checks += [(name, n_full[name], prec) for name in n_full
-               for prec in (("highest", "default") if name == "curve_full"
+               for prec in (("highest", "default") if name.startswith("curve")
                             else (cfg.matmul_precision,))]
     normals_launches = None
     for name, n_tiles, prec in checks:
@@ -414,7 +435,7 @@ def phase1(dev):
               f"kernel "
               f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
               f"(kernel runs {k1:.4f} / {k2:.4f}, plain {p1:.4f} / {p2:.4f})")
-        if name == "curve_full":  # one bf16 pass instead of three
+        if name.startswith("curve"):  # one bf16 pass instead of 3 or 6
             kern, _ = pair(name, n_full[name], "default")
             print(f"[phase 1] time at {pairs_of(name, n_full[name])}: "
                   f"{name} [default]: kernel "
@@ -762,7 +783,8 @@ def main() -> int:
           f"(nvcc {build.BUILD_INFO['seconds']:.1f} s): "
           f"{build.library_path().name}")
     for line in build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if ("Used" in line and "registers" in line) or "spill" in line \
+                or "Performance Loss" in line:
             print(f"[phase 0] ptxas: {line.strip()}")
 
     err, times, normals_launches = phase1(dev)
@@ -859,22 +881,36 @@ def main() -> int:
     for name in ("exp_peak", "recip_peak"):
         bounds[name] = bounds_big[name]
     tool = sass.cuobjdump()
-    if tool:  # diagnostic: what the full-step kernels' and walls' loops issue
+    if tool:  # diagnostic: what the curve kernels' and walls' loops issue
         funcs = sass.parse(sass.disassemble(build.library_path(), tool))
-        for name, tmpl in (("curve_full", "ILi3EE"), ("zbc_full", "ILb0E"),
+        ng = -(-(cfg.n_mat - 1) // 8)  # the exact curve's instance
+        for name, tmpl in (("curve_full", "ILi3EE"),
+                           ("curve_exact", f"ILi3ELi{ng}EE"),
+                           ("curve_exact", f"ILi1ELi{ng}EE"),
+                           ("zbc_full", "ILb0E"),
                            ("vega_full", "ILb0E"), ("bm_peak", ""),
                            ("exp_peak", ""), ("recip_peak", "")):
-            loops = sass.kernel_loops(funcs, f"{name}_kernel", tmpl)
+            kernel = f"{name}_kernel"
+            loops = sass.kernel_loops(funcs, kernel, tmpl)
             for loop in loops:
-                print(f"[sass] {name} innermost loop: {loop}")
-            if name == "curve_full":  # the product is the tensor cores'
+                print(f"[sass] {name}{tmpl} innermost loop: {loop}")
+            if name.startswith("curve"):  # the product is the tensor cores'
                 (whole,) = [sass.profile(body) for k, body in funcs.items()
-                            if f"17curve_full_kernel{tmpl}" in k]
-                print(f"[sass] curve_full whole kernel: {whole}")
-                check(whole["mma"] > 0
-                      and not any(loop["ffma"] for loop in loops),
-                      "curve_full issues no tensor instructions or loops "
-                      "over an FFMA product")
+                            if f"{len(kernel)}{kernel}{tmpl}" in k]
+                print(f"[sass] {name}{tmpl} whole kernel: {whole}")
+                check(whole["mma"] > 0, f"{name} issues no tensor "
+                      "instructions")
+                # the full-step loops hash (the exact ones' FFMAs are
+                # Box-Muller's and the epilogue's)
+                check(name == "curve_exact"
+                      or not any(loop["ffma"] for loop in loops),
+                      f"{name} loops over an FFMA product")
+    spills = spill_bytes(build.BUILD_INFO["log"], "curve_exact_kernel")
+    if spills is not None:  # the library was built in this run
+        print(f"[ptxas] curve_exact_kernel spill bytes (stores, loads) per "
+              f"instance: {spills}")
+        check(spills and not any(any(b) for b in spills),
+              "curve_exact_kernel spills")
 
     def entry(name, n):
         source = {"_full": "fused_full.cu", "_peak": "fused_peak.cu"}.get(

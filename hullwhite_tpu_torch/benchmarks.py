@@ -27,16 +27,21 @@ pipe) go to ``data_torch/exact_roofline.json``:
 * Box-Muller, exp, reciprocal: normals, exps and reciprocals per second
   over the walls' (each wall holds its item's whole cost: the BM wall its
   two words' hash, log, sqrt and polynomials);
-* fp32: the fp32 instructions that are none of those (Q1's live FMAs and
-  t + 1/t, the payoffs) over the published fp32 peak's 33.5 T FMA/s;
+* fp32: the fp32 instructions that are none of those (Q1's t + 1/t and
+  the split of its normals, the payoffs) over the published fp32 peak's
+  33.5 T FMA/s;
+* tensor: Q1's bf16 FMAs on the tensor cores, executed (its live quad
+  tiles) and live (the factor's nonzeros), times its passes (six for
+  "highest", one otherwise), over the published dense bf16 peak's
+  494.5 T FMA/s;
 * integer ALU: the words hashed times the generator wall's ALU-pipe
   instructions per word, over the integer-ALU wall (ALU pipe over ALU
   pipe).
 
-The serial sum adds the Box-Muller, exp, reciprocal and fp32 shares: the
-time the tier would take if those units never overlapped.  The integer
-share is not added, because the Box-Muller wall's time already holds the
-hash it counts.
+The serial sum adds the Box-Muller, exp, reciprocal, fp32 and executed
+tensor shares: the time the tier would take if those units never
+overlapped.  The integer share is not added, because the Box-Muller
+wall's time already holds the hash it counts.
 
 Both JSON files carry the card's name, power limit and maximum SM clock.
 Every window is ``utils.timing.bench``'s (CUDA events, min of 3 windows of
@@ -234,6 +239,8 @@ EXACT_FRACTIONS = {"fraction_of_bm_peak": "normals_per_path",
                    "fraction_of_exp_peak": "exps_per_path",
                    "fraction_of_recip_peak": "recips_per_path",
                    "fraction_of_fp32_peak": "fp32_per_path",
+                   "fraction_of_tensor_peak": "mma_fma_per_path_executed",
+                   "fraction_of_tensor_peak_live": "mma_fma_per_path_live",
                    "fraction_of_int_alu_wall": "words_per_path"}
 
 
@@ -262,6 +269,7 @@ def run_exact_roofline(cfg: HWConfig, key: Key, dev: torch.device, hw: dict,
         walls[wall] = {"ms": dt * 1e3, "per_sec": total / dt,
                        "wall_pairs": at.n_paths, "items_per_call": total}
     fp32_peak = roofline.FP32_PEAK_TFLOPS * 1e12 / 2  # FMA instructions/s
+    mma_peak = roofline.TENSOR_PEAK_TFLOPS * 1e12 / 2  # bf16 FMAs/s
     alu_per_word = counts["generator"]["alu"]
     print(f"\n--- Exact-tier roofline [{hw['name']}, power limit "
           f"{hw['power_limit']}; Box-Muller wall "
@@ -272,6 +280,7 @@ def run_exact_roofline(cfg: HWConfig, key: Key, dev: torch.device, hw: dict,
           f"{counts['origin']}] ---")
     out = {"device": hw, "matmul_precision": cfg.matmul_precision,
            "fp32_peak_tflops": roofline.FP32_PEAK_TFLOPS,
+           "tensor_peak_tflops": roofline.TENSOR_PEAK_TFLOPS,
            "int_op_counts_origin": counts["origin"],
            "math_counts": {w: counts[w] for w in ("bm", "exp", "recip")},
            "walls": walls,
@@ -284,14 +293,16 @@ def run_exact_roofline(cfg: HWConfig, key: Key, dev: torch.device, hw: dict,
     acct_big = roofline.exact_tier_accounting(big)
     rows = [("q1_exact", cfg, acct["q1_exact"])]
     if cfg.matmul_precision == "highest":
-        # the same kernel with W and X rounded to bf16: the same counts
-        rows.append(("q1_exact_bf16", cfg.replace(matmul_precision="default"),
-                     acct["q1_exact"]))
+        # the same kernel with W and X rounded to bf16: one pass, no split
+        bf16 = cfg.replace(matmul_precision="default")
+        rows.append(("q1_exact_bf16", bf16,
+                     roofline.exact_tier_accounting(bf16)["q1_exact"]))
     rows += [("zbc_exact", big, acct_big["zbc_exact"]),
              ("vega_exact", big, acct_big["vega_exact"])]
     print(f"{'tier':14s} {'pairs':>9s} {'ms':>9s} {'B paths/s':>10s} "
           f"{'% BM':>6s} {'% exp':>6s} {'% recip':>7s} {'% fp32':>7s} "
-          f"{'% int-ALU':>10s} {'serial':>7s}  limiting unit")
+          f"{'% tensor':>9s} {'% int-ALU':>10s} {'serial':>7s}  limiting "
+          f"unit")
     for name, at, a in rows:
         if name.startswith("q1"):
             p = pricing.curve_pricer(at, engine="fused_exact", device=dev)
@@ -310,6 +321,7 @@ def run_exact_roofline(cfg: HWConfig, key: Key, dev: torch.device, hw: dict,
             "recip": paths_s * a["recips_per_path"]
             / walls["recip"]["per_sec"],
             "fp32": paths_s * a["fp32_per_path"] / fp32_peak,
+            "tensor": paths_s * a["mma_fma_per_path_executed"] / mma_peak,
             "int_alu": paths_s * a["words_per_path"] * alu_per_word
             / int_alu_peak}
         t = {"ms": dt * 1e3, "pairs": at.n_paths, "paths_per_sec": paths_s,
@@ -318,20 +330,25 @@ def run_exact_roofline(cfg: HWConfig, key: Key, dev: torch.device, hw: dict,
              "fraction_of_exp_peak": units["exp"],
              "fraction_of_recip_peak": units["recip"],
              "fraction_of_fp32_peak": units["fp32"],
+             "fraction_of_tensor_peak": units["tensor"],
+             "fraction_of_tensor_peak_live":
+             paths_s * a["mma_fma_per_path_live"] / mma_peak,
              "fraction_of_int_alu_wall": units["int_alu"],
              "serial_occupancy_sum": sum(
-                 units[u] for u in ("BoxMuller", "exp", "recip", "fp32")),
+                 units[u] for u in ("BoxMuller", "exp", "recip", "fp32",
+                                    "tensor")),
              "limiting_unit": max(units, key=units.get)}
         out["tiers"][name] = t
         print(f"{name:14s} {at.n_paths:9d} {dt * 1e3:9.4f} "
               f"{paths_s / 1e9:10.2f} {100 * units['BoxMuller']:5.1f}% "
               f"{100 * units['exp']:5.1f}% {100 * units['recip']:6.1f}% "
-              f"{100 * units['fp32']:6.1f}% {100 * units['int_alu']:9.1f}% "
+              f"{100 * units['fp32']:6.1f}% {100 * units['tensor']:8.1f}% "
+              f"{100 * units['int_alu']:9.1f}% "
               f"{100 * t['serial_occupancy_sum']:6.1f}%  "
               f"{t['limiting_unit']}")
-    print("serial = Box-Muller + exp + recip + fp32 shares if those units "
-          "never overlapped (the int-ALU share is inside the Box-Muller "
-          "wall's time)")
+    print("serial = Box-Muller + exp + recip + fp32 + tensor shares if "
+          "those units never overlapped (the int-ALU share is inside the "
+          "Box-Muller wall's time)")
     _finite_fractions(out["tiers"], EXACT_FRACTIONS)
     path = hwio.write_json(hwio.DATA_DIR / "exact_roofline.json",
                            "Exact-tier roofline", cfg, results=out)

@@ -13,7 +13,8 @@ import torch
 from .config import HWConfig
 from .kernels.fused import (PAD, CurveFullPrepared, CurvePrepared,
                             GridPrepared, OptionFullPrepared, OptionPrepared,
-                            curve_full_operands, grid_bs)
+                            curve_exact_operands, curve_full_operands,
+                            grid_bs)
 from .models.hull_white import MarketCurve
 from .ops.rng import Key
 
@@ -26,12 +27,17 @@ def market_curve(P, f, *, device) -> MarketCurve:
 
 def curve_prepared(prepared, *, device) -> CurvePrepared:
     """``fused.curve_prepared(..., exact=True)`` output (W (PAD, PAD),
-    c_pad (1, PAD)) as the curve kernel's operands."""
+    c_pad (1, PAD)) as the exact curve kernel's operands, with the kernel's
+    split of W and chunk masks built from it
+    (``fused.curve_exact_operands``)."""
     W, c_pad = (np.array(a, np.float32) for a in prepared)  # owned copies
     if W.shape != (PAD, PAD) or c_pad.shape != (1, PAD):
         raise ValueError("expected W (128, 128) and c (1, 128)")
-    return CurvePrepared(W=torch.as_tensor(W, device=device),
-                         c=torch.as_tensor(c_pad[0], device=device))
+    W = torch.as_tensor(W)
+    w_split, live = curve_exact_operands(W)
+    return CurvePrepared(W.to(device),
+                         torch.as_tensor(c_pad[0], device=device),
+                         w_split.to(device), live)
 
 
 def option_prepared(prepared, *, device) -> OptionPrepared:

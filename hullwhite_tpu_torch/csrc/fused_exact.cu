@@ -16,22 +16,72 @@
 // Each CTA writes partial sums that reduce_kernel (hw_reduce.cuh) sums in
 // a fixed order: no float atomics, so reruns are bitwise identical.
 //
-// What bounds them on the H100:
-//   * curve_exact: fp32 FMA.  Each path samples k = n_mat - 1 normals and
-//     multiplies them by the k x k factor sig_st L^T: 2^20 paths x 100 x 100
-//     MACs per call at the reference size, on the CUDA cores.
-//   * zbc/vega/delta/normals: per-element SFU work (2 hashes, log, sqrt, 2-4 exp,
-//     2 reciprocals) and no memory traffic at all.
-// What this simple design leaves for later work: a tensor-core (wgmma/mma)
-// product for Q1 with the normals staged as bf16x3 or TF32 splits; fewer
-// partials per call (persistent CTAs); 28 of 128 column threads idle in
-// the Q1 product when n_mat - 1 = 100.
+// curve_exact: Box-Muller normals times the upper-triangular factor
+// W = sig_st L^T on the tensor cores.
+//   * Bound: the generator on the ALU pipe.  At 2^20 pairs and k = n_mat -
+//     1 = 100 the kernel hashes 2^20 x 100 words at ~20 ALU-pipe
+//     instructions each (the generator wall's count): ~0.13 ms on 64 ALU
+//     lanes x 132 SMs x 1980 MHz.  The Box-Muller math, the epilogue's exp
+//     and reciprocal and the split run beside it on the FMA and MUFU
+//     pipes; the live product, k (k + 1) / 2 = 5050 weights per pair x 6
+//     bf16 passes ("highest"), is ~0.06 ms on the tensor pipe.
+//   * Normals straight into A: a warpgroup owns 64 paths (wgmma's m64),
+//     32 Box-Muller rows; fragment row g of a warp is the cos half (z0)
+//     of its row rho, row g + 8 the sin half (z1).  Each thread evaluates
+//     exactly the 4 elements of its own A fragment per 16-column chunk
+//     (columns 2t, 2t + 1, 2t + 8, 2t + 9 of row rho), hashed on the JAX
+//     coordinates (tile, row, column), and splits them in registers.  No
+//     normal passes through shared memory and no barrier waits on one.
+//     Columns >= k multiply zero rows of W: they are not drawn, and the
+//     chunks from k on are not issued.
+//   * The split, both operands: x = hi + mid + lo exactly in bf16, in
+//     registers (hw::split_bf16x2); W's three parts from the host
+//     (kernels/fused.py, split_bf16 / split_tiles).  "highest" issues the
+//     TPU's six bf16 passes Xhi Wlo, Xlo Whi, Xmid Wmid, Xhi Wmid,
+//     Xmid Whi, Xhi Whi (small to large; the three dropped terms are
+//     ~2^-24 of each product), "default" the one pass Xhi Whi, which is
+//     the plain version's bf16 product; fp32 sums on the tensor core.
+//   * The skip: W is upper-triangular, so whole (k16 chunk, n32 quad)
+//     tiles are zero.  A mask of live quads per chunk, built on the host
+//     from W's nonzeros (fused.chunk_quads), names those the product runs:
+//     19 of the 28 at the reference size.  The columns from k on hold no
+//     accumulator: an instance per NG = ceil(k / 8) keeps NG n8 groups,
+//     and a quad's wgmma covers its groups below NG (N = 8 .. 32), 7040
+//     executed FMAs per pair and pass for 5050 live.
+//   * Persistent CTAs, as many as fit at once (one per SM at the
+//     reference size): 5 warpgroups (20 warps of <= 96 registers; 4 where
+//     the accumulators need more, curve_wgs) share W's live tiles, staged
+//     once per chunk span (cp.async, <= 3 x 19 KB at the reference size);
+//     each warpgroup walks the 64-path tiles w, w + 5 grid, ...  Per
+//     chunk it issues the product (per live quad one wgmma per pass)
+//     asynchronously, evaluates the next chunk's (or the next tile's
+//     first) normals while the tensor core runs it, waits, and splits
+//     them into the A registers.  Per tile, the exp and reciprocal
+//     epilogue, whose column sums are folded across the warp's 8 row
+//     groups (fold_rows) into 4 running sums per thread, kept in shared
+//     memory and summed across the warps once, at the CTA's end, in a
+//     fixed order.
+//   * Warps hide the latency: the kernel is register-bound.  64 fp32
+//     accumulators a thread allowed 12-16 warps per SM; NG groups (52 at
+//     the reference size), the folded column sums and a warp-uniform
+//     warpgroup index (a divergent loop bound made ptxas serialize the
+//     wgmma) allow 20 (PERF.md section 6 lists the routes timed).
+// What stays open: Box-Muller and the epilogue run at 67-77% of their
+// walls' rates and add up on the issue slots; the product adds ~0.09 ms
+// ("highest") that the other warps' work does not hide.
+//
+// zbc/vega/delta/normals: per-element SFU work (2 hashes, log, sqrt, 2-4
+// exp, 2 reciprocals) and no memory traffic at all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <utility>
+
 #include "hw_device.cuh"
 #include "hw_reduce.cuh"
+#include "hw_wgmma.cuh"
 
 namespace {
 
@@ -40,14 +90,38 @@ constexpr int TILE_EXACT = 4096;                // fused.TILE_EXACT (BM rows)
 constexpr int TILE_OPT = 256;                   // fused.TILE_OPT
 constexpr int OPT_TILE_ELEMS = TILE_OPT * PAD;  // pairs (paths) per option tile
 
-// Q1: a chunk is CHUNK_ROWS Box-Muller rows of one tile = 2 * CHUNK_ROWS
-// paths (the cos and sin halves); a CTA walks CHUNKS_PER_CTA chunks.
-constexpr int CURVE_THREADS = 256;              // 2 row groups x 128 columns
-constexpr int CHUNK_ROWS = 32;
-constexpr int CHUNK_PATHS = 2 * CHUNK_ROWS;
-constexpr int GROUP_PATHS = CHUNK_PATHS / (CURVE_THREADS / PAD);  // 32
-constexpr int CHUNKS_PER_TILE = TILE_EXACT / CHUNK_ROWS;          // 128
-constexpr int CHUNKS_PER_CTA = 8;
+// Q1 geometry.  W's split is (part lo, mid, hi; n8 group j; k16 chunk s)
+// tiles of TILE_BYTES (kernels/fused.py, split_tiles of one 128-row
+// block), each the two 8 x 8 core matrices of wgmma's K-major B: rows
+// 16 s + 0-7, then 8-15, of 8 columns, 16 bytes per column.  The product
+// and the mask run on quad tiles (chunk s, quad q): rows 16 s .. + 15,
+// columns 32 q .. + 31, the n8 tiles of groups 4 q .. 4 q + 3; a chunk's
+// W is staged over the span from its first to its last live quad.
+constexpr int SPLIT_PARTS = 3;
+constexpr int GROUPS = PAD / 8;
+constexpr int CHUNKS = PAD / 16;
+constexpr int QUADS = PAD / 32;
+constexpr int QUAD_GROUPS = GROUPS / QUADS;
+constexpr int TILE_BYTES = 16 * 8 * 2;
+constexpr int CORE_BYTES = TILE_BYTES / 2;
+constexpr int QUAD_BYTES = QUAD_GROUPS * TILE_BYTES;
+static_assert(CHUNKS * QUADS == 32, "the live mask is one 32-bit word");
+// A warpgroup owns a 64-path tile of WG_ROWS Box-Muller rows of one curve
+// tile at a time (wgmma's m64); a CTA is curve_wgs warpgroups that share
+// the staged weights.
+constexpr int WG_ROWS = 32;
+constexpr int WG_TILES_PER_TILE = TILE_EXACT / WG_ROWS;
+
+// Warpgroups per CTA of the instance with XPARTS A parts and NG
+// accumulator groups: 5 (20 warps per SM at <= 96 registers a thread)
+// where the accumulators and the A parts take at most 68 registers, else
+// 4 (16 warps at <= 128); more warps hide more of the Box-Muller and
+// epilogue latency, and no instance spills (chip_smoke.py checks the
+// ptxas report).
+template <int XPARTS, int NG>
+__host__ __device__ constexpr int curve_wgs() {
+  return 4 * NG + 4 * XPARTS <= 68 ? 5 : 4;
+}
 
 // Q2b/Q3/delta: one element per thread per step, OPT_PER_THREAD steps.
 constexpr int OPT_THREADS = 256;
@@ -67,73 +141,254 @@ struct OptConsts {
 
 // ---------------------------------------------------------------------------
 // Q1: per-maturity sums of t + 1/t, t = exp(-z), z = X (sig_st L^T).
-// Shared memory: W (k x k, live block only) and the chunk's normals stored
-// k-major (Xs[j * 64 + p], p = path within the chunk), so the product reads
-// four paths per 16-byte broadcast load.  Thread (g, m) owns maturity
-// column m for the 32 paths of row group g.  Columns >= k of the padded
-// TPU operand multiply zero rows and the hash is stateless, so they are
-// neither drawn nor multiplied.
 // ---------------------------------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(CURVE_THREADS)
-curve_exact_kernel(hw::Seeds sd, const float* __restrict__ W, int ldw, int k,
-                   int ws_floats, float* __restrict__ partials) {
-  extern __shared__ float4 smem4[];
-  float* Ws = reinterpret_cast<float*>(smem4);
-  float* Xs = Ws + ws_floats;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < k * k; i += CURVE_THREADS) {
-    const float w = W[(i / k) * ldw + (i % k)];
-    Ws[i] = BF16 ? hw::round_bf16(w) : w;
-  }
-  const int m = tid % PAD;
-  const int g = tid / PAD;
-  float colsum = 0.0f;
 
-  for (int j = 0; j < CHUNKS_PER_CTA; ++j) {
-    const int chunk = blockIdx.x * CHUNKS_PER_CTA + j;
-    const uint32_t tile = sd.s2 + static_cast<uint32_t>(chunk / CHUNKS_PER_TILE);
-    const uint32_t row0 = static_cast<uint32_t>((chunk % CHUNKS_PER_TILE) * CHUNK_ROWS);
-    const uint32_t s0 = hw::tile_seed(sd.s0, tile);
-    __syncthreads();  // W staged / previous chunk consumed
-    for (int p = tid; p < CHUNK_ROWS * k; p += CURVE_THREADS) {
-      const int r = p / k, col = p % k;
-      float z0, z1;
-      hw::box_muller(s0, sd.s1, (row0 + r) * PAD + col, z0, z1);
-      Xs[col * CHUNK_PATHS + r] = BF16 ? hw::round_bf16(z0) : z0;
-      Xs[col * CHUNK_PATHS + CHUNK_ROWS + r] = BF16 ? hw::round_bf16(z1) : z1;
-    }
-    __syncthreads();
-    if (m < k) {
-      float acc[GROUP_PATHS];
-#pragma unroll
-      for (int r = 0; r < GROUP_PATHS; ++r) acc[r] = 0.0f;
-      const float* xg = Xs + g * GROUP_PATHS;
-      for (int jj = 0; jj < k; ++jj) {
-        const float w = Ws[jj * k + m];
-        const float4* x4 = reinterpret_cast<const float4*>(xg + jj * CHUNK_PATHS);
-#pragma unroll
-        for (int q = 0; q < GROUP_PATHS / 4; ++q) {
-          const float4 x = x4[q];
-          acc[4 * q + 0] = fmaf(x.x, w, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(x.y, w, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(x.z, w, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(x.w, w, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < GROUP_PATHS; ++r) {
-        // antithetic pair from one exp: e^{-(c+z)} + e^{-(c-z)} = e^{-c}(t + 1/t)
-        const float t = expf(-acc[r]);
-        colsum += t + __frcp_rn(t);
-      }
-    }
+// Pass p of "highest" multiplies A part pass_x(p) by W part pass_w(p):
+// (hi, lo), (lo, hi), (mid, mid), (hi, mid), (mid, hi), (hi, hi), with the
+// A parts hi, mid, lo = 0, 1, 2 and the staged W parts lo, mid, hi = 0, 1,
+// 2; "default" runs pass 0 alone, A's hi by the one staged part, W's hi.
+__host__ __device__ constexpr int pass_x(int p) {
+  return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
+}
+__host__ __device__ constexpr int pass_w(int p) {
+  return p == 0 ? 0 : (p == 2 || p == 3) ? 1 : 2;
+}
+
+// The Box-Muller row of this thread in 64-path tile w of the call: tile
+// w / WG_TILES_PER_TILE, row WG_ROWS (w % WG_TILES_PER_TILE) + 8 warp + g;
+// its tile seed and the element index of its first column 2t.
+struct CurveRow {
+  uint32_t s0, idx0;
+};
+
+__device__ __forceinline__ CurveRow curve_row(hw::Seeds sd, int w, int warp, int g, int t) {
+  const uint32_t tile = sd.s2 + static_cast<uint32_t>(w / WG_TILES_PER_TILE);
+  const uint32_t rho = static_cast<uint32_t>((w % WG_TILES_PER_TILE) * WG_ROWS + 8 * warp + g);
+  return {hw::tile_seed(sd.s0, tile), rho * PAD + 2 * t};
+}
+
+// Element e of this thread's A fragment of chunk s: column 16 s + 2t +
+// (e & 1) + 8 (e >> 1) of its row, z0 (the cos half, fragment row g) and
+// z1 (the sin half, row g + 8); 0 from column k on.
+__device__ __forceinline__ void fragment_normal(hw::Seeds sd, CurveRow r, int t, int s, int k,
+                                                int e, float (&z0)[4], float (&z1)[4]) {
+  const int off = 16 * s + (e & 1) + 8 * (e >> 1);
+  if (2 * t + off < k) {
+    hw::box_muller(r.s0, sd.s1, r.idx0 + off, z0[e], z1[e]);
+  } else {
+    z0[e] = 0.0f;
+    z1[e] = 0.0f;
   }
+}
+
+// The span of chunk s's live quads: the first q0 and the count nq from it
+// to the last (0 if none).  W's parts are staged over the span; a dead
+// quad inside it is staged (W's zeros) but not multiplied.
+__host__ __device__ inline void chunk_span(uint32_t live, int s, int& q0, int& nq) {
+  const uint32_t m = (live >> (QUADS * s)) & 0xFu;
+  q0 = 0;
+  nq = 0;
+  if (!m) return;
+  while (!((m >> q0) & 1u)) ++q0;
+  int q1 = QUADS - 1;
+  while (!((m >> q1) & 1u)) --q1;
+  nq = q1 - q0 + 1;
+}
+
+// The A fragments of the chunk, split into XPARTS bf16 parts (hi, mid,
+// lo): registers 0-3 hold rows g, g + 8 at k 2t, 2t + 1, then rows g,
+// g + 8 at k 2t + 8, 2t + 9.
+template <int XPARTS>
+__device__ __forceinline__ void split_fragments(const float (&z0)[4], const float (&z1)[4],
+                                                uint32_t (&a)[XPARTS][4]) {
+  uint32_t p0[XPARTS], p1[XPARTS], p2[XPARTS], p3[XPARTS];
+  hw::split_bf16x2<XPARTS>(z0[0], z0[1], p0);
+  hw::split_bf16x2<XPARTS>(z1[0], z1[1], p1);
+  hw::split_bf16x2<XPARTS>(z0[2], z0[3], p2);
+  hw::split_bf16x2<XPARTS>(z1[2], z1[3], p3);
+#pragma unroll
+  for (int i = 0; i < XPARTS; ++i) {
+    a[i][0] = p0[i];
+    a[i][1] = p1[i];
+    a[i][2] = p2[i];
+    a[i][3] = p3[i];
+  }
+}
+
+// A tile's column sums v[2 j + e] (columns 8 j + 2t + e) summed over the
+// warp's 8 row groups g in three butterfly steps across lane bits 2-4,
+// each halving what a lane keeps: lane (g, t) is left with the sums of
+// v[fold_base(g) + i], i < 4, each added in a fixed order.
+__device__ __forceinline__ int fold_base(int g) {
+  return 16 * (g & 1) + 8 * ((g >> 1) & 1) + 4 * (g >> 2);
+}
+
+__device__ __forceinline__ void fold_rows(const float (&v)[2 * GROUPS], int g,
+                                          float (&out)[4]) {
+  float h[GROUPS], q[GROUPS / 2];
+  const bool b0 = g & 1, b1 = (g >> 1) & 1, b2 = (g >> 2) & 1;
+#pragma unroll
+  for (int i = 0; i < GROUPS; ++i) {
+    const float send = b0 ? v[i] : v[i + GROUPS];
+    h[i] = (b0 ? v[i + GROUPS] : v[i]) + __shfl_xor_sync(0xFFFFFFFFu, send, 4);
+  }
+#pragma unroll
+  for (int i = 0; i < GROUPS / 2; ++i) {
+    const float send = b1 ? h[i] : h[i + GROUPS / 2];
+    q[i] = (b1 ? h[i + GROUPS / 2] : h[i]) + __shfl_xor_sync(0xFFFFFFFFu, send, 8);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = b2 ? q[i] : q[i + 4];
+    out[i] = (b2 ? q[i + 4] : q[i]) + __shfl_xor_sync(0xFFFFFFFFu, send, 16);
+  }
+}
+
+// The chunk's product on quads Q .. QUADS - 1 that hold columns below
+// 8 NG: per live quad and pass p, d[4 Q ..] += A part pass_x(p) x W part
+// pass_w(p), one wgmma over the quad's G groups below NG (N = 8 G).
+// Quad Q's W parts sit at quad_base + Q QUAD_BYTES, part after part nq
+// quads apart.
+template <int XPARTS, int NG, int Q = 0>
+__device__ __forceinline__ void issue_quads(float (&acc)[NG][4], const uint32_t (&a)[XPARTS][4],
+                                            uint32_t quads, uint32_t quad_base, int nq) {
+  if constexpr (Q < QUADS && QUAD_GROUPS * Q < NG) {
+    constexpr int PASSES = XPARTS == SPLIT_PARTS ? 6 : 1;
+    constexpr int G = NG - QUAD_GROUPS * Q < QUAD_GROUPS ? NG - QUAD_GROUPS * Q : QUAD_GROUPS;
+    if ((quads >> Q) & 1u) {
+      const uint32_t quad = quad_base + Q * QUAD_BYTES;
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p)
+        hw::wgmma_groups<G>(acc + QUAD_GROUPS * Q, a[pass_x(p)],
+                            hw::b_desc<CORE_BYTES, TILE_BYTES>(
+                                quad + pass_w(p) * nq * QUAD_BYTES));
+    }
+    issue_quads<XPARTS, NG, Q + 1>(acc, a, quads, quad_base, nq);
+  }
+}
+
+// w_split is W's split (kernels/fused.py, split_shape(1)); bit 4 s + q of
+// live names the quad tiles the product runs; the columns from k on, and
+// so the n8 groups from NG = ceil(k / 8) on, multiply zeros and hold no
+// accumulator.  Thread (warpgroup, warp, g, t) owns the paths of its
+// Box-Muller row (fragment rows g, g + 8) in each of its warpgroup's
+// 64-path tiles, and the running sums of 4 of the columns 8 j + 2t + e its
+// accumulators hold (fold_rows).
+template <int XPARTS, int NG>
+__global__ void __launch_bounds__(128 * curve_wgs<XPARTS, NG>(), 1)
+curve_exact_kernel(hw::Seeds sd, const char* __restrict__ w_split, uint32_t live, int k,
+                   int n_wg, float* __restrict__ partials) {
+  constexpr int WGS = curve_wgs<XPARTS, NG>();
+  constexpr int THREADS = 128 * WGS;
+  static_assert(THREADS >= PAD, "thread m < PAD sums column m of the CTA");
+  extern __shared__ float4 curve_smem[];
+  __shared__ float red[THREADS / 32][PAD];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(curve_smem));
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it
+  // warp-uniform: a loop bound it cannot prove uniform puts the wgmma on
+  // a divergent path, and ptxas then serializes them
+  const int wg = __shfl_sync(0xFFFFFFFFu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int g = lane >> 2, t = lane & 3;
+
+  // Stage W's last XPARTS parts of each chunk's span once, chunk after
+  // chunk: [part][n8 group 4 q0 .. 4 (q0 + nq) - 1][TILE_BYTES].
+  uint32_t off = 0;
+  for (int s = 0; s < CHUNKS; ++s) {
+    int q0, nq;
+    chunk_span(live, s, q0, nq);
+    const int per_part = nq * QUAD_BYTES / 16;
+    for (int i = threadIdx.x; i < XPARTS * per_part; i += THREADS) {
+      const int part = i / per_part, jj = (i % per_part) / (TILE_BYTES / 16);
+      const int piece = i % (TILE_BYTES / 16);
+      const int src_tile =
+          ((SPLIT_PARTS - XPARTS + part) * GROUPS + QUAD_GROUPS * q0 + jj) * CHUNKS + s;
+      hw::cp_async16(sbase + off + part * nq * QUAD_BYTES + jj * TILE_BYTES + 16 * piece,
+                     w_split + src_tile * TILE_BYTES + 16 * piece);
+    }
+    off += XPARTS * nq * QUAD_BYTES;
+  }
+  hw::cp_async_commit();
+  hw::cp_async_wait<0>();
   __syncthreads();
-  float* other = Xs;  // reuse: row group 1 hands its column sums to group 0
-  if (g == 1) other[m] = colsum;
+
+  // this thread's 4 running column sums (fold_rows), kept in shared
+  // memory to spare registers: each slot has one owner until the end
+  float* colsum = red[threadIdx.x >> 5];
+  const int col0 = 8 * (fold_base(g) >> 1) + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) colsum[col0 + 8 * (i >> 1) + (i & 1)] = 0.0f;
+
+  const int n_chunks = (k + 15) / 16;
+  const int first = blockIdx.x * WGS + wg, stride = gridDim.x * WGS;
+  float acc[NG][4];
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float z0[4], z1[4];
+  uint32_t a[XPARTS][4];
+  CurveRow row = curve_row(sd, first, warp, g, t);
+  if (first < n_wg) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fragment_normal(sd, row, t, 0, k, e, z0, z1);
+  }
+  for (int w = first; w < n_wg; w += stride) {
+    uint32_t base = sbase;
+    for (int s = 0; s < n_chunks; ++s) {
+      split_fragments<XPARTS>(z0, z1, a);
+      int q0, nq;
+      chunk_span(live, s, q0, nq);
+      hw::wgmma_fence();  // a and acc were written by ordinary instructions
+      issue_quads<XPARTS, NG>(acc, a, (live >> (QUADS * s)) & 0xFu,
+                              base - q0 * QUAD_BYTES, nq);
+      hw::wgmma_commit();
+      // the next chunk's normals, or the next tile's first, while the
+      // tensor core runs this chunk's product
+      const bool next_chunk = s + 1 < n_chunks, more = next_chunk || w + stride < n_wg;
+      const int sn = next_chunk ? s + 1 : 0;
+      if (!next_chunk && more) row = curve_row(sd, w + stride, warp, g, t);
+      if (more) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fragment_normal(sd, row, t, sn, k, e, z0, z1);
+      }
+      base += XPARTS * nq * QUAD_BYTES;
+      hw::wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hw::fence_operand(acc[j][e]);
+    }
+    // antithetic pair from one exp: e^{-(c+z)} + e^{-(c-z)} = e^{-c}(t + 1/t);
+    // e^{-c} is applied in the second pass, which reads the columns below k
+    // only (the last group's others hold z = 0).
+    float v[2 * GROUPS], folded[4];
+#pragma unroll
+    for (int i = 0; i < 2 * GROUPS; ++i) v[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float t0 = expf(-acc[j][e]), t1 = expf(-acc[j][e + 2]);
+        v[2 * j + e] = (t0 + __frcp_rn(t0)) + (t1 + __frcp_rn(t1));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    }
+    fold_rows(v, g, folded);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) colsum[col0 + 8 * (i >> 1) + (i & 1)] += folded[i];
+  }
+
+  // the warps' column sums in order: thread m < PAD writes column m of the
+  // CTA's partials
   __syncthreads();
-  if (g == 0) partials[blockIdx.x * PAD + m] = colsum + other[m];
+  if (threadIdx.x < PAD) {
+    float sum = red[0][threadIdx.x];
+#pragma unroll
+    for (int i = 1; i < THREADS / 32; ++i) sum += red[i][threadIdx.x];
+    partials[static_cast<size_t>(blockIdx.x) * PAD + threadIdx.x] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -216,8 +471,60 @@ option_normals_kernel(hw::Seeds sd, long long n,
   x2[e] = b;
 }
 
-int curve_ctas(int n_tiles) { return n_tiles * (CHUNKS_PER_TILE / CHUNKS_PER_CTA); }
 int option_ctas(int n_tiles) { return n_tiles * (OPT_TILE_ELEMS / OPT_PER_CTA); }
+
+// The kernel instance of XPARTS parts and NG = ceil(k / 8) accumulator
+// groups and its warpgroups per CTA, from a table of all 16 widths.
+struct CurveInstance {
+  void (*kernel)(hw::Seeds, const char*, uint32_t, int, int, float*);
+  int wgs;
+};
+
+template <int XPARTS, int... I>
+std::array<CurveInstance, sizeof...(I)> curve_instances(std::integer_sequence<int, I...>) {
+  return {{{curve_exact_kernel<XPARTS, I + 1>, curve_wgs<XPARTS, I + 1>()}...}};
+}
+
+CurveInstance curve_exact_instance(int bf16, int k) {
+  static const auto split =
+      curve_instances<SPLIT_PARTS>(std::make_integer_sequence<int, GROUPS>{});
+  static const auto one = curve_instances<1>(std::make_integer_sequence<int, GROUPS>{});
+  return (bf16 ? one : split)[(k + 7) / 8 - 1];
+}
+
+// Bytes of the staged spans of xparts parts.
+int curve_exact_smem(uint32_t live, int xparts) {
+  int quads = 0;
+  for (int s = 0; s < CHUNKS; ++s) {
+    int q0, nq;
+    chunk_span(live, s, q0, nq);
+    quads += nq;
+  }
+  return quads * xparts * QUAD_BYTES;
+}
+
+// The persistent grid for the wrappers' arguments: the CTAs that fit on
+// the card at once (the occupancy query), at most one per warpgroups'
+// worth of 64-path tiles; sets the kernel's shared-memory limit on the
+// way.
+cudaError_t curve_exact_ctas(int n_tiles, int bf16, uint32_t live, int k, int* ctas) {
+  if (n_tiles < 1 || n_tiles > (1 << 24) || k < 1 || k > PAD) return cudaErrorInvalidValue;
+  const CurveInstance inst = curve_exact_instance(bf16, k);
+  const int smem = curve_exact_smem(live, bf16 ? 1 : SPLIT_PARTS);
+  cudaError_t err =
+      cudaFuncSetAttribute(inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.kernel, 128 * inst.wgs,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int most = (n_tiles * WG_TILES_PER_TILE + inst.wgs - 1) / inst.wgs;
+  *ctas = per_sm * sms < most ? per_sm * sms : most;
+  return cudaSuccess;
+}
 
 OptConsts load_consts(const float* h) {
   OptConsts c;
@@ -238,35 +545,38 @@ OptConsts load_delta_consts(const float* h) {
 
 extern "C" {
 
-// Scratch sizes (floats) the wrappers allocate for the partial sums.
-int hw_curve_partials(int n_tiles) { return curve_ctas(n_tiles) * PAD; }
+// Scratch sizes (floats) the wrappers allocate for the partial sums; the
+// curve's is minus a CUDA error code if the grid query fails.
+int hw_curve_partials(int n_tiles, int bf16, int32_t live, int k) {
+  int ctas = 0;
+  const cudaError_t err = curve_exact_ctas(n_tiles, bf16, static_cast<uint32_t>(live), k, &ctas);
+  return err == cudaSuccess ? ctas * PAD : -static_cast<int>(err);
+}
 int hw_zbc_partials(int n_tiles) { return option_ctas(n_tiles) * 5; }
 int hw_vega_partials(int n_tiles) { return option_ctas(n_tiles); }
 int hw_delta_partials(int n_tiles) { return option_ctas(n_tiles); }
 
-// out (k + 1): [count, e^{-c_m} sum_paths (t + 1/t) for m < k].
-int hw_curve_exact(int32_t s0, int32_t s1, int32_t s2, const float* W,
-                   int ldw, const float* c, int k, int n_tiles, int bf16,
-                   float count, float* partials, float* out, void* stream) {
-  if (k < 1 || k > PAD || n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+// out (k + 1): [count, e^{-c_m} sum_paths (t + 1/t) for m < k].  w_split
+// is W's split as (1, 3, 16, 8, 64) uint32 wgmma B tiles (kernels/fused.py,
+// split_tiles), 16-byte aligned; bit 4 s + q of live marks quad tile
+// (chunk s, quad q) live; partials holds n_partials floats
+// (hw_curve_partials).  W's rows from k on must be zero.
+int hw_curve_exact(int32_t s0, int32_t s1, int32_t s2, const void* w_split,
+                   int32_t live, const float* c, int k, int n_tiles, int bf16,
+                   float count, float* partials, int n_partials, float* out,
+                   void* stream) {
+  if (reinterpret_cast<uintptr_t>(w_split) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0;
+  const uint32_t mask = static_cast<uint32_t>(live);
+  cudaError_t err = curve_exact_ctas(n_tiles, bf16, mask, k, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_partials < ctas * PAD) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ws_floats = (k * k + 3) & ~3;
-  // the normals' region doubles as the PAD-float hand-off of the epilogue
-  const int xs_floats = k * CHUNK_PATHS > PAD ? k * CHUNK_PATHS : PAD;
-  const size_t smem = sizeof(float) * (ws_floats + xs_floats);
-  const int ctas = curve_ctas(n_tiles);
-  cudaError_t err;
-  if (bf16) {
-    err = cudaFuncSetAttribute(curve_exact_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    curve_exact_kernel<true><<<ctas, CURVE_THREADS, smem, st>>>(make_seeds(s0, s1, s2), W, ldw, k, ws_floats, partials);
-  } else {
-    err = cudaFuncSetAttribute(curve_exact_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    curve_exact_kernel<false><<<ctas, CURVE_THREADS, smem, st>>>(make_seeds(s0, s1, s2), W, ldw, k, ws_floats, partials);
-  }
+  const CurveInstance inst = curve_exact_instance(bf16, k);
+  const auto kernel = inst.kernel;
+  kernel<<<ctas, 128 * inst.wgs, curve_exact_smem(mask, bf16 ? 1 : SPLIT_PARTS), st>>>(
+      make_seeds(s0, s1, s2), static_cast<const char*>(w_split), mask, k,
+      n_tiles * WG_TILES_PER_TILE, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_kernel<<<k, REDUCE_THREADS, 0, st>>>(partials, ctas, PAD, c, nullptr, out, 1, count, 0);

@@ -80,6 +80,7 @@
 
 #include "hw_device.cuh"
 #include "hw_reduce.cuh"
+#include "hw_wgmma.cuh"
 
 namespace {
 
@@ -128,67 +129,6 @@ struct FullConsts {
 // Q1: per-maturity sums of t + 1/t, t = exp(-z), z = sum_q U_q W_q.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// All but the newest group of this thread's copies have landed, and are
-// visible to the tensor core's (async proxy's) reads once the CTA syncs.
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\nfence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from touching v across an in-flight wgmma.
-__device__ __forceinline__ void fence_operand(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
-}
-
-// Shared-memory descriptor of a K-major B operand without swizzle: start
-// address, LBO = CORE_BYTES (steps 0-7 -> 8-15), SBO = GROUP_BYTES (n8
-// group -> the next, whose tile of the same chunk sits a group further),
-// all in 16-byte units.
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(CORE_BYTES >> 4) << 16) |
-         (static_cast<uint64_t>(GROUP_BYTES >> 4) << 32);
-}
-
-// d (64 x 32 fp32 over the warpgroup, as four n8 groups d0 .. d3; this
-// warp's rows 16w + g, 16w + g + 8) += A (64 x 16 bf16 from the warps'
-// registers, mma.m16n8k16's A layout per warp) B (16 x 32 bf16 in shared
-// memory), asynchronously.
-__device__ __forceinline__ void wgmma_n32(float (&d0)[4], float (&d1)[4], float (&d2)[4],
-                                          float (&d3)[4], const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d1[0]), "+f"(d1[1]),
-        "+f"(d1[2]), "+f"(d1[3]), "+f"(d2[0]), "+f"(d2[1]), "+f"(d2[2]), "+f"(d2[3]),
-        "+f"(d3[0]), "+f"(d3[1]), "+f"(d3[2]), "+f"(d3[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
-      : "memory");
-}
-
 // Warp j copies group j of block q's last PASSES passes into a stage laid
 // out [pass slot][group][chunk][tile] if its quad has a live group (a dead
 // group's tiles are zeros, which its quad's product then adds); the groups
@@ -201,8 +141,8 @@ __device__ __forceinline__ void stage_split(uint32_t stage, const char* Wq, uint
   for (int s = 0; s < PASSES; ++s)
 #pragma unroll
     for (int i = lane; i < GROUP_BYTES / 16; i += 32)
-      cp_async16(stage + (s * GROUPS + j) * GROUP_BYTES + 16 * i,
-                 Wq + ((SPLIT_PASSES - PASSES + s) * GROUPS + j) * GROUP_BYTES + 16 * i);
+      hw::cp_async16(stage + (s * GROUPS + j) * GROUP_BYTES + 16 * i,
+                     Wq + ((SPLIT_PASSES - PASSES + s) * GROUPS + j) * GROUP_BYTES + 16 * i);
 }
 
 // The packed raws of word i of half-block hh for the pair of idx0: chunk
@@ -266,7 +206,7 @@ curve_full_kernel(hw::Seeds sd, const char* __restrict__ Wf,
   pack_fragments(w, a);
 
   stage_split<PASSES>(sbase, Wf, static_cast<uint32_t>(__ldg(live_mask)));
-  cp_async_commit();
+  hw::cp_async_commit();
   for (int hh = 0; hh < 2 * nb; ++hh) {
     const int q = hh >> 1;
     if (!(hh & 1)) {
@@ -274,14 +214,14 @@ curve_full_kernel(hw::Seeds sd, const char* __restrict__ Wf,
         stage_split<PASSES>(sbase + ((q + 1) & 1) * STAGE,
                             Wf + static_cast<size_t>(q + 1) * BLOCK_BYTES,
                             static_cast<uint32_t>(__ldg(live_mask + q + 1)));
-      cp_async_commit();
-      cp_async_wait_prior();
+      hw::cp_async_commit();
+      hw::cp_async_wait<1>();
       __syncthreads();  // block q's split has landed for every thread
     }
     const uint32_t live = static_cast<uint32_t>(__ldg(live_mask + q));
-    const uint64_t desc =
-        b_desc(sbase + (q & 1) * STAGE + (hh & 1) * HALF_CHUNKS * TILE_BYTES);
-    wgmma_fence();  // a and acc were written by ordinary instructions
+    const uint64_t desc = hw::b_desc<CORE_BYTES, GROUP_BYTES>(
+        sbase + (q & 1) * STAGE + (hh & 1) * HALF_CHUNKS * TILE_BYTES);
+    hw::wgmma_fence();  // a and acc were written by ordinary instructions
     const bool more = hh + 1 < 2 * nb;
 #pragma unroll
     for (int j = 0; j < GROUPS; j += QUAD) {
@@ -290,8 +230,8 @@ curve_full_kernel(hw::Seeds sd, const char* __restrict__ Wf,
         for (int c = 0; c < HALF_CHUNKS; ++c)
 #pragma unroll
           for (int p = 0; p < PASSES; ++p)
-            wgmma_n32(acc[j], acc[j + 1], acc[j + 2], acc[j + 3], a[c],
-                      desc + (((p * GROUPS + j) * GROUP_BYTES + c * TILE_BYTES) >> 4));
+            hw::wgmma_groups<QUAD>(
+                acc + j, a[c], desc + (((p * GROUPS + j) * GROUP_BYTES + c * TILE_BYTES) >> 4));
       }
       // a quarter of the next half's words while the tensor core runs
       if (more) {
@@ -299,12 +239,12 @@ curve_full_kernel(hw::Seeds sd, const char* __restrict__ Wf,
         for (int i = j; i < j + QUAD; ++i) w[i] = half_word(sd, s0, idx0, hh + 1, i);
       }
     }
-    wgmma_commit();
-    wgmma_wait_all();
+    hw::wgmma_commit();
+    hw::wgmma_wait_all();
 #pragma unroll
     for (int j = 0; j < GROUPS; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) fence_operand(acc[j][e]);
+      for (int e = 0; e < 4; ++e) hw::fence_operand(acc[j][e]);
     pack_fragments(w, a);
     if (hh & 1) __syncthreads();  // the stage is consumed before block q + 2's copy
   }

@@ -28,11 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "hw_curve_partials": ([_I], _I),
+    "hw_curve_partials": ([_I, _I, _I, _I], _I),
     "hw_zbc_partials": ([_I], _I),
     "hw_vega_partials": ([_I], _I),
-    "hw_curve_exact": ([_I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
-                       _I),
+    "hw_curve_exact": ([_I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _P, _I, _P,
+                        _P], _I),
     "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_delta_partials": ([_I], _I),

@@ -110,10 +110,18 @@ _TILES_PER_CHUNK = {"curve": 2, "option": 8, "curve_full": 16,
 # ---------------------------------------------------------------------------
 
 class CurvePrepared(NamedTuple):
-    """Sigma-dependent operands of the curve kernel."""
+    """Sigma-dependent operands of the exact curve kernel: the weights and
+    the deterministic curve (the plain version's), and the kernel's own
+    operands built from W once (``curve_exact_operands``)."""
 
-    W: torch.Tensor  # (PAD, PAD) sig_st * L^T, zero beyond n_mat - 1
-    c: torch.Tensor  # (PAD,) deterministic I(T_1..T_{n_mat-1}), zero padded
+    W: torch.Tensor        # (PAD, PAD) sig_st * L^T, zero beyond n_mat - 1
+    c: torch.Tensor        # (PAD,) deterministic I(T_1..T_{n_mat-1}), zero
+                           # padded
+    w_split: torch.Tensor  # split_shape(1) int32: W's bf16 parts lo, mid,
+                           # hi as the kernel's wgmma B tiles
+    live: np.ndarray       # (8,) int32 on the host, by value: bit q of chunk
+                           # s set where rows 16 s .. + 15, columns
+                           # 32 q .. + 31 of W hold a nonzero
 
 
 class OptionPrepared(NamedTuple):
@@ -151,7 +159,7 @@ def curve_prepared(cfg: HWConfig, tables: hw.StepTables) -> CurvePrepared:
     cw = engine_exact.curve_weights(cfg, tables)
     c = torch.zeros(PAD, dtype=torch.float32, device=dev)
     c[: nm - 1] = cw.c[1:]
-    return CurvePrepared(W=W, c=c)
+    return CurvePrepared(W, c, *curve_exact_operands(W))
 
 
 def _zbc_consts(cfg: HWConfig, tables: hw.StepTables, market: hw.MarketCurve,
@@ -341,6 +349,40 @@ def curve_full_operands(W: torch.Tensor):
     Wc = W.detach().to("cpu", torch.float32)
     return (split_tiles(split_bf16(Wc)).to(W.device),
             live_groups(Wc).to(W.device))
+
+
+# The exact curve kernel's operands: the same split and B tiles at one
+# 128-row block (W is (PAD, PAD)), and per 16-row chunk a mask of the n32
+# quads (32 columns, wgmma's n32) that hold a nonzero weight: W is
+# upper-triangular, so the kernel skips the zero quad tiles.
+N32 = 32
+
+
+def chunk_quads(W: torch.Tensor) -> np.ndarray:
+    """(8,) int32 masks of the (PAD, PAD) weights: bit q of chunk s is set
+    where any of W[16 s: 16 (s + 1), 32 q: 32 (q + 1)] is nonzero.  From the
+    weights themselves, so a skip never drops a live weight."""
+    nz = (W.detach().cpu() != 0).reshape(PAD // _K16, _K16, PAD // N32, N32)
+    nz = nz.any(3).any(1).numpy()
+    return (nz.astype(np.int64) << np.arange(PAD // N32)).sum(1).astype(
+        np.int32)
+
+
+def live_word(live: np.ndarray) -> int:
+    """The chunk masks as the kernel's 32-bit word (bit 4 s + q for quad q
+    of chunk s), as a signed int32 for the C call."""
+    word = 0
+    for s, m in enumerate(np.asarray(live, np.int64)):
+        word |= (int(m) & 0xF) << (4 * s)
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+def curve_exact_operands(W: torch.Tensor):
+    """(w_split, live) of the exact curve's weights W: the split tiles on
+    W's device and the chunk masks on the host, computed once per
+    prepare."""
+    Wc = W.detach().to("cpu", torch.float32)
+    return split_tiles(split_bf16(Wc)).to(W.device), chunk_quads(Wc)
 
 
 def curve_full_prepared(cfg: HWConfig,
@@ -922,29 +964,46 @@ def _check_tiles(n_tiles: int):
         raise ValueError("n_tiles must be >= 1")
 
 
-def curve_exact(seeds, W: torch.Tensor, c: torch.Tensor, n_tiles: int,
-                n_live: int, precision: str = "highest"):
+def curve_exact(seeds, prepared: CurvePrepared, n_tiles: int, n_live: int,
+                precision: str = "highest"):
     """Q1 kernel: (n_live + 1,) [count, per-maturity discount sums] over
-    n_tiles curve tiles (kernel of ``_curve_exact_kernel``), on W's device."""
+    n_tiles curve tiles (kernel of ``_curve_exact_kernel``), on the weights'
+    device: the kernel multiplies the normals' bf16 parts by
+    ``prepared.w_split``'s in six passes ("highest") or hi by hi, over
+    ``prepared.live``'s quad tiles; the plain version multiplies
+    ``prepared.W``."""
     s = _seed_triple(seeds)
+    W, c = prepared.W, prepared.c
     dev = W.device
-    _check(W, "W", torch.float32, (PAD, PAD), dev)
-    _check(c, "c", torch.float32, (PAD,), dev)
+    _check(W, "prepared.W", torch.float32, (PAD, PAD), dev)
+    _check(c, "prepared.c", torch.float32, (PAD,), dev)
+    _check(prepared.w_split, "prepared.w_split", torch.int32, split_shape(1),
+           dev)
+    live = np.asarray(prepared.live)
+    if live.dtype != np.int32 or live.shape != (PAD // _K16,):
+        raise ValueError("prepared.live must be the (8,) int32 chunk masks "
+                         "(chunk_quads)")
     _check_tiles(n_tiles)
     if not 1 <= n_live <= PAD:
         raise ValueError("n_live must be in [1, 128]")
     if not _route(dev):
         return curve_exact_plain(s, W, c, n_tiles, n_live, precision)
+    if prepared.w_split.data_ptr() % 16:
+        raise ValueError("prepared.w_split must be 16-byte aligned (the "
+                         "kernel copies it in 16-byte pieces)")
     from .build import check
 
     lib, stream = _launch_env(dev)
-    partials = torch.empty(lib.hw_curve_partials(n_tiles), dtype=torch.float32,
-                           device=dev)
+    bf16, word = int(precision != "highest"), live_word(live)
+    n_partials = lib.hw_curve_partials(n_tiles, bf16, word, n_live)
+    if n_partials < 0:
+        check(-n_partials, "curve_exact grid")
+    partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
     out = torch.empty(n_live + 1, dtype=torch.float32, device=dev)
     code = lib.hw_curve_exact(
-        *s, W.data_ptr(), PAD, c.data_ptr(), n_live, n_tiles,
-        int(precision != "highest"), 2.0 * n_tiles * CURVE_TILE_PATHS,
-        partials.data_ptr(), out.data_ptr(), stream)
+        *s, prepared.w_split.data_ptr(), word, c.data_ptr(), n_live, n_tiles,
+        bf16, 2.0 * n_tiles * CURVE_TILE_PATHS, partials.data_ptr(),
+        n_partials, out.data_ptr(), stream)
     check(code, "curve_exact")
     curve_exact.launches += 1
     return out

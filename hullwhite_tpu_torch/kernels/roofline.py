@@ -4,23 +4,25 @@ re-derivation of ``hullwhite_tpu.pallas.fused``'s ``fullstep_roofline``,
 every kernel of the port.
 
 The TPU package counts MXU passes and VPU ops; here each product runs on
-the pipe its kernel uses.  The full-step curve product (``curve_full``)
-runs on the tensor cores: the raws are exact bf16, so "highest" is three
-bf16 passes (W = hi + mid + lo) and any other precision one (hi =
-bf16(W)); the TPU splits both operands, 6 MXU passes.  The full-step
-option products and the exact tier's products are fp32 FFMA on the CUDA
-cores in both precisions ("default" only rounds the weights to bf16).  The
-generator is the murmur3 counter hash on the integer pipes, and
-transcendentals go to the MUFU (XU) pipe.  A bound counts the function's
-work, never a kernel's own instructions, so a kernel that executes more
-than it needs reads further from its bound:
+the pipe its kernel uses.  Both curve products run on the tensor cores:
+the full-step one (``curve_full``) on exact bf16 raws, so "highest" is
+three bf16 passes (W = hi + mid + lo) and any other precision one (hi =
+bf16(W)); the exact one (``curve_exact``) on fp32 normals, so "highest"
+splits both operands, the TPU's six passes, and any other precision is
+one pass of both rounded to bf16.  The option products are fp32 FFMA on
+the CUDA cores in both precisions ("default" only rounds the full-step
+weights to bf16).  The generator is the murmur3 counter hash on the
+integer pipes, and transcendentals go to the MUFU (XU) pipe.  A bound
+counts the function's work, never a kernel's own instructions, so a
+kernel that executes more than it needs reads further from its bound:
 
-* tensor: the curve product's live bf16 FMAs, one per nonzero weight per
+* tensor: the curve products' live bf16 FMAs, one per nonzero weight per
   pair and pass (zero steps and zero columns are not work);
-* fp32: one FMA per nonzero weight per pair for the other products, the
-  payoffs' math counted from the CUDA source (the curve's t + 1/t and its
-  sum), and the Box-Muller elements, exps and reciprocals at the exact
-  tier's unit walls' cost (below);
+* fp32: one FMA per nonzero weight per pair for the option products, the
+  payoffs' math counted from the CUDA source (the curves' t + 1/t and its
+  sum, the split of the exact curve's normals), and the Box-Muller
+  elements, exps and reciprocals at the exact tier's unit walls' cost
+  (below);
 * integer: the words the function hashes times the fewest integer
   instructions per word the card has shown, those of the unit walls
   (``csrc/fused_peak.cu``): a generator word costs the generator wall's
@@ -129,6 +131,27 @@ def matmul_passes(cfg: HWConfig) -> int:
     return fused.SPLIT_PASSES if cfg.matmul_precision == "highest" else 1
 
 
+def exact_passes(cfg: HWConfig) -> int:
+    """bf16 passes of the exact curve kernel's product: both operands split
+    in three, the TPU's six passes for "highest"; hi by hi otherwise."""
+    return 6 if cfg.matmul_precision == "highest" else 1
+
+
+def exact_executed_weights(cfg: HWConfig) -> int:
+    """Weights per pass the exact curve kernel multiplies per pair: the
+    (k16 chunk, n32 quad) tiles of the upper-triangular k x k factor that
+    hold a weight (k = n_mat - 1; quad q of chunk s where some row
+    16 s <= j < k meets a column j <= m < k of the quad), each over its 16
+    rows and its n8 groups below ceil(k / 8) (the columns from k on hold
+    no accumulator).  The kernel's mask (``fused.chunk_quads``) is built
+    from W itself; the tests hold the two equal."""
+    k = cfg.n_mat - 1
+    ng = -(-k // fused.N8)
+    return sum(16 * fused.N8 * min(4, ng - 4 * q)
+               for s in range(-(-k // 16)) for q in range(-(-k // fused.N32))
+               if fused.N32 * q + fused.N32 - 1 >= 16 * s)
+
+
 def fullstep_roofline(cfg: HWConfig) -> dict:
     """Per antithetic pair of each full-step tier: the product's FFMAs on
     the CUDA cores as executed and live (the options' two rows over all
@@ -175,14 +198,19 @@ def work(cfg: HWConfig) -> dict:
               for name, flops, n_out in (("zbc_exact", 27.0, 6),
                                          ("vega_exact", 17.0, 2),
                                          ("delta_exact", 23.0, 2))}
+    xp = exact_passes(cfg)
+    w_parts = fused.SPLIT_PASSES if xp > 1 else 1
     out = {
-        # k normals per pair, the product with the upper-triangular L^T,
-        # then per maturity an exp, a reciprocal and t + 1/t
+        # k normals per pair, split into three bf16 parts for "highest" (2
+        # subtractions a normal), the product's live bf16 FMAs with the
+        # upper-triangular L^T on the tensor cores, then per maturity an
+        # exp, a reciprocal and t + 1/t; the split weights of the live quad
+        # tiles it multiplies (bf16), c, the sums
         "curve_exact": {"generator": P * k, "bm": P * k / 2, "exp": P * k,
-                        "recip": P * k,
-                        "fp32": P * k * (k + 1) / 2 + P * k * 2.0,
-                        "bytes": f4 * (fused.PAD * fused.PAD + fused.PAD
-                                       + cfg.n_mat)},
+                        "recip": P * k, "tensor": P * k * (k + 1) / 2 * xp,
+                        "fp32": P * k * 2.0 + P * k * (2.0 if xp > 1 else 0.0),
+                        "bytes": 2.0 * w_parts * exact_executed_weights(cfg)
+                        + f4 * (fused.PAD + cfg.n_mat)},
         **option,
         "option_normals": {"generator": 2 * P, "bm": P, "bytes": f4 * 2 * P},
         # per pair t_I, its exp and reciprocal and 5 flops; per maturity an
@@ -236,12 +264,15 @@ _EXACT_TIERS = {"q1_exact": ("curve_exact", 2), "zbc_exact": ("zbc_exact", 2),
 def exact_tier_accounting(cfg: HWConfig) -> dict:
     """Per path of each exact tier (``work()``'s counts of its kernel over
     its paths): normals, generator words, exps, reciprocals (vega's two
-    divisions by sigma among them) and the fp32 instructions that are
-    neither Box-Muller nor exp nor reciprocal: Q1's live FMAs (k(k+1)/2
-    per pair, k = n_mat - 1, the upper-triangular factor) and t + 1/t, the
-    options' payoff flops.  Q1 draws and multiplies k columns, not the
-    TPU's PAD, on the CUDA cores in fp32 in both precisions."""
+    divisions by sigma among them), the fp32 instructions that are neither
+    Box-Muller nor exp nor reciprocal (Q1's t + 1/t and, for "highest",
+    the split of its normals; the options' payoff flops) and the
+    tensor-core bf16 FMAs: Q1's product, live (k(k+1)/2 per pair, k =
+    n_mat - 1, the upper-triangular factor) and executed
+    (``exact_executed_weights``), both times ``exact_passes``.  Q1 draws
+    and multiplies k columns, not the TPU's PAD."""
     w = work(cfg)
+    executed = exact_executed_weights(cfg) * exact_passes(cfg)
     out = {}
     for tier, (kernel, legs) in _EXACT_TIERS.items():
         e = w[kernel]
@@ -251,7 +282,10 @@ def exact_tier_accounting(cfg: HWConfig) -> dict:
                      "words_per_path": e["generator"] / paths,
                      "exps_per_path": e["exp"] / paths,
                      "recips_per_path": e["recip"] / paths,
-                     "fp32_per_path": e["fp32"] / paths}
+                     "fp32_per_path": e["fp32"] / paths,
+                     "mma_fma_per_path_live": e.get("tensor", 0.0) / paths,
+                     "mma_fma_per_path_executed":
+                     executed / legs if kernel == "curve_exact" else 0.0}
     return out
 
 

@@ -82,7 +82,7 @@ def _curve_run(cfg: HWConfig, engine: str, key: Key, prepared):
         return fused.curve_full(seeds, prepared,
                                 _tiles(cfg, fused.CURVE_FULL_TILE_PATHS),
                                 cfg.n_mat, cfg.matmul_precision)
-    return fused.curve_exact(seeds, prepared.W, prepared.c,
+    return fused.curve_exact(seeds, prepared,
                              _tiles(cfg, fused.CURVE_TILE_PATHS),
                              cfg.n_mat - 1, cfg.matmul_precision)
 

@@ -1,10 +1,11 @@
-"""Where the full-step curve kernel's time goes, on one CUDA device.
+"""Where the curve kernels' time goes, on one CUDA device.
 
     python -m hullwhite_tpu_torch.utils.curve_profile [--out FILE]
 
-At the reference configuration ``HWConfig()`` (2^20 paths, 1000 steps,
-101 maturities), for each precision ("highest": three bf16 passes of the
-split W; "default": one):
+At the reference configuration ``HWConfig()`` (2^20 pairs, 1000 steps,
+101 maturities), for each tier (``curve_full``, the full-step kernel;
+``curve_exact``, the exact one) and each precision ("highest": the split
+passes; "default": one bf16 pass):
 
 * ``ms``: the kernel's device time per call with its reduce pass
   (``utils.timing.bench(hold=True)``: CUDA events, min of 3 windows of 20
@@ -12,10 +13,12 @@ split W; "default": one):
 * ``max_rel`` and ``mean_signed_rel``: its maturity sums against the plain
   version's on the same seeds (fp32 products on the card);
 * ``ms_by_mask``: the same launches with the prepared live mask replaced:
-  ``"none"`` multiplies nothing (the hash, the W staging and the epilogue
-  alone: the kernel's floor without a product), ``"all"`` every block-quad
-  (the product over all 128 columns), ``"prepared"`` the mask itself.
-  Only the prepared mask's sums are right; the others time the kernel.
+  ``"none"`` multiplies nothing (the generator, the W staging and the
+  epilogue alone: full step, the hash; exact, Box-Muller and the exp and
+  reciprocal epilogue: the kernel's floor without a product), ``"all"``
+  every block-quad or quad tile (the product over all 128 columns),
+  ``"prepared"`` the mask itself.  Only the prepared mask's sums are
+  right; the others time the kernel.
 
 Prints one JSON object (and writes it to ``--out`` when given), with the
 card's name and power limit.
@@ -26,9 +29,29 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from .timing import bench
+
+
+def _tier_rows(run, plain, prepared, masks, dev, n_calls) -> dict:
+    """Per precision: the kernel against the plain version, then its time
+    under each mask (``prepared.live`` replaced)."""
+    out = {}
+    for prec in ("highest", "default"):
+        k, p = run(prepared, prec), plain(prec)
+        rel = (k[1:] - p[1:]) / p[1:]
+        row = {"count_equal": bool(k[0] == p[0]),
+               "max_rel": float(rel.abs().max()),
+               "mean_signed_rel": float(rel.mean()), "ms_by_mask": {}}
+        for name, mask in masks.items():
+            row["ms_by_mask"][name] = bench(
+                run, prepared._replace(live=mask), prec, device=dev,
+                n=n_calls, hold=True)[0] * 1e3
+        row["ms"] = row["ms_by_mask"]["prepared"]
+        out[prec] = row
+    return out
 
 
 def profile_curve(n_calls: int = 20) -> dict:
@@ -40,31 +63,36 @@ def profile_curve(n_calls: int = 20) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = HWConfig()
-    prepared = fused.curve_full_prepared(
-        cfg, hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev))
+    tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
     seeds = fused.kernel_seeds(Key(cfg.seed), "curve")
+    out = {"device": card(dev), "n_paths": cfg.n_paths}
+    prepared = fused.curve_full_prepared(cfg, tables)
     n_tiles = cfg.n_paths // fused.TILE_FULL
     nb = prepared.live.numel()
     masks = {"prepared": prepared.live,
              "none": torch.zeros(nb, dtype=torch.int32, device=dev),
              "all": torch.full((nb,), 0xFFFF, dtype=torch.int32, device=dev)}
-    out = {"device": card(dev), "n_paths": cfg.n_paths,
-           "live_masks": prepared.live.tolist()}
-    for prec in ("highest", "default"):
-        k = fused.curve_full(seeds, prepared, n_tiles, cfg.n_mat, prec)
-        p = fused.curve_full_plain(seeds, prepared.W, prepared.exp_c, n_tiles,
-                                   cfg.n_mat, prec)
-        rel = (k[1:] - p[1:]) / p[1:]
-        row = {"count_equal": bool(k[0] == p[0]),
-               "max_rel": float(rel.abs().max()),
-               "mean_signed_rel": float(rel.mean()), "ms_by_mask": {}}
-        for name, mask in masks.items():
-            run = prepared._replace(live=mask)
-            row["ms_by_mask"][name] = bench(
-                fused.curve_full, seeds, run, n_tiles, cfg.n_mat, prec,
-                device=dev, n=n_calls, hold=True)[0] * 1e3
-        row["ms"] = row["ms_by_mask"]["prepared"]
-        out[prec] = row
+    out["curve_full"] = {
+        "live_masks": prepared.live.tolist(),
+        **_tier_rows(
+            lambda pr, prec: fused.curve_full(seeds, pr, n_tiles, cfg.n_mat,
+                                              prec),
+            lambda prec: fused.curve_full_plain(
+                seeds, prepared.W, prepared.exp_c, n_tiles, cfg.n_mat, prec),
+            prepared, masks, dev, n_calls)}
+    prepared = fused.curve_prepared(cfg, tables)
+    n_tiles = cfg.n_paths // fused.CURVE_TILE_PATHS
+    k = cfg.n_mat - 1
+    n = prepared.live.size
+    masks = {"prepared": prepared.live, "none": np.zeros(n, np.int32),
+             "all": np.full(n, 0xF, np.int32)}
+    out["curve_exact"] = {
+        "live_masks": prepared.live.tolist(),
+        **_tier_rows(
+            lambda pr, prec: fused.curve_exact(seeds, pr, n_tiles, k, prec),
+            lambda prec: fused.curve_exact_plain(
+                seeds, prepared.W, prepared.c, n_tiles, k, prec),
+            prepared, masks, dev, n_calls)}
     return out
 
 

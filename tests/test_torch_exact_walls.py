@@ -243,13 +243,17 @@ def test_wall_launch_counters_stay_at_zero_on_the_cpu():
 def test_exact_tier_accounting_counts_from_prepared_shapes(cfg):
     """Per path (Q1 and ZBC two legs per pair, vega one): Q1 draws and
     multiplies the k = n_mat - 1 live columns of W (not PAD), so k/2
-    normals, exps and reciprocals per leg and its k(k+1)/2 nonzero
-    weights plus t + 1/t per maturity; the options one Box-Muller element
-    per pair (the 2 x 2 sampling factor's two normals), the two legs' exps
-    and reciprocals, vega's two divisions by sigma counted as
-    reciprocals."""
+    normals, exps and reciprocals per leg; its product's k(k+1)/2 nonzero
+    weights times six bf16 passes ("highest") on the tensor cores, live,
+    and the weights of each quad tile its mask names, executed: 16 rows of
+    the quad's n8 groups below ceil(k / 8);
+    t + 1/t per maturity and the split of each normal (2 subtractions) in
+    fp32; the options one Box-Muller element per pair (the 2 x 2 sampling
+    factor's two normals), the two legs' exps and reciprocals, vega's two
+    divisions by sigma counted as reciprocals, and no tensor work."""
     tables = thw.step_tables(cfg, 0.1, 0.1, device="cpu")
-    W = tfused.curve_prepared(cfg, tables).W
+    cp = tfused.curve_prepared(cfg, tables)
+    W = cp.W
     k = int((W.abs().sum(0) > 0).sum())
     assert k == cfg.n_mat - 1 < tfused.PAD
     acct = roofline.exact_tier_accounting(cfg)
@@ -257,7 +261,14 @@ def test_exact_tier_accounting_counts_from_prepared_shapes(cfg):
     assert q1["paths_per_pair"] == 2
     assert q1["normals_per_path"] == q1["exps_per_path"] == \
         q1["recips_per_path"] == q1["words_per_path"] == k / 2
-    assert q1["fp32_per_path"] == (int((W != 0).sum()) + 2 * k) / 2
+    assert q1["fp32_per_path"] == (2 * k + 2 * k) / 2
+    assert q1["mma_fma_per_path_live"] == 6 * int((W != 0).sum()) / 2
+    ng = -(-k // 8)
+    executed = sum(16 * 8 * min(4, ng - 4 * q) for s in range(8)
+                   for q in range(4) if (int(cp.live[s]) >> q) & 1)
+    assert q1["mma_fma_per_path_executed"] == 6 * executed / 2
+    if k == 100:  # 12 tiles of quads 0-2, quad 3 in 7 chunks: 1 group of 4
+        assert executed == 12 * 512 + 7 * 128
     n_normals = 2  # (l11, l21, l22): z_r = l11 x1, z_I = l21 x1 + l22 x2
     zbc, vega = acct["zbc_exact"], acct["vega_exact"]
     assert (zbc["paths_per_pair"], vega["paths_per_pair"]) == (2, 1)
@@ -266,6 +277,33 @@ def test_exact_tier_accounting_counts_from_prepared_shapes(cfg):
     assert zbc["exps_per_path"] == zbc["recips_per_path"] == 1.0
     assert vega["exps_per_path"] == vega["recips_per_path"] == 2.0
     assert zbc["fp32_per_path"] > 0 and vega["fp32_per_path"] > 0
+    for a in (zbc, vega):
+        assert a["mma_fma_per_path_live"] == a["mma_fma_per_path_executed"] \
+            == 0
+
+
+@pytest.mark.parametrize("cfg", [ttiny(n_paths=1 << 15, path_block=1 << 15,
+                                       n_steps=100, n_mat=11), HWConfig()],
+                         ids=["tiny", "reference"])
+def test_exact_q1_default_is_one_pass_without_split(cfg):
+    """"default" multiplies bf16(X) by bf16(W) once: one pass of the live
+    and the executed tensor FMAs and no split, the rest as "highest"; the
+    bound's tensor pipe shrinks by the six passes."""
+    bf16 = cfg.replace(matmul_precision="default")
+    hi = roofline.exact_tier_accounting(cfg)["q1_exact"]
+    lo = roofline.exact_tier_accounting(bf16)["q1_exact"]
+    k = cfg.n_mat - 1
+    for key in ("mma_fma_per_path_live", "mma_fma_per_path_executed"):
+        assert lo[key] * 6 == hi[key]
+    assert lo["fp32_per_path"] == 2 * k / 2
+    same = ("normals_per_path", "words_per_path", "exps_per_path",
+            "recips_per_path")
+    assert {f: lo[f] for f in same} == {f: hi[f] for f in same}
+    counts = roofline.op_counts()
+    t_hi = roofline.kernel_bounds(cfg, counts=counts)["curve_exact"]
+    t_lo = roofline.kernel_bounds(bf16, counts=counts)["curve_exact"]
+    assert t_hi["pipes_ms"]["tensor"] == pytest.approx(
+        6 * t_lo["pipes_ms"]["tensor"], rel=1e-12)
 
 
 def test_wall_bounds_count_their_work():

@@ -62,7 +62,8 @@ def test_curve_plain_matches_jax_kernel(precision):
         cp = convert.curve_prepared((np.asarray(W), np.asarray(c)),
                                     device="cpu")
         got = tfused.curve_exact(
-            tfused.kernel_seeds(Key(seed), "curve"), cp.W, cp.c, jc.n_paths // tfused.CURVE_TILE_PATHS, jc.n_mat - 1,
+            tfused.kernel_seeds(Key(seed), "curve"), cp,
+            jc.n_paths // tfused.CURVE_TILE_PATHS, jc.n_mat - 1,
             precision).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
@@ -194,15 +195,20 @@ def test_exact_engine_evaluators_match_jax():
 def test_wrappers_check_their_operands():
     seeds = tfused.kernel_seeds(Key(1), "curve")
     W = torch.zeros(tfused.PAD, tfused.PAD)
-    c = torch.zeros(tfused.PAD)
+    cp = tfused.CurvePrepared(W, torch.zeros(tfused.PAD),
+                              *tfused.curve_exact_operands(W))
     with pytest.raises(TypeError):
-        tfused.curve_exact(seeds.astype(np.int64), W, c, 1, 10)
+        tfused.curve_exact(seeds.astype(np.int64), cp, 1, 10)
     with pytest.raises(TypeError):
-        tfused.curve_exact(seeds[:2], W, c, 1, 10)
+        tfused.curve_exact(seeds[:2], cp, 1, 10)
     with pytest.raises(ValueError):
-        tfused.curve_exact(seeds, W[:, :10], c, 1, 10)
+        tfused.curve_exact(seeds, cp._replace(W=W[:, :10]), 1, 10)
     with pytest.raises(ValueError):
-        tfused.curve_exact(seeds, W.t(), c, 1, 10)  # not contiguous
+        tfused.curve_exact(seeds, cp._replace(W=W.t()), 1, 10)  # strided
+    with pytest.raises(ValueError):
+        tfused.curve_exact(seeds, cp._replace(w_split=cp.w_split[0]), 1, 10)
+    with pytest.raises(ValueError):
+        tfused.curve_exact(seeds, cp._replace(live=cp.live[:4]), 1, 10)
     prepared = tfused.OptionPrepared(consts=np.ones(13, np.float32),
                                      device=torch.device("cpu"))
     with pytest.raises(ValueError):
@@ -224,8 +230,10 @@ def test_cpu_tensors_count_no_kernel_launch():
     tfused.option_normals(seeds, 1, device="cpu")
     tfused.zbc_exact(seeds, tfused.OptionPrepared(
         consts=np.ones(13, np.float32), device=torch.device("cpu")), 1)
+    W = torch.zeros(tfused.PAD, tfused.PAD)
     tfused.curve_exact(tfused.kernel_seeds(Key(1), "curve"),
-                       torch.zeros(tfused.PAD, tfused.PAD),
-                       torch.zeros(tfused.PAD), 1, 10)
+                       tfused.CurvePrepared(W, torch.zeros(tfused.PAD),
+                                            *tfused.curve_exact_operands(W)),
+                       1, 10)
     assert tfused.launch_counts() == {name: 0 for name in
                                       tfused.launch_counts()}
