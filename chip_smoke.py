@@ -15,7 +15,9 @@ Phases (any failure raises and the script exits non-zero):
    bit, their checksums within a tolerance below one word's share where
    fp32 can resolve one; the exact tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
    the exp and reciprocal walls at 1 tile, 2^20 and 2^24 pairs, their
-   checksums within a float32 summation bound, ``compare_exact_wall``);
+   checksums within a float32 summation bound, ``compare_exact_wall``;
+   the exact ZBC and vega kernels also at odd tile counts, 1, 3 and 33,
+   and at 2^24 pairs, each check run twice and bitwise equal);
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
    reduce pass; the curve kernels' in both precisions) and its
@@ -52,10 +54,11 @@ shape: the function's work, its integer instructions per word and its
 fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
 of the unit walls in this build's SASS, at this card's SMs and maximum SM
 clock), which its phase-1 time must not beat, and, as a diagnostic, the
-pipe mix of the curve kernels', the full-step option kernels' and the
-exact-tier walls' innermost loops (each curve kernel must hold
-tensor-core instructions, the full-step one no FFMA loop, and no
-instance of the exact one, when built in this run, may spill).  The last
+pipe mix of the curve kernels', the option kernels' and the exact-tier
+walls' innermost loops (the exact ZBC and vega kernels' also per
+element; each curve kernel must hold tensor-core instructions, the
+full-step one no FFMA loop, and no instance of the exact curve, ZBC or
+vega kernel, when built in this run, may spill).  The last
 two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
@@ -87,6 +90,10 @@ def check(cond, msg):
 # MUFU work, a launch's overhead)
 EXACT_WALLS = ("bm_peak", "exp_peak", "recip_peak")
 WALL_PAIRS = 1 << 24
+# the exact option kernels that walk units on a persistent grid and sum
+# their partials in their last CTA: checked at odd tile counts and at 2^24
+# pairs too, each check run twice (bitwise equal)
+WALK_KERNELS = ("zbc_exact", "vega_exact")
 
 
 def nvidia_smi_line() -> str:
@@ -380,7 +387,9 @@ def phase1(dev):
     n_full = {name: (WALL_PAIRS if name in ("exp_peak", "recip_peak")
                      else cfg.n_paths) // tp
               for name, tp in tile_pairs.items()}
-    n_few = {"curve_exact": (16,), "zbc_exact": (8,), "vega_exact": (8,),
+    walk_tiles = (8, 1, 3, 33, WALL_PAIRS // fused.OPTION_TILE_PATHS)
+    n_few = {"curve_exact": (16,), "zbc_exact": walk_tiles,
+             "vega_exact": walk_tiles,
              "delta_exact": (8,), "grid_exact": (8,), "option_normals": (8,),
              "curve_full": (16,), "zbc_full": (8,), "vega_full": (8,),
              "raw_peak": (8,), "draw_peak": (8,), "bitops_peak": (8,),
@@ -410,10 +419,17 @@ def phase1(dev):
             normals_launches = fused.launch_counts()["option_normals"]
         else:
             k = kern()
+        if name in WALK_KERNELS:
+            k2 = kern()
+            torch.cuda.synchronize()
+            check(torch.equal(k, k2), f"{name} reruns differ at {n_tiles} "
+                  f"tiles: {k.tolist()} vs {k2.tolist()}")
         torch.cuda.synchronize()
         compare_fn = (compare_exact_wall if name in EXACT_WALLS else
                       compare_peak if name.endswith("_peak") else compare)
         e, text = compare_fn(name, k, plain())
+        if name in WALK_KERNELS:
+            text += ", rerun bitwise equal"
         err[name] = max(err[name], e)
         label = f"{n_tiles} tiles, {pairs_of(name, n_tiles)}"
         if n_tiles == n_full[name]:
@@ -889,11 +905,18 @@ def main() -> int:
                            ("curve_exact", f"ILi1ELi{ng}EE"),
                            ("zbc_full", "ILb0E"),
                            ("vega_full", "ILb0E"), ("bm_peak", ""),
-                           ("exp_peak", ""), ("recip_peak", "")):
+                           ("exp_peak", ""), ("recip_peak", ""),
+                           ("zbc_exact", ""), ("vega_exact", "")):
             kernel = f"{name}_kernel"
             loops = sass.kernel_loops(funcs, kernel, tmpl)
             for loop in loops:
                 print(f"[sass] {name}{tmpl} innermost loop: {loop}")
+                if name in WALK_KERNELS and loop["words"] >= 2:
+                    # per element (two hashed words), to compare with the
+                    # walls' per-item counts in the [bounds] lines
+                    per = {u: round(2 * v, 2) for u, v in
+                           sass.per_unit(loop, "words").items()}
+                    print(f"[sass] {name} per element: {per}")
             if name.startswith("curve"):  # the product is the tensor cores'
                 (whole,) = [sass.profile(body) for k, body in funcs.items()
                             if f"{len(kernel)}{kernel}{tmpl}" in k]
@@ -905,12 +928,14 @@ def main() -> int:
                 check(name == "curve_exact"
                       or not any(loop["ffma"] for loop in loops),
                       f"{name} loops over an FFMA product")
-    spills = spill_bytes(build.BUILD_INFO["log"], "curve_exact_kernel")
-    if spills is not None:  # the library was built in this run
-        print(f"[ptxas] curve_exact_kernel spill bytes (stores, loads) per "
-              f"instance: {spills}")
-        check(spills and not any(any(b) for b in spills),
-              "curve_exact_kernel spills")
+    for kernel in ("curve_exact_kernel", "zbc_exact_kernel",
+                   "vega_exact_kernel"):
+        spills = spill_bytes(build.BUILD_INFO["log"], kernel)
+        if spills is None:  # the library was built before this run
+            break
+        print(f"[ptxas] {kernel} spill bytes (stores, loads) per instance: "
+              f"{spills}")
+        check(spills and not any(any(b) for b in spills), f"{kernel} spills")
 
     def entry(name, n):
         source = {"_full": "fused_full.cu", "_peak": "fused_peak.cu"}.get(

@@ -13,8 +13,9 @@
 //   delta_exact_kernel    <- _delta_exact_kernel
 //   option_normals_kernel <- the inner kernel of dump_option_normals
 //
-// Each CTA writes partial sums that reduce_kernel (hw_reduce.cuh) sums in
-// a fixed order: no float atomics, so reruns are bitwise identical.
+// Each CTA writes partial sums that a fixed-order second pass sums:
+// reduce_kernel (hw_reduce.cuh), or for zbc and vega the kernel's own last
+// CTA (last_cta_sums).  No float atomics, so reruns are bitwise identical.
 //
 // curve_exact: Box-Muller normals times the upper-triangular factor
 // W = sig_st L^T on the tensor cores.
@@ -70,8 +71,29 @@
 // walls' rates and add up on the issue slots; the product adds ~0.09 ms
 // ("highest") that the other warps' work does not hide.
 //
-// zbc/vega/delta/normals: per-element SFU work (2 hashes, log, sqrt, 2-4
-// exp, 2 reciprocals) and no memory traffic at all.
+// zbc/vega: per-element work and no memory traffic: 2 hashed words,
+// Box-Muller (log, sqrt, the sin/cos polynomials), 2 exps, 2 reciprocals
+// (vega: 2 IEEE divisions by sigma) and the payoff.
+//   * Bound: the function's fp32 work at the unit walls' per-item cost,
+//     ~3 us at 2^20 pairs (roofline.work).  The loop issues ~195
+//     instructions per element (SASS), so the card's issue rate, one
+//     instruction per scheduler per clock, is the wall it meets: ~97 us at
+//     2^24 pairs and 1980 MHz.
+//   * The whole card in one wave: persistent CTAs of 1024 threads, two per
+//     SM at 32 registers (the occupancy query, at most one per unit), walk
+//     units of 4096 elements that lie inside one tile.  At 2^20 pairs the
+//     256 units fill 256 CTAs, one unit each; at 2^24 the walk leaves no
+//     wave tail.  The tile seed and the salt words are per unit, the
+//     element index a 32-bit add.
+//   * Four elements in flight per thread, drawn together, their terms
+//     added to one accumulator set in order: an accumulator set per
+//     element took 40 registers for ZBC (6 CTAs of 256 per SM) and ran
+//     slower (PERF.md section 6 lists the routes timed).
+//   * One launch: the last CTA to take a ticket sums the CTAs' partials in
+//     a fixed order (last_cta_sums); the ticket is one zeroed word per
+//     stream that the wrapper keeps.
+// delta/normals: one element per thread per step, OPT_PER_THREAD steps,
+// then reduce_kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,7 +145,7 @@ __host__ __device__ constexpr int curve_wgs() {
   return 4 * NG + 4 * XPARTS <= 68 ? 5 : 4;
 }
 
-// Q2b/Q3/delta: one element per thread per step, OPT_PER_THREAD steps.
+// delta: one element per thread per step, OPT_PER_THREAD steps.
 constexpr int OPT_THREADS = 256;
 constexpr int OPT_PER_THREAD = 8;
 constexpr int OPT_PER_CTA = OPT_THREADS * OPT_PER_THREAD;  // 2048
@@ -392,46 +414,75 @@ curve_exact_kernel(hw::Seeds sd, const char* __restrict__ w_split, uint32_t live
 }
 
 // ---------------------------------------------------------------------------
-// Q2b: both antithetic legs share one exp per process (_legs_pair):
-//   P(+/-) = A e^{-B c_r} t_r^{+/-1},  disc(+/-) = e^{-c_I} t_i^{+/-1}.
-// Five centered CV moments per CTA (_moment_accum rows 0-4).
+// Q2b and Q3: persistent CTAs walk units of WALK_THREADS x WALK_ILP
+// elements, each unit inside one option tile.  Unit u holds elements
+// (u % WALK_UNITS_PER_TILE) WALK_UNIT + i WALK_THREADS + threadIdx.x,
+// i < WALK_ILP, of tile s2 + u / WALK_UNITS_PER_TILE; CTA b walks units b,
+// b + gridDim.x, ...  Per unit the tile seed and the salt words are
+// computed once and the element index is a 32-bit add; each thread draws
+// its WALK_ILP elements together and adds their terms to its one
+// accumulator set in order i = 0, 1, ...; then block_sum and the last
+// CTA's pass over every CTA's partials (last_cta_sums).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(OPT_THREADS)
-zbc_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
-  const float P_base = c.A * expf(-c.B * c.c_r);
-  const float d_base = expf(-c.c_i);
-  float s[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int j = 0; j < OPT_PER_THREAD; ++j) {
-    const long long e = static_cast<long long>(blockIdx.x) * OPT_PER_CTA +
-                        j * OPT_THREADS + threadIdx.x;
-    const uint32_t tile = sd.s2 + static_cast<uint32_t>(e / OPT_TILE_ELEMS);
-    const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
-    float x1, x2;
-    hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
-    hw::zbc_pair_moments(c, P_base, d_base, c.l11 * x1,
-                         c.l21 * x1 + c.l22 * x2, s);
+constexpr int WALK_THREADS = 1024;
+constexpr int WALK_ILP = 4;
+constexpr int WALK_UNIT = WALK_THREADS * WALK_ILP;
+constexpr int WALK_UNITS_PER_TILE = OPT_TILE_ELEMS / WALK_UNIT;
+static_assert(OPT_TILE_ELEMS % WALK_UNIT == 0, "a unit lies inside one tile");
+// at most 32 registers a thread: two CTAs fill an SM's 2048 threads
+constexpr int WALK_CTAS_PER_SM = 2048 / WALK_THREADS;
+
+// Calls term(x1, x2, s) on the normals of every element of this CTA's
+// units, in walk order.
+template <int N, class Term>
+__device__ __forceinline__ void walk_units(hw::Seeds sd, uint32_t n_units, const Term& term,
+                                           float (&s)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) s[n] = 0.0f;
+  for (uint32_t u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const uint32_t s0 = hw::tile_seed(sd.s0, sd.s2 + u / WALK_UNITS_PER_TILE);
+    const uint32_t salted1 = hw::SALT_MULT ^ s0;  // salt 0's word is s0 itself
+    const uint32_t idx = (u % WALK_UNITS_PER_TILE) * WALK_UNIT + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < WALK_ILP; ++i) {
+      const uint32_t e = idx + i * WALK_THREADS;
+      float x1, x2;
+      hw::box_muller_words(hw::tile_draw_salted(s0, s0, sd.s1, e),
+                           hw::tile_draw_salted(salted1, s0, sd.s1, e), x1, x2);
+      term(x1, x2, s);
+    }
   }
-  block_sum<5, OPT_THREADS>(s, partials + blockIdx.x * 5);
 }
 
-// ---------------------------------------------------------------------------
+// Q2b: both antithetic legs share one exp per process (_legs_pair):
+//   P(+/-) = A e^{-B c_r} t_r^{+/-1},  disc(+/-) = e^{-c_I} t_i^{+/-1}.
+// Five centered CV moments (_moment_accum rows 0-4); out (6) with the count.
+__global__ void __launch_bounds__(WALK_THREADS, WALK_CTAS_PER_SM)
+zbc_exact_kernel(hw::Seeds sd, OptConsts c, uint32_t n_units, float count,
+                 float* __restrict__ partials, unsigned int* ticket, float* __restrict__ out) {
+  const float P_base = c.A * expf(-c.B * c.c_r);
+  const float d_base = expf(-c.c_i);
+  float v[5];
+  walk_units(sd, n_units, [&](float x1, float x2, float (&s)[5]) {
+    hw::zbc_pair_moments(c, P_base, d_base, c.l11 * x1, c.l21 * x1 + c.l22 * x2, s);
+  }, v);
+  block_sum<5, WALK_THREADS>(v, partials + blockIdx.x * 5);
+  last_cta_sums<5, WALK_THREADS>(partials, ticket, count, out);
+}
+
 // Q3: pathwise vega, single leg (_vega_terms):
 //   v = 1{P>K} (-P B (q + dr)) disc - dI disc (P - K)^+,
 //   dr = c_dr + z_r / sigma,  dI = c_dI + z_I / sigma.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(OPT_THREADS)
-vega_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
-  float s[1] = {0.0f};
-  for (int j = 0; j < OPT_PER_THREAD; ++j) {
-    const long long e = static_cast<long long>(blockIdx.x) * OPT_PER_CTA +
-                        j * OPT_THREADS + threadIdx.x;
-    const uint32_t tile = sd.s2 + static_cast<uint32_t>(e / OPT_TILE_ELEMS);
-    const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
-    float x1, x2;
-    hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
+// out (2): [sum v, count].
+__global__ void __launch_bounds__(WALK_THREADS, WALK_CTAS_PER_SM)
+vega_exact_kernel(hw::Seeds sd, OptConsts c, uint32_t n_units, float count,
+                  float* __restrict__ partials, unsigned int* ticket, float* __restrict__ out) {
+  float v[1];
+  walk_units(sd, n_units, [&](float x1, float x2, float (&s)[1]) {
     s[0] += hw::vega_term(c, c.l11 * x1, c.l21 * x1 + c.l22 * x2);
-  }
-  block_sum<1, OPT_THREADS>(s, partials + blockIdx.x);
+  }, v);
+  block_sum<1, WALK_THREADS>(v, partials + blockIdx.x);
+  last_cta_sums<1, WALK_THREADS>(partials, ticket, count, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -541,6 +592,57 @@ OptConsts load_delta_consts(const float* h) {
   return c;
 }
 
+// A walk kernel and its partials per CTA.
+struct Walk {
+  void (*kernel)(hw::Seeds, OptConsts, uint32_t, float, float*, unsigned int*, float*);
+  int n;
+};
+const Walk zbc_walk{zbc_exact_kernel, 5};
+const Walk vega_walk{vega_exact_kernel, 1};
+
+// The persistent grid of a walk over n_tiles option tiles: the CTAs that
+// fit on the card at once (the occupancy query, as curve_exact_ctas asks
+// it), at most one per unit.
+cudaError_t walk_ctas(const Walk& w, int n_tiles, int* ctas) {
+  if (n_tiles < 1 || n_tiles > (1 << 24)) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, w.kernel, WALK_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = static_cast<long long>(n_tiles) * WALK_UNITS_PER_TILE;
+  *ctas = static_cast<int>(units < per_sm * sms ? units : per_sm * sms);
+  return cudaSuccess;
+}
+
+// Scratch floats of a walk (n partials per CTA), or minus a CUDA error
+// code if the grid query fails.
+int walk_partials(const Walk& w, int n_tiles) {
+  int ctas = 0;
+  const cudaError_t err = walk_ctas(w, n_tiles, &ctas);
+  return err == cudaSuccess ? ctas * w.n : -static_cast<int>(err);
+}
+
+// One launch of a walk kernel; partials holds n_partials floats
+// (walk_partials), ticket one zeroed word that no launch on another stream
+// uses at the same time.
+int walk_launch(const Walk& w, int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
+                int n_tiles, float count, float* partials, int n_partials, void* ticket,
+                float* out, void* stream) {
+  int ctas = 0;
+  const cudaError_t err = walk_ctas(w, n_tiles, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_partials < ctas * w.n || ticket == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = w.kernel;
+  kernel<<<ctas, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      make_seeds(s0, s1, s2), load_consts(consts_host),
+      static_cast<uint32_t>(n_tiles) * WALK_UNITS_PER_TILE, count, partials,
+      static_cast<unsigned int*>(ticket), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -552,8 +654,8 @@ int hw_curve_partials(int n_tiles, int bf16, int32_t live, int k) {
   const cudaError_t err = curve_exact_ctas(n_tiles, bf16, static_cast<uint32_t>(live), k, &ctas);
   return err == cudaSuccess ? ctas * PAD : -static_cast<int>(err);
 }
-int hw_zbc_partials(int n_tiles) { return option_ctas(n_tiles) * 5; }
-int hw_vega_partials(int n_tiles) { return option_ctas(n_tiles); }
+int hw_zbc_partials(int n_tiles) { return walk_partials(zbc_walk, n_tiles); }
+int hw_vega_partials(int n_tiles) { return walk_partials(vega_walk, n_tiles); }
 int hw_delta_partials(int n_tiles) { return option_ctas(n_tiles); }
 
 // out (k + 1): [count, e^{-c_m} sum_paths (t + 1/t) for m < k].  w_split
@@ -583,32 +685,22 @@ int hw_curve_exact(int32_t s0, int32_t s1, int32_t s2, const void* w_split,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (6): [sum X, sum Yc, sum X^2, sum Yc^2, sum X Yc, count].
+// out (6): [sum X, sum Yc, sum X^2, sum Yc^2, sum X Yc, count]; partials
+// holds n_partials floats (hw_zbc_partials), ticket one zeroed uint32 of
+// the stream's own.
 int hw_zbc_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
-                 int n_tiles, float count, float* partials, float* out,
-                 void* stream) {
-  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ctas = option_ctas(n_tiles);
-  zbc_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_consts(consts_host), partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<5, REDUCE_THREADS, 0, st>>>(partials, ctas, 5, nullptr, nullptr, out, 0, count, 5);
-  return static_cast<int>(cudaGetLastError());
+                 int n_tiles, float count, float* partials, int n_partials,
+                 void* ticket, float* out, void* stream) {
+  return walk_launch(zbc_walk, s0, s1, s2, consts_host, n_tiles, count, partials, n_partials,
+                     ticket, out, stream);
 }
 
-// out (2): [sum v, count].
+// out (2): [sum v, count]; partials and ticket as for hw_zbc_exact.
 int hw_vega_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
-                  int n_tiles, float count, float* partials, float* out,
-                  void* stream) {
-  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ctas = option_ctas(n_tiles);
-  vega_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_consts(consts_host), partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, nullptr, out, 0, count, 1);
-  return static_cast<int>(cudaGetLastError());
+                  int n_tiles, float count, float* partials, int n_partials,
+                  void* ticket, float* out, void* stream) {
+  return walk_launch(vega_walk, s0, s1, s2, consts_host, n_tiles, count, partials, n_partials,
+                     ticket, out, stream);
 }
 
 // out (2): [sum of delta terms over both legs, count]; consts_host (15).

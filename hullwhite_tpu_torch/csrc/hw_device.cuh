@@ -43,12 +43,20 @@ __device__ __forceinline__ uint32_t tile_seed(uint32_t seed0, uint32_t tile) {
   return seed0 + tile * SEED_STRIDE;
 }
 
-// Random word of element idx = row * width + col of one tile.
-__device__ __forceinline__ uint32_t tile_draw(uint32_t s0, uint32_t s1,
-                                              uint32_t idx, uint32_t salt) {
-  uint32_t x = mix32(idx ^ (salt * SALT_MULT) ^ s0);
+// Random word of element idx = row * width + col of one tile, from
+// salted = (salt * SALT_MULT) ^ s0: a caller that walks many elements of
+// one tile computes it once.
+__device__ __forceinline__ uint32_t tile_draw_salted(uint32_t salted, uint32_t s0,
+                                                     uint32_t s1, uint32_t idx) {
+  uint32_t x = mix32(idx ^ salted);
   x = mix32(x + s1);
   return mix32(x ^ s0);
+}
+
+// The same word, the salt word computed here.
+__device__ __forceinline__ uint32_t tile_draw(uint32_t s0, uint32_t s1,
+                                              uint32_t idx, uint32_t salt) {
+  return tile_draw_salted((salt * SALT_MULT) ^ s0, s0, s1, idx);
 }
 
 // x rounded to bf16 (round to nearest even) and back: the operand of the
@@ -81,16 +89,23 @@ __device__ __forceinline__ void cospi_sinpi(float x, float& c, float& s) {
   s = s * x;
 }
 
-// Two independent N(0,1) values of element idx (draw salts 0 and 1).
-__device__ __forceinline__ void box_muller(uint32_t s0, uint32_t s1,
-                                           uint32_t idx, float& z0, float& z1) {
-  const float u1 = 2.0f - bits_float12(tile_draw(s0, s1, idx, 0u));
+// Two independent N(0,1) values of an element from its words w0 (draw
+// salt 0) and w1 (salt 1).
+__device__ __forceinline__ void box_muller_words(uint32_t w0, uint32_t w1,
+                                                 float& z0, float& z1) {
+  const float u1 = 2.0f - bits_float12(w0);
   const float rad = sqrtf(-2.0f * logf(u1));
-  const float x = 2.0f * bits_float12(tile_draw(s0, s1, idx, 1u)) - 3.0f;
+  const float x = 2.0f * bits_float12(w1) - 3.0f;
   float c, s;
   cospi_sinpi(x, c, s);
   z0 = rad * c;
   z1 = rad * s;
+}
+
+// Two independent N(0,1) values of element idx.
+__device__ __forceinline__ void box_muller(uint32_t s0, uint32_t s1,
+                                           uint32_t idx, float& z0, float& z1) {
+  box_muller_words(tile_draw(s0, s1, idx, 0u), tile_draw(s0, s1, idx, 1u), z0, z1);
 }
 
 // The two full-step raws of one random word (_raw_block): each 16-bit

@@ -1,5 +1,6 @@
 // Shared reduction pieces of the fused kernels: the fixed-order block sum,
-// the second-pass reduce kernel and the seed triple.
+// the second-pass reduce kernel, the same pass run by a kernel's last CTA,
+// and the seed triple.
 //
 // The TPU kernels accumulate into one output block across a sequential
 // grid.  Here blocks run in parallel in no order: each CTA writes its
@@ -65,6 +66,48 @@ reduce_kernel(const float* __restrict__ part, int n_parts, int stride,
     else if (scale != nullptr) t = total * scale[v];
     out[out_off + v] = t;
     if (v == 0) out[count_idx] = count;
+  }
+}
+
+// atomicAdd with acquire-release semantics at device scope: the release
+// publishes what the calling warp wrote before it (ordered by __syncwarp),
+// the acquire lets the last caller read what every earlier caller published.
+__device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p, unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// The second pass inside the kernel, after block_sum<N, THREADS> wrote this
+// CTA's N partials to part + N blockIdx.x (lanes < N of warp 0): warp 0
+// takes a ticket, and the CTA that takes the last one sums all gridDim.x
+// CTAs' partials in a fixed order (thread t: CTAs t, t + THREADS, ...; then
+// block_sum) into out[0 .. N - 1], writes out[N] = count and puts the
+// ticket back to 0 for the next launch on its stream.  The ticket is an
+// integer, so which CTA ends last changes nothing in the sums: reruns stay
+// bitwise equal.  Every thread of the CTA must reach the call.
+template <int N, int THREADS>
+__device__ __forceinline__ void last_cta_sums(const float* part, unsigned int* ticket,
+                                              float count, float* __restrict__ out) {
+  __shared__ bool last;
+  if (threadIdx.x < 32) {
+    __syncwarp();  // the partials' writers, before lane 0's release
+    if (threadIdx.x == 0) last = atomic_add_acq_rel(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();  // after lane 0's acquire: the CTAs' partials are visible
+  if (!last) return;
+  float s[N];
+#pragma unroll
+  for (int v = 0; v < N; ++v) s[v] = 0.0f;
+#pragma unroll 4
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += THREADS) {
+#pragma unroll
+    for (int v = 0; v < N; ++v) s[v] += __ldcg(part + static_cast<size_t>(b) * N + v);
+  }
+  block_sum<N, THREADS>(s, out);
+  if (threadIdx.x == 0) {
+    out[N] = count;
+    *ticket = 0u;
   }
 }
 

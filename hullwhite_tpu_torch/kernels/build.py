@@ -33,8 +33,8 @@ _SIGNATURES = {
     "hw_vega_partials": ([_I], _I),
     "hw_curve_exact": ([_I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _P, _I, _P,
                         _P], _I),
-    "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
-    "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
+    "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _I, _P, _P, _P], _I),
+    "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _I, _P, _P, _P], _I),
     "hw_delta_partials": ([_I], _I),
     "hw_delta_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
     "hw_grid_partials": ([_I, _I, _I], _I),

@@ -530,11 +530,11 @@ def curve_exact_plain(seeds, W: torch.Tensor, c: torch.Tensor, n_tiles: int,
     return torch.cat([count, acc[:n_live]])
 
 
-def _zbc_moment_sums(consts, z_r: torch.Tensor, z_i: torch.Tensor):
-    """(5,) CV moment sums [X, Yc, X^2, Yc^2, X Yc] over both antithetic
-    legs of the state z (``_legs_pair`` + ``_moment_accum`` arithmetic):
-    one exp per process, P(+/-) = A e^{-B c_r} t_r^{+/-1},
-    disc(+/-) = e^{-c_I} t_i^{+/-1}."""
+def zbc_moment_terms(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """The five per-pair terms [X, Yc, X^2, Yc^2, X Yc] over both antithetic
+    legs of the state z (``_legs_pair`` + ``_moment_accum`` arithmetic),
+    each shaped like z: one exp per process, P(+/-) = A e^{-B c_r}
+    t_r^{+/-1}, disc(+/-) = e^{-c_I} t_i^{+/-1}."""
     c_r, c_i, A, B, K, P0S2 = consts[:6]
     P_base = A * torch.exp(-B * c_r)
     d_base = torch.exp(-c_i)
@@ -545,14 +545,18 @@ def _zbc_moment_sums(consts, z_r: torch.Tensor, z_i: torch.Tensor):
         disc = d_base * ti
         legs.append((disc * torch.clamp(P - K, min=0.0), disc * P - P0S2))
     (xa, ya), (xb, yb) = legs
-    return torch.stack([(xa + xb).sum(), (ya + yb).sum(),
-                        (xa * xa + xb * xb).sum(), (ya * ya + yb * yb).sum(),
-                        (xa * ya + xb * yb).sum()])
+    return [xa + xb, ya + yb, xa * xa + xb * xb, ya * ya + yb * yb,
+            xa * ya + xb * yb]
 
 
-def _vega_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
-    """Sum of the single-leg pathwise vega terms of the state z
-    (``_vega_terms`` arithmetic)."""
+def _zbc_moment_sums(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """(5,) CV moment sums of ``zbc_moment_terms``."""
+    return torch.stack([t.sum() for t in zbc_moment_terms(consts, z_r, z_i)])
+
+
+def vega_terms(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """The single-leg pathwise vega term of each element of the state z
+    (``_vega_terms`` arithmetic), shaped like z."""
     c_r, c_i, A, B, K, _, c_dr, c_di, sigma, q = consts[:10]
     r, i_r = c_r + z_r, c_i + z_i
     dr, di = c_dr + z_r / sigma, c_di + z_i / sigma
@@ -561,7 +565,12 @@ def _vega_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
     dP = -P * B * (q + dr)
     term1 = torch.where(P > K, dP * disc, torch.zeros_like(P))
     term2 = di * disc * torch.clamp(P - K, min=0.0)
-    return (term1 - term2).sum()
+    return term1 - term2
+
+
+def _vega_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """Sum of the single-leg pathwise vega terms of the state z."""
+    return vega_terms(consts, z_r, z_i).sum()
 
 
 def _count(value: float, device) -> torch.Tensor:
@@ -1015,6 +1024,21 @@ _OPTION_KINDS = {"zbc": (zbc_exact_plain, 13, 6, 2.0),
                  "delta": (delta_exact_plain, 15, 2, 2.0)}
 
 
+# one zeroed ticket word per (device, stream) for the option kernels'
+# in-kernel second pass (``last_cta_sums``): the last CTA of a launch puts it
+# back to 0, and launches on one stream never overlap
+_TICKETS: dict = {}
+
+
+def _ticket(stream: int) -> torch.Tensor:
+    """The ticket of ``stream`` on the current device (``_launch_env``)."""
+    key = (torch.cuda.current_device(), stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=torch.device(
+            "cuda", key[0]))
+    return _TICKETS[key]
+
+
 def _option_kernel(kind: str, seeds, prepared: OptionPrepared, n_tiles):
     s = _seed_triple(seeds)
     plain, n_consts, n_out, per_leg = _OPTION_KINDS[kind]
@@ -1029,12 +1053,20 @@ def _option_kernel(kind: str, seeds, prepared: OptionPrepared, n_tiles):
     from .build import check
 
     lib, stream = _launch_env(dev)
-    partials = torch.empty(getattr(lib, f"hw_{kind}_partials")(n_tiles),
-                           dtype=torch.float32, device=dev)
+    n_partials = getattr(lib, f"hw_{kind}_partials")(n_tiles)
+    if n_partials < 0:
+        check(-n_partials, f"{kind}_exact grid")
+    partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    code = getattr(lib, f"hw_{kind}_exact")(
-        *s, consts.ctypes.data, n_tiles, per_leg * n_tiles * OPTION_TILE_PATHS,
-        partials.data_ptr(), out.data_ptr(), stream)
+    count = per_leg * n_tiles * OPTION_TILE_PATHS
+    if kind == "delta":
+        code = lib.hw_delta_exact(*s, consts.ctypes.data, n_tiles, count,
+                                  partials.data_ptr(), out.data_ptr(), stream)
+    else:  # the walk kernels: one launch, the last CTA sums the partials
+        code = getattr(lib, f"hw_{kind}_exact")(
+            *s, consts.ctypes.data, n_tiles, count, partials.data_ptr(),
+            n_partials, _ticket(stream).data_ptr(), out.data_ptr(),
+            stream)
     check(code, f"{kind}_exact")
     _WRAPPERS[f"{kind}_exact"].launches += 1
     return out

@@ -1,7 +1,8 @@
 """Where the time of a run step goes, on one CUDA device.
 
     python -m hullwhite_tpu_torch.utils.step_profile [--engine fused]
-        [--calls-q1 20] [--calls-option 200] [--out FILE]
+        [--calls-q1 20] [--calls-option 200] [--option-kernels]
+        [--out FILE]
 
 For each product's run step (Q1 ``curve_pricer.run``, Q2b
 ``zbc_pricer.run``, Q3 ``vega_pricer.run``; on ``fused_exact`` also the
@@ -19,6 +20,13 @@ window:
   ``idle_share`` = 1 - busy / wall, the share of the caller's time in
   which the device does nothing;
 * ``host_us_per_call``: the profiled window's host wall per call.
+
+With ``--option-kernels`` it times instead the exact option kernels
+(``zbc_exact``, ``vega_exact``, ``delta_exact``, ``option_normals``) at
+2^15 pairs (one tile: a launch and one tile's latency), 2^20 and 2^24:
+device ms per call, every launch of the call included
+(``utils.timing.bench(hold=True)``: CUDA events, min of 3 windows of 20
+calls queued behind a sleep kernel), with the card's name and power limit.
 
 Prints one JSON object (and writes it to ``--out`` when given).
 """
@@ -112,6 +120,43 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
     return out
 
 
+def time_option_kernels(n_calls: int = 20) -> dict:
+    """{kernel: {size: device ms per call}} of the exact option kernels at
+    2^15, 2^20 and 2^24 pairs, at the reference configuration."""
+    from .. import pricing
+    from ..benchmarks import card
+    from ..config import HWConfig
+    from ..kernels import fused
+    from ..models import hull_white as hw
+    from ..ops.rng import Key
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = HWConfig()
+    key = Key(cfg.seed)
+    tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+    market = pricing.bootstrap_curve(cfg, key, device=dev)
+    op = fused.option_prepared(cfg, tables, market, cfg.sigma)
+    dp = fused.delta_prepared(cfg, tables, market, cfg.sigma)
+    calls = {
+        "zbc_exact": lambda n: fused.zbc_exact(
+            fused.kernel_seeds(key, "zbc"), op, n),
+        "vega_exact": lambda n: fused.vega_exact(
+            fused.kernel_seeds(key, "vega"), op, n),
+        "delta_exact": lambda n: fused.delta_exact(
+            fused.kernel_seeds(key, "delta"), dp, n),
+        "option_normals": lambda n: fused.option_normals(
+            fused.kernel_seeds(key, "zbc"), n, device=dev),
+    }
+    sizes = {f"2^{p}": (1 << p) // fused.OPTION_TILE_PATHS
+             for p in (15, 20, 24)}
+    out = {"device": card(dev)}
+    for name, call in calls.items():
+        out[name] = {size: bench(call, tiles, device=dev, n=n_calls,
+                                 hold=True)[0] * 1e3
+                     for size, tiles in sizes.items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="fused_exact",
@@ -119,11 +164,15 @@ def main(argv=None) -> int:
                     help="the pricing engine whose run steps are profiled")
     ap.add_argument("--calls-q1", type=int, default=20)
     ap.add_argument("--calls-option", type=int, default=200)
+    ap.add_argument("--option-kernels", action="store_true",
+                    help="time the exact option kernels at 2^15, 2^20 and "
+                         "2^24 pairs instead of the run steps")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: torch.cuda.is_available() is False")
-    res = profile_run_steps(args.calls_q1, args.calls_option, args.engine)
+    res = (time_option_kernels() if args.option_kernels else
+           profile_run_steps(args.calls_q1, args.calls_option, args.engine))
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:
