@@ -16,8 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    fp32 can resolve one; the exact tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
    the exp and reciprocal walls at 1 tile, 2^20 and 2^24 pairs, their
    checksums within a float32 summation bound, ``compare_exact_wall``;
-   the exact ZBC and vega kernels also at odd tile counts, 1, 3 and 33,
-   and at 2^24 pairs, each check run twice and bitwise equal);
+   the exact ZBC, vega and delta kernels and the surface kernel also at
+   odd tile counts, 1, 3 and 33, and at 2^24 pairs, each check run twice
+   and bitwise equal; the surface kernel also at 16 x 16 and 1 x 1 on 3
+   tiles);
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
    reduce pass; the curve kernels' in both precisions) and its
@@ -55,10 +57,13 @@ fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
 of the unit walls in this build's SASS, at this card's SMs and maximum SM
 clock), which its phase-1 time must not beat, and, as a diagnostic, the
 pipe mix of the curve kernels', the option kernels' and the exact-tier
-walls' innermost loops (the exact ZBC and vega kernels' also per
-element; each curve kernel must hold tensor-core instructions, the
-full-step one no FFMA loop, and no instance of the exact curve, ZBC or
-vega kernel, when built in this run, may spill).  The last
+walls' innermost loops (the exact ZBC, vega and delta kernels' also per
+element, the surface kernel's per maturity; each curve kernel must hold
+tensor-core instructions, the full-step one no FFMA loop, and no
+instance of the exact curve, ZBC, vega, delta or surface kernel may
+spill: their registers and spills are printed from the build's ptxas log,
+kept beside the library).
+The last
 two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
@@ -90,10 +95,14 @@ def check(cond, msg):
 # MUFU work, a launch's overhead)
 EXACT_WALLS = ("bm_peak", "exp_peak", "recip_peak")
 WALL_PAIRS = 1 << 24
-# the exact option kernels that walk units on a persistent grid and sum
-# their partials in their last CTA: checked at odd tile counts and at 2^24
-# pairs too, each check run twice (bitwise equal)
-WALK_KERNELS = ("zbc_exact", "vega_exact")
+# the exact option and surface kernels that walk units on a persistent
+# grid and sum their partials in their last CTA: checked at odd tile counts
+# and at 2^24 pairs too, each check run twice (bitwise equal)
+WALK_KERNELS = ("zbc_exact", "vega_exact", "delta_exact", "grid_exact")
+# the surface shapes checked beside the CLI's 5 x 5 (its largest and
+# smallest: one kernel instance per strike count), at this many tiles
+SURFACE_SHAPES = ((16, 16), (1, 1))
+SURFACE_SHAPE_TILES = 3
 
 
 def nvidia_smi_line() -> str:
@@ -101,23 +110,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def spill_bytes(log, kernel):
-    """[(spill stores, spill loads)] in bytes of each instance of
-    ``kernel`` in nvcc's -Xptxas -v log, None for an empty log (a library
-    built before this run)."""
-    import re
-
-    if not log:
-        return None
-    out, lines = [], log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and kernel in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          " ".join(lines[i:i + 4]))
-            out.append((int(m.group(1)), int(m.group(2))) if m else (-1, -1))
-    return out
 
 
 def device_ms(fn, n, k):
@@ -145,11 +137,27 @@ def analytic_market(cfg, device):
                           f=torch.as_tensor(f, device=device))
 
 
-def surface_of(rows):
-    """The CV surface of the grid kernel's rows at the CLI's 5 x 5 axes."""
+def surface_of(rows, n_k=5, n_s2=5):
+    """The CV surface of the grid kernel's rows (the CLI's 5 x 5 axes by
+    default)."""
     from hullwhite_tpu_torch import grid
 
-    return grid.surface(grid.moments_from_rows(rows, 5, 5), None, None)
+    return grid.surface(grid.moments_from_rows(rows, n_k, n_s2), None, None)
+
+
+def compare_surface(k, p, n_k=5, n_s2=5):
+    """The surface kernel's rows against its plain version's: per cell CV
+    price within 1e-6 and beta within 1e-4, equal counts."""
+    check(float(k[0]) == float(p[0]), f"grid_exact {n_k} x {n_s2} count")
+    ek, ep = surface_of(k, n_k, n_s2), surface_of(p, n_k, n_s2)
+    d_price = float((ek.price - ep.price).abs().max())
+    d_beta = float((ek.beta - ep.beta).abs().max())
+    check(d_price <= 1e-6 and d_beta <= 1e-4,
+          f"grid_exact {n_k} x {n_s2} disagrees: {d_price:.3e}, "
+          f"{d_beta:.3e}")
+    return d_price, (f"max cell |dprice| = {d_price:.3e} (tol 1e-6), "
+                     f"|dbeta| = {d_beta:.3e} (tol 1e-4), price(K, S2) "
+                     f"{float(ek.price[n_k // 2, -1]):.8f}")
 
 
 def compare(name, k, p):
@@ -185,15 +193,7 @@ def compare(name, k, p):
                          f"{d_beta:.3e} (tol 1e-4), price "
                          f"{float(ek.price):.8f}")
     if product == "grid":
-        check(float(k[0]) == float(p[0]), f"{name} count")
-        ek, ep = surface_of(k), surface_of(p)
-        d_price = float((ek.price - ep.price).abs().max())
-        d_beta = float((ek.beta - ep.beta).abs().max())
-        check(d_price <= 1e-6 and d_beta <= 1e-4,
-              f"{name} disagrees: {d_price:.3e}, {d_beta:.3e}")
-        return d_price, (f"max cell |dprice| = {d_price:.3e} (tol 1e-6), "
-                         f"|dbeta| = {d_beta:.3e} (tol 1e-4), price(K, 10) "
-                         f"{float(ek.price[2, 4]):.8f}")
+        return compare_surface(k, p)
     if product == "delta":
         check(float(k[1]) == float(p[1]), f"{name} count")
         err = abs(float(k[0] / k[1]) - float(p[0] / p[1]))
@@ -389,8 +389,8 @@ def phase1(dev):
               for name, tp in tile_pairs.items()}
     walk_tiles = (8, 1, 3, 33, WALL_PAIRS // fused.OPTION_TILE_PATHS)
     n_few = {"curve_exact": (16,), "zbc_exact": walk_tiles,
-             "vega_exact": walk_tiles,
-             "delta_exact": (8,), "grid_exact": (8,), "option_normals": (8,),
+             "vega_exact": walk_tiles, "delta_exact": walk_tiles,
+             "grid_exact": walk_tiles, "option_normals": (8,),
              "curve_full": (16,), "zbc_full": (8,), "vega_full": (8,),
              "raw_peak": (8,), "draw_peak": (8,), "bitops_peak": (8,),
              "bm_peak": (8,),
@@ -436,6 +436,27 @@ def phase1(dev):
             label = "timed shape, " + label
         tag = f" [{prec}]" if name.startswith("curve") else ""
         print(f"[phase 1] {name}{tag} {label}: {text}")
+    for n_k, n_s2 in SURFACE_SHAPES:
+        # strikes K (0.92 .. 1.08), maturities S1 + 0.5 .. t_final; 1 x 1
+        # is the reference option (K, S2)
+        Ks = [cfg.strike * (0.92 + 0.16 * i / (n_k - 1)) if n_k > 1
+              else cfg.strike for i in range(n_k)]
+        S2s = [cfg.s2 - (cfg.s2 - cfg.s1 - 0.5) * j / (n_s2 - 1)
+               if n_s2 > 1 else cfg.s2 for j in range(n_s2)][::-1]
+        g = fused.grid_prepared(cfg, tables, market, cfg.sigma, Ks, S2s)
+        k = fused.grid_exact(s["grid"], g, SURFACE_SHAPE_TILES)
+        k2 = fused.grid_exact(s["grid"], g, SURFACE_SHAPE_TILES)
+        torch.cuda.synchronize()
+        check(torch.equal(k, k2), f"grid_exact {n_k} x {n_s2} reruns differ")
+        e, text = compare_surface(k, fused.grid_exact_plain(
+            s["grid"], *(torch.as_tensor(x, device=dev)
+                         for x in (g.consts, g.Bs, g.Ks)),
+            SURFACE_SHAPE_TILES), n_k, n_s2)
+        err["grid_exact"] = max(err["grid_exact"], e)
+        print(f"[phase 1] grid_exact {n_k} x {n_s2} "
+              f"{SURFACE_SHAPE_TILES} tiles, "
+              f"{pairs_of('grid_exact', SURFACE_SHAPE_TILES)}: {text}, "
+              f"rerun bitwise equal")
 
     times = {}
     for name in n_full:
@@ -906,7 +927,8 @@ def main() -> int:
                            ("zbc_full", "ILb0E"),
                            ("vega_full", "ILb0E"), ("bm_peak", ""),
                            ("exp_peak", ""), ("recip_peak", ""),
-                           ("zbc_exact", ""), ("vega_exact", "")):
+                           ("zbc_exact", ""), ("vega_exact", ""),
+                           ("delta_exact", ""), ("grid_exact", "ILi5EE")):
             kernel = f"{name}_kernel"
             loops = sass.kernel_loops(funcs, kernel, tmpl)
             for loop in loops:
@@ -929,13 +951,15 @@ def main() -> int:
                       or not any(loop["ffma"] for loop in loops),
                       f"{name} loops over an FFMA product")
     for kernel in ("curve_exact_kernel", "zbc_exact_kernel",
-                   "vega_exact_kernel"):
-        spills = spill_bytes(build.BUILD_INFO["log"], kernel)
-        if spills is None:  # the library was built before this run
-            break
-        print(f"[ptxas] {kernel} spill bytes (stores, loads) per instance: "
-              f"{spills}")
-        check(spills and not any(any(b) for b in spills), f"{kernel} spills")
+                   "vega_exact_kernel", "delta_exact_kernel",
+                   "grid_exact_kernel"):
+        check(build.BUILD_INFO["log"], "no ptxas log for the library: "
+              "registers and spills unchecked")
+        report = build.ptxas_report(build.BUILD_INFO["log"], kernel)
+        print(f"[ptxas] {kernel} (registers, spill store bytes, spill load "
+              f"bytes) per instance: {report}")
+        check(report and not any(st or ld for _, st, ld in report),
+              f"{kernel} spills")
 
     def entry(name, n):
         source = {"_full": "fused_full.cu", "_peak": "fused_peak.cu"}.get(

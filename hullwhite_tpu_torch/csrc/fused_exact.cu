@@ -14,8 +14,9 @@
 //   option_normals_kernel <- the inner kernel of dump_option_normals
 //
 // Each CTA writes partial sums that a fixed-order second pass sums:
-// reduce_kernel (hw_reduce.cuh), or for zbc and vega the kernel's own last
-// CTA (last_cta_sums).  No float atomics, so reruns are bitwise identical.
+// reduce_kernel (hw_reduce.cuh) for the curve, or for zbc, vega and delta
+// the kernel's own last CTA (last_cta_sums).  No float atomics, so reruns
+// are bitwise identical.
 //
 // curve_exact: Box-Muller normals times the upper-triangular factor
 // W = sig_st L^T on the tensor cores.
@@ -71,7 +72,7 @@
 // walls' rates and add up on the issue slots; the product adds ~0.09 ms
 // ("highest") that the other warps' work does not hide.
 //
-// zbc/vega: per-element work and no memory traffic: 2 hashed words,
+// zbc/vega/delta: per-element work and no memory traffic: 2 hashed words,
 // Box-Muller (log, sqrt, the sin/cos polynomials), 2 exps, 2 reciprocals
 // (vega: 2 IEEE divisions by sigma) and the payoff.
 //   * Bound: the function's fp32 work at the unit walls' per-item cost,
@@ -92,8 +93,9 @@
 //   * One launch: the last CTA to take a ticket sums the CTAs' partials in
 //     a fixed order (last_cta_sums); the ticket is one zeroed word per
 //     stream that the wrapper keeps.
-// delta/normals: one element per thread per step, OPT_PER_THREAD steps,
-// then reduce_kernel.
+//   * delta walks the same units with ZBC's state and exps and one
+//     accumulator (hw::delta_pair).
+// normals: one element per thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,11 +146,6 @@ template <int XPARTS, int NG>
 __host__ __device__ constexpr int curve_wgs() {
   return 4 * NG + 4 * XPARTS <= 68 ? 5 : 4;
 }
-
-// delta: one element per thread per step, OPT_PER_THREAD steps.
-constexpr int OPT_THREADS = 256;
-constexpr int OPT_PER_THREAD = 8;
-constexpr int OPT_PER_CTA = OPT_THREADS * OPT_PER_THREAD;  // 2048
 
 constexpr int NORMALS_THREADS = 256;
 
@@ -414,7 +411,7 @@ curve_exact_kernel(hw::Seeds sd, const char* __restrict__ w_split, uint32_t live
 }
 
 // ---------------------------------------------------------------------------
-// Q2b and Q3: persistent CTAs walk units of WALK_THREADS x WALK_ILP
+// Q2b, Q3 and delta: persistent CTAs walk units of WALK_THREADS x WALK_ILP
 // elements, each unit inside one option tile.  Unit u holds elements
 // (u % WALK_UNITS_PER_TILE) WALK_UNIT + i WALK_THREADS + threadIdx.x,
 // i < WALK_ILP, of tile s2 + u / WALK_UNITS_PER_TILE; CTA b walks units b,
@@ -485,26 +482,20 @@ vega_exact_kernel(hw::Seeds sd, OptConsts c, uint32_t n_units, float count,
   last_cta_sums<1, WALK_THREADS>(partials, ticket, count, out);
 }
 
-// ---------------------------------------------------------------------------
 // Pathwise delta (d price / d r0), both antithetic legs (hw::delta_pair):
 // the ZBC kernel's state and exps with another tail, one accumulator.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(OPT_THREADS)
-delta_exact_kernel(hw::Seeds sd, OptConsts c, float* __restrict__ partials) {
+// out (2): [sum of delta terms, count].
+__global__ void __launch_bounds__(WALK_THREADS, WALK_CTAS_PER_SM)
+delta_exact_kernel(hw::Seeds sd, OptConsts c, uint32_t n_units, float count,
+                   float* __restrict__ partials, unsigned int* ticket, float* __restrict__ out) {
   const float P_base = c.A * expf(-c.B * c.c_r);
   const float d_base = expf(-c.c_i);
-  float s[1] = {0.0f};
-  for (int j = 0; j < OPT_PER_THREAD; ++j) {
-    const long long e = static_cast<long long>(blockIdx.x) * OPT_PER_CTA +
-                        j * OPT_THREADS + threadIdx.x;
-    const uint32_t tile = sd.s2 + static_cast<uint32_t>(e / OPT_TILE_ELEMS);
-    const uint32_t idx = static_cast<uint32_t>(e % OPT_TILE_ELEMS);
-    float x1, x2;
-    hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1, idx, x1, x2);
-    s[0] += hw::delta_pair(c, P_base, d_base, c.l11 * x1,
-                           c.l21 * x1 + c.l22 * x2);
-  }
-  block_sum<1, OPT_THREADS>(s, partials + blockIdx.x);
+  float v[1];
+  walk_units(sd, n_units, [&](float x1, float x2, float (&s)[1]) {
+    s[0] += hw::delta_pair(c, P_base, d_base, c.l11 * x1, c.l21 * x1 + c.l22 * x2);
+  }, v);
+  block_sum<1, WALK_THREADS>(v, partials + blockIdx.x);
+  last_cta_sums<1, WALK_THREADS>(partials, ticket, count, out);
 }
 
 // (x1, x2) of every element of n_tiles option tiles, row-major
@@ -521,8 +512,6 @@ option_normals_kernel(hw::Seeds sd, long long n,
   x1[e] = a;
   x2[e] = b;
 }
-
-int option_ctas(int n_tiles) { return n_tiles * (OPT_TILE_ELEMS / OPT_PER_CTA); }
 
 // The kernel instance of XPARTS parts and NG = ceil(k / 8) accumulator
 // groups and its warpgroups per CTA, from a table of all 16 widths.
@@ -554,27 +543,14 @@ int curve_exact_smem(uint32_t live, int xparts) {
   return quads * xparts * QUAD_BYTES;
 }
 
-// The persistent grid for the wrappers' arguments: the CTAs that fit on
-// the card at once (the occupancy query), at most one per warpgroups'
-// worth of 64-path tiles; sets the kernel's shared-memory limit on the
-// way.
+// The persistent grid for the wrappers' arguments (persistent_ctas), at
+// most one CTA per warpgroups' worth of 64-path tiles.
 cudaError_t curve_exact_ctas(int n_tiles, int bf16, uint32_t live, int k, int* ctas) {
   if (n_tiles < 1 || n_tiles > (1 << 24) || k < 1 || k > PAD) return cudaErrorInvalidValue;
   const CurveInstance inst = curve_exact_instance(bf16, k);
-  const int smem = curve_exact_smem(live, bf16 ? 1 : SPLIT_PARTS);
-  cudaError_t err =
-      cudaFuncSetAttribute(inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.kernel, 128 * inst.wgs,
-                                                        smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int most = (n_tiles * WG_TILES_PER_TILE + inst.wgs - 1) / inst.wgs;
-  *ctas = per_sm * sms < most ? per_sm * sms : most;
-  return cudaSuccess;
+  return persistent_ctas(inst.kernel, 128 * inst.wgs,
+                         curve_exact_smem(live, bf16 ? 1 : SPLIT_PARTS), most, ctas);
 }
 
 OptConsts load_consts(const float* h) {
@@ -592,29 +568,22 @@ OptConsts load_delta_consts(const float* h) {
   return c;
 }
 
-// A walk kernel and its partials per CTA.
+// A walk kernel, its partials per CTA and the loader of its consts.
 struct Walk {
   void (*kernel)(hw::Seeds, OptConsts, uint32_t, float, float*, unsigned int*, float*);
   int n;
+  OptConsts (*load)(const float*);
 };
-const Walk zbc_walk{zbc_exact_kernel, 5};
-const Walk vega_walk{vega_exact_kernel, 1};
+const Walk zbc_walk{zbc_exact_kernel, 5, load_consts};
+const Walk vega_walk{vega_exact_kernel, 1, load_consts};
+const Walk delta_walk{delta_exact_kernel, 1, load_delta_consts};
 
-// The persistent grid of a walk over n_tiles option tiles: the CTAs that
-// fit on the card at once (the occupancy query, as curve_exact_ctas asks
-// it), at most one per unit.
+// The persistent grid of a walk over n_tiles option tiles
+// (persistent_ctas), at most one CTA per unit.
 cudaError_t walk_ctas(const Walk& w, int n_tiles, int* ctas) {
   if (n_tiles < 1 || n_tiles > (1 << 24)) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, w.kernel, WALK_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = static_cast<long long>(n_tiles) * WALK_UNITS_PER_TILE;
-  *ctas = static_cast<int>(units < per_sm * sms ? units : per_sm * sms);
-  return cudaSuccess;
+  return persistent_ctas(w.kernel, WALK_THREADS, 0,
+                         static_cast<long long>(n_tiles) * WALK_UNITS_PER_TILE, ctas);
 }
 
 // Scratch floats of a walk (n partials per CTA), or minus a CUDA error
@@ -637,7 +606,7 @@ int walk_launch(const Walk& w, int32_t s0, int32_t s1, int32_t s2, const float* 
   if (n_partials < ctas * w.n || ticket == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = w.kernel;
   kernel<<<ctas, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      make_seeds(s0, s1, s2), load_consts(consts_host),
+      make_seeds(s0, s1, s2), w.load(consts_host),
       static_cast<uint32_t>(n_tiles) * WALK_UNITS_PER_TILE, count, partials,
       static_cast<unsigned int*>(ticket), out);
   return static_cast<int>(cudaGetLastError());
@@ -656,7 +625,7 @@ int hw_curve_partials(int n_tiles, int bf16, int32_t live, int k) {
 }
 int hw_zbc_partials(int n_tiles) { return walk_partials(zbc_walk, n_tiles); }
 int hw_vega_partials(int n_tiles) { return walk_partials(vega_walk, n_tiles); }
-int hw_delta_partials(int n_tiles) { return option_ctas(n_tiles); }
+int hw_delta_partials(int n_tiles) { return walk_partials(delta_walk, n_tiles); }
 
 // out (k + 1): [count, e^{-c_m} sum_paths (t + 1/t) for m < k].  w_split
 // is W's split as (1, 3, 16, 8, 64) uint32 wgmma B tiles (kernels/fused.py,
@@ -703,18 +672,13 @@ int hw_vega_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
                      ticket, out, stream);
 }
 
-// out (2): [sum of delta terms over both legs, count]; consts_host (15).
+// out (2): [sum of delta terms over both legs, count]; consts_host (15);
+// partials and ticket as for hw_zbc_exact.
 int hw_delta_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
-                   int n_tiles, float count, float* partials, float* out,
-                   void* stream) {
-  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ctas = option_ctas(n_tiles);
-  delta_exact_kernel<<<ctas, OPT_THREADS, 0, st>>>(make_seeds(s0, s1, s2), load_delta_consts(consts_host), partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<1, REDUCE_THREADS, 0, st>>>(partials, ctas, 1, nullptr, nullptr, out, 0, count, 1);
-  return static_cast<int>(cudaGetLastError());
+                   int n_tiles, float count, float* partials, int n_partials,
+                   void* ticket, float* out, void* stream) {
+  return walk_launch(delta_walk, s0, s1, s2, consts_host, n_tiles, count, partials, n_partials,
+                     ticket, out, stream);
 }
 
 int hw_option_normals(int32_t s0, int32_t s1, int32_t s2, int n_tiles,

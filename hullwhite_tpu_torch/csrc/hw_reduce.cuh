@@ -1,6 +1,7 @@
 // Shared reduction pieces of the fused kernels: the fixed-order block sum,
-// the second-pass reduce kernel, the same pass run by a kernel's last CTA,
-// and the seed triple.
+// the second-pass reduce kernel, the same pass run by a kernel's last CTA
+// (N sums per CTA, or a run-time count of rows), the persistent grid's
+// size and the seed triple.
 //
 // The TPU kernels accumulate into one output block across a sequential
 // grid.  Here blocks run in parallel in no order: each CTA writes its
@@ -109,6 +110,72 @@ __device__ __forceinline__ void last_cta_sums(const float* part, unsigned int* t
     out[N] = count;
     *ticket = 0u;
   }
+}
+
+// The same second pass for n_rows partials per CTA, a run-time count, that
+// every thread of the CTA may have written to part + n_rows blockIdx.x:
+// each thread fences its writes before thread 0 takes the ticket.  The
+// last CTA sums in a fixed order into out[1 .. n_rows] and writes out[0] =
+// count: the CTAs are cut into G = min(THREADS / n_rows, THREADS / 32)
+// (at least 1) consecutive runs, thread g n_rows + v sums row v over run g
+// in CTA order (thread v takes rows v, v + THREADS, ... when G = 1), and
+// thread v adds the runs in order, so more loads are in flight when the
+// surface is small.  scratch: (THREADS / 32) n_rows floats of shared
+// memory.  Every thread of the CTA must reach the call.
+template <int THREADS>
+__device__ __forceinline__ void last_cta_rows(const float* part, int n_rows,
+                                              unsigned int* ticket, float count,
+                                              float* __restrict__ out, float* scratch) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomic_add_acq_rel(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();  // after thread 0's acquire: the CTAs' partials are visible
+  if (!last) return;
+  const int n_parts = static_cast<int>(gridDim.x);
+  int runs = THREADS / n_rows;
+  runs = runs < 1 ? 1 : runs > THREADS / 32 ? THREADS / 32 : runs;
+  const int per_run = (n_parts + runs - 1) / runs;
+  for (int t = threadIdx.x; t < runs * n_rows; t += THREADS) {
+    const int v = t % n_rows, g = t / n_rows;
+    const int end = (g + 1) * per_run < n_parts ? (g + 1) * per_run : n_parts;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int b = g * per_run; b < end; ++b)
+      s += __ldcg(part + static_cast<size_t>(b) * n_rows + v);
+    scratch[g * n_rows + v] = s;
+  }
+  __syncthreads();
+  for (int v = threadIdx.x; v < n_rows; v += THREADS) {
+    float s = scratch[v];
+    for (int g = 1; g < runs; ++g) s += scratch[g * n_rows + v];
+    out[1 + v] = s;
+  }
+  if (threadIdx.x == 0) {
+    out[0] = count;
+    *ticket = 0u;
+  }
+}
+
+// The persistent grid of a kernel: the CTAs of `threads` threads and `smem`
+// bytes of dynamic shared memory that fit on the card at once (the
+// occupancy query), at most `most`.  Above the default 48 KB it raises the
+// kernel's shared-memory limit first.
+template <typename Kernel>
+cudaError_t persistent_ctas(Kernel kernel, int threads, int smem, long long most, int* ctas) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fit = static_cast<long long>(per_sm) * sms;
+  *ctas = static_cast<int>(most < fit ? most : fit);
+  return cudaSuccess;
 }
 
 // The int32 triple of ops.rng.key_seed, reinterpreted as uint32 (the TPU

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,10 +37,10 @@ _SIGNATURES = {
     "hw_zbc_exact": ([_I, _I, _I, _P, _I, _F, _P, _I, _P, _P, _P], _I),
     "hw_vega_exact": ([_I, _I, _I, _P, _I, _F, _P, _I, _P, _P, _P], _I),
     "hw_delta_partials": ([_I], _I),
-    "hw_delta_exact": ([_I, _I, _I, _P, _I, _F, _P, _P, _P], _I),
+    "hw_delta_exact": ([_I, _I, _I, _P, _I, _F, _P, _I, _P, _P, _P], _I),
     "hw_grid_partials": ([_I, _I, _I], _I),
-    "hw_grid_exact": ([_I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
-                      _I),
+    "hw_grid_exact": ([_I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P,
+                       _P, _P], _I),
     "hw_option_normals": ([_I, _I, _I, _I, _P, _P, _P], _I),
     "hw_curve_full_partials": ([_I], _I),
     "hw_option_full_partials": ([_I, _I], _I),
@@ -61,7 +62,8 @@ _SIGNATURES = {
 }
 
 # Seconds the last build took (0.0 when the library was already built) and
-# the compiler's resource report; chip_smoke.py prints both.
+# the compiler's resource report (kept beside the library, so a library
+# built before still has it); chip_smoke.py prints both.
 BUILD_INFO = {"seconds": None, "log": ""}
 
 
@@ -90,6 +92,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhw_fused_{h.hexdigest()[:16]}.so"
 
 
+def log_path(so: Path) -> Path:
+    """The nvcc log (``-Xptxas -v``: registers and spills per kernel) kept
+    beside the library ``so``."""
+    return so.with_name(f"{so.stem}.ptxas.log")
+
+
 def _run_all(cmds, logdir: Path, tag: str):
     """Run the commands concurrently; (return codes, logs) in order."""
     logs = [logdir / f"{tag}{i}.log" for i in range(len(cmds))]
@@ -109,6 +117,8 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         BUILD_INFO["seconds"] = 0.0
+        log = log_path(so)
+        BUILD_INFO["log"] = log.read_text() if log.exists() else ""
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -132,7 +142,10 @@ def build() -> Path:
             if code != 0:
                 raise RuntimeError(f"nvcc failed ({code}):\n"
                                    f"{' '.join(cmd)}\n{log}")
-        # atomic: a concurrent loader never sees half a file
+        # atomic: a concurrent loader never sees half a file, and the
+        # log is in place before the library
+        (tmp / "ptxas.log").write_text(BUILD_INFO["log"])
+        os.replace(tmp / "ptxas.log", log_path(so))
         os.replace(lib, so)
     return so
 
@@ -146,6 +159,22 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """[(registers, spill store bytes, spill load bytes)] of each instance
+    of ``kernel`` in an nvcc -Xptxas -v log, in the log's order; (-1, -1,
+    -1) where a field is missing."""
+    out, lines = [], log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            text = " ".join(lines[i:i + 4])
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", text)
+            regs = re.search(r"Used (\d+) registers", text)
+            out.append((int(regs.group(1)) if regs else -1,
+                        *(map(int, spill.groups()) if spill else (-1, -1))))
+    return out
 
 
 def check(code: int, what: str) -> None:

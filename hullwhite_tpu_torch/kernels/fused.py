@@ -600,23 +600,22 @@ def vega_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
                                   consts.device)])
 
 
-def _delta_term_sum(consts, z_r: torch.Tensor, z_i: torch.Tensor):
-    """Sum of the pathwise delta terms over both antithetic legs of the
-    state z (``_delta_exact_kernel`` arithmetic): per leg
-    1{P>K} (-P B dr/dr0) disc - dI/dr0 disc (P - K)^+."""
+def delta_terms(consts, z_r: torch.Tensor, z_i: torch.Tensor):
+    """The pathwise delta term of each pair of the state z over both
+    antithetic legs (``_delta_exact_kernel`` arithmetic), shaped like z:
+    per leg 1{P>K} (-P B dr/dr0) disc - dI/dr0 disc (P - K)^+."""
     c_r, c_i, A, B, K = consts[:5]
     dr_dr0, di_dr0 = consts[13:15]
     P_base = A * torch.exp(-B * c_r)
     d_base = torch.exp(-c_i)
     t_r, t_i = torch.exp(-B * z_r), torch.exp(-z_i)
-    total = 0.0
+    legs = []
     for tr, ti in ((t_r, t_i), (torch.reciprocal(t_r), torch.reciprocal(t_i))):
         P = P_base * tr
         disc = d_base * ti
         term1 = torch.where(P > K, -P * B * dr_dr0 * disc, torch.zeros_like(P))
-        term2 = di_dr0 * disc * torch.clamp(P - K, min=0.0)
-        total = total + (term1 - term2).sum()
-    return total
+        legs.append(term1 - di_dr0 * disc * torch.clamp(P - K, min=0.0))
+    return legs[0] + legs[1]
 
 
 def delta_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
@@ -625,7 +624,7 @@ def delta_exact_plain(seeds, consts: torch.Tensor, n_tiles: int):
     l11, l21, l22 = c[10:13]
     acc = torch.zeros(1, dtype=torch.float32, device=consts.device)
     for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
-        acc += _delta_term_sum(c, l11 * x1, l21 * x1 + l22 * x2)
+        acc += delta_terms(c, l11 * x1, l21 * x1 + l22 * x2).sum()
     return torch.cat([acc, _count(2.0 * n_tiles * OPTION_TILE_PATHS,
                                   consts.device)])
 
@@ -636,42 +635,59 @@ def grid_rows(n_k: int, n_s2: int) -> int:
     return 1 + 2 * n_s2 + 3 * n_k * n_s2
 
 
+def grid_row(j: int, slot: int, n_k: int, n_s2: int) -> int:
+    """Output row (count excluded) of slot ``slot`` of maturity j: slots 0
+    and 1 are sy_j and syy_j, slots 2 + 3i .. 4 + 3i sx_ij, sxx_ij and
+    sxy_ij (the surface kernel's ``out_row``)."""
+    if slot < 2:
+        return slot * n_s2 + j
+    i, m = divmod(slot - 2, 3)
+    return (2 + m * n_k) * n_s2 + i * n_s2 + j
+
+
+def grid_row_terms(consts, Bs, Ks, z_r: torch.Tensor, z_i: torch.Tensor):
+    """Per maturity j, (j, its 2 + 3 nK rows in slot order, each the pair
+    (leg + term, leg - term) shaped like z) (``_grid_exact_kernel``
+    arithmetic): one t_I per pair gives disc+/-; per maturity t_r =
+    e^{-B_j z_r}, P+/- = A_j e^{-B_j c_r} t_r^{+/-1}, y+/- = disc+/- P+/- -
+    P0_j; per strike x+/- = disc+/- (P+/- - K_i)^+; the rows y, y^2, then x,
+    x^2, x y per strike.  ``consts``, ``Bs``, ``Ks``: sequences of 0-d
+    tensors."""
+    n_s2 = len(Bs)
+    c_r, c_i = consts[:2]
+    A, P0 = consts[5:5 + n_s2], consts[5 + n_s2:5 + 2 * n_s2]
+    t_i = torch.exp(-z_i)
+    d_base = torch.exp(-c_i)
+    disc_p, disc_m = d_base * t_i, d_base * torch.reciprocal(t_i)
+    for j in range(n_s2):
+        t_r = torch.exp(-Bs[j] * z_r)
+        P_base = A[j] * torch.exp(-Bs[j] * c_r)
+        P_p, P_m = P_base * t_r, P_base * torch.reciprocal(t_r)
+        y_p, y_m = disc_p * P_p - P0[j], disc_m * P_m - P0[j]
+        terms = [(y_p, y_m), (y_p * y_p, y_m * y_m)]
+        for K in Ks:
+            x_p = disc_p * torch.clamp(P_p - K, min=0.0)
+            x_m = disc_m * torch.clamp(P_m - K, min=0.0)
+            terms += [(x_p, x_m), (x_p * x_p, x_m * x_m),
+                      (x_p * y_p, x_m * y_m)]
+        yield j, terms
+
+
 def grid_exact_plain(seeds, consts: torch.Tensor, Bs: torch.Tensor,
                      Ks: torch.Tensor, n_tiles: int):
     """(grid_rows,) surface moments [count | sy_j | syy_j | sx_ij | sxx_ij |
-    sxy_ij] over both antithetic legs, the (i, j) blocks row-major
-    (``_grid_exact_kernel`` arithmetic): one t_I per pair gives disc+/-;
-    per maturity t_r = e^{-B_j z_r}, P+/- = A_j e^{-B_j c_r} t_r^{+/-1},
-    y+/- = disc+/- P+/- - P0_j; per strike x+/- = disc+/- (P+/- - K_i)^+."""
+    sxy_ij] over both antithetic legs, the (i, j) blocks row-major: the sums
+    of ``grid_row_terms``."""
     n_k, n_s2 = Ks.shape[0], Bs.shape[0]
     c = consts.unbind()
-    c_r, c_i, l11, l21, l22 = c[:5]
-    A, P0 = c[5:5 + n_s2], c[5 + n_s2:5 + 2 * n_s2]
-    Bl, Kl = Bs.unbind(), Ks.unbind()
-    d_base = torch.exp(-c_i)
     acc = torch.zeros(grid_rows(n_k, n_s2) - 1, dtype=torch.float32,
                       device=consts.device)
-    base = 2 * n_s2
-    cells = n_k * n_s2
     for x1, x2 in _option_normals_chunks(seeds, n_tiles, consts.device):
-        z_r, z_i = l11 * x1, l21 * x1 + l22 * x2
-        t_i = torch.exp(-z_i)
-        disc_p, disc_m = d_base * t_i, d_base * torch.reciprocal(t_i)
         rows = [None] * acc.shape[0]
-        for j in range(n_s2):
-            t_r = torch.exp(-Bl[j] * z_r)
-            P_base = A[j] * torch.exp(-Bl[j] * c_r)
-            P_p, P_m = P_base * t_r, P_base * torch.reciprocal(t_r)
-            y_p, y_m = disc_p * P_p - P0[j], disc_m * P_m - P0[j]
-            rows[j] = (y_p + y_m).sum()
-            rows[n_s2 + j] = (y_p * y_p + y_m * y_m).sum()
-            for i in range(n_k):
-                x_p = disc_p * torch.clamp(P_p - Kl[i], min=0.0)
-                x_m = disc_m * torch.clamp(P_m - Kl[i], min=0.0)
-                cell = base + i * n_s2 + j
-                rows[cell] = (x_p + x_m).sum()
-                rows[cells + cell] = (x_p * x_p + x_m * x_m).sum()
-                rows[2 * cells + cell] = (x_p * y_p + x_m * y_m).sum()
+        for j, terms in grid_row_terms(c, Bs.unbind(), Ks.unbind(), c[2] * x1,
+                                       c[3] * x1 + c[4] * x2):
+            for slot, (t_p, t_m) in enumerate(terms):
+                rows[grid_row(j, slot, n_k, n_s2)] = (t_p + t_m).sum()
         acc += torch.stack(rows)
     return torch.cat([_count(2.0 * n_tiles * OPTION_TILE_PATHS,
                              consts.device), acc])
@@ -1024,9 +1040,10 @@ _OPTION_KINDS = {"zbc": (zbc_exact_plain, 13, 6, 2.0),
                  "delta": (delta_exact_plain, 15, 2, 2.0)}
 
 
-# one zeroed ticket word per (device, stream) for the option kernels'
-# in-kernel second pass (``last_cta_sums``): the last CTA of a launch puts it
-# back to 0, and launches on one stream never overlap
+# one zeroed ticket word per (device, stream) for the option and surface
+# kernels' in-kernel second pass (``last_cta_sums``, ``last_cta_rows``): the
+# last CTA of a launch puts it back to 0, and launches on one stream never
+# overlap
 _TICKETS: dict = {}
 
 
@@ -1058,15 +1075,11 @@ def _option_kernel(kind: str, seeds, prepared: OptionPrepared, n_tiles):
         check(-n_partials, f"{kind}_exact grid")
     partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    count = per_leg * n_tiles * OPTION_TILE_PATHS
-    if kind == "delta":
-        code = lib.hw_delta_exact(*s, consts.ctypes.data, n_tiles, count,
-                                  partials.data_ptr(), out.data_ptr(), stream)
-    else:  # the walk kernels: one launch, the last CTA sums the partials
-        code = getattr(lib, f"hw_{kind}_exact")(
-            *s, consts.ctypes.data, n_tiles, count, partials.data_ptr(),
-            n_partials, _ticket(stream).data_ptr(), out.data_ptr(),
-            stream)
+    # one launch: the last CTA sums the partials
+    code = getattr(lib, f"hw_{kind}_exact")(
+        *s, consts.ctypes.data, n_tiles, per_leg * n_tiles * OPTION_TILE_PATHS,
+        partials.data_ptr(), n_partials, _ticket(stream).data_ptr(),
+        out.data_ptr(), stream)
     check(code, f"{kind}_exact")
     _WRAPPERS[f"{kind}_exact"].launches += 1
     return out
@@ -1120,13 +1133,18 @@ def grid_exact(seeds, prepared: GridPrepared, n_tiles: int):
     from .build import check
 
     lib, stream = _launch_env(dev)
-    partials = torch.empty(lib.hw_grid_partials(n_tiles, n_k, n_s2),
-                           dtype=torch.float32, device=dev)
+    n_partials = lib.hw_grid_partials(n_tiles, n_k, n_s2)
+    if n_partials < 0:
+        check(-n_partials, "grid_exact grid")
+    partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
     out = torch.empty(grid_rows(n_k, n_s2), dtype=torch.float32, device=dev)
+    # one launch: the last CTA sums the partial rows
     code = lib.hw_grid_exact(*s, consts.ctypes.data, Bs.ctypes.data,
                              Ks.ctypes.data, n_k, n_s2, n_tiles,
                              2.0 * n_tiles * OPTION_TILE_PATHS,
-                             partials.data_ptr(), out.data_ptr(), stream)
+                             partials.data_ptr(), n_partials,
+                             _ticket(stream).data_ptr(), out.data_ptr(),
+                             stream)
     check(code, "grid_exact")
     grid_exact.launches += 1
     return out

@@ -22,11 +22,12 @@ window:
 * ``host_us_per_call``: the profiled window's host wall per call.
 
 With ``--option-kernels`` it times instead the exact option kernels
-(``zbc_exact``, ``vega_exact``, ``delta_exact``, ``option_normals``) at
-2^15 pairs (one tile: a launch and one tile's latency), 2^20 and 2^24:
-device ms per call, every launch of the call included
-(``utils.timing.bench(hold=True)``: CUDA events, min of 3 windows of 20
-calls queued behind a sleep kernel), with the card's name and power limit.
+(``zbc_exact``, ``vega_exact``, ``delta_exact``, ``option_normals``) and
+the surface kernel (``grid_exact`` at ``cli grid``'s 5 x 5) at 2^15 pairs
+(one tile: a launch and one tile's latency), 2^20 and 2^24: device ms per
+call, every launch of the call included (``utils.timing.bench(hold=True)``:
+CUDA events, min of 3 windows of 20 calls queued behind a sleep kernel),
+with the card's name and power limit.
 
 Prints one JSON object (and writes it to ``--out`` when given).
 """
@@ -121,9 +122,10 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
 
 
 def time_option_kernels(n_calls: int = 20) -> dict:
-    """{kernel: {size: device ms per call}} of the exact option kernels at
-    2^15, 2^20 and 2^24 pairs, at the reference configuration."""
-    from .. import pricing
+    """{kernel: {size: device ms per call}} of the exact option kernels and
+    the 5 x 5 surface kernel at 2^15, 2^20 and 2^24 pairs, at the reference
+    configuration."""
+    from .. import cli, pricing
     from ..benchmarks import card
     from ..config import HWConfig
     from ..kernels import fused
@@ -137,6 +139,8 @@ def time_option_kernels(n_calls: int = 20) -> dict:
     market = pricing.bootstrap_curve(cfg, key, device=dev)
     op = fused.option_prepared(cfg, tables, market, cfg.sigma)
     dp = fused.delta_prepared(cfg, tables, market, cfg.sigma)
+    gp = fused.grid_prepared(cfg, tables, market, cfg.sigma,
+                             *cli.grid_axes(cfg))
     calls = {
         "zbc_exact": lambda n: fused.zbc_exact(
             fused.kernel_seeds(key, "zbc"), op, n),
@@ -146,6 +150,8 @@ def time_option_kernels(n_calls: int = 20) -> dict:
             fused.kernel_seeds(key, "delta"), dp, n),
         "option_normals": lambda n: fused.option_normals(
             fused.kernel_seeds(key, "zbc"), n, device=dev),
+        "grid_exact": lambda n: fused.grid_exact(
+            fused.kernel_seeds(key, "grid"), gp, n),
     }
     sizes = {f"2^{p}": (1 << p) // fused.OPTION_TILE_PATHS
              for p in (15, 20, 24)}

@@ -1,14 +1,16 @@
-"""The layout of the exact option kernels ``zbc_exact_kernel`` and
-``vega_exact_kernel`` (``csrc/fused_exact.cu``): persistent CTAs walk units
-of WALK_THREADS x WALK_ILP elements, each unit inside one option tile.
+"""The layout of the exact option kernels ``zbc_exact_kernel``,
+``vega_exact_kernel`` and ``delta_exact_kernel`` (``csrc/fused_exact.cu``):
+persistent CTAs walk units of WALK_THREADS x WALK_ILP elements, each unit
+inside one option tile.
 
 A torch emulation of the kernels' summation order (per thread its units in
 walk order and, in each, its WALK_ILP elements in order into one
 accumulator set; the warp shuffle tree, the warps in order; then the last
 CTA's pass over the CTAs' partials, thread t taking CTAs t, t + THREADS,
 ..., and the block sum again) on the plain version's per-element terms is
-held to the plain versions and to the JAX ``_zbc_exact_kernel``
-and ``_vega_exact_kernel`` in interpret mode, with phase 1's tolerances;
+held to the plain versions and to the JAX ``_zbc_exact_kernel``,
+``_vega_exact_kernel`` and ``_delta_exact_kernel`` in interpret mode, with
+phase 1's tolerances;
 and the walk is held to visit every element once, each unit inside one
 tile.  The kernels themselves run on the card only; ``chip_smoke.py``
 holds them against the plain versions there.
@@ -26,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from hullwhite_tpu import pricing as jpricing  # noqa: E402
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
 from hullwhite_tpu.models import hull_white as jhw  # noqa: E402
 from hullwhite_tpu.ops import payoffs as jpayoffs  # noqa: E402
@@ -97,21 +100,27 @@ def walk_sums(terms: torch.Tensor, n_tiles: int, grid: int) -> torch.Tensor:
     return _block_sum(s)
 
 
-def _prepared(n_tiles: int):
+def _prepared(n_tiles: int, kind: str = "zbc"):
+    """(cfg, JAX market, JAX operands, the port's consts) of ``kind``: the
+    13 option consts, or delta's 15."""
     cfg = jtiny(pallas_interpret=True, n_paths=n_tiles * TILE,
                 path_block=TILE, n_steps=100, n_mat=11)
     P = np.linspace(1.0, 0.8767, cfg.n_mat).astype(np.float32)
     f = np.linspace(0.0121, 0.0152, cfg.n_mat).astype(np.float32)
     jm = jhw.MarketCurve(P=jnp.asarray(P), f=jnp.asarray(f))
+    extra = jpricing._r0_sensitivities(cfg) if kind == "delta" else ()
     prep = jfused.option_prepared(cfg, jhw.step_tables(cfg, 0.1, 0.1), jm,
-                                  0.1, exact=True, kind="zbc")
-    op = convert.option_prepared([np.asarray(a) for a in prep], device="cpu")
+                                  0.1, exact=True, kind=kind,
+                                  extra_consts=extra)
+    to_port = convert.delta_prepared if kind == "delta" else \
+        convert.option_prepared
+    op = to_port([np.asarray(a) for a in prep], device="cpu")
     return cfg, jm, prep, torch.from_numpy(op.consts)
 
 
 @lru_cache(maxsize=None)
 def _jax_sums(kind: str, n_tiles: int) -> np.ndarray:
-    cfg, _, prep, _ = _prepared(n_tiles)
+    cfg, _, prep, _ = _prepared(n_tiles, kind)
     return np.asarray(jfused.option_local_fn_from(cfg, True, kind, prep)(
         jax.random.key(SEED), 0, n_tiles))
 
@@ -126,6 +135,9 @@ def _emulated(kind: str, n_tiles: int, grid: int, consts: torch.Tensor):
     z_r, z_i = c[10] * x1, c[11] * x1 + c[12] * x2
     if kind == "zbc":
         terms = torch.stack(tfused.zbc_moment_terms(c, z_r, z_i))
+        count = 2.0 * n_tiles * TILE
+    elif kind == "delta":
+        terms = tfused.delta_terms(c, z_r, z_i)[None]
         count = 2.0 * n_tiles * TILE
     else:
         terms = tfused.vega_terms(c, z_r, z_i)[None]
@@ -166,6 +178,22 @@ def test_vega_walk_order_matches_plain_and_jax(n_tiles, grid):
     assert got[1] == plain[1] == sj[1]
     for ref in (plain, sj):
         assert abs(got[0] / got[1] - ref[0] / ref[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("n_tiles", [1, 3])
+def test_delta_walk_order_matches_plain_and_jax(n_tiles, grid):
+    """Pathwise delta of the emulated kernel sum: |ddelta| <= 1e-6 (phase
+    1's tolerance) against the plain version and the JAX kernel; counts
+    equal."""
+    _, _, _, consts = _prepared(n_tiles, "delta")
+    got = _emulated("delta", n_tiles, grid, consts).numpy()
+    plain = tfused.delta_exact_plain(tfused.kernel_seeds(Key(SEED), "delta"),
+                                     consts, n_tiles).numpy()
+    sj = _jax_sums("delta", n_tiles)
+    assert got[1] == plain[1] == sj[1]
+    for ref in (plain, sj):
+        assert abs(got[0] / got[1] - ref[0] / ref[1]) <= 1e-6
 
 
 @pytest.mark.parametrize("n_tiles, grid, ilp", [
