@@ -16,10 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    fp32 can resolve one; the exact tier's walls per lane, the Box-Muller wall at 8 tiles and 2^20 pairs,
    the exp and reciprocal walls at 1 tile, 2^20 and 2^24 pairs, their
    checksums within a float32 summation bound, ``compare_exact_wall``;
-   the exact ZBC, vega and delta kernels and the surface kernel also at
-   odd tile counts, 1, 3 and 33, and at 2^24 pairs, each check run twice
-   and bitwise equal; the surface kernel also at 16 x 16 and 1 x 1 on 3
-   tiles);
+   the exact ZBC, vega and delta kernels, the surface kernel and the
+   option normals kernel also at odd tile counts, 1, 3 and 33, and at
+   2^24 pairs, each check run twice and bitwise equal; the surface kernel
+   also at 16 x 16 and 1 x 1 on 3 tiles);
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
    reduce pass; the curve kernels' in both precisions) and its
@@ -57,12 +57,12 @@ fp32 and MUFU instructions per Box-Muller element, exp and reciprocal those
 of the unit walls in this build's SASS, at this card's SMs and maximum SM
 clock), which its phase-1 time must not beat, and, as a diagnostic, the
 pipe mix of the curve kernels', the option kernels' and the exact-tier
-walls' innermost loops (the exact ZBC, vega and delta kernels' also per
-element, the surface kernel's per maturity; each curve kernel must hold
-tensor-core instructions, the full-step one no FFMA loop, and no
-instance of the exact curve, ZBC, vega, delta or surface kernel may
-spill: their registers and spills are printed from the build's ptxas log,
-kept beside the library).
+walls' innermost loops (the exact ZBC, vega and delta kernels' and the
+normals kernel's also per element, the surface kernel's per maturity;
+each curve kernel must hold tensor-core instructions, the full-step one
+no FFMA loop, and no instance of the exact curve, ZBC, vega, delta,
+surface or normals kernel may spill: their registers and spills are
+printed from the build's ptxas log, kept beside the library).
 The last
 two lines are a JSON object of
 per-kernel numbers and the contract line {"ok": true, "device": {...}}.
@@ -95,10 +95,12 @@ def check(cond, msg):
 # MUFU work, a launch's overhead)
 EXACT_WALLS = ("bm_peak", "exp_peak", "recip_peak")
 WALL_PAIRS = 1 << 24
-# the exact option and surface kernels that walk units on a persistent
-# grid and sum their partials in their last CTA: checked at odd tile counts
-# and at 2^24 pairs too, each check run twice (bitwise equal)
-WALK_KERNELS = ("zbc_exact", "vega_exact", "delta_exact", "grid_exact")
+# the kernels that walk units on a persistent grid: the exact option and
+# surface kernels, which sum their partials in their last CTA, and the
+# option normals kernel, which stores; checked at odd tile counts and at
+# 2^24 pairs too, each check run twice (bitwise equal)
+WALK_KERNELS = ("zbc_exact", "vega_exact", "delta_exact", "grid_exact",
+                "option_normals")
 # the surface shapes checked beside the CLI's 5 x 5 (its largest and
 # smallest: one kernel instance per strike count), at this many tiles
 SURFACE_SHAPES = ((16, 16), (1, 1))
@@ -390,7 +392,7 @@ def phase1(dev):
     walk_tiles = (8, 1, 3, 33, WALL_PAIRS // fused.OPTION_TILE_PATHS)
     n_few = {"curve_exact": (16,), "zbc_exact": walk_tiles,
              "vega_exact": walk_tiles, "delta_exact": walk_tiles,
-             "grid_exact": walk_tiles, "option_normals": (8,),
+             "grid_exact": walk_tiles, "option_normals": walk_tiles,
              "curve_full": (16,), "zbc_full": (8,), "vega_full": (8,),
              "raw_peak": (8,), "draw_peak": (8,), "bitops_peak": (8,),
              "bm_peak": (8,),
@@ -422,8 +424,12 @@ def phase1(dev):
         if name in WALK_KERNELS:
             k2 = kern()
             torch.cuda.synchronize()
-            check(torch.equal(k, k2), f"{name} reruns differ at {n_tiles} "
-                  f"tiles: {k.tolist()} vs {k2.tolist()}")
+            if name == "option_normals":  # (x1, x2)
+                check(all(map(torch.equal, k, k2)), f"{name} reruns differ "
+                      f"at {n_tiles} tiles")
+            else:
+                check(torch.equal(k, k2), f"{name} reruns differ at "
+                      f"{n_tiles} tiles: {k.tolist()} vs {k2.tolist()}")
         torch.cuda.synchronize()
         compare_fn = (compare_exact_wall if name in EXACT_WALLS else
                       compare_peak if name.endswith("_peak") else compare)
@@ -928,7 +934,8 @@ def main() -> int:
                            ("vega_full", "ILb0E"), ("bm_peak", ""),
                            ("exp_peak", ""), ("recip_peak", ""),
                            ("zbc_exact", ""), ("vega_exact", ""),
-                           ("delta_exact", ""), ("grid_exact", "ILi5EE")):
+                           ("delta_exact", ""), ("grid_exact", "ILi5EE"),
+                           ("option_normals", "")):
             kernel = f"{name}_kernel"
             loops = sass.kernel_loops(funcs, kernel, tmpl)
             for loop in loops:
@@ -952,7 +959,7 @@ def main() -> int:
                       f"{name} loops over an FFMA product")
     for kernel in ("curve_exact_kernel", "zbc_exact_kernel",
                    "vega_exact_kernel", "delta_exact_kernel",
-                   "grid_exact_kernel"):
+                   "grid_exact_kernel", "option_normals_kernel"):
         check(build.BUILD_INFO["log"], "no ptxas log for the library: "
               "registers and spills unchecked")
         report = build.ptxas_report(build.BUILD_INFO["log"], kernel)

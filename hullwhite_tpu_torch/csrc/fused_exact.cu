@@ -95,7 +95,19 @@
 //     stream that the wrapper keeps.
 //   * delta walks the same units with ZBC's state and exps and one
 //     accumulator (hw::delta_pair).
-// normals: one element per thread.
+//
+// option_normals: the same Box-Muller pairs, stored: 8 bytes per element.
+//   * Bound: the hash on the ALU pipe (~2.5 us at 2^20 pairs) and the
+//     stores at HBM peak (~2.5 us) are as long as each other, so they have
+//     to overlap.  The loop issues ~116 instructions per element (SASS,
+//     54 on the ALU pipe): the issue rate is the wall it meets, ~3.7 us of
+//     work at 2^20 pairs and 1980 MHz beside ~2 us a launch takes.
+//   * Persistent CTAs of STORE_THREADS, as many as fit at once (at most
+//     one unit per warp); each warp walks units of STORE_ROWS rows of one
+//     tile, the tile seed and salt word once per unit.  Lane l draws
+//     columns 4 l .. 4 l + 3 of each row and stores them as one float4 per
+//     array: a warp's store is one 512-byte row, and the draws of the
+//     unit's next row run while the last row's stores drain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,8 +158,6 @@ template <int XPARTS, int NG>
 __host__ __device__ constexpr int curve_wgs() {
   return 4 * NG + 4 * XPARTS <= 68 ? 5 : 4;
 }
-
-constexpr int NORMALS_THREADS = 256;
 
 // Layout of fused._zbc_consts + the sampling factor (fused.py:450, :638),
 // then the delta kernel's [dr/dr0, dI/dr0] (zero for the other kernels).
@@ -498,19 +508,49 @@ delta_exact_kernel(hw::Seeds sd, OptConsts c, uint32_t n_units, float count,
   last_cta_sums<1, WALK_THREADS>(partials, ticket, count, out);
 }
 
-// (x1, x2) of every element of n_tiles option tiles, row-major
-// (n_tiles * TILE_OPT, PAD) like dump_option_normals.
-__global__ void __launch_bounds__(NORMALS_THREADS)
-option_normals_kernel(hw::Seeds sd, long long n,
-                      float* __restrict__ x1, float* __restrict__ x2) {
-  const long long e = static_cast<long long>(blockIdx.x) * NORMALS_THREADS + threadIdx.x;
-  if (e >= n) return;
-  const uint32_t tile = sd.s2 + static_cast<uint32_t>(e / OPT_TILE_ELEMS);
-  float a, b;
-  hw::box_muller(hw::tile_seed(sd.s0, tile), sd.s1,
-                 static_cast<uint32_t>(e % OPT_TILE_ELEMS), a, b);
-  x1[e] = a;
-  x2[e] = b;
+// ---------------------------------------------------------------------------
+// The option tiles' normals: (x1, x2) of every element of n_tiles option
+// tiles, row-major (n_tiles * TILE_OPT, PAD) like dump_option_normals.
+// Persistent CTAs whose warps walk units of STORE_ROWS rows of one tile:
+// warp w of CTA b walks units b STORE_WARPS + w, then + gridDim.x
+// STORE_WARPS, ...; unit u is rows (u % STORE_UNITS_PER_TILE) STORE_ROWS
+// .. + STORE_ROWS - 1 of tile s2 + u / STORE_UNITS_PER_TILE, i.e.
+// elements u STORE_UNIT .. + STORE_UNIT - 1 of the arrays.  Per unit the
+// tile seed and the salt word are computed once; lane l draws elements
+// row PAD + 4 l + j, j < 4, of each row and stores them as one float4.
+// ---------------------------------------------------------------------------
+constexpr int STORE_THREADS = 512;
+constexpr int STORE_ROWS = 2;
+constexpr int STORE_WARPS = STORE_THREADS / 32;
+constexpr int STORE_UNIT = STORE_ROWS * PAD;
+constexpr int STORE_UNITS_PER_TILE = TILE_OPT / STORE_ROWS;
+static_assert(PAD == 32 * 4, "a lane stores one float4 of each row");
+static_assert(TILE_OPT % STORE_ROWS == 0, "a unit lies inside one tile");
+
+// at most 32 registers a thread: 2048 / STORE_THREADS CTAs fill an SM
+__global__ void __launch_bounds__(STORE_THREADS, 2048 / STORE_THREADS)
+option_normals_kernel(hw::Seeds sd, uint32_t n_units, float* __restrict__ x1,
+                      float* __restrict__ x2) {
+  const uint32_t lane = threadIdx.x % 32;
+  for (uint32_t u = blockIdx.x * STORE_WARPS + threadIdx.x / 32; u < n_units;
+       u += gridDim.x * STORE_WARPS) {
+    const uint32_t s0 = hw::tile_seed(sd.s0, sd.s2 + u / STORE_UNITS_PER_TILE);
+    const uint32_t salted1 = hw::SALT_MULT ^ s0;  // salt 0's word is s0 itself
+    const uint32_t idx = (u % STORE_UNITS_PER_TILE) * STORE_UNIT + 4 * lane;
+    const size_t at = static_cast<size_t>(u) * STORE_UNIT + 4 * lane;
+#pragma unroll
+    for (int r = 0; r < STORE_ROWS; ++r) {
+      float a[4], b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t e = idx + r * PAD + j;
+        hw::box_muller_words(hw::tile_draw_salted(s0, s0, sd.s1, e),
+                             hw::tile_draw_salted(salted1, s0, sd.s1, e), a[j], b[j]);
+      }
+      *reinterpret_cast<float4*>(x1 + at + r * PAD) = make_float4(a[0], a[1], a[2], a[3]);
+      *reinterpret_cast<float4*>(x2 + at + r * PAD) = make_float4(b[0], b[1], b[2], b[3]);
+    }
+  }
 }
 
 // The kernel instance of XPARTS parts and NG = ceil(k / 8) accumulator
@@ -612,6 +652,15 @@ int walk_launch(const Walk& w, int32_t s0, int32_t s1, int32_t s2, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The persistent grid of the normals over n_tiles option tiles
+// (persistent_ctas), at most one unit per warp.
+cudaError_t normals_ctas(int n_tiles, int* ctas) {
+  if (n_tiles < 1 || n_tiles > (1 << 24)) return cudaErrorInvalidValue;
+  const long long units = static_cast<long long>(n_tiles) * STORE_UNITS_PER_TILE;
+  return persistent_ctas(option_normals_kernel, STORE_THREADS, 0,
+                         (units + STORE_WARPS - 1) / STORE_WARPS, ctas);
+}
+
 }  // namespace
 
 extern "C" {
@@ -681,13 +730,16 @@ int hw_delta_exact(int32_t s0, int32_t s1, int32_t s2, const float* consts_host,
                      ticket, out, stream);
 }
 
+// x1, x2: (n_tiles * TILE_OPT, PAD) float32 each, 16-byte aligned.
 int hw_option_normals(int32_t s0, int32_t s1, int32_t s2, int n_tiles,
                       float* x1, float* x2, void* stream) {
-  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(n_tiles) * OPT_TILE_ELEMS;
-  const int ctas = static_cast<int>((n + NORMALS_THREADS - 1) / NORMALS_THREADS);
-  option_normals_kernel<<<ctas, NORMALS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      make_seeds(s0, s1, s2), n, x1, x2);
+  if (reinterpret_cast<uintptr_t>(x1) % 16 || reinterpret_cast<uintptr_t>(x2) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0;
+  const cudaError_t err = normals_ctas(n_tiles, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  option_normals_kernel<<<ctas, STORE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      make_seeds(s0, s1, s2), static_cast<uint32_t>(n_tiles) * STORE_UNITS_PER_TILE, x1, x2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -471,6 +471,16 @@ def _bits_float12(b: torch.Tensor) -> torch.Tensor:
     return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
 
 
+def _horner_step(p: torch.Tensor, y: torch.Tensor, k: float) -> torch.Tensor:
+    """p * y + k in float32, rounded once: the fused multiply-add that the
+    kernels (nvcc's FFMA) and the JAX package on the CPU (XLA) evaluate
+    the polynomials with.  The product of two float32 values is exact in
+    float64, so only the sum rounds before the cast (twice, which differs
+    from one rounding in a fraction ~2^-29 of the steps, by an ulp)."""
+    k32 = float(np.float32(k))  # the constant as float32, like the kernels'
+    return (p.double() * y.double() + k32).float()
+
+
 def box_muller_plain(s0: torch.Tensor, s1: int, idx: torch.Tensor, salt=0):
     """Two independent N(0,1) fields over ``idx`` (draw salts salt, salt+1):
     radius from log, angle from the degree-5 polynomials."""
@@ -480,10 +490,10 @@ def box_muller_plain(s0: torch.Tensor, s1: int, idx: torch.Tensor, salt=0):
     y = x * x
     c = torch.full_like(y, _COS5[-1])
     for k in range(len(_COS5) - 2, -1, -1):
-        c = c * y + _COS5[k]
+        c = _horner_step(c, y, _COS5[k])
     s = torch.full_like(y, _SIN5[-1])
     for k in range(len(_SIN5) - 2, -1, -1):
-        s = s * y + _SIN5[k]
+        s = _horner_step(s, y, _SIN5[k])
     return rad * c, rad * (s * x)
 
 

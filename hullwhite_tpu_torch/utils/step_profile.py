@@ -27,7 +27,11 @@ the surface kernel (``grid_exact`` at ``cli grid``'s 5 x 5) at 2^15 pairs
 (one tile: a launch and one tile's latency), 2^20 and 2^24: device ms per
 call, every launch of the call included (``utils.timing.bench(hold=True)``:
 CUDA events, min of 3 windows of 20 calls queued behind a sleep kernel),
-with the card's name and power limit.
+with the card's name and power limit; and under ``"bounds"`` each
+kernel's bound at each size (``kernels.roofline.kernel_bounds`` at this
+card's SMs and maximum SM clock), its unit, its HBM time (the bytes the
+function must move at the memory's peak) and the share of the bound the
+kernel reached.
 
 Prints one JSON object (and writes it to ``--out`` when given).
 """
@@ -124,11 +128,11 @@ def profile_run_steps(calls_q1: int = 20, calls_option: int = 200,
 def time_option_kernels(n_calls: int = 20) -> dict:
     """{kernel: {size: device ms per call}} of the exact option kernels and
     the 5 x 5 surface kernel at 2^15, 2^20 and 2^24 pairs, at the reference
-    configuration."""
+    configuration, and their bounds there (``"bounds"``)."""
     from .. import cli, pricing
     from ..benchmarks import card
     from ..config import HWConfig
-    from ..kernels import fused
+    from ..kernels import fused, roofline
     from ..models import hull_white as hw
     from ..ops.rng import Key
 
@@ -160,6 +164,19 @@ def time_option_kernels(n_calls: int = 20) -> dict:
         out[name] = {size: bench(call, tiles, device=dev, n=n_calls,
                                  hold=True)[0] * 1e3
                      for size, tiles in sizes.items()}
+    counts = roofline.op_counts()
+    out["bounds"] = {name: {} for name in calls}
+    for size, tiles in sizes.items():
+        bounds = roofline.kernel_bounds(
+            cfg.replace(n_paths=tiles * fused.OPTION_TILE_PATHS),
+            out["device"]["sm_clock_max_mhz"], out["device"]["sms"], counts)
+        for name in calls:
+            b = bounds[name]
+            out["bounds"][name][size] = {
+                "bound_ms": b["bound_ms"], "bound_unit": b["bound_unit"],
+                "hbm_ms": b["pipes_ms"]["bytes"],
+                "of_bound": b["bound_ms"] / out[name][size],
+                "origin": b["origin"]}
     return out
 
 

@@ -1,6 +1,8 @@
 """PyTorch port vs the JAX package: the key chain, the kernels' seed
 triples and the in-kernel generator (interpret-mode stream)."""
 
+from fractions import Fraction
+
 import jax
 import numpy as np
 import pytest
@@ -52,6 +54,31 @@ def test_option_normals_match_interpret_dump(seed):
     assert y1.shape == (2 * tfused.TILE_OPT, tfused.PAD)
     for a, b in ((x1, y1), (x2, y2)):
         assert np.max(np.abs(np.asarray(a) - b.numpy())) <= 2e-6
+
+
+def _round_f32(q: Fraction) -> float:
+    """The float32 nearest to q (ties to even)."""
+    a = np.float32(float(q))  # within an ulp of it
+    near = [np.nextafter(a, np.float32(-np.inf)), a,
+            np.nextafter(a, np.float32(np.inf))]
+    return float(min(near, key=lambda c: (abs(Fraction(float(c)) - q),
+                                          int(c.view(np.int32)) & 1)))
+
+
+def test_horner_step_rounds_once():
+    """The plain polynomials' step p * y + k is the fused multiply-add of
+    the kernels and of XLA: the exact value rounded once to float32, with
+    k as the float32 constant."""
+    rng = np.random.default_rng(0)
+    y = rng.random(500).astype(np.float32)
+    p = (3.0 * rng.standard_normal(500)).astype(np.float32)
+    for k in tfused._COS5 + tfused._SIN5:
+        got = tfused._horner_step(torch.from_numpy(p), torch.from_numpy(y),
+                                  k).numpy()
+        k32 = Fraction(float(np.float32(k)))
+        want = [_round_f32(Fraction(float(a)) * Fraction(float(b)) + k32)
+                for a, b in zip(p, y)]
+        assert np.array_equal(got, np.array(want, np.float32))
 
 
 def test_tile_seed_wraps_like_int32():
