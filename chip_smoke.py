@@ -49,7 +49,20 @@ Phases (any failure raises and the script exits non-zero):
    each engine, the delta/gamma step, the roofline run), and the
    generator's check kernel option_normals ran in its own phase-1 window;
 4. determinism: two ZBC prices, two curves, two deltas and two surfaces
-   under one key are bitwise equal (prices and curves in both engines).
+   under one key are bitwise equal (prices and curves in both engines);
+5. the XLA engine tier (``linear``, ``exact``, ``scan``: plain PyTorch on
+   the card over threefry block normals, no hand-written kernel): the
+   generator on the card against the CPU at one full (2^15, 1000) block
+   (bits bitwise, normals within 4 ulps) and its device time per block;
+   scan against linear on one G, and linear's float32 products against
+   float64 (the gate that shows TF32); ``cli all --reps 1`` and ``cli
+   grid`` at full width per engine, held to phase 2's gates, the AD vega
+   within 3% of the pathwise one, every vega-surface cell within
+   test_grid.py's bound of the closed form, and no kernel launched; ``cli
+   benchmark --reps 1`` (the engine table) with its price-consistency
+   PASS; ZBC and vega reruns bitwise on linear and exact; each engine's
+   time per Q1, Q2b and Q3 call, the generator's share of it and the
+   phase's peak device memory, beside the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -527,11 +540,8 @@ def phase2(dev, engine):
     """One main path at full width through the CLI with ``--engine
     engine``, then its deterministic gate; returns the launch counts of the
     CLI run alone (reset just before it, read just after it)."""
-    import numpy as np
-
     from hullwhite_tpu_torch import HWConfig, cli
     from hullwhite_tpu_torch.kernels import fused
-    from hullwhite_tpu_torch.models import oracles
 
     cfg = HWConfig()
     cwd = os.getcwd()
@@ -562,6 +572,17 @@ def phase2(dev, engine):
         finally:
             os.chdir(cwd)
 
+    check_results(cfg, engine, res, "phase 2")
+    return counts
+
+
+def check_results(cfg, engine, res, tag):
+    """The CLI's result files of one engine's main path against the
+    published reference values and the fp64 oracles (phase 2's gates)."""
+    import numpy as np
+
+    from hullwhite_tpu_torch.models import oracles
+
     check(all(res[q]["results"].get("engine", engine) == engine
               for q in res), "results name another engine")
     P = np.asarray(res["q1"]["P"])
@@ -569,39 +590,38 @@ def phase2(dev, engine):
     P_true = np.array([oracles.bond_price(cfg, T) for T in Ts])
     se = 0.1 * P_true / math.sqrt(2 * cfg.n_paths)
     worst = float(np.max(np.abs(P - P_true) - 5 * se))
-    print(f"[phase 2] {engine}: P(0,10) = {P[-1]:.6f} (|d| vs 0.876844 = "
+    print(f"[{tag}] {engine}: P(0,10) = {P[-1]:.6f} (|d| vs 0.876844 = "
           f"{abs(P[-1] - 0.876844):.2e}, tol 5e-4); worst |P - oracle| - 5 SE "
           f"= {worst:.2e} (tol 1e-4)")
     check(abs(P[-1] - 0.876844) < 5e-4 and worst < 1e-4, f"{engine} Q1 curve")
     th = res["q2a"]["results"]["max_error"]
-    print(f"[phase 2] {engine}: theta recovery max error = {th:.3e} "
+    print(f"[{tag}] {engine}: theta recovery max error = {th:.3e} "
           "(tol 1e-2)")
     check(th < 1e-2, f"{engine} Q2a theta recovery")
     zbc = res["q2b"]["results"]
-    print(f"[phase 2] {engine}: ZBC (CV) = {zbc['ZBC_control_variate']:.8f} "
+    print(f"[{tag}] {engine}: ZBC (CV) = {zbc['ZBC_control_variate']:.8f} "
           f"in [0.0353, 0.0357], beta = {zbc['beta_optimal']:.5f} in "
           "[0.15, 0.18]")
     check(0.0353 <= zbc["ZBC_control_variate"] <= 0.0357
           and 0.15 <= zbc["beta_optimal"] <= 0.18, f"{engine} Q2b ZBC")
     q3 = res["q3"]["results"]
     pw, fd = q3["sensitivity_mc"], q3["sensitivity_fd"]
-    print(f"[phase 2] {engine}: vega pathwise = {pw:.6f} in [0.225, 0.236], "
+    print(f"[{tag}] {engine}: vega pathwise = {pw:.6f} in [0.225, 0.236], "
           f"FD-CRN = {fd:.6f}, |pw - fd|/pw = {abs(pw - fd) / pw:.3%} "
           f"(tol 3%), FD-recalibrated = "
           f"{q3['sensitivity_fd_recalibrated']:.6f}")
     check(0.225 <= pw <= 0.236 and abs(pw - fd) / pw < 0.03,
           f"{engine} Q3 vega")
-    check_surface(cfg, engine, res["grid"], P)
+    check_surface(cfg, engine, res["grid"], P, tag)
     for q in ("q1", "q2b", "q3"):
         perf = res[q]["performance"]
-        print(f"[phase 2] {engine}: {q} at {cfg.n_paths} pairs: "
+        print(f"[{tag}] {engine}: {q} at {cfg.n_paths} pairs: "
               f"{perf['simulation_time_ms']} ms, "
               f"{perf['throughput_Mpaths_per_sec']} M paths/s "
               f"({perf['device']})")
-    return counts
 
 
-def check_surface(cfg, engine, doc, P):
+def check_surface(cfg, engine, doc, P, tag):
     """The CLI's surface: every cell within 6 SE + 2e-4 of the closed form
     on the q1 curve P (test_grid.py's gate), prices decreasing in strike."""
     import numpy as np
@@ -621,7 +641,7 @@ def check_surface(cfg, engine, doc, P):
                                      float(np.interp(S2, Ts, P)))
             worst = max(worst, abs(price[i, j] - true)
                         - (6 * max(se[i, j], 1e-6) + 2e-4))
-    print(f"[phase 2] {engine}: surface 5 x 5, price(K, S2=10) = "
+    print(f"[{tag}] {engine}: surface 5 x 5, price(K, S2=10) = "
           f"{price[2, 4]:.8f}, worst |price - oracle| - (6 SE + 2e-4) = "
           f"{worst:.3e} (tol 0), decreasing in strike: "
           f"{bool(np.all(np.diff(price, axis=0) < 0))}")
@@ -801,6 +821,240 @@ def check_exact_roofline(ex, times):
     check(abs(rel) <= 0.05, f"q1_exact: roofline time vs phase 1 {rel:+.2%}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the XLA engine tier (linear, scan, exact), plain PyTorch on the
+# card over threefry block normals
+# ---------------------------------------------------------------------------
+
+XLA_ENGINES = ("linear", "exact", "scan")
+# normals on the card vs the CPU: float32 ulps (CUDA's log1p and sqrt
+# against the CPU's; the bits are equal)
+XLA_NORMAL_ULPS = 4
+# scan vs linear on one G at the reference configuration's 500 and 1000
+# steps: the bounds of tests/test_engines.py's across-configs check (its
+# tiny-config bounds are for 100 steps; the walk's rounding grows with
+# the steps)
+XLA_STATE_TOL = (2e-4, 5e-6)
+# the engines' float32 products against float64 on the same G: relative to
+# the largest entry (true fp32 ~5e-7; TF32's 10-bit mantissas ~3e-4)
+XLA_PRODUCT_RTOL = 1e-5
+
+
+def phase5_generator(cfg, dev):
+    """``block_normals`` on the card against the same call on the CPU at one
+    full (path_block, n_steps) block: the bits bitwise, the normals within
+    ``XLA_NORMAL_ULPS``; then the device time of one block's normals per
+    engine column count (ms per block, by column count)."""
+    import numpy as np
+    import torch
+
+    from hullwhite_tpu_torch import Key
+    from hullwhite_tpu_torch.ops import rng
+
+    key = Key(2026).fold_in(3)
+    shape = (cfg.path_block, cfg.n_steps)
+    bits = rng.random_bits(key, shape, device=dev)
+    bits_cpu = rng.random_bits(key, shape, device="cpu")
+    same = bool(torch.equal(bits.cpu(), bits_cpu))
+    x = rng.normals_from_bits(bits).cpu().numpy()
+    x_cpu = rng.normals_from_bits(bits_cpu).numpy()
+    del bits, bits_cpu
+    ulps = float(np.max(np.abs(x - x_cpu) / np.spacing(np.abs(x_cpu))))
+    print(f"[phase 5] generator at {shape}: bits equal to the CPU's: {same}; "
+          f"normals max {ulps:.0f} ulps from the CPU's (tol "
+          f"{XLA_NORMAL_ULPS}), {np.mean(x != x_cpu):.2%} differ; mean "
+          f"{x.mean():+.2e}, sd {x.std():.6f}")
+    check(same and ulps <= XLA_NORMAL_ULPS and np.all(np.isfinite(x)),
+          "block_normals on the card differs from the CPU")
+    gen_ms = {}
+    for cols in sorted({cfg.n_steps, cfg.n_steps_s1, cfg.n_mat - 1, 2}):
+        gen_ms[cols] = device_ms(lambda c=cols: rng.block_normals(
+            key, 0, (cfg.path_block, c), device=dev), 3, 3)
+        print(f"[phase 5] generator: {gen_ms[cols]:.3f} ms per "
+              f"({cfg.path_block}, {cols}) block (device time)")
+    return gen_ms
+
+
+def phase5_engine_gate(cfg, dev):
+    """scan against linear on one G (antithetic and dual states at S1, the
+    curve sums), and linear's float32 products against float64 on the same
+    G: the gate that shows a TF32 product."""
+    import torch
+
+    from hullwhite_tpu_torch import Key
+    from hullwhite_tpu_torch.models import hull_white as hw
+    from hullwhite_tpu_torch.ops import engine_linear, engine_scan, rng
+
+    rtol, atol = XLA_STATE_TOL
+    tables = hw.step_tables(cfg, cfg.sigma, device=dev)
+    G = rng.block_normals(Key(5), 0, (cfg.path_block, cfg.n_steps),
+                          device=dev)
+    n1 = cfg.n_steps_s1
+    zw = engine_linear.zbc_weights(cfg, tables)
+    worst = {}
+    for name in ("antithetic_state", "dual_state"):
+        a = getattr(engine_scan, name)(cfg, tables, G[:, :n1])
+        b = getattr(engine_linear, name)(cfg, zw, G[:, :n1])
+        worst[name] = max(float(((x - y).abs() - (atol + rtol * y.abs()))
+                                .max()) for x, y in zip(a, b))
+    cw = engine_linear.curve_weights(cfg, tables)
+    s_a = engine_scan.curve_discount_sums(cfg, tables, G)
+    s_b = engine_linear.curve_discount_sums(cfg, cw, G)
+    worst["curve_discount_sums"] = float(((s_a - s_b).abs()
+                                          - rtol * s_b.abs()).max())
+    print(f"[phase 5] scan vs linear on one ({cfg.path_block}, "
+          f"{cfg.n_steps}) G: worst |scan - linear| - (atol {atol} + rtol "
+          f"{rtol} |linear|) = {worst} (tol 0)")
+    check(all(v <= 0 for v in worst.values()), "scan and linear disagree")
+    rel = {}
+    for name, x, w in (("option U", G[:, :n1], zw.U), ("curve W", G, cw.W)):
+        z = engine_linear.dot(x, w, cfg.matmul_precision).double()
+        z64 = x.double() @ w.double()
+        rel[name] = float((z - z64).abs().max() / z64.abs().max())
+    print(f"[phase 5] linear's float32 products vs float64 on the same G: "
+          f"max rel {rel} (tol {XLA_PRODUCT_RTOL}); "
+          f"allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}, "
+          f"float32_matmul_precision = "
+          f"{torch.get_float32_matmul_precision()}")
+    check(all(v <= XLA_PRODUCT_RTOL for v in rel.values()),
+          "an XLA engine's product is not float32 (TF32?)")
+
+
+def phase5_main_path(cfg, dev, engine, gen_ms):
+    """``cli all --engine engine --reps 1`` and ``cli grid`` at full width,
+    held to phase 2's gates, the AD vega within 3% of the pathwise one and
+    every vega-surface cell within test_grid.py's bound of the fp64 closed
+    form on the q1 curve; returns the kernels' launch counts of the run
+    (none expected: the XLA tier is plain PyTorch) and its times."""
+    import numpy as np
+
+    from hullwhite_tpu_torch import cli
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import oracles
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fused.reset_launch_counts()
+            for argv in (["all", "--reps", "1"], ["grid"]):
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["--engine", engine,
+                                      "--device", str(dev)])
+                print(f"[phase 5] {engine}: cli {' '.join(argv)}: rc {rc}, "
+                      f"{time.perf_counter() - t0:.1f} s")
+                check(rc == 0, f"cli {argv[0]} --engine {engine} failed")
+            counts = fused.launch_counts()
+            res = {name: json.load(open(os.path.join(
+                "data_torch", f"{name}_results.json")))
+                for name in ("q1", "q2a", "q2b", "q3", "grid")}
+            paths = np.fromfile(os.path.join("data_torch", "r_paths.bin"),
+                                np.float32)
+        finally:
+            os.chdir(cwd)
+    check(paths.shape == (32 * (cfg.n_steps + 1),)
+          and np.all(np.isfinite(paths)), "r_paths.bin")
+    check_results(cfg, engine, res, "phase 5")
+    q3 = res["q3"]["results"]
+    pw, ad = q3["sensitivity_mc"], q3["sensitivity_ad_jvp"]
+    print(f"[phase 5] {engine}: AD (jvp) vega = {ad:.6f}, |ad - pw|/pw = "
+          f"{abs(ad - pw) / pw:.3%} (tol 3%)")
+    check(abs(ad - pw) / pw < 0.03, f"{engine} AD vega")
+    doc = res["grid"]
+    vega = np.asarray(doc["vega"])
+    P = np.asarray(res["q1"]["P"], np.float64)
+    Ts = np.linspace(0.0, cfg.t_final, cfg.n_mat)
+    worst = -np.inf
+    for i, K in enumerate(doc["results"]["strikes"]):
+        for j, S2 in enumerate(doc["results"]["maturities"]):
+            true = oracles.zbc_vega(cfg.replace(strike=K, s2=S2),
+                                    float(np.interp(cfg.s1, Ts, P)),
+                                    float(np.interp(S2, Ts, P)))
+            worst = max(worst, abs(vega[i, j] - true)
+                        - (0.06 * abs(true) + 5e-3))
+    print(f"[phase 5] {engine}: vega surface 5 x 5, vega(K, S2=10) = "
+          f"{vega[2, 4]:.6f}, worst |vega - oracle| - (6% + 5e-3) = "
+          f"{worst:.3e} (tol 0)")
+    check(vega.shape == (5, 5) and worst < 0, f"{engine} vega surface")
+    cols = {"q1": cfg.n_mat - 1 if engine == "exact" else cfg.n_steps,
+            "q2b": 2 if engine == "exact" else cfg.n_steps_s1,
+            "q3": 2 if engine == "exact" else cfg.n_steps_s1}
+    times = {}
+    for q, c in cols.items():
+        ms = float(res[q]["performance"]["simulation_time_ms"])
+        share = cfg.n_blocks * gen_ms[c] / ms
+        times[q] = {"ms": ms, "generator_share": share}
+        print(f"[phase 5] {engine}: {q} {ms:.1f} ms per call at "
+              f"{cfg.n_paths} pairs; generator {cfg.n_blocks} x "
+              f"{gen_ms[c]:.3f} ms = {share:.0%} of it")
+    return counts, times
+
+
+def phase5_benchmark(dev):
+    """``cli benchmark --reps 1``, the engine table at full width: it must
+    print its price-consistency PASS and exit 0."""
+    import contextlib
+    import io
+
+    from hullwhite_tpu_torch import cli
+
+    cwd = os.getcwd()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["benchmark", "--reps", "1",
+                               "--device", str(dev)])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[phase 5] benchmark | {line}")
+    gate = [ln for ln in text.splitlines()
+            if ln.startswith("price consistency")]
+    print(f"[phase 5] cli benchmark: rc {rc}, {wall:.1f} s")
+    check(rc == 0 and len(gate) == 1 and gate[0].endswith("PASS"),
+          "cli benchmark: the engine table's price consistency failed")
+
+
+def phase5(dev, smi):
+    """The XLA tier (module docstring, phase 5); returns its launch counts
+    per engine."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key, pricing
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen_ms = phase5_generator(cfg, dev)
+    phase5_engine_gate(cfg, dev)
+    counts, times = {}, {}
+    for engine in XLA_ENGINES:
+        counts[engine], times[engine] = phase5_main_path(cfg, dev, engine,
+                                                         gen_ms)
+    phase5_benchmark(dev)
+    market = analytic_market(cfg, dev)
+    for engine in ("linear", "exact"):
+        a, b = (pricing.price_zbc(cfg, Key(11), market, engine=engine,
+                                  device=dev) for _ in range(2))
+        v1, v2 = (pricing.pathwise_vega(cfg, Key(11), market, engine=engine,
+                                        device=dev) for _ in range(2))
+        print(f"[phase 5] {engine}: rerun determinism: ZBC "
+              f"{float(a.price)!r} == {float(b.price)!r}, vega "
+              f"{float(v1)!r} == {float(v2)!r}")
+        check(float(a.price) == float(b.price) and float(v1) == float(v2),
+              f"{engine} reruns differ")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 5] XLA tier times per call at {cfg.n_paths} pairs "
+          f"[{smi}]: " + json.dumps(times))
+    print(f"[phase 5] peak device memory of the XLA phase: {peak:.2f} GiB "
+          f"[{smi}]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -885,6 +1139,13 @@ def main() -> int:
           f"{float(d2)!r}, surface equal: {same_surface}")
     check(float(d1) == float(d2) and same_surface, "delta/surface reruns "
           "differ")
+
+    xla_counts = phase5(dev, smi)
+    for engine, c in xla_counts.items():
+        print(f"[phase 5] launches of the hand-written kernels in the "
+              f"{engine} main-path run (cli all, cli grid): "
+              f"{sum(c.values())} (the XLA tier is plain PyTorch)")
+        check(not any(c.values()), f"the {engine} path launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

@@ -1,7 +1,21 @@
-"""Speed-of-light accounting of the fused tiers on one CUDA device:
-``hullwhite_tpu.benchmarks.run_roofline``, re-derived for Hopper.
+"""Engine-tier benchmark, paired A/B runs and the speed-of-light accounting
+of the fused tiers (PyTorch port of ``hullwhite_tpu.benchmarks``).
 
+    python -m hullwhite_tpu_torch.cli benchmark              # engine table
+    python -m hullwhite_tpu_torch.cli benchmark --sweep      # + path_block
+    python -m hullwhite_tpu_torch.cli benchmark --ab precision
     python -m hullwhite_tpu_torch.cli benchmark --roofline   # on the GPU
+
+Engine table (``run_benchmark``): the ZBC control-variate price on each
+engine tier, time per call and paths per second, the scan tier at
+``SCAN_PATHS`` pairs, and the cross-tier price-consistency gate
+(statistical: the tiers draw independent streams), written to
+``data_torch/benchmark_engines.json``; ``--sweep`` adds the path_block
+sweep.  The fused tiers join on a CUDA device.  A/B (``run_ab``): 20 paired
+seeds of two (engine, precision) arms, z-scores of the mean differences,
+``data_torch/ab_results_{mode}.json``.
+
+Roofline (``run_roofline``), the JAX ``run_roofline`` re-derived for Hopper:
 
 Full-step half: it times the three full-step tiers (Q1 ``curve_full``, Q2b
 ``zbc_full``, Q3 ``vega_full``) through the port's run steps and the
@@ -54,14 +68,243 @@ from __future__ import annotations
 import math
 import subprocess
 
+import numpy as np
 import torch
 
 from . import pricing
 from .config import HWConfig
 from .kernels import build, fused, roofline
+from .ops.payoffs import cv_estimate
 from .ops.rng import Key
 from .utils import io as hwio
 from .utils.timing import bench
+
+# the scan tier walks every step with a few launches per step; it is
+# benchmarked at this many pairs (its throughput stays comparable)
+SCAN_PATHS = 1 << 16
+
+
+def _zbc_row(cfg: HWConfig, engine: str, key: Key, market, reps: int,
+             dev: torch.device) -> dict:
+    """Time the ZBC run step of ``engine`` (operands prepared outside) and
+    price from its last result."""
+    p = pricing.zbc_pricer(cfg, engine=engine, device=dev)
+    prep = p.prepare(cfg.sigma, cfg.sigma, market)
+    dt, m = bench(p.run, key, prep, device=dev, n=reps)
+    est = cv_estimate(m, market.P[-1])
+    return {"ms": dt * 1e3, "paths_per_sec": 2 * cfg.n_paths / dt,
+            "price": float(est.price), "beta": float(est.beta)}
+
+
+def run_benchmark(cfg: HWConfig, key: Key, reps: int = 10,
+                  sweep: bool = False, device="cuda") -> int:
+    """The engine-tier table (module docstring); 0 if the prices agree."""
+    dev = pricing.resolve_device(device)
+    on_gpu = dev.type == "cuda"
+    engines = ["linear", "exact"]
+    bootstrap_engine = "exact"
+    if on_gpu:
+        # the fused kernels need path_block to be a multiple of their tile
+        if cfg.path_block % fused.OPTION_FULL_TILE_PATHS == 0:
+            engines.append("fused")
+        if cfg.path_block % fused.OPTION_TILE_PATHS == 0:
+            engines.append("fused_exact")
+        if cfg.path_block % fused.CURVE_TILE_PATHS == 0:
+            bootstrap_engine = "fused_exact"
+    market = pricing.bootstrap_curve(cfg, key, engine=bootstrap_engine,
+                                     device=dev)
+    where = (torch.cuda.get_device_name(dev) if on_gpu else "cpu")
+    print(f"--- Engine-tier benchmark: ZBC control-variate pricing [{where}]"
+          " ---")
+    print(f"config: {cfg.n_paths} path pairs x {cfg.n_steps_s1} steps to S1 "
+          f"(+ scan tier at {min(cfg.n_paths, SCAN_PATHS)} pairs)\n")
+    print(f"{'engine':14s} {'time (ms)':>10s} {'M paths/s':>10s} "
+          f"{'price':>12s} {'beta':>8s}")
+
+    def show(name, r):
+        print(f"{name:14s} {r['ms']:10.3f} {r['paths_per_sec'] / 1e6:10.0f} "
+              f"{r['price']:12.8f} {r['beta']:8.4f}", flush=True)
+
+    rows = {}
+    for eng in engines:
+        rows[eng] = _zbc_row(cfg, eng, key, market, reps, dev)
+        show(eng, rows[eng])
+    scan_pairs = min(cfg.n_paths, SCAN_PATHS)
+    scfg = cfg.replace(n_paths=scan_pairs,
+                       path_block=min(cfg.path_block, SCAN_PATHS))
+    rows["scan"] = dict(_zbc_row(scfg, "scan", key, market, 3, dev),
+                        n_paths=scan_pairs)
+    show(f"scan ({scan_pairs})", rows["scan"])
+
+    best = max((e for e in rows if e != "scan"),
+               key=lambda e: rows[e]["paths_per_sec"])
+    base = min(rows, key=lambda e: rows[e]["paths_per_sec"])
+    print(f"\nspeedup (best '{best}' vs slowest '{base}'): "
+          f"{rows[best]['paths_per_sec'] / rows[base]['paths_per_sec']:.1f}x")
+
+    # price-consistency gate (statistical: independent streams); the scan
+    # tier runs fewer paths, so its own MC noise sets its tolerance
+    prices = np.array([r["price"] for r in rows.values()
+                       if "n_paths" not in r])
+    se = 0.05 / np.sqrt(2 * cfg.n_paths)  # payoff sd ~0.05
+    tol = max(8 * se, 3e-4)
+    spread = float(np.ptp(prices))
+    se_scan = 0.05 / np.sqrt(2 * scan_pairs)
+    scan_dev = abs(rows["scan"]["price"] - float(np.mean(prices)))
+    scan_ok = scan_dev < 6 * se_scan + tol
+    consistent = bool(spread < tol and scan_ok)
+    print(f"scan-tier deviation: {scan_dev:.2e} (tol {6 * se_scan + tol:.2e})"
+          f" -> {'PASS' if scan_ok else 'FAIL'}")
+    print(f"price consistency: max spread {spread:.2e} (tol {tol:.2e}) -> "
+          f"{'PASS' if consistent else 'FAIL'}")
+    result = {"engines": rows, "consistency_pass": consistent,
+              "price_spread": spread, "device": where}
+    if sweep:
+        result["block_sweep"] = _block_sweep(cfg, key, market,
+                                             best if on_gpu else "exact", dev)
+    path = hwio.write_json(hwio.DATA_DIR / "benchmark_engines.json",
+                           "Engine benchmark", cfg, results=result)
+    print(f"saved {path}")
+    return 0 if consistent else 1
+
+
+def _block_sweep(cfg: HWConfig, key: Key, market, engine: str,
+                 dev: torch.device) -> dict:
+    """Pathwise-vega time per path_block size 2^13 .. 2^17 that divides
+    n_paths (a fused tier skips the sizes below its tile)."""
+    print(f"\n--- path_block sweep [{engine}] ---")
+    out = {}
+    for pb_log2 in (13, 14, 15, 16, 17):
+        pb = 1 << pb_log2
+        if cfg.n_paths % pb != 0:
+            continue
+        c = cfg.replace(path_block=pb)
+        try:
+            p = pricing.vega_pricer(c, engine=engine, device=dev)
+            dt, _ = bench(p.run, key, p.prepare(c.sigma, c.sigma, market),
+                          device=dev, n=10)
+        except ValueError as e:
+            print(f"path_block=2^{pb_log2}: skipped ({e})")
+            continue
+        out[pb] = dt * 1e3
+        print(f"path_block=2^{pb_log2}: {dt * 1e3:8.3f} ms "
+              f"({c.n_paths / dt / 1e6:6.0f} M paths/s)")
+    if out:
+        best = min(out, key=out.get)
+        print(f"best: path_block={best} ({out[best]:.3f} ms)")
+    else:
+        print("no path_block size 2^13 .. 2^17 divides n_paths")
+    return {str(k): v for k, v in out.items()}
+
+
+def _paired(xa, xb, n_runs: int) -> dict:
+    """Mean difference of paired runs, its standard error and z-score."""
+    d = np.asarray(xa) - np.asarray(xb)
+    diff = float(d.mean())
+    se = float(d.std(ddof=1) / np.sqrt(n_runs)) if n_runs > 1 else 0.0
+    if se < 1e-15:
+        z = 0.0 if abs(diff) < 1e-15 else float("inf") * np.sign(diff)
+    else:
+        z = diff / se
+    return {"mean_a": float(np.mean(xa)), "mean_b": float(np.mean(xb)),
+            "diff": diff, "se_diff": se, "z": float(z)}
+
+
+def ab_compare(cfg_a: HWConfig, cfg_b: HWConfig, key: Key, market,
+               engine_a: str, engine_b: str, n_runs: int = 20,
+               label: str = "", device="cuda") -> dict:
+    """n_runs paired seeds of two (config, engine) arms: the price and the
+    pathwise vega of each arm under keys fold_in(key, offset + i), and the
+    z-score of the mean difference over the SE of the per-run differences
+    (same-engine arms are paired almost exactly, so a deterministic shift
+    shows at its true z; different engines draw independent streams)."""
+    out = {"label": label, "n_runs": n_runs,
+           "a": f"{engine_a}/{cfg_a.matmul_precision}",
+           "b": f"{engine_b}/{cfg_b.matmul_precision}"}
+    for kind in ("price", "vega"):
+        arms = []
+        for c, eng in ((cfg_a, engine_a), (cfg_b, engine_b)):
+            if kind == "price":
+                x = pricing.validate_zbc_runs(c, key, market, n_runs=n_runs,
+                                              engine=eng,
+                                              device=device).price
+            else:
+                x = pricing.validate_vega_runs(c, key, market, n_runs=n_runs,
+                                               engine=eng, device=device)
+            arms.append(np.asarray(x, np.float64))
+        out[kind] = r = _paired(*arms, n_runs)
+        print(f"[A/B {label}] {kind}: A={r['mean_a']:.8f} "
+              f"B={r['mean_b']:.8f} diff={r['diff']:+.2e} (paired SE "
+              f"{r['se_diff']:.2e}, z={r['z']:+.2f})")
+    return out
+
+
+def _curve_ab(cfg_a: HWConfig, cfg_b: HWConfig, key: Key, engine_a: str,
+              engine_b: str, n_runs: int, device) -> dict:
+    """Paired P(0,10) A/B over n_runs bootstrap keys fold_in(key, 3000 + i)."""
+    pa, pb = [], []
+    for i in range(n_runs):
+        k = key.fold_in(3000 + i)
+        pa.append(float(pricing.bootstrap_curve(
+            cfg_a, k, engine=engine_a, device=device).P[-1]))
+        pb.append(float(pricing.bootstrap_curve(
+            cfg_b, k, engine=engine_b, device=device).P[-1]))
+    r = _paired(pa, pb, n_runs)
+    print(f"[A/B] P(0,10): A={r['mean_a']:.8f} B={r['mean_b']:.8f} "
+          f"diff={r['diff']:+.2e} (paired SE {r['se_diff']:.2e}, "
+          f"z={r['z']:+.2f})")
+    return r
+
+
+# (mode) -> the option arms' engines, the curve arms' engines, the
+# precisions; the JAX modes with its pallas tiers named as the port's
+# fused ones
+AB_MODES = {
+    # the threefry + erf_inv normals of the exact engine vs the fused
+    # exact kernels' counter hash + Box-Muller (same law, other generator)
+    "rng": dict(opt=("exact", "fused_exact"), curve=None, prec=None,
+                label="threefry+erfinv vs counter hash+Box-Muller"),
+    # product precision: fp32 ("highest") vs one bf16 pass ("default") on
+    # identical seeds: paired differences resolve deterministic shifts
+    "precision": dict(opt=("exact", "exact"), curve=("linear", "linear"),
+                      prec=("highest", "default"),
+                      label="matmul precision highest vs default"),
+    # full-step tiers: exact Gaussian shocks (linear) vs the full-step
+    # kernels' Hadamard-mixed generator
+    "fullstep": dict(opt=("linear", "fused"), curve=("linear", "fused"),
+                     prec=None,
+                     label="exact-Gaussian fullstep vs Hadamard-mixed RNG"),
+}
+
+
+def run_ab(cfg: HWConfig, key: Key, mode: str, n_runs: int = 20,
+           device="cuda") -> int:
+    """The paired A/B of ``mode`` (``AB_MODES``), written to
+    ``data_torch/ab_results_{mode}.json``."""
+    spec = AB_MODES[mode]
+    if spec["opt"][1].startswith("fused") and cfg.path_block % (1 << 15):
+        raise SystemExit(
+            f"--ab {mode} uses a fused tier: path_block must be a multiple "
+            f"of 32768 (pass --paths >= 32768), got {cfg.path_block}")
+    dev = pricing.resolve_device(device)
+    cfg_a = cfg_b = cfg
+    if spec["prec"]:
+        cfg_a = cfg.replace(matmul_precision=spec["prec"][0])
+        cfg_b = cfg.replace(matmul_precision=spec["prec"][1])
+    market = pricing.bootstrap_curve(cfg, key, engine="exact", device=dev)
+    out = ab_compare(cfg_a, cfg_b, key, market, *spec["opt"], n_runs=n_runs,
+                     label=spec["label"], device=dev)
+    out["mode"] = mode
+    if spec["curve"]:
+        out["curve_P10"] = _curve_ab(cfg_a, cfg_b, key, *spec["curve"],
+                                     n_runs, dev)
+    agree = all(abs(out[k]["z"]) < 3.0 for k in ("price", "vega"))
+    print(f"A/B verdict ({mode}): "
+          f"{'AGREE at the 3-sigma level' if agree else 'DISAGREE'}")
+    path = hwio.write_json(hwio.DATA_DIR / f"ab_results_{mode}.json",
+                           f"A/B {mode}", cfg, results=out)
+    print(f"saved {path}")
+    return 0
 
 
 def smi_query(field: str, device: torch.device) -> str:
@@ -127,11 +370,9 @@ def run_roofline(cfg: HWConfig, key: Key, reps: int = 10,
            "int_op_counts_origin": counts["origin"],
            "tiers": {}}
 
-    # The option tiers' market.  The JAX package bootstraps it with its XLA
-    # "exact" engine, which the port does not have; the port's exact tier
-    # draws the same curve law.
-    market = pricing.bootstrap_curve(cfg, key, engine="fused_exact",
-                                     device=dev)
+    # the option tiers' market, from the XLA "exact" engine as in the JAX
+    # package
+    market = pricing.bootstrap_curve(cfg, key, engine="exact", device=dev)
     curve = pricing.curve_pricer(cfg, engine="fused", device=dev)
     runs = {"q1_fullstep": (curve.run, curve.prepare(cfg.sigma, cfg.sigma))}
     for kind in ("zbc", "vega"):

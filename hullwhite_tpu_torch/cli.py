@@ -1,20 +1,26 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-benchmark --roofline.
+benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
     python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
-    python -m hullwhite_tpu_torch.cli grid               # 5 x 5 option surface
+    python -m hullwhite_tpu_torch.cli all --engine linear # XLA engine tier
+    python -m hullwhite_tpu_torch.cli grid               # 5 x 5 surfaces
+    python -m hullwhite_tpu_torch.cli benchmark          # engine table
+    python -m hullwhite_tpu_torch.cli benchmark --ab precision
     python -m hullwhite_tpu_torch.cli benchmark --roofline  # GPU only
     python -m hullwhite_tpu_torch.cli q1 --device cpu --paths 32768
 
 The default device is ``cuda``; without a card the commands fail rather
 than compute on the CPU, which is asked for with ``--device cpu`` (plain
-versions of the kernels, slow).  ``--engine`` picks the kernels:
+versions of the kernels, slow).  ``--engine`` picks the engine:
 ``fused_exact`` (default, exact sampling) or ``fused`` (full step, one
-random value per path per time step).  ``--paths`` must be a multiple of
-32768, the exact option kernels' tile.  Results go to ``data_torch/``;
+random value per path per time step), the hand-written kernels; or one of
+the JAX package's XLA engines in plain PyTorch on threefry block normals,
+``linear`` (the shock product), ``scan`` (step by step) or ``exact``
+(Cholesky sampling).  With a fused engine ``--paths`` must be a multiple
+of 32768, the exact option kernels' tile.  Results go to ``data_torch/``;
 q2, q3 and grid read the market curve q1 wrote there.
 """
 
@@ -29,8 +35,9 @@ import torch
 from . import greeks, grid, pricing
 from .config import HWConfig
 from .models import hull_white as hw
+from .ops import engine_scan
 from .ops.payoffs import cv_estimate
-from .ops.rng import Key
+from .ops.rng import Key, block_normals
 from .utils import io as hwio
 from .utils import stats as hwstats
 from .utils.timing import bench
@@ -101,6 +108,12 @@ def cmd_q1(args):
                  "engine": args.engine},
         performance=_perf(ms, 2 * cfg.n_paths, dev),
         arrays={"P": Pn, "f": fn})
+
+    # 32 sample r(t) trajectories for plotting, as the JAX package draws them
+    tables = hw.step_tables(cfg, cfg.sigma, device=dev)
+    G = block_normals(key.fold_in(999), 0, (32, cfg.n_steps), device=dev)
+    paths = engine_scan.sample_paths(cfg, tables, G)
+    hwio.save_bin(hwio.DATA_DIR / "r_paths.bin", paths.cpu().numpy())
     hwio.summary_init(cfg)
     hwio.summary_append("Q1: BOND PRICING", [
         f"P(0,10) = {Pn[-1]:.6f}", f"f(0,0)  = {fn[0]*100:.2f}%",
@@ -251,6 +264,9 @@ def cmd_q3(args):
     print("note: recalibration injects curve-level MC noise "
           "(the reference measures 127% error, README.md:51)")
 
+    _, vega_ad = greeks.jvp_vega(cfg, key, market, device=dev)
+    print(f"\n[AD jvp through the simulation]: vega = {float(vega_ad):.6f}")
+
     rel = abs(vega_pw - float(fd.vega)) / abs(vega_pw) * 100
     print(f"\npathwise vs FD-CRN: {rel:.2f}% difference "
           f"({'<10% PASS' if rel < 10 else 'CHECK'})")
@@ -260,10 +276,12 @@ def cmd_q3(args):
           f"magnitude check: {'PASS' if mag_ok else 'FAIL'}")
     results = {"sensitivity_mc": vega_pw, "sensitivity_fd": float(fd.vega),
                "sensitivity_fd_recalibrated": float(fdr.vega),
+               "sensitivity_ad_jvp": float(vega_ad),
                "abs_diff": abs(vega_pw - float(fd.vega)),
                "engine": args.engine}
     lines = [f"Sens (MC): {vega_pw:.6f}", f"Sens (FD): {float(fd.vega):.6f}",
-             f"Sens (FD recal): {float(fdr.vega):.6f}"]
+             f"Sens (FD recal): {float(fdr.vega):.6f}",
+             f"Sens (AD jvp): {float(vega_ad):.6f}"]
 
     if args.validate:
         print(f"\nstatistical validation: {args.validate} independent runs...")
@@ -316,40 +334,52 @@ def cmd_grid(args):
           "---")
     g = grid.price_zbc_grid(cfg, key, market, Ks, S2s, engine=args.engine,
                             device=dev)
-    price, beta, se = (x.cpu().numpy() for x in
-                       (g.price, g.beta, g.std_error_raw))
+    # the vega surface runs on "exact" whatever the price engine, as in the
+    # JAX package's cli grid
+    _, vegas = grid.vega_zbc_grid(cfg, key, market, Ks, S2s, device=dev)
+    price, beta, se, vega = (x.cpu().numpy() for x in
+                             (g.price, g.beta, g.std_error_raw, vegas))
     print("prices (rows = strikes, cols = S2):")
     print(np.array2string(price, precision=6))
     print("beta* (rows = strikes, cols = S2):")
     print(np.array2string(beta, precision=4))
-    print("not ported: the vega surface (needs the XLA exact engine with "
-          "forward-mode AD) and the G2++ surfaces (models/g2pp.py)")
+    print("vegas (forward-mode AD on the exact engine):")
+    print(np.array2string(vega, precision=5))
+    print("not ported: the G2++ surfaces (models/g2pp.py)")
     hwio.write_json(
         hwio.DATA_DIR / "grid_results.json", "Option surface", cfg,
         results={"strikes": [float(x) for x in Ks], "maturities": S2s,
                  "engine": args.engine},
-        arrays={"price": price, "beta": beta, "std_error_raw": se})
+        arrays={"price": price, "beta": beta, "std_error_raw": se,
+                "vega": vega})
     return 0
 
 
 # ---------------------------------------------------------------------------
-# benchmark — the roofline (the rest waits for the XLA engines)
+# benchmark — the engine table, --sweep, --ab, --roofline
 # ---------------------------------------------------------------------------
 
 def cmd_benchmark(args):
-    """``--roofline``: the full-step and exact tiers' roofline on the card.
-    The rest
-    of the JAX subcommand (the engine-tier table, ``--sweep``, ``--ab``)
-    runs the scan/linear/exact engines, which are not ported: it refuses."""
-    if args.ab or not args.roofline:
-        raise SystemExit("benchmark: the engine-tier table, --sweep or --ab "
-                         "is not ported (they need the scan/linear/exact "
-                         "engines); run benchmark --roofline")
-    from .benchmarks import run_roofline
+    """The engine-tier table (``--sweep`` adds the path_block sweep),
+    ``--ab MODE`` the paired A/B, ``--roofline`` the fused tiers' roofline
+    on the card."""
+    from .benchmarks import run_ab, run_benchmark, run_roofline
 
     cfg = _cfg(args)
-    return run_roofline(cfg, _key(cfg, args), reps=args.reps,
-                        device=args.device)
+    key = _key(cfg, args)
+    if args.ab and args.roofline:
+        raise SystemExit("benchmark: --ab and --roofline are separate runs; "
+                         "pass one of them")
+    if args.sweep and (args.ab or args.roofline):
+        raise SystemExit("benchmark: --sweep belongs to the engine table; "
+                         "drop --ab and --roofline")
+    if args.ab:
+        return run_ab(cfg, key, args.ab, n_runs=args.ab_runs,
+                      device=args.device)
+    if args.roofline:
+        return run_roofline(cfg, key, reps=args.reps, device=args.device)
+    return run_benchmark(cfg, key, reps=args.reps, sweep=args.sweep,
+                         device=args.device)
 
 
 def main(argv=None):
@@ -371,7 +401,8 @@ def main(argv=None):
                         choices=list(pricing.ENGINES),
                         help="fused_exact: exact sampling (default); fused: "
                              "full step, one random value per path per "
-                             "time step")
+                             "time step; linear, scan, exact: the XLA "
+                             "engines on threefry block normals")
     common.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
@@ -391,9 +422,14 @@ def main(argv=None):
                          "data_torch/fullstep_roofline.json; exact vs the "
                          "Box-Muller, exp, reciprocal and integer-ALU walls "
                          "-> data_torch/exact_roofline.json")
+    pb.add_argument("--sweep", action="store_true",
+                    help="also sweep path_block sizes 2^13 .. 2^17")
     pb.add_argument("--ab", choices=["rng", "precision", "fullstep"],
                     default=None,
-                    help="not ported (needs the scan/linear/exact engines)")
+                    help="paired A/B over --ab-runs seeds (generator / "
+                         "product precision / full-step generator) -> "
+                         "data_torch/ab_results_{mode}.json")
+    pb.add_argument("--ab-runs", type=int, default=20)
 
     args = ap.parse_args(argv)
     if args.cmd == "benchmark":

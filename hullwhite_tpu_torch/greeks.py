@@ -1,6 +1,9 @@
-"""Finite-difference vega and gamma (PyTorch port of the CRN, recalibrated
-and gamma parts of ``hullwhite_tpu.greeks``).
+"""Vega by AD and by finite differences, and gamma (PyTorch port of the
+AD, CRN, recalibrated and gamma parts of ``hullwhite_tpu.greeks``).
 
+* ``jvp_vega`` — forward-mode AD (``torch.func.jvp``) of the raw price
+  through the whole linear-engine simulation; it must agree with the
+  hand-derived dual process of ``pricing.pathwise_vega``.
 * ``fd_vega_crn`` — central difference under sigma +/- eps with common
   random numbers: the counter-based key makes passing the same key CRN.
   The bump is calibration-consistent (the drift is rebuilt under the
@@ -20,7 +23,9 @@ import torch
 
 from . import pricing
 from .config import HWConfig
+from .models import hull_white as hw
 from .models.hull_white import MarketCurve
+from .ops import engine_linear
 from .ops.rng import Key
 
 
@@ -58,6 +63,39 @@ def fd_vega_recalibrated(cfg: HWConfig, key: Key, curve_key: Key, *,
                                       engine=engine, device=device).price)
     p_m, p_p = legs
     return FDVega((p_p - p_m) / (2.0 * eps), p_m, p_p, eps)
+
+
+def jvp_vega(cfg: HWConfig, key: Key, market: MarketCurve, *,
+             antithetic: bool = False, device):
+    """(raw price, vega) by forward-mode AD through the simulation on the
+    linear engine: the mean discounted payoff (no control variate) as a
+    function of sigma, differentiated through the calibration-consistent
+    drift tables, the shock scale, the deterministic part at S1, the bond
+    reconstruction and the payoff kink.  One +G leg per path (like the
+    pathwise dual process) unless ``antithetic``."""
+    dev = pricing.resolve_device(device)
+    n1 = cfg.n_steps_s1
+
+    def raw_price_mean(sigma):
+        tables = hw.step_tables(cfg, sigma, cfg.sigma, device=dev)
+        zw = engine_linear.zbc_weights(cfg, tables)
+
+        def leg(r, integral):
+            P = hw.p_bond(cfg, sigma, market, cfg.s1, cfg.s2, r)
+            return torch.exp(-integral) * torch.clamp(P - cfg.strike, min=0.0)
+
+        def block_sum(G):
+            st = engine_linear.antithetic_state(cfg, zw, G)
+            x = leg(st.r_p, st.i_p).sum()
+            if antithetic:
+                x = x + leg(st.r_m, st.i_m).sum()
+            return x[None]
+
+        total = pricing._sum_blocks(cfg, key, n1, dev, block_sum)[0]
+        return total / ((2.0 if antithetic else 1.0) * cfg.n_paths)
+
+    sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
+    return torch.func.jvp(raw_price_mean, (sigma,), (torch.ones_like(sigma),))
 
 
 def gamma_zbc(cfg: HWConfig, key: Key, market: MarketCurve, *,

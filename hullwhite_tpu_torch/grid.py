@@ -7,11 +7,12 @@ contract, so each extra option costs only payoff arithmetic.  Each
 maturity has its own control variate Y_j = disc * P(S1, S2_j) with
 E[Y_j] = P(0, S2_j), and each cell its own optimal beta*_ij.
 
-Both engine names run the exact tier's surface kernel
+Both fused engine names run the exact tier's surface kernel
 (``kernels.fused.grid_exact``), as the JAX package sends every ``pallas*``
-engine to its fused surface kernel.  The vega surface (``vega_zbc_grid``)
-is not ported: it needs the XLA exact engine with threefry block normals
-and forward-mode AD.
+engine to its fused surface kernel; the XLA engines sum ``_grid_moments``
+over their block normals.  The vega surface (``vega_zbc_grid``) is the
+forward-mode derivative (``torch.func.jvp``) of the raw surface on an XLA
+engine, "exact" whatever the price engine, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def _grid_moments(cfg: HWConfig, sigma, market: MarketCurve,
         "sxy": s(x1 * y1[:, None, :]) + s(x2 * y2[:, None, :]),
         "sy": s(y1) + s(y2),
         "syy": s(y1 * y1) + s(y2 * y2),
-        "n": torch.tensor(2.0 * state.r_p.shape[0], dtype=torch.float32,
-                          device=x1.device),
+        "n": torch.full((), 2.0 * state.r_p.shape[0], dtype=torch.float32,
+                        device=x1.device),
     }
 
 
@@ -95,6 +96,21 @@ def surface(m: dict, Ks: torch.Tensor, S2s: torch.Tensor) -> ZBCGrid:
                    std_error_raw=torch.sqrt(torch.clamp(var_x, min=0.0) / n))
 
 
+def _xla_grid_moments(cfg: HWConfig, engine: str, key: Key, sigma,
+                      market: MarketCurve, Ks: torch.Tensor,
+                      S2s: torch.Tensor) -> dict:
+    """``_grid_moments`` summed over the configuration's blocks of an XLA
+    engine's normals, in block order."""
+    dev = Ks.device
+    tables = hw.step_tables(cfg, sigma, cfg.sigma, device=dev)
+    n_cols, state_of = pricing._xla_state_setup(cfg, engine, tables,
+                                                dual=False)
+    return pricing._sum_blocks(
+        cfg, key, n_cols, dev,
+        lambda G: _grid_moments(cfg, tables.sigma, market, state_of(G), Ks,
+                                S2s))
+
+
 def price_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
                    strikes: Sequence[float], maturities: Sequence[float], *,
                    sigma=None, engine: str = "fused_exact", device) -> ZBCGrid:
@@ -106,11 +122,40 @@ def price_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
     dev = pricing.resolve_device(device)
     Ks_t = tuple(float(x) for x in strikes)
     S2_t = tuple(float(x) for x in maturities)
+    Ks = torch.tensor(Ks_t, dtype=torch.float32, device=dev)
+    S2s = torch.tensor(S2_t, dtype=torch.float32, device=dev)
+    if engine in pricing.XLA_ENGINES:
+        return surface(_xla_grid_moments(cfg, engine, key, sigma, market, Ks,
+                                         S2s), Ks, S2s)
     tables = hw.step_tables(cfg, sigma, cfg.sigma, device=dev)
     rows = fused.grid_exact(
         fused.kernel_seeds(key, "grid"),
         fused.grid_prepared(cfg, tables, market, sigma, Ks_t, S2_t),
         pricing._tiles(cfg, fused.OPTION_TILE_PATHS))
-    return surface(moments_from_rows(rows, len(Ks_t), len(S2_t)),
-                   torch.tensor(Ks_t, dtype=torch.float32, device=dev),
-                   torch.tensor(S2_t, dtype=torch.float32, device=dev))
+    return surface(moments_from_rows(rows, len(Ks_t), len(S2_t)), Ks, S2s)
+
+
+def vega_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
+                  strikes: Sequence[float], maturities: Sequence[float], *,
+                  sigma=None, engine: str = "exact", device):
+    """(price_raw, vega) surfaces over (strikes x maturities) by forward-mode
+    AD through the shared-path simulation: every cell's vega from the same
+    draws, one ``torch.func.jvp``.  AD cannot flow through a fused kernel's
+    generator, so the fused engine names run on "exact" (the same
+    estimator law), as in the JAX package."""
+    pricing._check_engine(engine)
+    if engine in pricing.FUSED_ENGINES:
+        engine = "exact"
+    dev = pricing.resolve_device(device)
+    Ks = torch.tensor([float(x) for x in strikes], dtype=torch.float32,
+                      device=dev)
+    S2s = torch.tensor([float(x) for x in maturities], dtype=torch.float32,
+                       device=dev)
+    sigma = torch.tensor(cfg.sigma if sigma is None else float(sigma),
+                         dtype=torch.float32, device=dev)
+
+    def raw_surface(s):
+        m = _xla_grid_moments(cfg, engine, key, s, market, Ks, S2s)
+        return m["sx"] / m["n"]
+
+    return torch.func.jvp(raw_surface, (sigma,), (torch.ones_like(sigma),))

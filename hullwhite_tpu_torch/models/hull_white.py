@@ -31,10 +31,13 @@ F32 = torch.float32
 
 
 def _f32(x, like: torch.Tensor | None = None) -> torch.Tensor:
-    """float32 tensor of ``x``; Python scalars go to ``like``'s device."""
+    """float32 tensor of ``x``; Python scalars go to ``like``'s device,
+    filled there (a copy from the host would wait for the device)."""
     if isinstance(x, torch.Tensor):
         return x if x.dtype == F32 else x.to(F32)
     device = like.device if like is not None else "cpu"
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=F32, device=device)
     return torch.tensor(x, dtype=F32, device=device)
 
 
@@ -146,7 +149,7 @@ def maturity_grid(cfg: HWConfig, device="cpu"):
     step = torch.arange(div, dtype=F32, device=device) / float(div)
     start, stop = 0.0, float(cfg.t_final)
     out = start * (1.0 - step) + stop * step
-    return torch.cat([out, torch.tensor([stop], dtype=F32, device=device)])
+    return torch.cat([out, torch.full((1,), stop, dtype=F32, device=device)])
 
 
 def interp_curve(data: torch.Tensor, T, cfg: HWConfig):
@@ -155,12 +158,14 @@ def interp_curve(data: torch.Tensor, T, cfg: HWConfig):
     xp = maturity_grid(cfg, data.device)
     x = _f32(T, data).to(data.device)
     n = xp.shape[0]
-    i = torch.clamp(torch.searchsorted(xp, x.reshape(-1), right=True), 1, n - 1)
-    i = i.reshape(x.shape)
+    # gather with a 1-D index: a 0-dim index tensor would be read on the
+    # host (a device sync per lookup)
+    flat = x.reshape(-1)
+    i = torch.clamp(torch.searchsorted(xp, flat, right=True), 1, n - 1)
     df = data[i] - data[i - 1]
     dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
-    f = data[i - 1] + (delta / dx) * df
+    delta = flat - xp[i - 1]
+    f = (data[i - 1] + (delta / dx) * df).reshape(x.shape)
     f = torch.where(x < xp[0], data[0], f)
     return torch.where(x > xp[-1], data[-1], f)
 

@@ -10,7 +10,9 @@ The exact-discretization recursion is affine in the Gaussian shocks:
 The sigma-independent shapes are built on the host in float64 (E^m in fp32
 through exp/log loses about m ulps) and rounded to float32 once.  The
 deterministic parts are the G = 0 recursion in float32, evaluated on the
-host step by step with the rounding of the JAX package's ``lax.scan``.
+host step by step with the rounding of the JAX package's ``lax.scan``;
+the option leg's carries the scan's derivative in sigma (``_OptionDet``),
+so forward-mode AD through ``zbc_weights`` sees the drift's sigma term.
 
 The block evaluators take the shock block G as an argument, so the
 full-step kernels' own shocks (rebuilt from ``kernels.fused.raw_block_plain``
@@ -105,17 +107,19 @@ def _fma32(a: float, b: float, c: float) -> float:
     return float(np.float32(a * b + c))
 
 
-def _det_recursion(cfg: HWConfig, tables: StepTables, n: int, dual: bool):
+def _det_recursion(cfg: HWConfig, exp_adt: torch.Tensor, dt: torch.Tensor,
+                   drift: torch.Tensor, drift_sigma: torch.Tensor, n: int,
+                   dual: bool):
     """float32 G = 0 recursion over the first ``n`` steps; returns the
     per-step rows (r, I, dr, dI) (tangent rows zero unless ``dual``).
 
     Both updates are fused multiply-adds, as XLA's CPU backend contracts
     them (r E + drift, and I + (0.5 (r + r')) dt): with them the values
     equal the JAX package's G = 0 scan bit for bit."""
-    E = float(_host32(tables.exp_adt))
-    dt = float(_host32(tables.dt))
-    drift = _host32(tables.drift)[:n].tolist()
-    drift_s = _host32(tables.drift_sigma)[:n].tolist()
+    E = float(_host32(exp_adt))
+    dt = float(_host32(dt))
+    drift = _host32(drift)[:n].tolist()
+    drift_s = _host32(drift_sigma)[:n].tolist()
     f32 = lambda x: float(np.float32(x))  # noqa: E731
     r, i_r = f32(cfg.r0), 0.0
     dr, di_r = 0.0, 0.0
@@ -132,10 +136,52 @@ def _det_recursion(cfg: HWConfig, tables: StepTables, n: int, dual: bool):
     return out
 
 
+class _OptionDet(torch.autograd.Function):
+    """[r, I, dr/dsigma, dI/dsigma] of the G = 0 path at S1 (n1 steps): the
+    host recursion's values (``_det_recursion``), with the derivative of
+    the scan they stand for.  The recursion is affine in the drifts, with
+    the shock shapes as weights (a drift enters each step as a unit shock
+    does), so the tangent of (r, I) is (u . d drift, w . d drift) and that
+    of the dual rows (u . d drift_sigma, w . d drift_sigma).  Under a sigma
+    bump d drift = drift_sigma d sigma: the tangent of det[0:2] is
+    det[2:4], what the JAX package's jvp through its scan carries.  A
+    tangent in exp_adt or dt (a bump of a or of the step) raises."""
+
+    @staticmethod
+    def forward(cfg, exp_adt, dt, drift, drift_sigma, u, w):
+        n = u.shape[0]
+        det = _det_recursion(cfg, exp_adt, dt, drift, drift_sigma, n,
+                             dual=True)[:, -1]
+        return torch.as_tensor(det.copy(), device=drift.device)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, w = inputs[5], inputs[6]
+        ctx.save_for_forward(u, w)
+
+    @staticmethod
+    def jvp(ctx, _cfg, d_e, d_dt, d_drift, d_drift_sigma, _du, _dw):
+        for name, d in (("exp_adt", d_e), ("dt", d_dt)):
+            if d is not None and bool(torch.any(d != 0)):
+                raise NotImplementedError(
+                    f"the deterministic part at S1 carries the derivative "
+                    f"through the drifts only, not through {name}")
+        u, w = ctx.saved_tensors
+        n = u.shape[0]
+        rows = []
+        for d in (d_drift, d_drift_sigma):
+            if d is None:
+                rows += [u.new_zeros(()), u.new_zeros(())]
+            else:
+                rows += [(d[:n] * u).sum(), (d[:n] * w).sum()]
+        return torch.stack(rows)
+
+
 def det_trajectory(cfg: HWConfig, tables: StepTables):
     """Deterministic (r_n, I_n) for every step n (G = 0), on the tables'
     device."""
-    out = _det_recursion(cfg, tables, cfg.n_steps, dual=False)
+    out = _det_recursion(cfg, tables.exp_adt, tables.dt, tables.drift,
+                         tables.drift_sigma, cfg.n_steps, dual=False)
     dev = tables.drift.device
     return (torch.as_tensor(out[0], device=dev),
             torch.as_tensor(out[1], device=dev))
@@ -157,14 +203,14 @@ def curve_weights(cfg: HWConfig, tables: StepTables) -> CurveWeights:
 
 def zbc_weights(cfg: HWConfig, tables: StepTables) -> ZBCWeights:
     """Functionals for the option leg: the shock columns of r(S1), I(S1)
-    and the deterministic [r, I, dr/dsigma, dI/dsigma] at S1."""
-    n1 = cfg.n_steps_s1
+    and the deterministic [r, I, dr/dsigma, dI/dsigma] at S1 (``det``
+    carries its derivative in sigma: ``_OptionDet``)."""
     dev = tables.drift.device
-    u_shape, w_shape = _shock_shapes(cfg, n1)
-    U = tables.sig_st * torch.as_tensor(np.stack([u_shape, w_shape], 1),
-                                        device=dev)
-    det = _det_recursion(cfg, tables, n1, dual=True)[:, -1]
-    return ZBCWeights(U=U, det=torch.as_tensor(det.copy(), device=dev),
+    u, w = (torch.as_tensor(a, device=dev)
+            for a in _shock_shapes(cfg, cfg.n_steps_s1))
+    det = _OptionDet.apply(cfg, tables.exp_adt, tables.dt, tables.drift,
+                           tables.drift_sigma, u, w)
+    return ZBCWeights(U=tables.sig_st * torch.stack([u, w], 1), det=det,
                       sigma=tables.sigma, sig_st=tables.sig_st)
 
 

@@ -40,8 +40,8 @@ def zbc_moments(cfg: HWConfig, sigma, market: MarketCurve, state: PathState):
         (x1 * x1).sum() + (x2 * x2).sum(),
         (y1 * y1).sum() + (y2 * y2).sum(),
         (x1 * y1).sum() + (x2 * y2).sum(),
-        torch.tensor(2.0 * state.r_p.shape[0], dtype=torch.float32,
-                     device=x1.device),
+        torch.full((), 2.0 * state.r_p.shape[0], dtype=torch.float32,
+                   device=x1.device),
     ])
 
 
@@ -98,8 +98,8 @@ def delta_sum(cfg: HWConfig, sigma, market: MarketCurve, state: PathState,
 
     total = leg(state.r_p, state.i_p) + leg(state.r_m, state.i_m)
     return torch.stack([
-        total, torch.tensor(2.0 * state.r_p.shape[0], dtype=torch.float32,
-                            device=total.device)])
+        total, torch.full((), 2.0 * state.r_p.shape[0], dtype=torch.float32,
+                          device=total.device)])
 
 
 def vega_sum(cfg: HWConfig, sigma, market: MarketCurve, state: DualState):
@@ -113,6 +113,6 @@ def vega_sum(cfg: HWConfig, sigma, market: MarketCurve, state: DualState):
     term2 = state.di_r * disc * torch.clamp(P - cfg.strike, min=0.0)
     return torch.stack([
         (term1 - term2).sum(),
-        torch.tensor(1.0 * state.r.shape[0], dtype=torch.float32,
-                     device=P.device),
+        torch.full((), 1.0 * state.r.shape[0], dtype=torch.float32,
+                   device=P.device),
     ])

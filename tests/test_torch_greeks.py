@@ -163,7 +163,7 @@ def test_full_step_delta_raises(markets):
     with pytest.raises(ValueError, match="fused_exact"):
         greeks.gamma_zbc(TCFG, Key(1), tm, engine="fused", device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        pricing.pathwise_delta(TCFG, Key(1), tm, engine="exact",
+        pricing.pathwise_delta(TCFG, Key(1), tm, engine="pallas_exact",
                                device="cpu")
 
 

@@ -3,9 +3,9 @@ kernel's plain version) vs the JAX package's ``_grid_exact_kernel`` run in
 interpret mode, fed the same operands; plus the deterministic surface
 gate, the single-option cell, mirrors of tests/test_grid.py and the CLI.
 
-Not mirrored: ``test_grid_sharded`` waits for the port of
-``parallel/mesh.py``; the two vega-surface tests wait for
-``vega_zbc_grid``, which needs the XLA exact engine with forward-mode AD.
+Not mirrored: ``test_grid_sharded`` waits for multi-GPU scale-out (the
+port runs on one GPU); the two vega-surface tests are mirrored in
+``test_torch_xla_pricing.py``.
 """
 
 import inspect

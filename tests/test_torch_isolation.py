@@ -22,6 +22,7 @@ def test_port_imports_no_jax():
             "import hullwhite_tpu_torch, hullwhite_tpu_torch.pricing, "
             "hullwhite_tpu_torch.cli, hullwhite_tpu_torch.greeks, "
             "hullwhite_tpu_torch.grid, hullwhite_tpu_torch.benchmarks, "
+            "hullwhite_tpu_torch.ops.engine_scan, "
             "hullwhite_tpu_torch.kernels.roofline, "
             "hullwhite_tpu_torch.kernels.sass, "
             "hullwhite_tpu_torch.convert, hullwhite_tpu_torch.kernels.build, "
@@ -65,6 +66,8 @@ def test_step_profile_raises_without_a_card(no_cuda, tmp_path):
 
 
 def test_unported_engines_raise():
-    for engine in ("linear", "scan", "exact", "pallas", "pallas_exact"):
+    """The JAX package's Pallas engine names are the port's fused_exact and
+    fused: they (and unknown names) raise."""
+    for engine in ("pallas", "pallas_exact", "mxu"):
         with pytest.raises(ValueError, match="not ported"):
             pricing.bootstrap_curve(CFG, Key(1), engine=engine, device="cpu")
