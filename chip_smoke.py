@@ -62,7 +62,27 @@ Phases (any failure raises and the script exits non-zero):
    benchmark --reps 1`` (the engine table) with its price-consistency
    PASS; ZBC and vega reruns bitwise on linear and exact; each engine's
    time per Q1, Q2b and Q3 call, the generator's share of it and the
-   phase's peak device memory, beside the card's name and power limit.
+   phase's peak device memory, beside the card's name and power limit;
+6. RQMC and the European coupon-bond options / swaptions (plain PyTorch,
+   no hand-written kernel on their calls) at full width: ``cli q1``, ``cli
+   q2 --qmc 65536`` and ``cli q3 --qmc 65536`` (2^16 points x 8 shifts;
+   the MC parts on the fused_exact kernels): the RQMC ZBC within 5 SE +
+   5e-5 and the RQMC vega within 5 SE + 1e-3 of the fp64 oracles on the
+   q1 curve, the RQMC SE at least 10x below the MC SE q2 prints; on the
+   fp64 oracle curve, as tests/test_instruments.py prices them, ``cli
+   swaption --tenor 4`` receiver and payer (MC on ``exact`` at 2^20
+   pairs): MC within 5 SE + 2e-4 and RQMC within 6 SE + 5e-5 (SE < 5e-5)
+   of Jamshidian, receiver - payer within 5e-4 of the forward swap value,
+   the MC bitwise on a rerun; ``vega_swaption`` within 3% + 5e-4 of a CRN
+   central difference; ``bootstrap_curve_qmc`` (101 maturities, 2^16 x 8,
+   n_qmc 32) within 5 SE + 3e-5 of the fp64 oracle at every maturity; the
+   Sobol points on the card bitwise the CPU's, the RQMC ZBC and swaption
+   price within 2e-7 of the CPU's, reruns bitwise; no kernel launched by
+   the swaption runs and the checks; then, per call at 2^16 and 2^20
+   points, the median and range of five interleaved wall times, the host
+   ms until the call returns, the device-busy ms and the device
+   operations, and the phase's peak device memory, beside the card's
+   name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -1055,6 +1075,311 @@ def phase5(dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: RQMC and the European coupon-bond options / swaptions, plain
+# PyTorch on the card (no hand-written kernel on these calls)
+# ---------------------------------------------------------------------------
+
+# bench.py's RQMC setting: 2^16 Sobol points x 8 shifts
+QMC_POINTS = 1 << 16
+QMC_SHIFTS = 8
+# the card against the CPU on one key, absolute: float32 noise (the card's
+# log and exp against the CPU's, the order of the float32 sums)
+QMC_CARD_CPU_TOL = 2e-7
+
+
+def _cli(argv, tag):
+    """``cli.main(argv)`` with its output captured and echoed under
+    ``tag``; (rc, text, seconds)."""
+    import contextlib
+    import io
+
+    from hullwhite_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[{tag}] | {line}")
+    print(f"[{tag}] cli {' '.join(argv)}: rc {rc}, {wall:.1f} s")
+    check(rc == 0, f"cli {argv[0]} failed")
+    return text
+
+
+def phase6_cli(cfg, dev):
+    """``cli q1``, ``cli q2 --qmc``, ``cli q3 --qmc`` (the MC parts on the
+    default fused_exact kernels), then, on the fp64 oracle curve written
+    to ``data_torch/market.npz``, ``cli swaption --tenor 4`` [--payer], at
+    full width in a fresh directory; returns the oracle market, the q1
+    curve, the q2 RQMC line's numbers, the q3 results, the swaption
+    results and the kernels' launch counts of the two swaption runs."""
+    import re
+
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    argv = ["--device", str(dev), "--reps", "1"]
+    qmc = ["--qmc", str(QMC_POINTS)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _cli(["q1", *argv], "phase 6")
+            text = _cli(["q2", *qmc, *argv], "phase 6")
+            _cli(["q3", *qmc, *argv], "phase 6")
+            q1 = json.load(open(os.path.join("data_torch",
+                                             "q1_results.json")))
+            # the swaptions price on the fp64 oracle curve, as
+            # tests/test_instruments.py does: Jamshidian is exact for the
+            # model only on a curve the model reprices
+            market = analytic_market(cfg, dev)
+            hwio.save_market(cfg, market)
+            fused.reset_launch_counts()
+            swaption = {}
+            for payer in (False, True):
+                _cli(["swaption", "--tenor", "4", *argv]
+                     + (["--payer"] if payer else []), "phase 6")
+                swaption[payer] = json.load(open(os.path.join(
+                    "data_torch", "swaption_results.json")))["results"]
+            counts = fused.launch_counts()
+            q3 = json.load(open(os.path.join("data_torch",
+                                             "q3_results.json")))
+        finally:
+            os.chdir(cwd)
+    num = r"([-+0-9.e]+)"
+    m_price = re.search(rf"price = {num} \+/- {num} \(SE\)", text)
+    m_se = re.search(rf"SE vs per-leg-iid MC at 2\^\d+ pairs: {num} vs "
+                     rf"{num}", text)
+    check(m_price is not None and m_se is not None, "cli q2 --qmc printed "
+          "no RQMC price line")
+    q2 = {"price": float(m_price.group(1)), "se": float(m_price.group(2)),
+          "mc_se": float(m_se.group(2))}
+    return market, q1["P"], q2, q3["results"], swaption, counts
+
+
+def phase6_gates(cfg, dev, market, P_q1, q2, q3, swaption):
+    """The slice's results at full width: the RQMC ZBC and vega against the
+    fp64 oracles on the q1 curve, the swaptions (on the oracle curve)
+    against Jamshidian, the swaption MC on a rerun."""
+    import numpy as np
+    import torch
+
+    from hullwhite_tpu_torch import Key, greeks, instruments
+    from hullwhite_tpu_torch.models import oracles
+    from hullwhite_tpu_torch.ops import qmc
+
+    Ts = np.linspace(0.0, cfg.t_final, cfg.n_mat)
+    P = np.asarray(P_q1, np.float64)
+    p1, p2 = float(np.interp(cfg.s1, Ts, P)), float(np.interp(cfg.s2, Ts, P))
+    zbc, vega = oracles.zbc_price(cfg, p1, p2), oracles.zbc_vega(cfg, p1, p2)
+    print(f"[phase 6] cli q2 --qmc {QMC_POINTS}: RQMC ZBC {q2['price']:.8f} "
+          f"+/- {q2['se']:.2e}, fp64 oracle on the q1 curve {zbc:.8f}, |d| = "
+          f"{abs(q2['price'] - zbc):.2e} (tol 5 SE + 5e-5); MC SE "
+          f"{q2['mc_se']:.2e} = {q2['mc_se'] / q2['se']:.0f} x the RQMC SE "
+          f"(tol >= 10)")
+    check(abs(q2["price"] - zbc) <= 5 * q2["se"] + 5e-5, "RQMC ZBC")
+    check(q2["mc_se"] >= 10 * q2["se"], "RQMC SE not 10x below the MC SE")
+    v, v_se = q3["sensitivity_qmc"], q3["sensitivity_qmc_se"]
+    print(f"[phase 6] cli q3 --qmc {QMC_POINTS}: RQMC vega {v:.6f} +/- "
+          f"{v_se:.2e}, fp64 oracle {vega:.6f}, |d| = {abs(v - vega):.2e} "
+          f"(tol 5 SE + 1e-3)")
+    check(abs(v - vega) <= 5 * v_se + 1e-3, "RQMC vega")
+
+    key = Key(cfg.seed).fold_in(4242)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 4.0)
+    mc = {}
+    for payer, res in swaption.items():
+        kind = "payer" if payer else "receiver"
+        est = instruments.price_swaption(cfg, key, market, rate=0.025,
+                                         tenor=4.0, payer=payer, device=dev)
+        mc[payer] = float(est.price)
+        se = float(torch.sqrt(est.var_x / est.n))
+        jam = res["jamshidian"]
+        print(f"[phase 6] swaption {kind}: MC {res['mc_price']:.8f} (SE "
+              f"{se:.2e}; rerun {mc[payer]!r} == {res['mc_price']!r}), "
+              f"RQMC {res['qmc_price']:.8f} +/- {res['qmc_se']:.2e}, "
+              f"Jamshidian {jam:.8f}: |MC - J| = "
+              f"{abs(res['mc_price'] - jam):.2e} (tol 5 SE + 2e-4), "
+              f"|RQMC - J| = {abs(res['qmc_price'] - jam):.2e} (tol 6 SE + "
+              f"5e-5, SE < 5e-5)")
+        check(mc[payer] == res["mc_price"], f"swaption {kind}: MC reruns "
+              "differ")
+        check(abs(res["mc_price"] - jam) <= 5 * se + 2e-4,
+              f"swaption {kind}: MC vs Jamshidian")
+        check(res["qmc_se"] < 5e-5 and abs(res["qmc_price"] - jam)
+              <= 6 * res["qmc_se"] + 5e-5, f"swaption {kind}: RQMC vs "
+              "Jamshidian")
+    fwd = sum(c * np.interp(t, Ts, P) for c, t in
+              zip(sched.coupons, sched.times)) - np.interp(cfg.s1, Ts, P)
+    par = swaption[False]["mc_price"] - swaption[True]["mc_price"]
+    print(f"[phase 6] swaption receiver - payer = {par:.8f}, forward swap "
+          f"value {fwd:.8f}, |d| = {abs(par - fwd):.2e} (tol 5e-4)")
+    check(abs(par - fwd) <= 5e-4, "swaption payer/receiver parity")
+
+    _, v_ad = greeks.vega_swaption(cfg, key, market, sched, 1.0, payer=True,
+                                   device=dev)
+    eps = 1e-3
+    legs = [float(instruments.price_coupon_bond_option(
+        cfg, key, market, sched, 1.0, payer=True, sigma=cfg.sigma + s * eps,
+        device=dev).price) for s in (-1.0, 1.0)]
+    fd = (legs[1] - legs[0]) / (2 * eps)
+    print(f"[phase 6] vega_swaption (payer) = {float(v_ad):.6f}, CRN FD "
+          f"(eps {eps}) = {fd:.6f}, |d| = {abs(float(v_ad) - fd):.2e} (tol "
+          f"3% + 5e-4)")
+    check(abs(float(v_ad) - fd) <= 0.03 * abs(fd) + 5e-4, "vega_swaption")
+
+    curve = qmc.bootstrap_curve_qmc(cfg, Key(2026), n_points=QMC_POINTS,
+                                    n_shifts=QMC_SHIFTS, n_qmc=32,
+                                    device=dev)
+    Pq = curve.market.P.cpu().numpy().astype(np.float64)
+    se = curve.std_error.cpu().numpy().astype(np.float64)
+    true = np.array([oracles.bond_price(cfg, T) for T in Ts])
+    worst = float(np.max(np.abs(Pq - true) - (5 * se + 3e-5)))
+    print(f"[phase 6] bootstrap_curve_qmc ({cfg.n_mat} maturities, "
+          f"{QMC_POINTS} x {QMC_SHIFTS}, n_qmc 32): P(0,10) = {Pq[-1]:.6f} "
+          f"+/- {se[-1]:.2e}, worst |P - oracle| - (5 SE + 3e-5) = "
+          f"{worst:.2e} (tol 0)")
+    check(Pq[0] == 1.0 and worst <= 0 and np.all(np.isfinite(Pq)),
+          "bootstrap_curve_qmc")
+
+
+def phase6_card_vs_cpu(cfg, dev, market):
+    """The Sobol points on the card bitwise the CPU's; the RQMC ZBC and the
+    swaption's RQMC price on one key within QMC_CARD_CPU_TOL of the CPU's;
+    reruns bitwise."""
+    import torch
+
+    from hullwhite_tpu_torch import Key, instruments
+    from hullwhite_tpu_torch.ops import qmc, rng, sobol
+
+    shift = rng.random_bits(Key(5), (32,), device=dev)
+    pts = {"sobol2": (qmc.sobol2(QMC_POINTS, shift[:2]),
+                      qmc.sobol2(QMC_POINTS, shift[:2].cpu())),
+           "sobol": (sobol.sobol(QMC_POINTS, 32, shift),
+                     sobol.sobol(QMC_POINTS, 32, shift.cpu()))}
+    same = {k: bool(torch.equal(a.cpu(), b)) for k, (a, b) in pts.items()}
+    print(f"[phase 6] Sobol points at {QMC_POINTS} (sobol2, and sobol in 32 "
+          f"dims): the card's bitwise the CPU's: {same}")
+    check(all(same.values()), "Sobol points on the card differ from the CPU")
+
+    key = Key(cfg.seed).fold_in(54321)
+    cpu_market = market.to("cpu")
+    a = qmc.price_zbc_qmc(cfg, key, market, n_points=QMC_POINTS, device=dev)
+    b = qmc.price_zbc_qmc(cfg, key, market, n_points=QMC_POINTS, device=dev)
+    c = qmc.price_zbc_qmc(cfg, key, cpu_market, n_points=QMC_POINTS,
+                          device="cpu")
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 4.0)
+    skey = Key(cfg.seed).fold_in(4242)
+    sw_dev, sw_cpu = (instruments.price_coupon_bond_option_qmc(
+        cfg, skey, m, sched, 1.0, payer=True, device=d)[0]
+        for m, d in ((market, dev), (cpu_market, "cpu")))
+    d_zbc = abs(float(a.value) - float(c.value))
+    d_sw = abs(float(sw_dev) - float(sw_cpu))
+    print(f"[phase 6] price_zbc_qmc card {float(a.value)!r} vs CPU "
+          f"{float(c.value)!r}: |d| = {d_zbc:.2e}; swaption RQMC card "
+          f"{float(sw_dev)!r} vs CPU {float(sw_cpu)!r}: |d| = {d_sw:.2e} "
+          f"(tol {QMC_CARD_CPU_TOL}); rerun {float(b.value)!r}")
+    check(d_zbc <= QMC_CARD_CPU_TOL and d_sw <= QMC_CARD_CPU_TOL,
+          "RQMC on the card vs the CPU")
+    check(float(a.value) == float(b.value)
+          and torch.equal(a.per_shift, b.per_shift), "RQMC reruns differ")
+
+
+def phase6_times(cfg, dev, market, smi, reps=5):
+    """Per call of the slice, the RQMC ones at 2^16 and 2^20 points, the MC
+    ones at 2^20 pairs, after one warm call of each: the synchronised wall
+    ms of ``reps`` rounds (median, least and most), each round running
+    every call with the two sizes of a call back to back; the host ms
+    until the call returns, before the closing synchronise (median: the
+    time the host takes to enqueue the call's work, with any wait inside
+    the call); the device-busy ms and the device operations per call of
+    one ``torch.profiler`` window."""
+    import statistics
+
+    import torch
+
+    from hullwhite_tpu_torch import Key, greeks, instruments
+    from hullwhite_tpu_torch.ops import qmc
+    from hullwhite_tpu_torch.utils.step_profile import _profile
+
+    key = Key(cfg.seed).fold_in(4242)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 4.0)
+    qmc_calls = {
+        "price_zbc_qmc": lambda n: qmc.price_zbc_qmc(
+            cfg, key, market, n_points=n, device=dev).value,
+        "vega_zbc_qmc": lambda n: qmc.vega_zbc_qmc(
+            cfg, key, market, n_points=n, device=dev).value,
+        "swaption_qmc": lambda n: instruments.price_coupon_bond_option_qmc(
+            cfg, key, market, sched, 1.0, payer=True, n_points=n,
+            device=dev)[0],
+        "bootstrap_curve_qmc": lambda n: qmc.bootstrap_curve_qmc(
+            cfg, key, n_points=n, device=dev).market.P}
+    calls = {f"{name}@{n}": (lambda fn=fn, n=n: fn(n))
+             for name, fn in qmc_calls.items() for n in (QMC_POINTS, 1 << 20)}
+    calls[f"swaption_mc@{cfg.n_paths}"] = lambda: instruments.price_swaption(
+        cfg, key, market, rate=0.025, tenor=4.0, payer=True,
+        device=dev).price
+    calls[f"vega_swaption@{cfg.n_paths}"] = lambda: greeks.vega_swaption(
+        cfg, key, market, sched, 1.0, payer=True, device=dev)[1]
+    for fn in calls.values():
+        fn()
+    walls = {name: [] for name in calls}
+    hosts = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            hosts[name].append((t1 - t0) * 1e3)
+    times = {}
+    for name, fn in calls.items():
+        prof = _profile(fn, 1)
+        ops = sum(e["count_per_call"] for e in prof["device_events"].values())
+        t = times[name] = {
+            "wall_ms": statistics.median(walls[name]),
+            "wall_ms_min": min(walls[name]), "wall_ms_max": max(walls[name]),
+            "host_ms": statistics.median(hosts[name]),
+            "device_ms": prof["device_busy_us_per_call"] / 1e3,
+            "device_ops": ops}
+        print(f"[phase 6] {name}: wall median {t['wall_ms']:.3f} ms "
+              f"[{t['wall_ms_min']:.3f}, {t['wall_ms_max']:.3f}] over "
+              f"{reps}, host {t['host_ms']:.3f} ms, device busy "
+              f"{t['device_ms']:.3f} ms, {ops:.0f} device ops "
+              f"({t['host_ms'] * 1e3 / max(ops, 1):.1f} us of host each) "
+              f"per call [{smi}]")
+    return times
+
+
+def phase6(dev, smi):
+    """RQMC and the swaptions (module docstring, phase 6); returns the
+    kernels' launch counts of the RQMC and swaption calls."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    market, P_q1, q2, q3, swaption, counts = phase6_cli(cfg, dev)
+    fused.reset_launch_counts()
+    phase6_gates(cfg, dev, market, P_q1, q2, q3, swaption)
+    phase6_card_vs_cpu(cfg, dev, market)
+    for name, n in fused.launch_counts().items():
+        counts[name] += n
+    times = phase6_times(cfg, dev, market, smi)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 6] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 6] peak device memory of the RQMC/swaption phase: "
+          f"{peak:.2f} GiB [{smi}]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1146,6 +1471,13 @@ def main() -> int:
               f"{engine} main-path run (cli all, cli grid): "
               f"{sum(c.values())} (the XLA tier is plain PyTorch)")
         check(not any(c.values()), f"the {engine} path launched a kernel")
+
+    qmc_counts = phase6(dev, smi)
+    print(f"[phase 6] launches of the hand-written kernels in the RQMC and "
+          f"swaption calls (cli swaption, the gates, card vs CPU): "
+          f"{sum(qmc_counts.values())} (plain PyTorch)")
+    check(not any(qmc_counts.values()), "an RQMC or swaption call launched "
+          "a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

@@ -1,12 +1,14 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-benchmark.
+swaption / benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
     python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
     python -m hullwhite_tpu_torch.cli all --engine linear # XLA engine tier
+    python -m hullwhite_tpu_torch.cli q2 --qmc 65536     # + RQMC price
     python -m hullwhite_tpu_torch.cli grid               # 5 x 5 surfaces
+    python -m hullwhite_tpu_torch.cli swaption --payer   # vs Jamshidian
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
     python -m hullwhite_tpu_torch.cli benchmark --ab precision
     python -m hullwhite_tpu_torch.cli benchmark --roofline  # GPU only
@@ -20,8 +22,12 @@ random value per path per time step), the hand-written kernels; or one of
 the JAX package's XLA engines in plain PyTorch on threefry block normals,
 ``linear`` (the shock product), ``scan`` (step by step) or ``exact``
 (Cholesky sampling).  With a fused engine ``--paths`` must be a multiple
-of 32768, the exact option kernels' tile.  Results go to ``data_torch/``;
-q2, q3 and grid read the market curve q1 wrote there.
+of 32768, the exact option kernels' tile.  ``--qmc NPTS`` adds the
+randomized-QMC price (q2) and vega (q3) on NPTS Sobol points x 8 shifts.
+``swaption`` prices a European swaption by MC on an XLA engine (default
+``exact``), by RQMC and by Jamshidian's decomposition.  Results go to
+``data_torch/``; q2, q3, grid and swaption read the market curve q1 wrote
+there.
 """
 
 from __future__ import annotations
@@ -32,10 +38,10 @@ import sys
 import numpy as np
 import torch
 
-from . import greeks, grid, pricing
+from . import greeks, grid, instruments, pricing
 from .config import HWConfig
 from .models import hull_white as hw
-from .ops import engine_scan
+from .ops import engine_scan, qmc
 from .ops.payoffs import cv_estimate
 from .ops.rng import Key, block_normals
 from .utils import io as hwio
@@ -183,6 +189,21 @@ def cmd_q2(args):
              f"ZBC option (CV): {float(est.price):.8f}",
              f"beta* = {float(est.beta):.6f}, "
              f"rho = {float(est.correlation):.4f}"]
+    if args.qmc:
+        res = qmc.price_zbc_qmc(cfg, key, market, n_points=args.qmc,
+                                device=dev)
+        value, se = float(res.value), float(res.std_error)
+        print(f"\n[Q2b] RQMC (scrambled Sobol, {res.n_points} pts x "
+              f"{res.n_shifts} shifts):")
+        print(f"price = {value:.8f} +/- {se:.2e} (SE)")
+        # per-leg iid SE; antithetic pairing improves plain MC by a
+        # further ~1.45x, which this comparison does not credit
+        mc_se = float(torch.sqrt(est.var_x / est.n))
+        print(f"SE vs per-leg-iid MC at 2^{cfg.n_paths.bit_length()-1} "
+              f"pairs: {se:.2e} vs {mc_se:.2e} "
+              f"({mc_se/max(se, 1e-12):.0f}x tighter; "
+              f"~{mc_se/1.45/max(se, 1e-12):.0f}x vs antithetic MC)")
+        lines.append(f"RQMC price: {value:.8f} +/- {se:.2e}")
     if args.validate:
         lines += _validate_zbc(cfg, key, market, dev, args.validate,
                                args.engine)
@@ -279,6 +300,13 @@ def cmd_q3(args):
                "sensitivity_ad_jvp": float(vega_ad),
                "abs_diff": abs(vega_pw - float(fd.vega)),
                "engine": args.engine}
+    if args.qmc:
+        res = qmc.vega_zbc_qmc(cfg, key, market, n_points=args.qmc,
+                               device=dev)
+        print(f"\n[RQMC vega] {res.n_points} pts x {res.n_shifts} shifts: "
+              f"{float(res.value):.6f} +/- {float(res.std_error):.2e} (SE)")
+        results["sensitivity_qmc"] = float(res.value)
+        results["sensitivity_qmc_se"] = float(res.std_error)
     lines = [f"Sens (MC): {vega_pw:.6f}", f"Sens (FD): {float(fd.vega):.6f}",
              f"Sens (FD recal): {float(fdr.vega):.6f}",
              f"Sens (AD jvp): {float(vega_ad):.6f}"]
@@ -356,6 +384,48 @@ def cmd_grid(args):
 
 
 # ---------------------------------------------------------------------------
+# swaption — European swaption: MC, RQMC and Jamshidian
+# ---------------------------------------------------------------------------
+
+def cmd_swaption(args):
+    """MC (CV-adjusted, on an XLA engine: ``exact`` unless ``--engine``
+    names another), RQMC and the exact Jamshidian price of a European
+    swaption with expiry S1 on the q1 market; the Bermudan flags of the
+    JAX package's command are not ported yet."""
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    if args.engine not in pricing.XLA_ENGINES:
+        raise SystemExit(f"swaption: the Monte Carlo runs on an XLA engine "
+                         f"{tuple(pricing.XLA_ENGINES)}, not "
+                         f"{args.engine!r}")
+    key = _key(cfg, args).fold_in(4242)
+    market = hwio.load_market(cfg, device=dev)
+    kind = "payer" if args.payer else "receiver"
+    print(f"--- European {kind} swaption: expiry {cfg.s1}y, "
+          f"tenor {args.tenor}y @ {args.rate*100:.2f}% [{args.engine} on "
+          f"{_device_name(dev)}] ---")
+    est = instruments.price_swaption(cfg, key, market, rate=args.rate,
+                                     tenor=args.tenor, freq=args.freq,
+                                     payer=args.payer, engine=args.engine,
+                                     device=dev)
+    sched = instruments.swap_fixed_leg(cfg, args.rate, args.tenor, args.freq)
+    jam = instruments.jamshidian_price(cfg, market, sched, payer=args.payer)
+    qp, qse = instruments.price_coupon_bond_option_qmc(
+        cfg, key, market, sched, 1.0, payer=args.payer, device=dev)
+    print(f"MC (CV-adjusted):   {float(est.price):.8f}  "
+          f"(beta {float(est.beta):.4f})")
+    print(f"RQMC:               {float(qp):.8f} +/- {float(qse):.2e} (SE)")
+    print(f"Jamshidian (exact): {jam:.8f}")
+    results = {"mc_price": float(est.price), "qmc_price": float(qp),
+               "qmc_se": float(qse), "jamshidian": jam,
+               "rate": args.rate, "tenor": args.tenor, "payer": args.payer,
+               "engine": args.engine}
+    hwio.write_json(hwio.DATA_DIR / "swaption_results.json",
+                    "Swaption pricing", cfg, results=results)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # benchmark — the engine table, --sweep, --ab, --roofline
 # ---------------------------------------------------------------------------
 
@@ -412,8 +482,17 @@ def main(argv=None):
         p = sub.add_parser(name, parents=[common])
         p.add_argument("--validate", type=int, default=0, metavar="N",
                        help="run N-run statistical validation")
+        p.add_argument("--qmc", type=int, default=0, metavar="NPTS",
+                       help="also price (q2) / take the vega (q3) by "
+                            "randomized QMC on NPTS points x 8 shifts")
         if name != "q2":
             p.add_argument("--eps", type=float, default=1e-3)
+    ps = sub.add_parser("swaption", parents=[common])
+    ps.set_defaults(engine="exact")
+    ps.add_argument("--rate", type=float, default=0.025)
+    ps.add_argument("--tenor", type=float, default=5.0)
+    ps.add_argument("--freq", type=float, default=1.0)
+    ps.add_argument("--payer", action="store_true")
     pb = sub.add_parser("benchmark", parents=[common])
     pb.add_argument("--roofline", action="store_true",
                     help="each tier's fractions of the fp32 peak and of "
@@ -443,6 +522,8 @@ def main(argv=None):
         return cmd_q3(args)
     if args.cmd == "grid":
         return cmd_grid(args)
+    if args.cmd == "swaption":
+        return cmd_swaption(args)
     rc = cmd_q1(args)
     rc |= cmd_q2(args)
     rc |= cmd_q3(args)

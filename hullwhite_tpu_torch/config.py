@@ -11,7 +11,8 @@ kernels' random stream is keyed on the global tile index derived from it;
 ``matmul_precision`` selects the Q1 sampling product: "highest" is true
 fp32, any other value one bf16 pass with fp32 accumulation.  The JAX
 fields ``dtype`` and ``pallas_interpret`` select XLA engines and Pallas
-interpret mode, which the port does not have.
+interpret mode, which the port does not have.  ``resolve_device`` is the
+one check of the ``device`` every entry point takes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -118,3 +121,15 @@ def tiny_config(**kw) -> HWConfig:
     base = dict(n_paths=1 << 12, n_steps=100, n_mat=11, path_block=1 << 10)
     base.update(kw)
     return HWConfig(**base)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` of ``device``; a CUDA device must exist (nothing
+    moves to the CPU when it does not)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           "torch.cuda.is_available() is False")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

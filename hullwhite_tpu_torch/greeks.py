@@ -13,6 +13,8 @@ AD, CRN, recalibrated and gamma parts of ``hullwhite_tpu.greeks``).
   degrades the estimate by injecting curve-level Monte Carlo noise.
 * ``gamma_zbc`` — central difference of the pathwise delta under r0 +/- eps
   with common random numbers.
+* ``vega_swaption`` — forward-mode AD of the CV-adjusted coupon-bond option
+  / swaption price (``instruments``) on an XLA engine.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from typing import NamedTuple
 
 import torch
 
-from . import pricing
+from . import instruments, pricing
 from .config import HWConfig
 from .models import hull_white as hw
 from .models.hull_white import MarketCurve
 from .ops import engine_linear
+from .ops.payoffs import cv_estimate
 from .ops.rng import Key
 
 
@@ -111,3 +114,23 @@ def gamma_zbc(cfg: HWConfig, key: Key, market: MarketCurve, *,
                                         key, market, engine=engine,
                                         device=device)
     return (d[1.0] - d[-1.0]) / (2.0 * eps)
+
+
+def vega_swaption(cfg: HWConfig, key: Key, market: MarketCurve, sched,
+                  strike: float = 1.0, *, payer: bool = False,
+                  engine: str = "exact", device):
+    """(price, vega) of a coupon-bond option / swaption by forward-mode AD
+    (``torch.func.jvp``) through the CV-adjusted pricer, with the
+    calibration-consistent sigma bump of the ZBC vega.  The sigma tangent
+    reaches the engine's shock scale and deterministic part, the bond
+    coefficients through ``exp32``'s polynomial, and the control
+    variate's beta."""
+    dev = pricing.resolve_device(device)
+
+    def price_of(sigma):
+        moments, ey = instruments._cbo_moments(cfg, key, market, sched, float(strike),
+                                   bool(payer), sigma, engine, dev)
+        return cv_estimate(moments, ey).price
+
+    sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
+    return torch.func.jvp(price_of, (sigma,), (torch.ones_like(sigma),))

@@ -52,6 +52,7 @@ import torch
 from ..config import HWConfig
 from ..models import hull_white as hw
 from ..ops import engine_exact, engine_linear
+from ..ops.accurate import _fma
 from ..ops.rng import Key, key_seed
 
 PAD = 128              # lane padding of the maturity axis
@@ -472,13 +473,11 @@ def _bits_float12(b: torch.Tensor) -> torch.Tensor:
 
 
 def _horner_step(p: torch.Tensor, y: torch.Tensor, k: float) -> torch.Tensor:
-    """p * y + k in float32, rounded once: the fused multiply-add that the
-    kernels (nvcc's FFMA) and the JAX package on the CPU (XLA) evaluate
-    the polynomials with.  The product of two float32 values is exact in
-    float64, so only the sum rounds before the cast (twice, which differs
-    from one rounding in a fraction ~2^-29 of the steps, by an ulp)."""
-    k32 = float(np.float32(k))  # the constant as float32, like the kernels'
-    return (p.double() * y.double() + k32).float()
+    """p * y + k in float32 as one fused multiply-add (``accurate._fma``):
+    the kernels (nvcc's FFMA) and the JAX package on the CPU (XLA)
+    evaluate the polynomials so; the constant is rounded to float32 first,
+    like the kernels'."""
+    return _fma(p, y, float(np.float32(k)))
 
 
 def box_muller_plain(s0: torch.Tensor, s1: int, idx: torch.Tensor, salt=0):

@@ -56,9 +56,10 @@ def _exp(x, like: torch.Tensor | None = None):
     return torch.exp(_f32(x, like))
 
 
-def b_func(t, T, a):
-    """B(t,T) = (1 - e^{-a(T-t)})/a."""
-    return (1.0 - _exp(-a * (T - t))) / a
+def b_func(t, T, a, exp=_exp):
+    """B(t,T) = (1 - e^{-a(T-t)})/a.  ``exp`` lets prepare-only callers
+    route through the accurate software exp (``ops.accurate.exp32``)."""
+    return (1.0 - exp(-a * (T - t))) / a
 
 
 class StepTables(NamedTuple):
@@ -170,16 +171,16 @@ def interp_curve(data: torch.Tensor, T, cfg: HWConfig):
     return torch.where(x > xp[-1], data[-1], f)
 
 
-def a_hw(cfg: HWConfig, sigma, market: MarketCurve, t, T):
-    """A(t,T) from market data."""
+def a_hw(cfg: HWConfig, sigma, market: MarketCurve, t, T, exp=_exp):
+    """A(t,T) from market data (``exp`` as in ``b_func``)."""
     a = cfg.a
     sigma = _f32(sigma, market.P)
-    B = b_func(t, T, a)
+    B = b_func(t, T, a, exp)
     P0T = interp_curve(market.P, T, cfg)
     P0t = interp_curve(market.P, t, cfg)
     f0t = interp_curve(market.f, t, cfg)
-    conv = (sigma * sigma / (4.0 * a)) * (1.0 - _exp(-2.0 * a * t)) * B * B
-    return (P0T / P0t) * torch.exp(B * f0t - conv)
+    conv = (sigma * sigma / (4.0 * a)) * (1.0 - exp(-2.0 * a * t)) * B * B
+    return (P0T / P0t) * exp(B * f0t - conv)
 
 
 def p_bond(cfg: HWConfig, sigma, market: MarketCurve, t, T, r):

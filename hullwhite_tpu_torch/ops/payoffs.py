@@ -30,19 +30,24 @@ def _leg_values(cfg: HWConfig, sigma, market: MarketCurve, r, integral):
     return payoff, disc * P - market.P[-1]
 
 
-def zbc_moments(cfg: HWConfig, sigma, market: MarketCurve, state: PathState):
-    """Five CV moments + count, summed over both legs of a block."""
-    x1, y1 = _leg_values(cfg, sigma, market, state.r_p, state.i_p)
-    x2, y2 = _leg_values(cfg, sigma, market, state.r_m, state.i_m)
+def leg_moments(x1, y1, x2, y2) -> torch.Tensor:
+    """Five CV moments + count of the payoffs X and centered controls Yc
+    of the two antithetic legs of a block."""
     return torch.stack([
         x1.sum() + x2.sum(),
         y1.sum() + y2.sum(),
         (x1 * x1).sum() + (x2 * x2).sum(),
         (y1 * y1).sum() + (y2 * y2).sum(),
         (x1 * y1).sum() + (x2 * y2).sum(),
-        torch.full((), 2.0 * state.r_p.shape[0], dtype=torch.float32,
+        torch.full((), 2.0 * x1.shape[0], dtype=torch.float32,
                    device=x1.device),
     ])
+
+
+def zbc_moments(cfg: HWConfig, sigma, market: MarketCurve, state: PathState):
+    """Five CV moments + count, summed over both legs of a block."""
+    return leg_moments(*_leg_values(cfg, sigma, market, state.r_p, state.i_p),
+                       *_leg_values(cfg, sigma, market, state.r_m, state.i_m))
 
 
 class CVEstimate(NamedTuple):

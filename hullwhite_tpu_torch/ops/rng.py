@@ -15,6 +15,8 @@ normals, so the same key gives the same normals in both packages.
 ``jax.random.normal(fold_in(key, b), shape, float32)``: threefry2x32 over
 int64 tensors on the device gives ``jax.random.bits`` bit for bit, and
 XLA's float32 ``erf_inv`` turns the bits into normals within a few ulps.
+``normal(key, shape)`` is the same draw without the block fold, and
+``Key.split(n)`` is ``jax.random.split``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import math
 
 import numpy as np
 import torch
+
+from .accurate import _fma
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -62,6 +66,11 @@ class Key:
     def fold_in(self, data: int) -> "Key":
         """``jax.random.fold_in(key, data)``."""
         return Key(words=threefry2x32(*self.words, 0, int(data) & _M32))
+
+    def split(self, n: int = 2) -> list["Key"]:
+        """``jax.random.split(key, n)``: under JAX's partitionable threefry
+        key i of the split is ``fold_in(key, i)``."""
+        return [self.fold_in(i) for i in range(n)]
 
     def __eq__(self, other):
         return isinstance(other, Key) and self.words == other.words
@@ -133,13 +142,6 @@ def random_bits(key: Key, shape, *, device) -> torch.Tensor:
     return b1.bitwise_xor_(b2).reshape(shape)
 
 
-def _fma_f32(p: torch.Tensor, y64: torch.Tensor, k: torch.Tensor):
-    """p * y + k rounded once to float32 (the product of two float32 values
-    is exact in float64): the Horner step as XLA evaluates it, contracted
-    into a fused multiply-add."""
-    return (p.double() * y64 + k).float()
-
-
 def erf_inv32(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function with XLA's algorithm: w =
     -log1p(-x^2), the branch polynomial in w - 2.5 (w < 5) or sqrt(w) - 3,
@@ -158,7 +160,7 @@ def erf_inv32(x: torch.Tensor) -> torch.Tensor:
 
     p = coeff(0).float()
     for i in range(1, len(_ERFINV_LT5)):
-        p = _fma_f32(p, y, coeff(i))
+        p = _fma(p, y, coeff(i))
     out = p.mul_(x)
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 
@@ -174,11 +176,16 @@ def normals_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return erf_inv32(u).mul_(_SQRT2_F32)
 
 
+def normal(key: Key, shape, *, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: the same bits, the normals
+    within a few ulps (``erf_inv32``)."""
+    return normals_from_bits(random_bits(key, tuple(shape), device=device))
+
+
 def block_normals(key: Key, block_index: int, shape, *,
                   device) -> torch.Tensor:
     """Gaussian shocks for one path block, ``jax.random.normal(
     fold_in(key, block_index), shape, float32)``: the same bits, the
     normals within an ulp or two (``erf_inv32``).  Deterministic in
     (key, block_index), so every block is drawn from its global index."""
-    bits = random_bits(key.fold_in(block_index), tuple(shape), device=device)
-    return normals_from_bits(bits)
+    return normal(key.fold_in(block_index), shape, device=device)

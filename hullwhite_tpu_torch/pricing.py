@@ -39,7 +39,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .config import HWConfig
+from .config import HWConfig, resolve_device
 from .kernels import fused
 from .models import hull_white as hw
 from .models.hull_white import MarketCurve
@@ -51,18 +51,6 @@ FUSED_ENGINES = ("fused_exact", "fused")
 XLA_ENGINES = {"linear": engine_linear, "scan": engine_scan,
                "exact": engine_exact}
 ENGINES = FUSED_ENGINES + tuple(XLA_ENGINES)
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` of ``device``; a CUDA device must exist (nothing
-    moves to the CPU when it does not)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but "
-                           "torch.cuda.is_available() is False")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def _check_engine(engine: str):

@@ -26,7 +26,11 @@ def test_port_imports_no_jax():
             "hullwhite_tpu_torch.kernels.roofline, "
             "hullwhite_tpu_torch.kernels.sass, "
             "hullwhite_tpu_torch.convert, hullwhite_tpu_torch.kernels.build, "
-            "hullwhite_tpu_torch.utils.step_profile\n"
+            "hullwhite_tpu_torch.utils.step_profile, "
+            "hullwhite_tpu_torch.ops.sobol, hullwhite_tpu_torch.ops.qmc, "
+            "hullwhite_tpu_torch.ops.accurate, "
+            "hullwhite_tpu_torch.ops.interp, "
+            "hullwhite_tpu_torch.instruments\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
             "or m == 'hullwhite_tpu')\n"
