@@ -82,7 +82,31 @@ Phases (any failure raises and the script exits non-zero):
    points, the median and range of five interleaved wall times, the host
    ms until the call returns, the device-busy ms and the device
    operations, and the phase's peak device memory, beside the card's
-   name and power limit.
+   name and power limit;
+7. the Bermudan swaption and the multi-date instruments (plain PyTorch on
+   the card, no hand-written kernel; the DP oracle in host float64 and
+   the C++ sweep built at first use) at full width on a ``cli q1 --engine
+   exact`` curve: ``cli swaption --bermudan --delta`` receiver (with
+   ``--bermudan-sweep``) and payer, tenor 5, 2^20 paths, five annual
+   exercises: the martingale-CV lower bound within 5 CV-SE + 1e-6 of the
+   DP oracle, the upper bound >= DP - (4 SE + 1e-6), CV <= upper + 4 (sum
+   of the SEs), the CV SE >= 20x below the raw LSMC SE, the dual curve
+   delta within 2e-3 relative of the oracle's FD and the lower's within
+   3e-2; the sweep (k = 1..5): the DP rising with k, both ends of every
+   bracket within 5 SE + 1e-6 of its DP, k = 1 within 5 SE + 2e-4 of
+   Jamshidian; ``cli cap`` and ``cli cms`` exit 0 on their agreement
+   lines, the cap's CRN-FD vega within 1% + 1e-3 of the closed form's
+   FD; ``price_cms_spread`` and ``price_range_accrual`` at 2^20 paths
+   within 5 SE + 2e-4 of their oracles; at bench.py's setting (2^17 x 8
+   blocks, k = 5) ``bermudan_vega`` jvp against fd (upper within 1e-3,
+   lower 5e-2) and the RQMC bracket around the DP within 5 SE + 1e-6;
+   ``price_bermudan`` at 2^14 paths, k = 3, card vs CPU (prices 1e-6,
+   SEs 1% relative); reruns bitwise; no kernel launched; per call
+   (``price_bermudan`` at 2^17 x 8 and 2^20 x 1, ``bermudan_vega`` jvp,
+   ``dp_oracle`` host wall only, ``price_cap`` and ``price_cms`` at 2^20)
+   the median and range of five wall times after a warm call, the host
+   ms, the device-busy ms and device operations, and the phase's peak
+   device memory, beside the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -1380,6 +1404,310 @@ def phase6(dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Bermudan swaption and the multi-date instruments (caps, CMS,
+# CMS spread, range accrual), plain PyTorch on the card (no hand-written
+# kernel on these calls) and the fp64 DP oracle on the host
+# ---------------------------------------------------------------------------
+
+# bench.py's Bermudan setting: 2^17 paths x 8 blocks, five annual exercises
+BERM_PATHS, BERM_BLOCKS = 1 << 17, 8
+BERM_EX = (5.0, 6.0, 7.0, 8.0, 9.0)
+# the card against the CPU on one key at 2^14 paths, k = 3, absolute on the
+# three prices and relative on their SEs: the QR backends differ (cuSOLVER
+# against LAPACK) and so do the card's log1p and sqrt in the normals
+BERM_CARD_CPU_TOL, BERM_CARD_CPU_SE_TOL = 1e-6, 1e-2
+
+
+def phase7_cli(cfg, dev):
+    """``cli q1 --engine exact``, then on its curve ``cli swaption
+    --bermudan --delta``
+    (receiver with ``--bermudan-sweep``, then payer), ``cli cap`` and
+    ``cli cms`` at full width in a fresh directory; returns the q1
+    market, the swaption results per side, the sweep and the cap and cms
+    results."""
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    argv = ["--device", str(dev), "--reps", "1"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            def results(name):
+                return json.load(open(os.path.join("data_torch",
+                                                   name)))["results"]
+
+            # the XLA tier's exact engine: no kernel launches in the phase
+            _cli(["q1", "--engine", "exact", *argv], "phase 7")
+            market = hwio.load_market(cfg, device=dev)
+            swaption = {}
+            for payer in (False, True):
+                extra = ["--payer"] if payer else ["--bermudan-sweep"]
+                _cli(["swaption", "--bermudan", "--delta", *extra, *argv],
+                     "phase 7")
+                swaption[payer] = results("swaption_results.json")
+                if not payer:
+                    sweep = results("bermudan_sweep.json")
+            _cli(["cap", *argv], "phase 7")
+            cap = results("cap_results.json")
+            _cli(["cms", *argv], "phase 7")
+            cms = results("cms_results.json")
+        finally:
+            os.chdir(cwd)
+    return market, swaption, sweep, cap, cms
+
+
+def phase7_gates(swaption, sweep, cap, cms):
+    """The CLI's results: each side's martingale-CV lower bound and dual
+    upper bound against the DP oracle, the CV's variance reduction, the
+    curve deltas against the oracle's FD; the sweep's bracket at every k;
+    the cap's vega against the closed form's FD; cap and cms agreement."""
+    for payer, r in swaption.items():
+        kind = "payer" if payer else "receiver"
+        dp, cv, cv_se = (r["bermudan_dp_oracle"], r["bermudan_lower_cv"],
+                         r["bermudan_cv_se"])
+        up, up_se = r["bermudan_upper"], r["bermudan_upper_se"]
+        print(f"[phase 7] swaption {kind} Bermudan (k = 5): CV lower "
+              f"{cv:.8f} +/- {cv_se:.2e}, upper {up:.8f} +/- {up_se:.2e}, "
+              f"DP {dp:.8f}; CV - DP = {cv - dp:+.2e} (tol 5 SE + 1e-6), "
+              f"upper - DP = {up - dp:+.2e} (tol >= -(4 SE + 1e-6)); raw "
+              f"LSMC SE {r['bermudan_se']:.2e} = "
+              f"{r['bermudan_se'] / cv_se:.0f} x the CV SE (tol >= 20)")
+        check(abs(cv - dp) <= 5 * cv_se + 1e-6, f"{kind}: CV lower vs DP")
+        check(up >= dp - (4 * up_se + 1e-6), f"{kind}: upper below DP")
+        check(cv <= up + 4 * (cv_se + up_se), f"{kind}: CV above upper")
+        check(cv_se * 20 <= r["bermudan_se"], f"{kind}: CV SE not 20x below "
+              "the raw LSMC SE")
+        d_dp = r["bermudan_delta_dp_oracle"]
+        dl, du = r["bermudan_delta_lower"], r["bermudan_delta_upper"]
+        print(f"[phase 7] swaption {kind} curve delta: lower {dl:.6f}, "
+              f"upper {du:.6f}, DP FD {d_dp:.6f}; rel. gaps "
+              f"{abs(dl - d_dp) / abs(d_dp):.2e} (tol 3e-2), "
+              f"{abs(du - d_dp) / abs(d_dp):.2e} (tol 2e-3)")
+        check(abs(du - d_dp) <= 2e-3 * abs(d_dp), f"{kind}: dual delta")
+        check(abs(dl - d_dp) <= 3e-2 * abs(d_dp), f"{kind}: lower delta")
+    dps = sweep["dp_oracle"]
+    check(sweep["k"] == [1, 2, 3, 4, 5], "bermudan sweep: k != 1..5")
+    check(all(b > a for a, b in zip(dps, dps[1:])), "bermudan sweep: DP not "
+          "rising with k")
+    for i, k in enumerate(sweep["k"]):
+        lo, lo_se = sweep["lower"][i], sweep["lower_se"][i]
+        up, up_se = sweep["upper"][i], sweep["upper_se"][i]
+        print(f"[phase 7] sweep k = {k}: [{lo:.8f}, {up:.8f}], DP "
+              f"{dps[i]:.8f}: lower - DP = {lo - dps[i]:+.2e} (tol 5 SE "
+              f"{5 * lo_se:.1e} + 1e-6), upper - DP = {up - dps[i]:+.2e} (tol "
+              f"5 SE {5 * up_se:.1e} + 1e-6)")
+        check(abs(lo - dps[i]) <= 5 * lo_se + 1e-6
+              and abs(up - dps[i]) <= 5 * up_se + 1e-6,
+              f"bermudan sweep k = {k}: bracket vs DP")
+    jam = sweep["european"]
+    print(f"[phase 7] sweep k = 1 vs Jamshidian {jam:.8f}: "
+          f"{sweep['lower'][0] - jam:+.2e} (tol 5 SE + 2e-4)")
+    check(abs(sweep["lower"][0] - jam) <= 5 * sweep["lower_se"][0] + 2e-4,
+          "bermudan sweep k = 1 vs Jamshidian")
+    v, va = cap["vega_fd"], cap["vega_closed_fd"]
+    print(f"[phase 7] cli cap: MC {cap['mc_price']:.8f} +/- "
+          f"{cap['mc_se']:.2e}, closed form {cap['closed_form']:.8f}, z = "
+          f"{cap['z']:.2f}; CRN-FD vega {v:.6f}, closed-form FD {va:.6f} "
+          f"(tol 1% + 1e-3)")
+    check(abs(v - va) < 0.01 * abs(va) + 1e-3, "cap vega")
+    print(f"[phase 7] cli cms: MC {cms['mc_price']:.8f} +/- "
+          f"{cms['mc_se']:.2e}, quadrature {cms['quadrature']:.8f}, z = "
+          f"{cms['z']:.2f}")
+
+
+def phase7_direct(cfg, dev, market):
+    """The calls with no command of their own at full width on the q1
+    curve: the CMS spread and range accrual legs against their oracles,
+    ``bermudan_vega`` jvp against fd and the RQMC bracket at bench.py's
+    setting."""
+    from hullwhite_tpu_torch import Key, bermudan, greeks, instruments
+
+    key = Key(cfg.seed).fold_in(9393)
+    kw = dict(strike=0.002, tenor=3.0, long_tenor=4.0, short_tenor=1.0)
+    sp = instruments.price_cms_spread(cfg, key, market, device=dev, **kw)
+    orc, _ = instruments.cms_spread_quadrature(cfg, market, **kw)
+    ra_kw = dict(coupon=0.03, lo=0.010, hi=0.022, tenor=3.0,
+                 obs_per_period=5)
+    ra = instruments.price_range_accrual(cfg, key, market, device=dev,
+                                         **ra_kw)
+    orc_ra, _ = instruments.range_accrual_closed_form(cfg, market, **ra_kw)
+    for name, res, o in (("price_cms_spread", sp, orc),
+                         ("price_range_accrual", ra, orc_ra)):
+        p, se = float(res.price), float(res.std_error)
+        print(f"[phase 7] {name} at {cfg.n_paths} paths: {p:.8f} +/- "
+              f"{se:.2e}, oracle {o:.8f}, |d| = {abs(p - o):.2e} (tol 5 SE + "
+              f"2e-4)")
+        check(abs(p - o) <= 5 * se + 2e-4, f"{name} vs its oracle")
+    fr = ra.mean_fraction.cpu()
+    check(bool(((fr >= 0) & (fr <= 1)).all()), "range accrual fractions")
+
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    bkey = Key(cfg.seed).fold_in(4242)
+    bw = dict(n_paths=BERM_PATHS, n_blocks=BERM_BLOCKS, device=dev)
+    dp = bermudan.dp_oracle(cfg, market, sched, BERM_EX)
+    _, dpj, _, duj = greeks.bermudan_vega(cfg, bkey, market, sched, BERM_EX,
+                                          **bw)
+    _, dpf, _, duf = greeks.bermudan_vega(cfg, bkey, market, sched, BERM_EX,
+                                          mode="fd", **bw)
+    dpj, duj, dpf, duf = (float(x) for x in (dpj, duj, dpf, duf))
+    print(f"[phase 7] bermudan_vega at {BERM_PATHS} x {BERM_BLOCKS}, k = 5: "
+          f"jvp lower {dpj:.6f} upper {duj:.6f}; fd lower {dpf:.6f} upper "
+          f"{duf:.6f}; |d| upper {abs(duj - duf):.2e} (tol 1e-3), lower "
+          f"{abs(dpj - dpf):.2e} (tol 5e-2)")
+    check(abs(duj - duf) < 1e-3 and abs(dpj - dpf) < 5e-2,
+          "bermudan_vega jvp vs fd")
+    rq = bermudan.price_bermudan(cfg, bkey, market, sched, BERM_EX,
+                                 rqmc=True, **bw)
+    lo, lo_se = float(rq.price_cv), float(rq.cv_std_error)
+    up, up_se = float(rq.upper), float(rq.upper_std_error)
+    print(f"[phase 7] RQMC Bermudan at {BERM_PATHS} x {BERM_BLOCKS} shifts: "
+          f"[{lo:.8f}, {up:.8f}] (SE {lo_se:.2e} / {up_se:.2e}), DP "
+          f"{dp:.8f} (tol 5 SE + 1e-6 each side)")
+    check(lo - (5 * lo_se + 1e-6) <= dp <= up + 5 * up_se + 1e-6,
+          "RQMC Bermudan bracket vs DP")
+
+
+def phase7_card_vs_cpu(cfg, dev, market):
+    """``price_bermudan`` at 2^14 paths, k = 3, on the card and on the CPU
+    under one key: the port's own numbers on both devices."""
+    from hullwhite_tpu_torch import Key, bermudan, instruments
+
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    key = Key(cfg.seed).fold_in(777)
+    out = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        r = bermudan.price_bermudan(cfg, key, m, sched, BERM_EX[:3],
+                                    n_paths=1 << 14, device=d)
+        out[str(d)] = [float(x) for x in (r.price, r.price_cv, r.upper,
+                                          r.std_error, r.cv_std_error,
+                                          r.upper_std_error)]
+    a, b = out[str(dev)], out["cpu"]
+    d_price = max(abs(x - y) for x, y in zip(a[:3], b[:3]))
+    d_se = max(abs(x - y) / y for x, y in zip(a[3:], b[3:]))
+    print(f"[phase 7] price_bermudan at 2^14 paths, k = 3, card vs CPU: "
+          f"(lower, CV, upper) {a[:3]} vs {b[:3]}: max |d| = {d_price:.2e} "
+          f"(tol {BERM_CARD_CPU_TOL}); SEs max rel. d = {d_se:.2e} (tol "
+          f"{BERM_CARD_CPU_SE_TOL})")
+    check(d_price <= BERM_CARD_CPU_TOL and d_se <= BERM_CARD_CPU_SE_TOL,
+          "price_bermudan on the card vs the CPU")
+
+
+def _device_window(fn):
+    """(device-busy ms, device operations) of one call of ``fn``: one
+    ``torch.profiler`` window on the card's activity only, read from the
+    raw events (building the profiler's event tree takes minutes at a
+    Bermudan call's 10^5 operations)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() if hasattr(e, "duration_ns")
+          else 1e3 * e.duration_us()
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return sum(ns) / 1e6, len(ns)
+
+
+def phase7_times(cfg, dev, market, smi, reps=5):
+    """Per call, after one warm call of each: the synchronised wall ms of
+    ``reps`` rounds (median, least, most), the host ms until the call
+    returns, the device-busy ms and device operations of one profiler
+    window (``_device_window``; ``dp_oracle``: host wall only); the
+    Bermudan reruns bitwise."""
+    import statistics
+
+    import torch
+
+    from hullwhite_tpu_torch import Key, bermudan, greeks, instruments
+
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    key = Key(cfg.seed).fold_in(4242)
+
+    def berm(n, nb):
+        r = bermudan.price_bermudan(cfg, key, market, sched, BERM_EX,
+                                    n_paths=n, n_blocks=nb, device=dev)
+        return torch.stack([r.price, r.price_cv, r.upper])
+
+    calls = {
+        f"price_bermudan@{BERM_PATHS}x{BERM_BLOCKS}":
+            lambda: berm(BERM_PATHS, BERM_BLOCKS),
+        f"price_bermudan@{cfg.n_paths}x1": lambda: berm(cfg.n_paths, 1),
+        f"bermudan_vega_jvp@{BERM_PATHS}x{BERM_BLOCKS}":
+            lambda: torch.stack(greeks.bermudan_vega(
+                cfg, key, market, sched, BERM_EX, n_paths=BERM_PATHS,
+                n_blocks=BERM_BLOCKS, device=dev)),
+        "dp_oracle": lambda: bermudan.dp_oracle(cfg, market, sched, BERM_EX),
+        f"price_cap@{cfg.n_paths}": lambda: instruments.price_cap(
+            cfg, key, market, rate=0.02, tenor=4.0, device=dev).price,
+        f"price_cms@{cfg.n_paths}": lambda: instruments.price_cms(
+            cfg, key, market, rate=0.02, tenor=4.0, device=dev).price}
+    first = {name: fn() for name, fn in calls.items()}
+    walls = {name: [] for name in calls}
+    hosts = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            hosts[name].append((t1 - t0) * 1e3)
+            if name.startswith("price_bermudan"):
+                check(torch.equal(out, first[name]), f"{name}: reruns "
+                      "differ")
+    print(f"[phase 7] price_bermudan reruns bitwise: "
+          f"{[float(x) for x in first[f'price_bermudan@{cfg.n_paths}x1']]}")
+    times = {}
+    for name, fn in calls.items():
+        t = times[name] = {
+            "wall_ms": statistics.median(walls[name]),
+            "wall_ms_min": min(walls[name]), "wall_ms_max": max(walls[name]),
+            "host_ms": statistics.median(hosts[name])}
+        line = (f"[phase 7] {name}: wall median {t['wall_ms']:.3f} ms "
+                f"[{t['wall_ms_min']:.3f}, {t['wall_ms_max']:.3f}] over "
+                f"{reps}, host {t['host_ms']:.3f} ms")
+        if name != "dp_oracle":
+            t["device_ms"], ops = _device_window(fn)
+            t["device_ops"] = ops
+            line += (f", device busy {t['device_ms']:.3f} ms, {ops:.0f} "
+                     f"device ops ({t['host_ms'] * 1e3 / max(ops, 1):.1f} us "
+                     f"of host each)")
+        print(f"{line} per call [{smi}]")
+    return times
+
+
+def phase7(dev, smi):
+    """The Bermudan swaption and the multi-date instruments (module
+    docstring, phase 7); returns the kernels' launch counts of the whole
+    phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    market, swaption, sweep, cap, cms = phase7_cli(cfg, dev)
+    phase7_gates(swaption, sweep, cap, cms)
+    phase7_direct(cfg, dev, market)
+    phase7_card_vs_cpu(cfg, dev, market)
+    times = phase7_times(cfg, dev, market, smi)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 7] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 7] peak device memory of the Bermudan/multi-date phase: "
+          f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
+          f" s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -1478,6 +1806,14 @@ def main() -> int:
           f"{sum(qmc_counts.values())} (plain PyTorch)")
     check(not any(qmc_counts.values()), "an RQMC or swaption call launched "
           "a kernel")
+
+    berm_counts = phase7(dev, smi)
+    print(f"[phase 7] launches of the hand-written kernels in the Bermudan "
+          f"and multi-date calls (cli swaption --bermudan, cap, cms, the "
+          f"direct calls, card vs CPU, the timings): "
+          f"{sum(berm_counts.values())} (plain PyTorch)")
+    check(not any(berm_counts.values()), "a Bermudan or multi-date call "
+          "launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

@@ -1,5 +1,5 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-swaption / benchmark.
+swaption / cap / cms / benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
@@ -9,6 +9,9 @@ swaption / benchmark.
     python -m hullwhite_tpu_torch.cli q2 --qmc 65536     # + RQMC price
     python -m hullwhite_tpu_torch.cli grid               # 5 x 5 surfaces
     python -m hullwhite_tpu_torch.cli swaption --payer   # vs Jamshidian
+    python -m hullwhite_tpu_torch.cli swaption --bermudan --delta
+    python -m hullwhite_tpu_torch.cli cap --floor        # vs ZBP closed form
+    python -m hullwhite_tpu_torch.cli cms                # vs quadrature
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
     python -m hullwhite_tpu_torch.cli benchmark --ab precision
     python -m hullwhite_tpu_torch.cli benchmark --roofline  # GPU only
@@ -25,9 +28,14 @@ the JAX package's XLA engines in plain PyTorch on threefry block normals,
 of 32768, the exact option kernels' tile.  ``--qmc NPTS`` adds the
 randomized-QMC price (q2) and vega (q3) on NPTS Sobol points x 8 shifts.
 ``swaption`` prices a European swaption by MC on an XLA engine (default
-``exact``), by RQMC and by Jamshidian's decomposition.  Results go to
-``data_torch/``; q2, q3, grid and swaption read the market curve q1 wrote
-there.
+``exact``), by RQMC and by Jamshidian's decomposition; ``--bermudan`` adds
+the Bermudan with annual exercises (LSMC lower bound, martingale-CV lower
+bound, dual upper bound, fp64 DP oracle), ``--delta`` its curve delta and
+``--bermudan-sweep`` the bracket for 1..5 exercise rights.  ``cap`` and
+``cms`` price a cap/floor and a CMS cap/floor leg by MC on the exact
+multi-date states against their fp64 oracles.  Results go to
+``data_torch/``; q2, q3, grid, swaption, cap and cms read the market curve
+q1 wrote there.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import sys
 import numpy as np
 import torch
 
-from . import greeks, grid, instruments, pricing
+from . import bermudan, greeks, grid, instruments, pricing
 from .config import HWConfig
 from .models import hull_white as hw
 from .ops import engine_scan, qmc
@@ -390,8 +398,9 @@ def cmd_grid(args):
 def cmd_swaption(args):
     """MC (CV-adjusted, on an XLA engine: ``exact`` unless ``--engine``
     names another), RQMC and the exact Jamshidian price of a European
-    swaption with expiry S1 on the q1 market; the Bermudan flags of the
-    JAX package's command are not ported yet."""
+    swaption with expiry S1 on the q1 market; ``--bermudan`` (annual
+    exercises S1 .. S1 + tenor - 1), ``--delta`` and ``--bermudan-sweep``
+    as in the JAX package's command."""
     cfg = _cfg(args)
     dev = pricing.resolve_device(args.device)
     if args.engine not in pricing.XLA_ENGINES:
@@ -420,9 +429,166 @@ def cmd_swaption(args):
                "qmc_se": float(qse), "jamshidian": jam,
                "rate": args.rate, "tenor": args.tenor, "payer": args.payer,
                "engine": args.engine}
+    if args.bermudan:
+        results.update(_bermudan_lines(cfg, key, market, sched, jam, args,
+                                       dev))
     hwio.write_json(hwio.DATA_DIR / "swaption_results.json",
                     "Swaption pricing", cfg, results=results)
+    if args.bermudan_sweep:
+        _bermudan_sweep(cfg, key, market, sched, jam, args, dev)
     return 0
+
+
+def _bermudan_lines(cfg, key, market, sched, jam, args, dev) -> dict:
+    """``swaption --bermudan [--delta]``: the bracket with annual exercises
+    against the DP oracle, and the CRN curve delta against the oracle's."""
+    ex = [cfg.s1 + j for j in range(int(args.tenor))]
+    res = bermudan.price_bermudan(cfg, key, market, sched, ex,
+                                  payer=args.payer, device=dev)
+    orc = bermudan.dp_oracle(cfg, market, sched, ex, payer=args.payer)
+    print(f"Bermudan ({len(ex)} annual exercises): "
+          f"[{float(res.price_cv):.8f}, {float(res.upper):.8f}] "
+          f"(SE {float(res.cv_std_error):.2e}/"
+          f"{float(res.upper_std_error):.2e}; raw LSMC lower "
+          f"{float(res.price):.8f} +/- {float(res.std_error):.2e}; "
+          f"DP oracle {orc:.8f}; "
+          f"early-exercise premium {float(res.price_cv) - jam:.6f})")
+    out = {"bermudan_lower": float(res.price),
+           "bermudan_lower_cv": float(res.price_cv),
+           "bermudan_cv_se": float(res.cv_std_error),
+           "bermudan_upper": float(res.upper),
+           "bermudan_upper_se": float(res.upper_std_error),
+           "bermudan_dp_oracle": orc,
+           "bermudan_se": float(res.std_error)}
+    if args.delta:
+        h = 1e-3
+        dl, du = greeks.bermudan_delta(cfg, key, market, sched, ex,
+                                       payer=args.payer, h=h, device=dev)
+        d_dp = (bermudan.dp_oracle(cfg, greeks.shift_curve(cfg, market, h),
+                                   sched, ex, payer=args.payer)
+                - bermudan.dp_oracle(cfg, greeks.shift_curve(cfg, market, -h),
+                                     sched, ex, payer=args.payer)) / (2.0 * h)
+        print(f"Bermudan curve-delta (parallel shift): "
+              f"[{dl:.6f}, {du:.6f}]  DP oracle {d_dp:.6f}")
+        out.update(bermudan_delta_lower=dl, bermudan_delta_upper=du,
+                   bermudan_delta_dp_oracle=d_dp)
+    return out
+
+
+def _bermudan_sweep(cfg, key, market, sched, jam, args, dev):
+    """``swaption --bermudan-sweep``: the bracket and the DP oracle for
+    k = 1 .. min(5, tenor) annual exercise rights ->
+    ``data_torch/bermudan_sweep.json``."""
+    sweep = {"k": [], "lower": [], "lower_se": [], "upper": [],
+             "upper_se": [], "dp_oracle": [], "european": jam}
+    print("\n--- Bermudan sweep: bracket vs exercise rights ---")
+    # annual exercises must precede the last cashflow at s1 + tenor
+    for k in range(1, min(5, int(np.ceil(args.tenor))) + 1):
+        ex = [cfg.s1 + j for j in range(k)]
+        res = bermudan.price_bermudan(cfg, key, market, sched, ex,
+                                      payer=args.payer, device=dev)
+        orc = bermudan.dp_oracle(cfg, market, sched, ex, payer=args.payer)
+        print(f"k={k}: [{float(res.price_cv):.8f}, "
+              f"{float(res.upper):.8f}]  DP {orc:.8f}")
+        sweep["k"].append(k)
+        sweep["lower"].append(float(res.price_cv))
+        sweep["lower_se"].append(float(res.cv_std_error))
+        sweep["upper"].append(float(res.upper))
+        sweep["upper_se"].append(float(res.upper_std_error))
+        sweep["dp_oracle"].append(orc)
+    hwio.write_json(hwio.DATA_DIR / "bermudan_sweep.json",
+                    "Bermudan exercise-rights sweep", cfg, results=sweep)
+
+
+# ---------------------------------------------------------------------------
+# cap / cms — caps, floors and CMS legs on the exact multi-date states
+# ---------------------------------------------------------------------------
+
+def cmd_cap(args):
+    """Cap/floor: MC on the exact multi-date states against the per-caplet
+    ZBP closed forms, and the CRN-FD vega against the closed form's FD."""
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(6161)
+    market = hwio.load_market(cfg, device=dev)
+    kind = "floor" if args.floor else "cap"
+    print(f"--- {kind}: start {cfg.s1}y, tenor {args.tenor}y @ "
+          f"{args.rate*100:.2f}%, freq {args.freq}/y "
+          f"[{_device_name(dev)}] ---")
+    res = instruments.price_cap(cfg, key, market, rate=args.rate,
+                                tenor=args.tenor, freq=args.freq,
+                                floor=args.floor, device=dev)
+    tot, per = instruments.cap_closed_form(cfg, market, rate=args.rate,
+                                           tenor=args.tenor, freq=args.freq,
+                                           floor=args.floor)
+    price, se = float(res.price), float(res.std_error)
+    print(f"MC:           {price:.8f} +/- {se:.2e} (SE)")
+    print(f"closed form:  {tot:.8f}")
+    print("per-caplet MC:", np.array2string(res.caplets.cpu().numpy(),
+                                            precision=6))
+    z = (price - tot) / max(se, 1e-12)
+    # curve-noise allowance: the MC bond reconstruction A(t1, t2) reads the
+    # differentiated forward curve f(0, t1) of the MC bootstrap, the closed
+    # form only P levels
+    ok = abs(z) < 4 or abs(price - tot) < 2e-4
+    print(f"agreement: z = {z:.2f} "
+          f"({'PASS' if ok else 'CHECK'}; curve-noise allowance 2e-4)")
+    v = greeks.fd_vega_cap(cfg, key, market, rate=args.rate,
+                           tenor=args.tenor, freq=args.freq,
+                           floor=args.floor, device=dev)
+    e = 1e-5
+    va = (instruments.cap_closed_form(
+              cfg, market, rate=args.rate, tenor=args.tenor, freq=args.freq,
+              floor=args.floor, sigma=cfg.sigma + e)[0]
+          - instruments.cap_closed_form(
+              cfg, market, rate=args.rate, tenor=args.tenor, freq=args.freq,
+              floor=args.floor, sigma=cfg.sigma - e)[0]) / (2 * e)
+    print(f"vega (CRN-FD): {v:.6f}   closed-form FD {va:.6f}")
+    hwio.write_json(hwio.DATA_DIR / f"{kind}_results.json",
+                    f"{kind} pricing", cfg,
+                    results={"mc_price": price, "mc_se": se,
+                             "closed_form": tot, "z": z,
+                             "vega_fd": v, "vega_closed_fd": va,
+                             "caplets_mc": [float(x) for x in res.caplets],
+                             "caplets_closed": per})
+    return 0 if ok else 1
+
+
+def cmd_cms(args):
+    """CMS cap/floor leg: MC on the exact multi-date states against the
+    fp64 tilted-quadrature oracle."""
+    if args.g2:
+        raise SystemExit("cms: --g2 needs the G2++ model (models/g2pp.py), "
+                         "which is not ported yet")
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(7171)
+    market = hwio.load_market(cfg, device=dev)
+    kind = "CMS floor" if args.floor else "CMS cap"
+    print(f"--- {kind}: start {cfg.s1}y, tenor {args.tenor}y @ "
+          f"{args.rate*100:.2f}%, underlying {args.swap_tenor}y swap "
+          f"[{_device_name(dev)}] ---")
+    res = instruments.price_cms(cfg, key, market, rate=args.rate,
+                                tenor=args.tenor, freq=args.freq,
+                                swap_tenor=args.swap_tenor,
+                                floor=args.floor, device=dev)
+    orc, per = instruments.cms_quadrature(
+        cfg, market, rate=args.rate, tenor=args.tenor, freq=args.freq,
+        swap_tenor=args.swap_tenor, floor=args.floor)
+    price, se = float(res.price), float(res.std_error)
+    print(f"MC:         {price:.8f} +/- {se:.2e} (SE)")
+    print(f"quadrature: {orc:.8f}")
+    print("per-period MC:", np.array2string(res.periods.cpu().numpy(),
+                                            precision=6))
+    z = (price - orc) / max(se, 1e-12)
+    ok = abs(z) < 4 or abs(price - orc) < 2e-4
+    print(f"agreement: z = {z:.2f} ({'PASS' if ok else 'CHECK'})")
+    hwio.write_json(hwio.DATA_DIR / "cms_results.json", kind, cfg,
+                    results={"mc_price": price, "mc_se": se,
+                             "quadrature": orc, "z": z,
+                             "periods_mc": [float(x) for x in res.periods],
+                             "periods_quadrature": per})
+    return 0 if ok else 1
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +659,27 @@ def main(argv=None):
     ps.add_argument("--tenor", type=float, default=5.0)
     ps.add_argument("--freq", type=float, default=1.0)
     ps.add_argument("--payer", action="store_true")
+    ps.add_argument("--bermudan", action="store_true",
+                    help="also price the Bermudan with annual exercises")
+    ps.add_argument("--delta", action="store_true",
+                    help="with --bermudan: CRN curve-delta of the "
+                         "bracket vs the DP oracle")
+    ps.add_argument("--bermudan-sweep", action="store_true",
+                    help="bracket + DP oracle for k = 1..5 exercise "
+                         "rights -> data_torch/bermudan_sweep.json")
+    pc = sub.add_parser("cap", parents=[common])
+    pc.add_argument("--rate", type=float, default=0.02)
+    pc.add_argument("--tenor", type=float, default=4.0)
+    pc.add_argument("--freq", type=float, default=1.0)
+    pc.add_argument("--floor", action="store_true")
+    pcm = sub.add_parser("cms", parents=[common])
+    pcm.add_argument("--rate", type=float, default=0.02)
+    pcm.add_argument("--tenor", type=float, default=4.0)
+    pcm.add_argument("--freq", type=float, default=1.0)
+    pcm.add_argument("--swap-tenor", type=float, default=5.0)
+    pcm.add_argument("--floor", action="store_true")
+    pcm.add_argument("--g2", action="store_true",
+                     help="the G2++ twin (not ported: exits with a message)")
     pb = sub.add_parser("benchmark", parents=[common])
     pb.add_argument("--roofline", action="store_true",
                     help="each tier's fractions of the fp32 peak and of "
@@ -524,6 +711,10 @@ def main(argv=None):
         return cmd_grid(args)
     if args.cmd == "swaption":
         return cmd_swaption(args)
+    if args.cmd == "cap":
+        return cmd_cap(args)
+    if args.cmd == "cms":
+        return cmd_cms(args)
     rc = cmd_q1(args)
     rc |= cmd_q2(args)
     rc |= cmd_q3(args)

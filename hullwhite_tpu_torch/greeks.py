@@ -15,6 +15,9 @@ AD, CRN, recalibrated and gamma parts of ``hullwhite_tpu.greeks``).
   with common random numbers.
 * ``vega_swaption`` — forward-mode AD of the CV-adjusted coupon-bond option
   / swaption price (``instruments``) on an XLA engine.
+* ``bermudan_vega`` (jvp or CRN FD), ``bermudan_delta`` (CRN FD under a
+  parallel curve shift, ``shift_curve``) and ``fd_vega_cap``: the greeks
+  of the Bermudan bracket (``bermudan``) and of caps.
 """
 
 from __future__ import annotations
@@ -134,3 +137,89 @@ def vega_swaption(cfg: HWConfig, key: Key, market: MarketCurve, sched,
 
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
     return torch.func.jvp(price_of, (sigma,), (torch.ones_like(sigma),))
+
+
+def bermudan_vega(cfg: HWConfig, key: Key, market: MarketCurve, sched,
+                  exercise_dates, *, strike: float = 1.0,
+                  payer: bool = False, n_paths: int | None = None,
+                  n_blocks: int = 1, rqmc: bool = False,
+                  eps: float = 1e-3, mode: str = "jvp", device):
+    """(price, vega, upper, upper_vega): d/dsigma of the Bermudan bracket.
+
+    mode="jvp": forward-mode AD (``torch.func.jvp``) through the whole
+    two-pass estimator in one evaluation: the states (sigma enters through
+    the Cholesky scale and the drift shift, whose deterministic part
+    carries its tangent, ``bermudan._DetStates``), the refit policy
+    through the QR solve, the closed-form martingale and the bisected
+    proxy boundary (approximate there; the dual bound is flat in the
+    boundary at the optimum, so the error is second order).  The exercise
+    indicator contributes zero almost surely.
+
+    mode="fd": central differences under common random numbers (two
+    evaluations)."""
+    from . import bermudan as bermudan_mod
+
+    dev = pricing.resolve_device(device)
+    n_paths = cfg.n_paths if n_paths is None else n_paths
+    ex = bermudan_mod._check_dates(sched, exercise_dates, rqmc, n_blocks)
+    if mode not in ("jvp", "fd"):
+        raise ValueError("mode must be 'jvp' or 'fd'")
+    fn = bermudan_mod._bermudan_fn(cfg, ex, sched, float(strike),
+                                   bool(payer), int(n_paths), int(n_blocks),
+                                   bool(rqmc), dev)
+    sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
+    if mode == "jvp":
+        def lo_up(s):
+            p, _, _, u, *_ = fn(key, s, market)
+            return p, u
+
+        (p, u), (dp, du) = torch.func.jvp(lo_up, (sigma,),
+                                          (torch.ones_like(sigma),))
+        return p, dp, u, du
+    pp = fn(key, sigma + eps, market)
+    pm = fn(key, sigma - eps, market)
+    return (0.5 * (pp[0] + pm[0]), (pp[0] - pm[0]) / (2.0 * eps),
+            0.5 * (pp[3] + pm[3]), (pp[3] - pm[3]) / (2.0 * eps))
+
+
+def shift_curve(cfg: HWConfig, market: MarketCurve, h) -> MarketCurve:
+    """Parallel forward-curve bump: f(0,T) -> f(0,T) + h and, coherently,
+    P(0,T) -> P(0,T) e^{-h T}."""
+    Ts = hw.maturity_grid(cfg, market.P.device).to(market.P.dtype)
+    h = torch.full((), h, dtype=market.P.dtype, device=market.P.device)
+    return MarketCurve(P=market.P * torch.exp(-h * Ts), f=market.f + h)
+
+
+def bermudan_delta(cfg: HWConfig, key: Key, market: MarketCurve, sched,
+                   exercise_dates, *, strike: float = 1.0,
+                   payer: bool = False, n_paths: int | None = None,
+                   n_blocks: int = 1, rqmc: bool = False,
+                   h: float = 1e-3, device):
+    """(delta_lower, delta_upper): d/dh of the Bermudan bracket under a
+    parallel forward-curve shift, by central differences with common
+    random numbers (the same key gives identical states on both legs: the
+    curve enters only the payoff coefficients and discount levels).  The
+    fp64 DP oracle on the shifted curves gives the exact value."""
+    from . import bermudan as bermudan_mod
+
+    res = [bermudan_mod.price_bermudan(
+        cfg, key, shift_curve(cfg, market, s * h), sched, exercise_dates,
+        strike=strike, payer=payer, n_paths=n_paths, n_blocks=n_blocks,
+        rqmc=rqmc, device=device) for s in (1.0, -1.0)]
+    return ((float(res[0].price) - float(res[1].price)) / (2.0 * h),
+            (float(res[0].upper) - float(res[1].upper)) / (2.0 * h))
+
+
+def fd_vega_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
+                rate: float, tenor: float, start: float | None = None,
+                freq: float = 1.0, floor: bool = False, eps: float = 1e-3,
+                n_paths: int | None = None, n_blocks: int = 1, device):
+    """Cap/floor vega by central differences under common random numbers
+    (sigma enters the multi-date sampler through the tables.sig_st scale
+    only, so one key gives identical normals on both legs).  Oracle: the
+    fp64 FD of ``instruments.cap_closed_form(sigma=...)``."""
+    legs = [instruments.price_cap(
+        cfg, key, market, rate=rate, start=start, tenor=tenor, freq=freq,
+        floor=floor, sigma=cfg.sigma + s * eps, n_paths=n_paths,
+        n_blocks=n_blocks, device=device) for s in (1.0, -1.0)]
+    return (float(legs[0].price) - float(legs[1].price)) / (2.0 * eps)

@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
             "hullwhite_tpu_torch.ops.sobol, hullwhite_tpu_torch.ops.qmc, "
             "hullwhite_tpu_torch.ops.accurate, "
             "hullwhite_tpu_torch.ops.interp, "
-            "hullwhite_tpu_torch.instruments\n"
+            "hullwhite_tpu_torch.instruments, "
+            "hullwhite_tpu_torch.bermudan, hullwhite_tpu_torch.range_note, "
+            "hullwhite_tpu_torch.utils.native\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
             "or m == 'hullwhite_tpu')\n"
@@ -50,6 +52,20 @@ def no_cuda(monkeypatch):
 def test_cuda_request_without_a_card_raises(no_cuda):
     with pytest.raises(RuntimeError, match="is_available"):
         pricing.bootstrap_curve(CFG, Key(1), device="cuda")
+
+
+def test_bermudan_cuda_request_without_a_card_raises(no_cuda):
+    from hullwhite_tpu_torch import bermudan, instruments
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 4.0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        bermudan.price_bermudan(cfg, Key(1), market, sched, [5.0],
+                                device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        instruments.price_cap(cfg, Key(1), market, rate=0.02, device="cuda")
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card(no_cuda, tmp_path,
