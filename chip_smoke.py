@@ -106,7 +106,25 @@ Phases (any failure raises and the script exits non-zero):
    ``dp_oracle`` host wall only, ``price_cap`` and ``price_cms`` at 2^20)
    the median and range of five wall times after a warm call, the host
    ms, the device-busy ms and device operations, and the phase's peak
-   device memory, beside the card's name and power limit.
+   device memory, beside the card's name and power limit;
+8. calibration and the European half of G2++ (plain PyTorch on the card,
+   no hand-written kernel; the closed forms and the calibrations in host
+   float64) at full width on the fp64 oracle curve written as the q1
+   market: ``cli calibrate`` (Hull-White a within 1e-4 and sigma within
+   1e-5, G2++ sigma and eta within 1e-5 and rho within 1e-3 of the truth),
+   ``cli g2pp --validate 5`` under its own gate (curve, ZBC, CRN-FD and
+   RQMC vegas), its swaptions' MC within 5 SE + 2e-4 and RQMC within
+   6 SE + 5e-5 of the conditional-decomposition oracle; ``cli grid
+   --engine exact``: every G2++ surface cell within 6 SE + 2e-4 of the
+   closed form and every vega-surface cell within 6 SE + 5e-5 of the
+   closed-form FD; ``cli cms --g2`` under its z-gate; ``price_zbc_g2``,
+   ``price_swaption_g2_qmc`` and ``bootstrap_curve_g2`` on the card
+   against the CPU (``G2_CARD_CPU_TOL``); ``price_zbc_g2`` reruns bitwise;
+   no kernel launched; per call (the ZBC, swaption, surface and CMS at
+   2^20 paths, the curve at 2^18, the RQMC ZBC and its vega at 2^16 x 8,
+   ``calibrate_g2`` on the host) the median and range of five wall
+   times, the host ms, the device-busy ms and device operations, and the
+   phase's peak device memory, beside the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -1708,6 +1726,260 @@ def phase7(dev, smi):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: calibration and the European half of G2++ (plain PyTorch on the
+# card, no hand-written kernel on these calls; the closed forms and the
+# calibrations in host float64)
+# ---------------------------------------------------------------------------
+
+# the card against the CPU on one key: float32 noise (the card's log1p, exp
+# and sums against the CPU's); the curve at 2^15 paths, the ZBC at 2^16,
+# the RQMC swaption at 2^16 points x 8 shifts.  Prices and the curve
+# absolute; the MC SE relative; the RQMC SE (~2.6e-7, the spread of eight
+# per-shift means ~0.07) absolute, ~3 float32 ulps of a mean
+G2_CARD_CPU_TOL = dict(price=2e-7, curve=5e-7, se_rel=1e-3, qmc_se=2e-8)
+
+
+def phase8_cli(cfg, dev):
+    """On the fp64 oracle curve written as the q1 market: ``cli
+    calibrate``, ``cli g2pp --validate 5``, ``cli grid --engine exact``
+    and ``cli cms --g2`` at full width in a fresh directory; returns each
+    command's JSON document."""
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    argv = ["--device", str(dev), "--reps", "1"]
+    cwd = os.getcwd()
+    docs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            hwio.save_market(cfg, analytic_market(cfg, dev))
+            for name, cmd in (
+                    ("calibration", ["calibrate"]),
+                    ("g2pp", ["g2pp", "--validate", "5"]),
+                    ("grid", ["grid", "--engine", "exact"]),
+                    ("cms", ["cms", "--g2"])):
+                _cli([*cmd, *argv], "phase 8")
+                docs[name] = json.load(open(os.path.join(
+                    "data_torch", f"{name}_results.json")))
+        finally:
+            os.chdir(cwd)
+    return docs
+
+
+def phase8_gates(cfg, docs):
+    """The commands' results: the calibrations' recovery gates, g2pp's
+    own gate and the swaptions against their oracle, the G2++ surfaces
+    against their closed forms, the G2++ CMS against its quadrature."""
+    import numpy as np
+
+    r = docs["calibration"]["results"]
+    print(f"[phase 8] cli calibrate: HW (a, sigma) = ({r['hw_a']:.8f}, "
+          f"{r['hw_sigma']:.8f}) in {r['hw_iters']} iterations; G2++ "
+          f"(sigma, eta, rho) = ({r['g2_sigma']:.8f}, {r['g2_eta']:.8f}, "
+          f"{r['g2_rho']:.6f}) in {r['g2_iters']} iterations")
+    check(abs(r["hw_a"] - cfg.a) < 1e-4 and abs(r["hw_sigma"] - cfg.sigma)
+          < 1e-5, "Hull-White calibration recovery")
+    check(abs(r["g2_sigma"] - 0.08) < 1e-5 and abs(r["g2_eta"] - 0.02)
+          < 1e-5 and abs(r["g2_rho"] + 0.6) < 1e-3, "G2++ calibration "
+          "recovery")
+
+    r = docs["g2pp"]["results"]
+    curve_tol = 6.0 * 0.15 / np.sqrt(2.0 * min(cfg.n_paths, 1 << 18)) + 5e-5
+    zbc_d = abs(r["zbc_mc"] - r["zbc_closed"])
+    zbc_tol = 5 * r["zbc_mc_se_raw"] + 2e-4
+    v_tol = 5.0 * 0.174 / np.sqrt(cfg.n_paths) + 1e-3
+    vq_tol = 0.02 * abs(r["zbc_vega_analytic"]) + 1e-4
+    print(f"[phase 8] cli g2pp: curve max err {r['curve_max_err']:.2e} (tol "
+          f"{curve_tol:.2e}); ZBC MC {r['zbc_mc']:.8f}, RQMC "
+          f"{r['zbc_qmc']:.8f} +/- {r['zbc_qmc_se']:.1e}, closed "
+          f"{r['zbc_closed']:.8f} (|MC - closed| {zbc_d:.2e}, tol "
+          f"{zbc_tol:.2e}); vega CRN-FD {r['zbc_vega_fd']:.6f}, RQMC "
+          f"{r['zbc_vega_rqmc']:.6f}, closed FD {r['zbc_vega_analytic']:.6f}"
+          f" (tol {v_tol:.1e} / {vq_tol:.1e}); {cfg.n_paths}-path "
+          f"validation z = {r['validation_z_vs_closed']:.2f}")
+    check(r["curve_max_err"] < curve_tol and zbc_d < zbc_tol
+          and abs(r["zbc_vega_fd"] - r["zbc_vega_analytic"]) < v_tol
+          and abs(r["zbc_vega_rqmc"] - r["zbc_vega_analytic"]) < vq_tol,
+          "cli g2pp's gate")
+    for kind in ("receiver", "payer"):
+        orc = r[f"swaption_{kind}_oracle"]
+        mc, mc_se = r[f"swaption_{kind}_mc"], r[f"swaption_{kind}_mc_se_raw"]
+        q, q_se = r[f"swaption_{kind}_rqmc"], r[f"swaption_{kind}_rqmc_se"]
+        print(f"[phase 8] G2++ swaption {kind}: MC {mc:.8f} (raw SE "
+              f"{mc_se:.2e}), RQMC {q:.8f} +/- {q_se:.1e}, oracle {orc:.8f}:"
+              f" |MC - oracle| {abs(mc - orc):.2e} (tol 5 SE + 2e-4), "
+              f"|RQMC - oracle| {abs(q - orc):.2e} (tol 6 SE + 5e-5)")
+        check(abs(mc - orc) < 5 * mc_se + 2e-4, f"G2++ {kind} swaption MC")
+        check(abs(q - orc) < 6 * q_se + 5e-5, f"G2++ {kind} swaption RQMC")
+    print(f"[phase 8] G2++ exchange option: MC {r['exchange_mc']:.8f}, "
+          f"closed form {r['exchange_closed']:.8f}")
+
+    doc = docs["grid"]
+    price, se, closed = (np.asarray(doc[k]) for k in
+                         ("g2_price", "g2_std_error_raw", "g2_closed"))
+    vega, vse, vfd = (np.asarray(doc[k]) for k in
+                      ("g2_vega", "g2_vega_se", "g2_vega_closed_fd"))
+    z = np.abs(price - closed) / (6 * se + 2e-4)
+    zv = np.abs(vega - vfd) / (6 * vse + 5e-5)
+    print(f"[phase 8] cli grid G2++ surface: max |MC - closed| "
+          f"{np.abs(price - closed).max():.2e}, worst cell at "
+          f"{z.max():.2f} of 6 SE + 2e-4; vega surface max |RQMC - FD| "
+          f"{np.abs(vega - vfd).max():.2e}, worst at {zv.max():.2f} of "
+          f"6 SE + 5e-5")
+    check(price.shape == (5, 5) and bool((z < 1).all()), "G2++ surface")
+    check(vega.shape == (5, 5) and bool((zv < 1).all()), "G2++ vega "
+          "surface")
+
+    g = docs["cms"]["results"]["g2"]
+    print(f"[phase 8] cli cms --g2: MC {g['mc_price']:.8f} +/- "
+          f"{g['mc_se']:.2e}, quadrature {g['quadrature']:.8f}, z = "
+          f"{g['z']:.2f}")
+    check(abs(g["z"]) < 4 or abs(g["mc_price"] - g["quadrature"]) < 2e-4,
+          "G2++ CMS vs its quadrature")
+
+
+def phase8_card_vs_cpu(cfg, dev, market):
+    """``price_zbc_g2``, ``price_swaption_g2_qmc`` and
+    ``bootstrap_curve_g2`` on the card and on the CPU under one key."""
+    from hullwhite_tpu_torch import Key, instruments
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    key = Key(cfg.seed).fold_in(9292)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    tol = G2_CARD_CPU_TOL
+    out = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        z = g2pp.price_zbc_g2(cfg, g, key, m, n_paths=1 << 16, device=d)
+        q, qse = g2pp.price_swaption_g2_qmc(cfg, g, key, m, sched,
+                                            device=d)
+        c = g2pp.bootstrap_curve_g2(cfg, g, key, m, n_paths=1 << 15,
+                                    device=d)
+        out[str(d)] = ([float(z.price), float(z.price_raw), float(q)],
+                       [float(z.std_error_raw), float(qse)], c.P.cpu())
+    (pa, sa, ca), (pb, sb, cb) = out[str(dev)], out["cpu"]
+    d_price = max(abs(x - y) for x, y in zip(pa, pb))
+    d_se = abs(sa[0] - sb[0]) / sb[0]
+    d_qse = abs(sa[1] - sb[1])
+    d_curve = float((ca - cb).abs().max())
+    print(f"[phase 8] card vs CPU: price_zbc_g2 at 2^16 (price, raw) and "
+          f"price_swaption_g2_qmc at 2^16 x 8: {pa} vs {pb}, max |d| = "
+          f"{d_price:.2e} (tol {tol['price']}); MC SE rel. d = {d_se:.2e} "
+          f"(tol {tol['se_rel']}), RQMC SE {sa[1]:.4e} vs {sb[1]:.4e}, |d| "
+          f"= {d_qse:.2e} (tol {tol['qmc_se']}); bootstrap_curve_g2 at "
+          f"2^15: max |d| = {d_curve:.2e} (tol {tol['curve']})")
+    check(d_price <= tol["price"] and d_se <= tol["se_rel"]
+          and d_qse <= tol["qmc_se"] and d_curve <= tol["curve"],
+          "G2++ on the card vs the CPU")
+
+
+def phase8_times(cfg, dev, market, smi, reps=5):
+    """Per call, after one warm call of each: the synchronised wall ms of
+    ``reps`` rounds (median, least, most), the host ms until the call
+    returns, the device-busy ms and device operations of one profiler
+    window (``_device_window``); ``price_zbc_g2`` reruns bitwise."""
+    import statistics
+
+    import torch
+
+    from hullwhite_tpu_torch import Key, instruments
+    from hullwhite_tpu_torch.cli import grid_axes
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    key = Key(cfg.seed).fold_in(9292)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    sched3 = instruments.swap_fixed_leg(cfg, 0.03, 3.0)
+    host_market = market.to("cpu")
+    axes = grid_axes(cfg)
+
+    def calibrate():
+        m = host_market
+        gp = [lambda p: g2pp.zbc_price_analytic(cfg, p, m),
+              lambda p: g2pp.swaption_g2_analytic(cfg, p, m, sched),
+              lambda p: g2pp.swaption_g2_analytic(cfg, p, m, sched3,
+                                                  payer=True),
+              lambda p: g2pp.cap_closed_form_g2(cfg, p, m, rate=0.02)[0]]
+        g0 = g2pp.G2Params(sigma=0.16, eta=0.04, rho=0.3)
+        return g2pp.calibrate_g2(cfg, g0, [(p, p(g)) for p in gp]).rmse
+
+    calls = {
+        f"price_zbc_g2@{cfg.n_paths}": lambda: torch.stack(
+            g2pp.price_zbc_g2(cfg, g, key, market, device=dev)[:4]),
+        f"bootstrap_curve_g2@{1 << 18}": lambda: g2pp.bootstrap_curve_g2(
+            cfg, g, key, market, n_paths=1 << 18, device=dev).P,
+        f"price_swaption_g2@{cfg.n_paths}": lambda: g2pp.price_swaption_g2(
+            cfg, g, key, market, sched, device=dev).price,
+        "price_zbc_g2_qmc@65536x8": lambda: torch.stack(
+            g2pp.price_zbc_g2_qmc(cfg, g, key, market, device=dev)),
+        "vega_zbc_g2_rqmc@65536x8": lambda: torch.stack(
+            g2pp.vega_zbc_g2_rqmc(cfg, g, key, market, device=dev)),
+        f"price_zbc_grid_g2@{cfg.n_paths}": lambda: g2pp.price_zbc_grid_g2(
+            cfg, g, key, market, *axes, device=dev).price,
+        f"price_cms_g2@{cfg.n_paths}": lambda: g2pp.price_cms_g2(
+            cfg, g, key, market, rate=0.02, tenor=4.0, device=dev).price,
+        "calibrate_g2": calibrate}
+    first = {name: fn() for name, fn in calls.items()}
+    walls = {name: [] for name in calls}
+    hosts = {name: [] for name in calls}
+    zbc = f"price_zbc_g2@{cfg.n_paths}"
+    for _ in range(reps):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            hosts[name].append((t1 - t0) * 1e3)
+            if name == zbc:
+                check(torch.equal(out, first[name]), f"{name}: reruns "
+                      "differ")
+    print(f"[phase 8] price_zbc_g2 reruns bitwise: "
+          f"{[float(x) for x in first[zbc]]}")
+    times = {}
+    for name, fn in calls.items():
+        t = times[name] = {
+            "wall_ms": statistics.median(walls[name]),
+            "wall_ms_min": min(walls[name]), "wall_ms_max": max(walls[name]),
+            "host_ms": statistics.median(hosts[name])}
+        t["device_ms"], ops = _device_window(fn)
+        t["device_ops"] = ops
+        print(f"[phase 8] {name}: wall median {t['wall_ms']:.3f} ms "
+              f"[{t['wall_ms_min']:.3f}, {t['wall_ms_max']:.3f}] over {reps}"
+              f", host {t['host_ms']:.3f} ms, device busy "
+              f"{t['device_ms']:.3f} ms, {ops:.0f} device ops "
+              f"({t['host_ms'] * 1e3 / max(ops, 1):.1f} us of host each) "
+              f"per call [{smi}]")
+    return times
+
+
+def phase8(dev, smi):
+    """Calibration and the European half of G2++ (module docstring, phase
+    8); returns the kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    docs = phase8_cli(cfg, dev)
+    phase8_gates(cfg, docs)
+    market = analytic_market(cfg, dev)
+    phase8_card_vs_cpu(cfg, dev, market)
+    times = phase8_times(cfg, dev, market, smi)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 8] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 8] peak device memory of the calibration/G2++ phase: "
+          f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
+          f" s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -1813,6 +2085,14 @@ def main() -> int:
           f"direct calls, card vs CPU, the timings): "
           f"{sum(berm_counts.values())} (plain PyTorch)")
     check(not any(berm_counts.values()), "a Bermudan or multi-date call "
+          "launched a kernel")
+
+    g2_counts = phase8(dev, smi)
+    print(f"[phase 8] launches of the hand-written kernels in the "
+          f"calibration and G2++ calls (cli calibrate, g2pp, grid --engine "
+          f"exact, cms --g2, card vs CPU, the timings): "
+          f"{sum(g2_counts.values())} kernel launches (plain PyTorch)")
+    check(not any(g2_counts.values()), "a calibration or G2++ call "
           "launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",

@@ -106,3 +106,12 @@ def key(key_data) -> Key:
     if words.shape != (2,):
         raise ValueError("expected a threefry key's two words")
     return Key(words=(int(words[0]), int(words[1])))
+
+
+def g2_params(g) -> "G2Params":
+    """The port's ``g2pp.G2Params`` from the JAX one's five floats (any
+    object with ``a``, ``b``, ``sigma``, ``eta`` and ``rho``)."""
+    from .models.g2pp import G2Params
+
+    return G2Params(a=float(g.a), b=float(g.b), sigma=float(g.sigma),
+                    eta=float(g.eta), rho=float(g.rho))

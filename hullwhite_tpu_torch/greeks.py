@@ -18,12 +18,18 @@ AD, CRN, recalibrated and gamma parts of ``hullwhite_tpu.greeks``).
 * ``bermudan_vega`` (jvp or CRN FD), ``bermudan_delta`` (CRN FD under a
   parallel curve shift, ``shift_curve``) and ``fd_vega_cap``: the greeks
   of the Bermudan bracket (``bermudan``) and of caps.
+* ``calibrate_hw`` (joint (a, sigma) fit to closed-form quotes built by
+  ``zbc_quote``, ``cap_quote``, ``swaption_quote``) and ``implied_sigma``
+  (sigma from one ZBC price): host float64, the JAX package's iterations
+  step for step.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import instruments, pricing
@@ -223,3 +229,144 @@ def fd_vega_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
         floor=floor, sigma=cfg.sigma + s * eps, n_paths=n_paths,
         n_blocks=n_blocks, device=device) for s in (1.0, -1.0)]
     return (float(legs[0].price) - float(legs[1].price)) / (2.0 * eps)
+
+
+# ---------------------------------------------------------------------------
+# Calibration: host float64 on the closed forms
+# ---------------------------------------------------------------------------
+
+class CalibrationResult(NamedTuple):
+    a: float
+    sigma: float
+    rmse: float
+    n_iter: int
+    residuals: tuple
+
+
+def zbc_quote(market: MarketCurve):
+    """Closed-form ZBC pricer cfg -> price (uses cfg.s1/s2/strike)."""
+    from .models import oracles
+
+    def pricer(c: HWConfig) -> float:
+        return oracles.zbc_price(
+            c, P0_s1=instruments.curve_level(c, market, c.s1),
+            P0_s2=instruments.curve_level(c, market, c.s2))
+
+    return pricer
+
+
+def cap_quote(market: MarketCurve, *, rate: float, tenor: float,
+              start: float | None = None, freq: float = 1.0,
+              floor: bool = False):
+    """Closed-form cap/floor pricer cfg -> price."""
+    def pricer(c: HWConfig) -> float:
+        return instruments.cap_closed_form(c, market, rate=rate, start=start,
+                                           tenor=tenor, freq=freq,
+                                           floor=floor)[0]
+
+    return pricer
+
+
+def swaption_quote(market: MarketCurve, sched, *, strike: float = 1.0,
+                   payer: bool = False):
+    """Jamshidian swaption pricer cfg -> price."""
+    def pricer(c: HWConfig) -> float:
+        return instruments.jamshidian_price(c, market, sched, strike,
+                                            payer=payer)
+
+    return pricer
+
+
+def calibrate_hw(cfg: HWConfig, quotes, *, a0: float | None = None,
+                 sigma0: float | None = None, tol: float = 1e-12,
+                 max_iter: int = 60) -> CalibrationResult:
+    """Jointly fit (a, sigma) to a set of closed-form instrument quotes.
+
+    ``quotes``: sequence of ``(pricer, target_price)`` with
+    ``pricer(cfg) -> float64 model price`` under ``cfg.a``/``cfg.sigma``
+    (build with ``zbc_quote``/``cap_quote``/``swaption_quote``).  The
+    market curve is observed data, independent of (a, sigma): theta(t)
+    absorbs the fit to the curve for any parameters, so the closed forms
+    price off the curve directly and the 2-parameter problem is
+    well-posed with >= 2 structurally distinct quotes.
+
+    Damped Gauss-Newton in log-parameters (positivity built in), fp64
+    host: J^T J step with Levenberg lambda, raised on rejection.
+    """
+    th = np.log([cfg.a if a0 is None else a0,
+                 cfg.sigma if sigma0 is None else sigma0])
+
+    def resid(t):
+        c = cfg.replace(a=float(math.exp(t[0])),
+                        sigma=float(math.exp(t[1])))
+        return np.array([p(c) - tgt for p, tgt in quotes], np.float64)
+
+    r = resid(th)
+    lam = 1e-10
+    it = 0
+    for it in range(1, max_iter + 1):
+        eps = 1e-6
+        J = np.empty((len(r), 2))
+        for j in range(2):
+            tp = th.copy()
+            tp[j] += eps
+            J[:, j] = (resid(tp) - r) / eps
+        A = J.T @ J
+        g = J.T @ r
+        step = np.linalg.solve(A + lam * np.diag(np.diag(A) + 1e-30),
+                               g)
+        th_new = th - step
+        r_new = resid(th_new)
+        if np.sum(r_new ** 2) <= np.sum(r ** 2):
+            th, r = th_new, r_new
+            lam = max(lam * 0.25, 1e-12)
+        else:
+            lam *= 10.0
+        if np.max(np.abs(step)) < tol or np.sum(r ** 2) < tol:
+            break
+    return CalibrationResult(a=float(math.exp(th[0])),
+                             sigma=float(math.exp(th[1])),
+                             rmse=float(np.sqrt(np.mean(r ** 2))),
+                             n_iter=it, residuals=tuple(map(float, r)))
+
+
+def implied_sigma(cfg: HWConfig, market: MarketCurve, target_price: float,
+                  *, sigma0: float | None = None, tol: float = 1e-12,
+                  max_iter: int = 60) -> float:
+    """Calibrate sigma to a target ZBC price (float64 Newton on the
+    closed form).  The closed-form ZBC is monotone increasing in sigma
+    (its vega is positive), so Newton from any sigma0 > 0 with a
+    bisection fallback converges globally."""
+    from .models.oracles import _pdf, _phi
+
+    P1 = instruments.curve_level(cfg, market, cfg.s1)
+    P2 = instruments.curve_level(cfg, market, cfg.s2)
+    K = cfg.strike
+    a = cfg.a
+    B = (1.0 - math.exp(-a * (cfg.s2 - cfg.s1))) / a
+    c = B * math.sqrt((1.0 - math.exp(-2.0 * a * cfg.s1)) / (2.0 * a))
+
+    def price_and_vega(sig):
+        sp = sig * c
+        h = math.log(P2 / (K * P1)) / sp + 0.5 * sp
+        price = P2 * _phi(h) - K * P1 * _phi(h - sp)
+        vega = P2 * _pdf(h) * c  # Black-style: dP/dsigma = P2 phi(h) c
+        return price, vega
+
+    lo, hi = 1e-8, 5.0
+    sig = float(sigma0 if sigma0 is not None else cfg.sigma)
+    for _ in range(max_iter):
+        price, vega = price_and_vega(sig)
+        err = price - target_price
+        if abs(err) < tol:
+            return sig
+        if err > 0:
+            hi = min(hi, sig)
+        else:
+            lo = max(lo, sig)
+        step = err / max(vega, 1e-16)
+        nxt = sig - step
+        if not (lo < nxt < hi):
+            nxt = 0.5 * (lo + hi)  # bisection fallback
+        sig = nxt
+    return sig

@@ -51,6 +51,17 @@ def theta_fn(t, spec: ThetaSpec):
                        spec.alpha1 + spec.beta1 * t)
 
 
+def market_theta(cfg: HWConfig, market) -> ThetaFromCurve:
+    """ThetaFromCurve spec from an observed/bootstrapped market curve:
+    ``cfg.replace(a=.., sigma=.., theta=market_theta(cfg, market))``
+    makes every engine's drift reprice the input curve exactly at the
+    new parameters (the calibrate -> reprice pipeline's consistency
+    requirement; see ThetaFromCurve)."""
+    f = market.f.detach().cpu().numpy().astype(np.float64)
+    return ThetaFromCurve(f=tuple(float(v) for v in f),
+                          t_final=float(cfg.t_final))
+
+
 def _exp(x, like: torch.Tensor | None = None):
     """float32 exp; a Python float argument is rounded to float32 first."""
     return torch.exp(_f32(x, like))

@@ -248,7 +248,7 @@ def test_cli_grid(tmp_path, monkeypatch, capsys):
     P, f = _analytic_np(cfg)
     hwio.save_market(cfg, convert.market_curve(P, f, device="cpu"))
     assert cli.main(["grid", "--device", "cpu", "--paths", "32768"]) == 0
-    assert "not ported" in capsys.readouterr().out
+    assert "G2++ surface" in capsys.readouterr().out
     doc = json.loads((tmp_path / "data_torch" / "grid_results.json")
                      .read_text())
     price = np.asarray(doc["price"])
@@ -257,3 +257,5 @@ def test_cli_grid(tmp_path, monkeypatch, capsys):
     assert len(doc["results"]["strikes"]) == 5
     assert np.all(np.diff(price, axis=0) < 0) and np.all(price > 0)
     assert abs(price[2, 4] - 0.0355) < 2e-3  # the ZBC cell (K, S2 = 10)
+    for name in ("g2_price", "g2_vega"):  # the JAX schema's G2++ surfaces
+        assert np.asarray(doc[name]).shape == (5, 5)

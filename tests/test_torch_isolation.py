@@ -91,3 +91,41 @@ def test_unported_engines_raise():
     for engine in ("pallas", "pallas_exact", "mxu"):
         with pytest.raises(ValueError, match="not ported"):
             pricing.bootstrap_curve(CFG, Key(1), engine=engine, device="cpu")
+
+
+def test_g2pp_and_calibration_import_no_jax():
+    code = ("import sys\n"
+            "import hullwhite_tpu_torch.models.g2pp, "
+            "hullwhite_tpu_torch.greeks, hullwhite_tpu_torch.cli\n"
+            "from hullwhite_tpu_torch.greeks import calibrate_hw, "
+            "implied_sigma\n"
+            "from hullwhite_tpu_torch.models.hull_white import market_theta\n"
+            "from hullwhite_tpu_torch.convert import g2_params\n"
+            "g2_params(hullwhite_tpu_torch.models.g2pp.G2Params())\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
+            "or m == 'hullwhite_tpu')\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_g2pp_cuda_request_without_a_card_raises(no_cuda, tmp_path,
+                                                 monkeypatch):
+    from hullwhite_tpu_torch.models import g2pp
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    g = g2pp.G2Params()
+    with pytest.raises(RuntimeError, match="is_available"):
+        g2pp.price_zbc_g2(cfg, g, Key(1), market, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        g2pp.price_zbc_g2_qmc(cfg, g, Key(1), market, device="cuda")
+    monkeypatch.chdir(tmp_path)
+    for cmd in (["g2pp"], ["calibrate"], ["cms", "--g2"]):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(cmd)
+    assert not (tmp_path / "data_torch").exists()

@@ -359,5 +359,8 @@ def test_cli_cap_and_cms(tmp_path, monkeypatch, capsys):
         assert abs(r["vega_fd"] - r["vega_closed_fd"]) < 0.02
     r = json.loads((data / "cms_results.json").read_text())["results"]
     assert len(r["periods_mc"]) == 4 and np.isfinite(r["quadrature"])
-    with pytest.raises(SystemExit, match="G2"):
-        cli.main(["cms", "--g2", *argv])
+    # --g2 adds the G2++ twin against its own quadrature
+    assert cli.main(["cms", "--g2", *argv]) == 0
+    assert "G2++ twin" in capsys.readouterr().out
+    r = json.loads((data / "cms_results.json").read_text())["results"]
+    assert np.isfinite(r["g2"]["quadrature"]) and r["g2"]["mc_se"] > 0
