@@ -124,7 +124,27 @@ Phases (any failure raises and the script exits non-zero):
    2^20 paths, the curve at 2^18, the RQMC ZBC and its vega at 2^16 x 8,
    ``calibrate_g2`` on the host) the median and range of five wall
    times, the host ms, the device-busy ms and device operations, and the
-   phase's peak device memory, beside the card's name and power limit.
+   phase's peak device memory, beside the card's name and power limit;
+9. the G2++ Bermudan and the backward-looking RFR caps (plain PyTorch on
+   the card, no hand-written kernel; the DP oracle and the closed forms in
+   host float64) at full width on the fp64 oracle curve written as the q1
+   market: ``cli g2pp`` with its Bermudan at the CLI defaults (2^20 paths,
+   five annual exercises of the 5-year 2.5% receiver), ``cli rfr --g2``
+   [``--averaged`` | ``--rqmc``]: every cap and floor, HW and G2++, within
+   5 SE + 1e-6 of its closed form, the jvp vega within 1% of the closed
+   form's FD; ``price_bermudan_g2`` at k = 3 and k = 5 (2^20 paths): the
+   CV lower at most the DP oracle (241 x 64 grid) + 4 SE + 3.4e-6, the
+   upper at least the oracle - 4 SE - 3.4e-6, the CV SE >= 10x below the
+   raw, the k = 5 call on cli g2pp's key equal to the CLI's bracket;
+   ``vega_bermudan_g2`` (k = 1) and ``delta_bermudan_g2`` (k = 3) at 2^17
+   paths against the European oracle's and the DP oracle's FD; the
+   Bermudan (k = 2, 2^12 paths) and two RFR caps on the card against the
+   CPU (``G2B_CARD_CPU_TOL``); the k = 5 Bermudan reruns bitwise; no
+   kernel launched; per call (the Bermudan at k = 3 and 5, the DP oracle
+   on the host, the RFR caps at 2^20, the RQMC cap at 2^17 x 8) the
+   median and range of the wall times, the host ms, the device-busy ms
+   and device operations, and the phase's peak device memory, beside the
+   card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -1980,6 +2000,301 @@ def phase8(dev, smi):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the G2++ Bermudan (closed-form dual proxy, fp64 2-d DP oracle,
+# vega, curve delta) and the backward-looking RFR caps, plain PyTorch on
+# the card (no hand-written kernel on these calls) and host float64 oracles
+# ---------------------------------------------------------------------------
+
+G2B_EX3 = (5.0, 6.0, 7.0)
+G2B_EX5 = (5.0, 6.0, 7.0, 8.0, 9.0)
+# the reference's own float32 evaluation floor on the k = 3 bracket
+G2B_EVAL_FLOOR = 3.4e-6
+# the DP oracle's grid for the bracket gates: the default (121, 48) grid is
+# biased by ~+6e-6 at k = 3 and ~-6e-6 at k = 5 against (481, 96) (CPU
+# measurement), (241, 64) is within 1.6e-6 and 5e-8
+G2B_DP_GRID = dict(n_grid=241, n_quad=64)
+# vega and delta at 2^17 paths
+G2B_GREEK_PATHS = 1 << 17
+# the card against the CPU on one key at 2^12 paths, k = 2: the lower bound
+# absolute (its policy reads the fitted chain only through its sign
+# tests); the upper and CV lower, which rest on the chain fitted by float32
+# QR (cuSOLVER against LAPACK), within half their SE; the RFR caps'
+# prices absolute (float32 noise)
+G2B_CARD_CPU_TOL = dict(lower=1e-6, se_frac=0.5, rfr=2e-7)
+
+
+def phase9_cli(cfg, dev):
+    """On the fp64 oracle curve written as the q1 market: ``cli g2pp``
+    (with its Bermudan at the CLI defaults), ``cli rfr --g2``, ``cli rfr
+    --g2 --averaged`` and ``cli rfr --g2 --rqmc`` at full width in a fresh
+    directory; returns the g2pp results and each rfr run's results."""
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    argv = ["--device", str(dev), "--reps", "1"]
+    cwd = os.getcwd()
+    rfr_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            def results(name):
+                return json.load(open(os.path.join("data_torch",
+                                                   name)))["results"]
+
+            hwio.save_market(cfg, analytic_market(cfg, dev))
+            _cli(["g2pp", *argv], "phase 9")
+            g2 = results("g2pp_results.json")
+            for extra in ([], ["--averaged"], ["--rqmc"]):
+                _cli(["rfr", "--g2", *extra, *argv], "phase 9")
+                rfr_runs[" ".join(["--g2", *extra])] = results(
+                    "rfr_results.json")
+        finally:
+            os.chdir(cwd)
+    return g2, rfr_runs
+
+
+def phase9_rfr_gates(rfr_runs):
+    """Every MC / RQMC cap and floor within 5 SE + 1e-6 of its closed form,
+    the jvp vega within 1% of the closed form's FD."""
+    for name, r in rfr_runs.items():
+        for kind in ("cap", "floor", "g2_cap", "g2_floor"):
+            x = r[kind]
+            d = abs(x["mc"] - x["closed_form"])
+            tol = 5 * x["se"] + 1e-6
+            print(f"[phase 9] cli rfr {name} {kind}: MC {x['mc']:.8f} +/- "
+                  f"{x['se']:.2e}, closed form {x['closed_form']:.8f}, |d| "
+                  f"{d:.2e} (tol {tol:.2e})")
+            check(d <= tol, f"cli rfr {name} {kind} vs its closed form")
+        v, va = r["vega_jvp"], r["vega_closed_fd"]
+        print(f"[phase 9] cli rfr {name} vega: jvp {v:.6f}, closed-form FD "
+              f"{va:.6f}")
+        check(abs(v - va) <= 0.01 * abs(va), f"cli rfr {name} vega")
+
+
+def phase9_bermudan(cfg, dev, market, g2doc):
+    """price_bermudan_g2 at k = 3 and k = 5 (2^20 paths) against the DP
+    oracle; the k = 5 call on cli g2pp's key equals the CLI's bracket;
+    vega (k = 1) and curve delta (k = 3) at 2^17 against their oracles.
+    Returns the k = 5 bracket (the timings' warm call)."""
+    import torch
+
+    from hullwhite_tpu_torch import Key, greeks, instruments
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    key = Key(cfg.seed).fold_in(9292)      # cli g2pp's key
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    host = market.to("cpu")
+    out = {}
+    for ex in (G2B_EX3, G2B_EX5):
+        t0 = time.perf_counter()
+        r = g2pp.price_bermudan_g2(cfg, g, key, market, sched, ex,
+                                   device=dev)
+        vals = torch.stack([r.price, r.price_cv, r.upper, r.std_error,
+                            r.cv_std_error, r.upper_std_error]).tolist()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp = g2pp.dp_oracle_g2(cfg, g, host, sched, ex, **G2B_DP_GRID)
+        dp_wall = time.perf_counter() - t0
+        lo, cv, up, se, cv_se, up_se = vals
+        k = len(ex)
+        print(f"[phase 9] price_bermudan_g2 k = {k} at {cfg.n_paths} paths "
+              f"({wall:.1f} s): lower {lo:.8f} +/- {se:.2e}, CV lower "
+              f"{cv:.8f} +/- {cv_se:.2e}, upper {up:.8f} +/- {up_se:.2e}; "
+              f"DP ({G2B_DP_GRID['n_grid']} x {G2B_DP_GRID['n_quad']}, "
+              f"{dp_wall:.1f} s) {dp:.8f}: CV - DP {cv - dp:+.2e} (tol 4 SE "
+              f"+ {G2B_EVAL_FLOOR} = {4 * cv_se + G2B_EVAL_FLOOR:.2e}), "
+              f"DP - upper {dp - up:+.2e} (tol "
+              f"{4 * up_se + G2B_EVAL_FLOOR:.2e})")
+        check(cv <= dp + 4 * cv_se + G2B_EVAL_FLOOR, f"k = {k}: CV lower "
+              "above the DP oracle")
+        check(up >= dp - 4 * up_se - G2B_EVAL_FLOOR, f"k = {k}: upper "
+              "below the DP oracle")
+        check(cv_se < se / 10.0, f"k = {k}: the CV SE did not collapse")
+        out[k] = vals
+    lo, cv, up = out[5][:3]
+    cli_vals = (g2doc["bermudan_lower"], g2doc["bermudan_lower_cv"],
+                g2doc["bermudan_upper"])
+    print(f"[phase 9] cli g2pp Bermudan (lower, CV, upper) {cli_vals} vs "
+          f"the direct call on its key {(lo, cv, up)}")
+    check(cli_vals == (lo, cv, up), "cli g2pp's bracket differs from "
+          "price_bermudan_g2 on its key")
+
+    # vega (k = 1) against the fp64 FD of the European oracle, as
+    # tests/test_g2pp.py gates it; delta (k = 3) against the DP oracle's
+    # FD on the shifted curves (its coarse grid, as the JAX test)
+    e = 1e-4
+    vref = (g2pp.swaption_g2_analytic(cfg, g.bump_sigma(e), host, sched)
+            - g2pp.swaption_g2_analytic(cfg, g.bump_sigma(-e), host,
+                                        sched)) / (2.0 * e)
+    t0 = time.perf_counter()
+    vlo, vup = g2pp.vega_bermudan_g2(cfg, g, key, market, sched, [5.0],
+                                     n_paths=G2B_GREEK_PATHS, device=dev)
+    print(f"[phase 9] vega_bermudan_g2 k = 1 at {G2B_GREEK_PATHS} paths "
+          f"({time.perf_counter() - t0:.1f} s): lower {vlo:.6f}, upper "
+          f"{vup:.6f}, European oracle FD {vref:.6f} (tol 2e-2 / 5e-4)")
+    check(abs(vup - vref) < 5e-4 and abs(vlo - vref) < 2e-2,
+          "vega_bermudan_g2 vs the European oracle")
+    h = 1e-3
+    t0 = time.perf_counter()
+    dl, du = g2pp.delta_bermudan_g2(cfg, g, key, market, sched, G2B_EX3,
+                                    n_paths=G2B_GREEK_PATHS, h=h,
+                                    device=dev)
+    wall = time.perf_counter() - t0
+    dp = (g2pp.dp_oracle_g2(cfg, g, greeks.shift_curve(cfg, host, +h),
+                            sched, G2B_EX3)
+          - g2pp.dp_oracle_g2(cfg, g, greeks.shift_curve(cfg, host, -h),
+                              sched, G2B_EX3)) / (2 * h)
+    print(f"[phase 9] delta_bermudan_g2 k = 3 at {G2B_GREEK_PATHS} paths "
+          f"({wall:.1f} s): lower {dl:.6f}, upper {du:.6f}, DP FD {dp:.6f}"
+          f" (tol 3e-2 / 1e-2 relative)")
+    check(abs(du - dp) < 1e-2 * abs(dp) and abs(dl - dp) < 3e-2 * abs(dp),
+          "delta_bermudan_g2 vs the DP oracle's FD")
+    return out[5]
+
+
+def phase9_card_vs_cpu(cfg, dev, market):
+    """price_bermudan_g2 (k = 2, 2^12 paths) and the RFR caps on the card
+    and on the CPU under one key."""
+    from hullwhite_tpu_torch import Key, instruments, rfr
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    key = Key(cfg.seed).fold_in(9292)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    tol = G2B_CARD_CPU_TOL
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        r = g2pp.price_bermudan_g2(cfg, g, key, m, sched, (5.0, 6.0),
+                                   n_paths=1 << 12, device=d)
+        caps = [float(rfr.price_rfr_cap(cfg, key, m, strike=0.02,
+                                        n_paths=1 << 14, device=d).price),
+                float(rfr.price_rfr_cap_g2(cfg, g, key, m, strike=0.02,
+                                           style="averaged",
+                                           n_paths=1 << 14,
+                                           device=d).price)]
+        got[str(d)] = ([float(r.price), float(r.price_cv), float(r.upper)],
+                       [float(r.std_error), float(r.cv_std_error),
+                        float(r.upper_std_error)], caps)
+    (pa, sa, ca), (pb, sb, cb) = got[str(dev)], got["cpu"]
+    d = [abs(x - y) for x, y in zip(pa, pb)]
+    d_rfr = max(abs(x - y) for x, y in zip(ca, cb))
+    print(f"[phase 9] card vs CPU: price_bermudan_g2 k = 2 at 2^12 (lower, "
+          f"CV, upper) {pa} vs {pb}: |d| {[f'{x:.2e}' for x in d]} (tol "
+          f"{tol['lower']}, {tol['se_frac']} CV SE {sb[1]:.2e}, "
+          f"{tol['se_frac']} upper SE {sb[2]:.2e}); price_rfr_cap and "
+          f"price_rfr_cap_g2 (averaged) at 2^14 {ca} vs {cb}: max |d| "
+          f"{d_rfr:.2e} (tol {tol['rfr']})")
+    check(d[0] <= tol["lower"] and d[1] <= tol["se_frac"] * sb[1]
+          and d[2] <= tol["se_frac"] * sb[2] and d_rfr <= tol["rfr"],
+          "the G2++ Bermudan and the RFR caps on the card vs the CPU")
+
+
+def phase9_times(cfg, dev, market, smi, first5, reps=2):
+    """Per call: the synchronised wall ms of ``reps`` rounds (median,
+    least, most; the Bermudan's warm call is phase9_bermudan's), the host
+    ms until the call returns, the device-busy ms and device operations of
+    one profiler window (``_device_window``; ``dp_oracle_g2``: host wall
+    only); the k = 5 Bermudan reruns bitwise."""
+    import statistics
+
+    import torch
+
+    from hullwhite_tpu_torch import Key, instruments, rfr
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    key = Key(cfg.seed).fold_in(9292)
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 5.0)
+    host = market.to("cpu")
+
+    def berm(ex):
+        r = g2pp.price_bermudan_g2(cfg, g, key, market, sched, ex,
+                                   device=dev)
+        return torch.stack([r.price, r.price_cv, r.upper, r.std_error,
+                            r.cv_std_error, r.upper_std_error])
+
+    k5 = f"price_bermudan_g2@{cfg.n_paths}xk5"
+    calls = {
+        k5: lambda: berm(G2B_EX5),
+        f"price_bermudan_g2@{cfg.n_paths}xk3": lambda: berm(G2B_EX3),
+        "dp_oracle_g2@k5": lambda: g2pp.dp_oracle_g2(cfg, g, host, sched,
+                                                     G2B_EX5),
+        f"price_rfr_cap@{cfg.n_paths}": lambda: rfr.price_rfr_cap(
+            cfg, key, market, strike=0.02, device=dev).price,
+        f"price_rfr_cap_averaged@{cfg.n_paths}": lambda: rfr.price_rfr_cap(
+            cfg, key, market, strike=0.02, style="averaged",
+            device=dev).price,
+        f"vega_rfr_cap@{cfg.n_paths}": lambda: torch.stack(rfr.vega_rfr_cap(
+            cfg, key, market, strike=0.02, device=dev)),
+        f"price_rfr_cap_g2@{cfg.n_paths}": lambda: rfr.price_rfr_cap_g2(
+            cfg, g, key, market, strike=0.02, device=dev).price,
+        f"price_rfr_cap_rqmc@{cfg.n_paths // 8}x8": lambda:
+            rfr.price_rfr_cap(cfg, key, market, strike=0.02, rqmc=True,
+                              n_blocks=8, n_paths=cfg.n_paths // 8,
+                              device=dev).price}
+    walls = {name: [] for name in calls}
+    hosts = {name: [] for name in calls}
+    for name, fn in calls.items():
+        if not name.startswith("price_bermudan"):
+            fn()                                # warm call
+    for _ in range(reps):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            hosts[name].append((t1 - t0) * 1e3)
+            if name == k5:
+                check(out.tolist() == first5, f"{name}: reruns differ")
+    print(f"[phase 9] price_bermudan_g2 k = 5 reruns bitwise: {first5}")
+    times = {}
+    for name, fn in calls.items():
+        t = times[name] = {
+            "wall_ms": statistics.median(walls[name]),
+            "wall_ms_min": min(walls[name]), "wall_ms_max": max(walls[name]),
+            "host_ms": statistics.median(hosts[name])}
+        line = (f"[phase 9] {name}: wall median {t['wall_ms']:.3f} ms "
+                f"[{t['wall_ms_min']:.3f}, {t['wall_ms_max']:.3f}] over "
+                f"{reps}, host {t['host_ms']:.3f} ms")
+        if not name.startswith("dp_oracle"):
+            t["device_ms"], ops = _device_window(fn)
+            t["device_ops"] = ops
+            line += (f", device busy {t['device_ms']:.3f} ms, {ops:.0f} "
+                     f"device ops ({t['host_ms'] * 1e3 / max(ops, 1):.1f} us "
+                     f"of host each)")
+        print(f"{line} per call [{smi}]")
+    return times
+
+
+def phase9(dev, smi):
+    """The G2++ Bermudan and the RFR caps (module docstring, phase 9);
+    returns the kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    g2doc, rfr_runs = phase9_cli(cfg, dev)
+    phase9_rfr_gates(rfr_runs)
+    market = analytic_market(cfg, dev)
+    first5 = phase9_bermudan(cfg, dev, market, g2doc)
+    phase9_card_vs_cpu(cfg, dev, market)
+    times = phase9_times(cfg, dev, market, smi, first5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 9] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 9] peak device memory of the G2++ Bermudan/RFR phase: "
+          f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
+          f" s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -2093,6 +2408,14 @@ def main() -> int:
           f"exact, cms --g2, card vs CPU, the timings): "
           f"{sum(g2_counts.values())} kernel launches (plain PyTorch)")
     check(not any(g2_counts.values()), "a calibration or G2++ call "
+          "launched a kernel")
+
+    g2b_counts = phase9(dev, smi)
+    print(f"[phase 9] launches of the hand-written kernels in the G2++ "
+          f"Bermudan and RFR calls (cli g2pp, rfr --g2 [--averaged|--rqmc], "
+          f"the direct calls, card vs CPU, the timings): "
+          f"{sum(g2b_counts.values())} kernel launches (plain PyTorch)")
+    check(not any(g2b_counts.values()), "a G2++ Bermudan or RFR call "
           "launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",

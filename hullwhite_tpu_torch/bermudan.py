@@ -44,9 +44,7 @@ from .models import hull_white as hw
 from .models.hull_white import MarketCurve, StepTables
 from .ops.accurate import exp32 as _exp, nphi, npdf as _npdf
 from .ops.engine_linear import _det_recursion, _shock_shapes, dot
-from .ops.qmc import ndtri
-from .ops.rng import Key, normal, random_bits
-from .ops.sobol import sobol
+from .ops.rng import Key, block_normals, normal
 
 BASIS_DEGREE = 3   # polynomial part of the basis: [1, r, r^2, r^3]
 RIDGE = 1e-9
@@ -363,8 +361,9 @@ def _piecewise_cond(gamma, mu, sd, cA, B, strike, rstar, sg,
 
 
 def _bisect(f, a, b, iters=60):
-    """Scalar bisection assuming f(a) > 0 > f(b); a, b are (1,) device
-    tensors and need not be ordered.  No value leaves the device."""
+    """Bisection assuming f(a) > 0 > f(b), elementwise on tensors a, b of
+    any one shape (each element its own root; they need not be ordered).
+    No value leaves the device."""
     for _ in range(iters):
         mid = 0.5 * (a + b)
         pos = f(mid) > 0
@@ -537,13 +536,8 @@ def _bermudan_fn(cfg: HWConfig, ex_dates: tuple, sched: CouponSchedule,
 
         # pass 2: out-of-sample lower + dual upper, block by block
         def block(b):
-            kb = k_val.fold_in(b)
-            if rqmc:
-                shift = random_bits(kb, (2 * k,), device=dev)
-                x = ndtri(sobol(n_paths, 2 * k, shift))
-            else:
-                x = normal(kb, (n_paths, 2 * k), device=dev)
-            r_b, i_b = states(x)
+            r_b, i_b = states(block_normals(k_val, b, (n_paths, 2 * k),
+                                            rqmc=rqmc, device=dev))
             cf, _, _, stop = backward(r_b, i_b, stats, terms, v0s,
                                       betas=betas)
             u, Ms = dual_path_bound(r_b, i_b, sig2, r_det, i_det, stats,

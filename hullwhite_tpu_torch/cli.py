@@ -1,5 +1,5 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-swaption / cap / cms / calibrate / g2pp / benchmark.
+swaption / cap / rfr / cms / calibrate / g2pp / benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
@@ -11,6 +11,7 @@ swaption / cap / cms / calibrate / g2pp / benchmark.
     python -m hullwhite_tpu_torch.cli swaption --payer   # vs Jamshidian
     python -m hullwhite_tpu_torch.cli swaption --bermudan --delta
     python -m hullwhite_tpu_torch.cli cap --floor        # vs ZBP closed form
+    python -m hullwhite_tpu_torch.cli rfr --g2 --rqmc    # vs Black/Bachelier
     python -m hullwhite_tpu_torch.cli cms --g2           # vs quadrature
     python -m hullwhite_tpu_torch.cli calibrate          # HW and G2++ fits
     python -m hullwhite_tpu_torch.cli g2pp --validate 5  # the G2++ family
@@ -36,12 +37,15 @@ bound, dual upper bound, fp64 DP oracle), ``--delta`` its curve delta and
 ``--bermudan-sweep`` the bracket for 1..5 exercise rights.  ``cap`` and
 ``cms`` price a cap/floor and a CMS cap/floor leg by MC on the exact
 multi-date states against their fp64 oracles (``--g2``: also the G2++
-twin).  ``calibrate`` recovers Hull-White (a, sigma) and G2++ (sigma, eta,
-rho) from closed-form quotes (host float64); ``g2pp`` runs the G2++
-family: curve, ZBC by MC, RQMC and closed form, swaptions, vegas and the
-bond-exchange option (its Bermudan is not ported yet).  Results go to
-``data_torch/``; q2, q3, grid, swaption, cap, cms, calibrate and g2pp read
-the market curve q1 wrote there.
+twin).  ``rfr`` prices backward-looking overnight-rate caps and floors
+(compounded, or ``--averaged``) by MC or ``--rqmc`` against their closed
+forms, with the jvp vega (``--g2``: also the G2++ twins).  ``calibrate``
+recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
+closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
+ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
+option and the Bermudan bracket.  Results go to ``data_torch/``; q2, q3,
+grid, swaption, cap, rfr, cms, calibrate and g2pp read the market curve
+q1 wrote there.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import sys
 import numpy as np
 import torch
 
-from . import bermudan, greeks, grid, instruments, pricing
+from . import bermudan, greeks, grid, instruments, pricing, rfr
 from .config import HWConfig
 from .models import g2pp
 from .models import hull_white as hw
@@ -579,6 +583,85 @@ def cmd_cap(args):
     return 0 if ok else 1
 
 
+def cmd_rfr(args):
+    """Backward-looking RFR caplet/floorlet (compounded or averaged
+    overnight-rate styles) by MC, or by RQMC over 8 digital shifts at the
+    same path budget, against the exact tilted Black/Bachelier closed
+    forms, and the cap's one-jvp vega against the closed form's FD; with
+    ``--g2`` also the G2++ twins.  The gate is the JAX package's: every
+    price within 4 SE of its closed form."""
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(8282)
+    market = hwio.load_market(cfg, device=dev)
+    style = "averaged" if args.averaged else "compounded"
+    start = cfg.s1 if args.start is None else args.start
+    span = dict(start=start, tenor=args.tenor, freq=args.freq) \
+        if args.end is None else dict(start=start, end=args.end)
+    mckw = dict(n_obs=args.n_obs, device=dev, **span)
+    if args.rqmc:
+        # 8 digital-shift replicates at the same total path budget
+        mckw.update(rqmc=True, n_blocks=8,
+                    n_paths=max(cfg.n_paths // 8, 1024))
+    label = (f"[{start}, {args.end}]y" if args.end is not None
+             else f"{args.tenor}y strip @ {args.freq}/y from {start}y")
+    print(f"--- RFR {style} cap/floor: {label} @ "
+          f"{args.strike*100:.2f}%{' (RQMC)' if args.rqmc else ''} "
+          f"[{_device_name(dev)}] ---")
+    out, ok = {}, True
+    for floor in (False, True):
+        kind = "floor" if floor else "cap"
+        res = rfr.price_rfr_cap(cfg, key, market, strike=args.strike,
+                                style=style, floor=floor, **mckw)
+        orc, per = rfr.rfr_cap_closed_form(cfg, strike=args.strike,
+                                           style=style, floor=floor,
+                                           n_obs=args.n_obs, **span)
+        z = (float(res.price) - orc) / max(float(res.std_error), 1e-12)
+        ok &= abs(z) < 4
+        print(f"{kind:5s} MC {float(res.price):.8f} +/- "
+              f"{float(res.std_error):.2e}   closed form {orc:.8f}   "
+              f"z = {z:+.2f}")
+        out[kind] = {"mc": float(res.price), "se": float(res.std_error),
+                     "closed_form": orc, "z": z,
+                     "caplets_mc": [float(x) for x in res.caplets],
+                     "caplets_closed": per}
+    _, v = rfr.vega_rfr_cap(cfg, key, strike=args.strike, style=style,
+                            **mckw)
+    e = 1e-5
+    va = (rfr.rfr_cap_closed_form(cfg, strike=args.strike, style=style,
+                                  n_obs=args.n_obs, sigma=cfg.sigma + e,
+                                  **span)[0]
+          - rfr.rfr_cap_closed_form(cfg, strike=args.strike, style=style,
+                                    n_obs=args.n_obs, sigma=cfg.sigma - e,
+                                    **span)[0]) / (2 * e)
+    print(f"cap vega (one jvp): {float(v):.6f}   closed-form FD {va:.6f}")
+    out["vega_jvp"], out["vega_closed_fd"] = float(v), va
+    if args.g2:
+        g = _g2_params(args)
+        for floor in (False, True):
+            kind = "floor" if floor else "cap"
+            res = rfr.price_rfr_cap_g2(cfg, g, key, market,
+                                       strike=args.strike, style=style,
+                                       floor=floor, **mckw)
+            orc, _ = rfr.rfr_cap_closed_form_g2(cfg, g, market,
+                                                strike=args.strike,
+                                                style=style,
+                                                n_obs=args.n_obs,
+                                                floor=floor, **span)
+            z = (float(res.price) - orc) / max(float(res.std_error), 1e-12)
+            ok &= abs(z) < 4
+            print(f"G2++ {kind:5s} MC {float(res.price):.8f} +/- "
+                  f"{float(res.std_error):.2e}   closed form {orc:.8f}   "
+                  f"z = {z:+.2f}")
+            out[f"g2_{kind}"] = {"mc": float(res.price),
+                                 "se": float(res.std_error),
+                                 "closed_form": orc, "z": z}
+    hwio.write_json(hwio.DATA_DIR / "rfr_results.json",
+                    f"RFR {style} caplet/floorlet", cfg, results=out)
+    print(f"agreement: {'PASS' if ok else 'CHECK'}")
+    return 0 if ok else 1
+
+
 def cmd_cms(args):
     """CMS cap/floor leg: MC on the exact multi-date states against the
     fp64 tilted-quadrature oracle."""
@@ -696,9 +779,9 @@ def cmd_calibrate(args):
 def cmd_g2pp(args):
     """The second model family at product parity: curve bootstrap, ZBC (MC
     + RQMC + closed form), swaptions (MC + RQMC + conditional-decomposition
-    oracle), CRN-FD and RQMC vegas, the bond-exchange option, and with
-    ``--validate N`` N independent ZBC runs; the gate is the JAX
-    package's.  The G2++ Bermudan is not ported yet: one line says so."""
+    oracle), CRN-FD and RQMC vegas, the bond-exchange option, with
+    ``--validate N`` N independent ZBC runs, and the Bermudan bracket
+    with annual exercises; the gate is the JAX package's."""
     cfg = _cfg(args)
     dev = pricing.resolve_device(args.device)
     key = _key(cfg, args).fold_in(9292)
@@ -797,8 +880,20 @@ def cmd_g2pp(args):
                         "validation_se": s.std_error,
                         "validation_z_vs_closed": z})
 
-    print("[Bermudan] not ported: the G2++ Bermudan (price_bermudan_g2) "
-          "comes with the next slice of the port")
+    ex = [cfg.s1 + j for j in range(int(args.tenor))]
+    bm = g2pp.price_bermudan_g2(cfg, g, key, market, sched, ex, device=dev)
+    orc_e = g2pp.swaption_g2_analytic(cfg, g, market, sched, payer=False)
+    print(f"[Bermudan] ({len(ex)} annual exercises, 2-factor LSMC): "
+          f"[{float(bm.price_cv):.8f}, {float(bm.upper):.8f}] "
+          f"(SE {float(bm.cv_std_error):.2e}/"
+          f"{float(bm.upper_std_error):.2e}; raw lower "
+          f"{float(bm.price):.8f} +/- {float(bm.std_error):.2e}; "
+          f"early-exercise premium {float(bm.price_cv) - orc_e:.6f})")
+    results["bermudan_lower"] = float(bm.price)
+    results["bermudan_lower_cv"] = float(bm.price_cv)
+    results["bermudan_cv_se"] = float(bm.cv_std_error)
+    results["bermudan_upper"] = float(bm.upper)
+    results["bermudan_se"] = float(bm.std_error)
     hwio.write_json(hwio.DATA_DIR / "g2pp_results.json", "G2++ model", cfg,
                     results=results)
     # gates scale with the MC noise of the actual --paths; the RQMC vega
@@ -894,6 +989,26 @@ def main(argv=None):
     pc.add_argument("--tenor", type=float, default=4.0)
     pc.add_argument("--freq", type=float, default=1.0)
     pc.add_argument("--floor", action="store_true")
+    g2_flags = (("--g2a", 1.0), ("--g2b", 0.1), ("--g2sigma", 0.08),
+                ("--g2eta", 0.02), ("--g2rho", -0.6))
+    prf = sub.add_parser("rfr", parents=[common])
+    prf.add_argument("--strike", type=float, default=0.02)
+    prf.add_argument("--start", type=float, default=None)
+    prf.add_argument("--end", type=float, default=None)
+    prf.add_argument("--tenor", type=float, default=3.0,
+                     help="strip tenor in years (ignored when --end set)")
+    prf.add_argument("--freq", type=float, default=1.0)
+    prf.add_argument("--rqmc", action="store_true",
+                     help="digitally-shifted Sobol draws")
+    prf.add_argument("--averaged", action="store_true",
+                     help="arithmetic-average style (default: compounded)")
+    prf.add_argument("--n-obs", type=int, default=None,
+                     help="averaged-style observation count "
+                          "(default: one per step)")
+    prf.add_argument("--g2", action="store_true",
+                     help="also price the G2++ twins vs their oracles")
+    for flag, dv in g2_flags:
+        prf.add_argument(flag, type=float, default=dv)
     pcm = sub.add_parser("cms", parents=[common])
     pcm.add_argument("--rate", type=float, default=0.02)
     pcm.add_argument("--tenor", type=float, default=4.0)
@@ -902,8 +1017,6 @@ def main(argv=None):
     pcm.add_argument("--floor", action="store_true")
     pcm.add_argument("--g2", action="store_true",
                      help="also the G2++ twin against its fp64 quadrature")
-    g2_flags = (("--g2a", 1.0), ("--g2b", 0.1), ("--g2sigma", 0.08),
-                ("--g2eta", 0.02), ("--g2rho", -0.6))
     pcal = sub.add_parser("calibrate", parents=[common])
     for flag, dv in g2_flags:
         pcal.add_argument(flag, type=float, default=dv)
@@ -948,6 +1061,8 @@ def main(argv=None):
         return cmd_swaption(args)
     if args.cmd == "cap":
         return cmd_cap(args)
+    if args.cmd == "rfr":
+        return cmd_rfr(args)
     if args.cmd == "cms":
         return cmd_cms(args)
     if args.cmd == "calibrate":

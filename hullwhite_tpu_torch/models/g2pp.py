@@ -38,13 +38,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..bermudan import _bisect, _check_dates, _wls
 from ..config import HWConfig, resolve_device
+from ..greeks import shift_curve
 from ..instruments import _leg_estimate, _leg_moments, _leg_sums
+from ..ops.accurate import exp32 as _exp, nphi, npdf as _npdf
 from ..ops.engine_linear import dot
 from ..ops.payoffs import leg_moments
 from ..ops.qmc import _over_shifts, ndtri
-from ..ops.rng import Key, normal, random_bits
+from ..ops.rng import Key, block_normals, normal, random_bits
 from ..ops.sobol import sobol
+from ..range_note import _catmull_weights, _ghost_cols, _kernel_avg
 from . import hull_white as hw
 from .hull_white import MarketCurve
 from .oracles import _phi
@@ -1079,6 +1083,773 @@ def _g2_joint_chol(g: G2Params, ex_dates: tuple):
     """fp32 Cholesky^T of the joint (x, y, I) covariance (sampler)."""
     L = np.linalg.cholesky(_g2_joint_cov(g, ex_dates))
     return np.asarray(L.T, np.float32)
+
+
+@lru_cache(maxsize=None)
+def _g2_interval_cond(g: G2Params, ex_dates: tuple):
+    """fp64 conditional-Gaussian parameters of each exercise interval.
+
+    For date j, conditional on the Markov state (x_s, y_s) at date j-1
+    (date 0 conditions on the time-0 state x = y = 0), the triple
+    u = (x_t, y_t, dI = I_t - I_s) is Gaussian:
+
+      E[u | x_s, y_s] = B2 (x_s, y_s)^T,   Cov[u | .] = R
+
+    by Schur complement directly on the jittered joint covariance the
+    sampler draws from (``_g2_joint_cov``), so the conditional law is
+    exact for the sampled states; the Markov property makes conditioning
+    on (x_s, y_s) equal to conditioning on the full history.  Returns
+    per-date dicts of B2 rows (bxx..bIy) and R entries (vx, vy, cxy, cxI,
+    cyI, vII)."""
+    C = _g2_joint_cov(g, ex_dates)
+    out = []
+    for j in range(len(ex_dates)):
+        ix, iy, iI = 3 * j, 3 * j + 1, 3 * j + 2
+        if j == 0:
+            B2 = np.zeros((3, 2))
+            R = C[np.ix_([ix, iy, iI], [ix, iy, iI])]
+        else:
+            px, py, pI = 3 * j - 3, 3 * j - 2, 3 * j - 1
+            cov_us = np.array([
+                [C[ix, px], C[ix, py]],
+                [C[iy, px], C[iy, py]],
+                [C[iI, px] - C[pI, px], C[iI, py] - C[pI, py]]])
+            S = C[np.ix_([px, py], [px, py])]
+            B2 = cov_us @ np.linalg.inv(S)
+            cuu = np.array([
+                [C[ix, ix], C[ix, iy], C[ix, iI] - C[ix, pI]],
+                [C[iy, ix], C[iy, iy], C[iy, iI] - C[iy, pI]],
+                [C[iI, ix] - C[pI, ix], C[iI, iy] - C[pI, iy],
+                 C[iI, iI] - 2.0 * C[iI, pI] + C[pI, pI]]])
+            R = cuu - B2 @ cov_us.T
+        out.append(dict(bxx=B2[0, 0], bxy=B2[0, 1], byx=B2[1, 0],
+                        byy=B2[1, 1], bIx=B2[2, 0], bIy=B2[2, 1],
+                        vx=R[0, 0], vy=R[1, 1], cxy=R[0, 1],
+                        cxI=R[0, 2], cyI=R[1, 2], vII=R[2, 2]))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# The Bermudan coupon-bond option under G2++: closed-form value iteration.
+#
+# The dual value proxy of each exercise date is intrinsic on the exercise
+# side of a fitted curved boundary v = b(pc) and, on the continuation side,
+# the monomials of total degree <= 6 in the standardized states, cubic
+# splines in the signed distance to the boundary (tensored with probe
+# powers) and the detrended bond feature W.  Its conditional expectation
+# given the previous date's state is closed form in the bisected coordinate
+# v and an N_GH-node Gauss-Hermite sum in the probe coordinate pc.
+# ---------------------------------------------------------------------------
+
+PROXY_DEG = 6  # total degree of the 2-d monomial proxy basis
+POWXY = tuple((d - iy, iy) for d in range(PROXY_DEG + 1)
+              for iy in range(d + 1))
+# boundary-relative spline knots: cubic truncated-power columns
+# (t - delta)^3_+ in t = sg (v - b(pc)) / sv, the signed distance to the
+# exercise boundary in bisected-coordinate sigmas
+SPLINE_DELTAS = (-2.0, -1.2, -0.6, 0.0, 0.6, 1.2, 2.0)
+# each knot column is tensored with the probe powers pt^a, a <= SPLINE_PDEG
+SPLINE_PDEG = 3
+N_SPL = len(SPLINE_DELTAS) * (SPLINE_PDEG + 1)
+N_PROXY = len(POWXY) + N_SPL + 1               # + the bond feature W
+N_GH = 24      # Gauss-Hermite nodes for the dual's p-direction integral
+BOUND_DEG = 3  # polynomial degree of the fitted exercise-boundary curve
+BOUND_RANGE = 3.5  # probe range (in p-sigmas) of the boundary fit
+N_PROBES = 21  # bisected probes of the boundary fit
+# columns of the value-proxy fit: the monomials and splines, not W (nearly
+# a linear combination of the monomials: its large cancelling float32
+# coefficients would turn rounding into a martingale defect)
+_VAL_COLS = tuple(range(N_PROXY - 1))
+# the Gauss-Hermite nodes and weights (probabilists', the weights over
+# sqrt(2 pi)) in float32, as the JAX package scans them
+_GH_U, _GH_W = (np.asarray(a, np.float32) for a in (
+    np.polynomial.hermite_e.hermegauss(N_GH)[0],
+    np.polynomial.hermite_e.hermegauss(N_GH)[1] / math.sqrt(2.0 * math.pi)))
+# paths per (rows, N_GH) slab of _g2_piecewise_cond: one float32 slab of
+# 2^18 rows is 25 MB, and a slab's evaluation holds a few dozen of them
+_COND_ROWS = 1 << 18
+
+
+def _ipow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n for a Python int n >= 0 multiplied out as ``lax.integer_pow``
+    does it (square and multiply, lowest bit first)."""
+    if n == 0:
+        return torch.ones_like(x)
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def _w_feature_consts(lam_j, Ba, Bb, sx, sy):
+    """Detrending constants (v0, c1, c2, cn) of the bond-value feature
+    W(x, y) = (V_bond(x, y)/v0 - 1 - c1 x~ - c2 y~) / cn: v0 = V_bond(0, 0)
+    (the G2 states are centered), c1/c2 the exact scaled gradients and cn
+    the (sx, sy)-directional curvature, so W is O(x~^2)-shaped and the
+    float32 Gram matrix stays well conditioned.  W is not clipped: the
+    dual proxy needs its closed-form conditional expectation."""
+    v0 = lam_j.sum()
+    c1 = -(lam_j * Ba).sum() * sx / v0
+    c2 = -(lam_j * Bb).sum() * sy / v0
+    cn = 0.5 * (lam_j * _ipow(Ba * sx + Bb * sy, 2)).sum() / v0 + 1e-12
+    return v0, c1, c2, cn
+
+
+def _g2_bond(lam_j, Ba, Bb, x, y):
+    """V_bond per element of x, y: sum_i lam_i exp32(-Ba_i x - Bb_i y)."""
+    return (lam_j * _exp(-Ba * x[..., None] - Bb * y[..., None])).sum(-1)
+
+
+def _g2_proxy_cols(x, y, sx, sy, lam_j, Ba, Bb, bnd, swap, pscale, sg):
+    """The N_PROXY proxy basis columns: every monomial x~^i y~^j of total
+    degree <= PROXY_DEG (POWXY order), then the boundary-relative spline
+    columns (t - delta)^3_+ pt^a (SPLINE_DELTAS x a = 0..SPLINE_PDEG), then
+    the detrended bond feature W, as an (n, N_PROXY) matrix (W is left out
+    of the fit by _VAL_COLS but kept evaluable)."""
+    xt, yt = x / sx, y / sy
+    V = _g2_bond(lam_j, Ba, Bb, x, y)
+    v0, c1, c2, cn = _w_feature_consts(lam_j, Ba, Bb, sx, sy)
+    W = (V / v0 - 1.0 - c1 * xt - c2 * yt) / cn
+    xp = [torch.ones_like(xt), xt]
+    yp = [torch.ones_like(yt), yt]
+    for _ in range(PROXY_DEG - 1):
+        xp.append(xp[-1] * xt)
+        yp.append(yp[-1] * yt)
+    p, v = (y, x) if swap else (x, y)
+    sv_m = sx if swap else sy
+    sp_m = sy if swap else sx
+    t = sg * (v - _g2_boundary_eval(bnd, p / pscale)) / sv_m
+    ptp = [p / sp_m]
+    for _ in range(SPLINE_PDEG - 1):
+        ptp.append(ptp[-1] * ptp[0])
+    spl = []
+    for d in SPLINE_DELTAS:
+        base = _ipow(torch.clamp(t - d, min=0.0), 3)
+        spl += [base] + [base * f for f in ptp]
+    return torch.stack([xp[ix] * yp[iy] for ix, iy in POWXY] + spl + [W],
+                       dim=1)
+
+
+def _g2_boundary_eval(c, u):
+    """The fitted boundary polynomial b(u) = sum_m c_m u^m (Horner; u is
+    the probe coordinate in pscale units)."""
+    out = c[BOUND_DEG]
+    for m in range(BOUND_DEG - 1, -1, -1):
+        out = out * u + c[m]
+    return out
+
+
+def _g2_piecewise_value(x, y, gamma, sx, sy, lam_j, Ba, Bb, strike,
+                        bnd, swap, pscale, sg, prec):
+    """Dual value proxy V^(x, y): intrinsic sg (V_bond - K) on the exercise
+    side of the fitted curved boundary v = b(p) (p the probe coordinate, v
+    the bisected one; ``swap`` picks which of x/y is which), the proxy
+    columns (``_g2_proxy_cols``) times gamma on the continuation side.
+    Receiver sg = +1 exercises at low v, payer sg = -1 at high v."""
+    intr = sg * (_g2_bond(lam_j, Ba, Bb, x, y) - strike)
+    X = _g2_proxy_cols(x, y, sx, sy, lam_j, Ba, Bb, bnd, swap, pscale, sg)
+    poly = dot(X, gamma, prec)
+    p, v = (y, x) if swap else (x, y)
+    bcut = _g2_boundary_eval(bnd, p / pscale)
+    return torch.where(sg * (bcut - v) > 0, intr, poly)
+
+
+def _g2_piecewise_cond(gamma, sx, sy, lam_j, Ba, Bb, strike, bnd, swap,
+                       pscale, sg, mx, my, mI, p):
+    """E[ e^{-dI} V^(x_t, y_t) | x_s, y_s ] for the curved-boundary
+    piecewise proxy: exact in the bisected coordinate, Gauss-Hermite in the
+    probe coordinate.
+
+    (x_t, y_t, dI) | (x_s, y_s) is trivariate Gaussian with per-path means
+    (mx, my, mI) and constant covariance p (``_g2_interval_cond``).
+    Tilting by e^{-dI} multiplies by w0 = e^{-mI + vII/2} and shifts the
+    (x, y) means by (-cxI, -cyI).  Given the probe coordinate pc, v is 1-d
+    Gaussian: on the exercise side {sg (b(pc) - v) > 0} each bond term
+    takes its truncated-lognormal mean and the strike its truncated mass;
+    on the continuation side each monomial p^a v^c splits into p^a times a
+    truncated power moment of v, each spline column into a truncated
+    central moment, and W reuses the exponential means.  The outer
+    pc-integral is smooth and takes N_GH Gauss-Hermite nodes.
+
+    The nodes are one tensor dimension, in (paths, N_GH) slabs of at most
+    ``_COND_ROWS`` paths, and the node sum runs in the JAX package's scan
+    order (node 0 first).  The normal CDF is ``accurate.nphi``, the
+    float32 ``ndtr`` formula of ``jax.scipy.stats.norm.cdf``."""
+    f32 = np.float32
+    vx, vy, cxy = f32(p["vx"]), f32(p["vy"]), f32(p["cxy"])
+    cxI, cyI, vII = f32(p["cxI"]), f32(p["cyI"]), f32(p["vII"])
+    w0 = _exp(-mI + float(f32(0.5) * vII))
+    mx_ = mx - float(cxI)
+    my_ = my - float(cyI)
+    if swap:      # probe coordinate is y, bisected coordinate is x
+        mp, mv, vp, vv, cpv = my_, mx_, vy, vx, cxy
+        gp, gv = Bb, Ba
+        sp_m, sv_m = sy, sx
+    else:         # probe x, bisected y
+        mp, mv, vp, vv, cpv = mx_, my_, vx, vy, cxy
+        gp, gv = Ba, Bb
+        sp_m, sv_m = sx, sy
+    # the float32 scalars of the conditional law, as the JAX package's
+    # float32 scalar arrays round them
+    vp_s = max(vp, f32(1e-18))
+    sp = np.sqrt(vp_s)
+    beta_vp = float(cpv / vp_s)
+    s2 = max(vv - cpv * beta_vp, f32(1e-18))
+    s = np.sqrt(s2)
+    spow = [f32(1.0)]
+    for _ in range(PROXY_DEG):
+        spow.append(spow[-1] * s)
+    s_t = s / f32(sv_m)
+    s_t2 = s_t * s_t
+    s_t3 = float(s_t2 * s_t)
+    v0, c1, c2, cn = _w_feature_consts(lam_j, Ba, Bb, sx, sy)
+    # detrending slopes of W in (pc, v) coordinates
+    c_p, c_v = (c2, c1) if swap else (c1, c2)
+    # basis exponents (a in pc, c in v) per column, after the swap
+    POW = [(iy, ix) if swap else (ix, iy) for ix, iy in POWXY]
+    dev = mp.device
+    spu = torch.as_tensor(sp * _GH_U, device=dev)   # sp * u per node
+    wq = torch.as_tensor(_GH_W, device=dev)
+    gv_s = gv * float(s)
+    e_shift = 0.5 * (gv * gv) * float(s2)
+    g = gamma.unbind(0)
+
+    def slab(mp, mv):
+        pc = mp[:, None] + spu                 # (rows, N_GH) probe values
+        m = mv[:, None] + beta_vp * (pc - mp[:, None])   # v | pc mean
+        bcut = _g2_boundary_eval(bnd, pc / pscale)
+        alpha = (bcut - m) / float(s)
+        phi_a = _npdf(alpha)
+        # standardized sided moments on the continuation side, by the
+        # recursion U_p = sg alpha^{p-1} phi + (p-1) U_{p-2}
+        U = [nphi(-sg * alpha), sg * phi_a]
+        apow = alpha
+        for pdeg in range(2, PROXY_DEG + 1):
+            if pdeg > 2:
+                apow = apow * alpha
+            U.append(sg * apow * phi_a + (pdeg - 1) * U[pdeg - 2])
+        # raw truncated moments T_c = E[v^c 1{cont side} | pc] via the
+        # binomial expansion v = m + s w
+        mpow = [None] + [_ipow(m, c) for c in range(1, PROXY_DEG + 1)]
+        Ts = [U[0]]
+        for c in range(1, PROXY_DEG + 1):
+            t = U[0] * mpow[c]
+            for i in range(1, c + 1):
+                if i < c:
+                    mc = math.comb(c, i) * mpow[c - i] * float(spow[i])
+                else:     # m^0 = 1: the binomial times s^c, rounded once
+                    mc = float(f32(math.comb(c, i)) * spow[i])
+                t = t + mc * U[i]
+            Ts.append(t)
+        # exercise-side exponentials (truncated-lognormal means)
+        eterm = lam_j * _exp(-gp * pc[..., None] - gv * m[..., None]
+                             + e_shift)
+        e_ex = (eterm * nphi(sg * (alpha[..., None] + gv_s))).sum(-1)
+        e_full = eterm.sum(-1)
+        e_intr = sg * (e_ex - strike * nphi(sg * alpha))
+        # continuation-side polynomial columns: p^a v^c factorizes
+        pt = pc / sp_m
+        ppow = [None, pt]
+        for _ in range(PROXY_DEG - 1):
+            ppow.append(ppow[-1] * pt)
+        e_poly = None
+        for col, (a, c) in enumerate(POW):
+            term = (g[col] * ppow[a] if a else g[col]) * Ts[c]
+            if c:
+                term = term / sv_m ** c
+            e_poly = term if e_poly is None else e_poly + term
+        # boundary-relative spline columns: central moments of
+        # t = sg (v - b)/sv_m around delta, upper-truncated in t at
+        # max(delta, 0)
+        m_t = sg * (m - bcut) / sv_m
+        e_sp = None
+        for i, dlt in enumerate(SPLINE_DELTAS):
+            at = (max(dlt, 0.0) - m_t) / float(s_t)
+            phi_t = _npdf(at)
+            V0 = nphi(-at)
+            V2 = V0 + at * phi_t
+            V3 = (2.0 + at * at) * phi_t
+            md = m_t - dlt
+            mom = (_ipow(md, 3) * V0 + 3.0 * md * md * float(s_t) * phi_t
+                   + 3.0 * md * float(s_t2) * V2 + s_t3 * V3)
+            # tensor factor: pt^a is deterministic at the node, so it
+            # multiplies straight through the v-moment
+            base_col = len(POWXY) + i * (SPLINE_PDEG + 1)
+            coef = g[base_col]
+            for a in range(1, SPLINE_PDEG + 1):
+                coef = coef + g[base_col + a] * ppow[a]
+            e_sp = coef * mom if e_sp is None else e_sp + coef * mom
+        # bond feature W on the continuation side
+        e_W = ((e_full - e_ex) / v0 - Ts[0] - c_p * pt * Ts[0]
+               - c_v * Ts[1] / sv_m) / cn
+        tw = (e_intr + e_poly + e_sp + g[N_PROXY - 1] * e_W) * wq
+        acc = tw[:, 0]
+        for q in range(1, N_GH):
+            acc = acc + tw[:, q]
+        return acc
+
+    total = torch.cat([slab(mp[i:i + _COND_ROWS], mv[i:i + _COND_ROWS])
+                       for i in range(0, mp.shape[0], _COND_ROWS)])
+    return w0 * total
+
+
+class G2Bermudan(NamedTuple):
+    price: torch.Tensor            # out-of-sample greedy-policy lower bound
+    price_in_sample: torch.Tensor  # same policy on the proxy-fit cloud
+    std_error: torch.Tensor
+    n_paths: int
+    exercise_dates: tuple
+    upper: torch.Tensor            # Andersen-Broadie dual upper bound
+    upper_std_error: torch.Tensor
+    # martingale-CV lower bound (E[M_tau] = 0; see bermudan.py)
+    price_cv: torch.Tensor | None = None
+    cv_std_error: torch.Tensor | None = None
+
+
+@lru_cache(maxsize=None)
+def _g2_bermudan_statics(g: G2Params, ex_dates: tuple, times: tuple):
+    """Host statics of the estimator: per date the alive cashflows, their
+    variance adjustments and B factors and the deterministic discount
+    exponent; the state sigmas; the interval conditionals."""
+    date_stat = []
+    for t_ex in ex_dates:
+        alive = [i for i, t in enumerate(times) if t > t_ex + 1e-9]
+        vadj = [0.5 * (_v_integral(g, times[i] - t_ex)
+                       - _v_integral(g, times[i]) + _v_integral(g, t_ex))
+                for i in alive]
+        Ba = [_B(g.a, times[i] - t_ex) for i in alive]
+        Bb = [_B(g.b, times[i] - t_ex) for i in alive]
+        date_stat.append((tuple(alive), tuple(vadj), tuple(Ba), tuple(Bb),
+                          -0.5 * _v_integral(g, t_ex)))
+    sx = tuple(math.sqrt(max(_cov_xx(g.a, g.sigma, g.a, g.sigma, 1.0, t, t),
+                             1e-18)) for t in ex_dates)
+    sy = tuple(math.sqrt(max(_cov_xx(g.b, g.eta, g.b, g.eta, 1.0, t, t),
+                             1e-18)) for t in ex_dates)
+    return tuple(date_stat), sx, sy, _g2_interval_cond(g, ex_dates)
+
+
+def _g2_bermudan_fn(cfg: HWConfig, g: G2Params, ex_dates: tuple, times,
+                    coupons, strike: float, payer: bool, n_paths: int,
+                    n_blocks: int, rqmc: bool, dev: torch.device):
+    """``compute(key, market)`` -> (lower, in-sample, SE, upper, upper SE,
+    CV lower, CV SE) of the two-pass value-iteration estimator on ``dev``."""
+    k = len(ex_dates)
+    prec = cfg.matmul_precision
+    date_stat, sx, sy, icond = _g2_bermudan_statics(g, ex_dates,
+                                                    tuple(times))
+    sg = -1.0 if payer else 1.0   # receiver exercises at low v
+    un = np.linspace(-1.0, 1.0, N_PROBES)
+
+    def compute(key: Key, market: MarketCurve):
+        LT = torch.as_tensor(_g2_joint_chol(g, ex_dates), device=dev)
+        lam = []
+        disc_det = []
+        for j, t_ex in enumerate(ex_dates):
+            alive, vadj, Ba, Bb, d0 = date_stat[j]
+            P1 = _at(market, t_ex, cfg)
+            lam_j = (_vec32([coupons[i] for i in alive], dev)
+                     * _at(market, [times[i] for i in alive], cfg) / P1
+                     * _exp(_vec32(vadj, dev)))
+            lam.append((lam_j, _vec32(Ba, dev), _vec32(Bb, dev)))
+            disc_det.append(P1 * _exp(hw._f32(d0, P1)))
+
+        def states(xn):
+            z = dot(xn, LT, prec)
+            return z[:, 0::3], z[:, 1::3], z[:, 2::3]
+
+        def payoff_at(j, x, y):
+            V = _g2_bond(*lam[j], x, y)
+            return torch.clamp((strike - V) if payer else (V - strike),
+                               min=0.0)
+
+        def cond_at(j, xs, ys, gam, bnd):
+            """(ratio, E[e^{-dI} V^_j | state j-1]) with the deterministic
+            discount ratio of the interval (xs = ys = None at date 0: the
+            time-0 state, one row for all paths).  ratio * cond at date
+            j + 1 is the date-j continuation value in date-j money, the
+            same conditional expectation the dual's martingale increment
+            integrates, so the greedy policy gets it free."""
+            p = icond[j]
+            if xs is None:
+                xs = ys = torch.zeros(1, device=dev)
+                ratio = disc_det[0]
+            else:
+                ratio = disc_det[j] / disc_det[j - 1]
+            f32 = lambda v: float(np.float32(v))  # noqa: E731
+            mx = f32(p["bxx"]) * xs + f32(p["bxy"]) * ys
+            my = f32(p["byx"]) * xs + f32(p["byy"]) * ys
+            mI = f32(p["bIx"]) * xs + f32(p["bIy"]) * ys
+            return ratio, _g2_piecewise_cond(
+                gam, sx[j], sy[j], *lam[j], strike, *bnd, sg, mx, my, mI, p)
+
+        def cont_at(j, xs, ys, gam, bnd):
+            ratio, cond = cond_at(j + 1, xs, ys, gam, bnd)
+            return ratio * cond
+
+        def fit_boundary(j, contfun):
+            """Degree-BOUND_DEG phi-weighted polynomial fit of the exercise
+            boundary v = b(pc) from N_PROBES bisected probes.  The root is
+            bisected along whichever factor the payoff is more sensitive
+            to (a host-side choice: eta -> 0 makes the boundary vertical
+            in x and the y-bisection degenerate) and probed along the other
+            over +-BOUND_RANGE sigmas; the fit runs in the scaled probe
+            u = pc/pscale (|u| <= 1, so the float32 normal equations are
+            well conditioned)."""
+            lam_j, Ba, Bb = lam[j]
+            _, _, Ba_h, Bb_h, _ = date_stat[j]
+            bisect_y = sy[j] * max(Bb_h) >= sx[j] * max(Ba_h)
+            s_pr, s_bi = (sx[j], sy[j]) if bisect_y else (sy[j], sx[j])
+            pscale = s_pr * BOUND_RANGE
+            wn = _vec32(np.exp(-0.5 * (BOUND_RANGE * un) ** 2), dev)
+            unj = _vec32(un, dev)
+            Xd = torch.stack([_ipow(unj, m) for m in range(BOUND_DEG + 1)],
+                             dim=1)
+            pp = _vec32(pscale * un, dev)
+
+            def xy(bv):
+                return (pp, bv) if bisect_y else (bv, pp)
+
+            def intr(bv):
+                return sg * (_g2_bond(lam_j, Ba, Bb, *xy(bv)) - strike)
+
+            far = torch.full((N_PROBES,), -sg * 14.0 * s_bi, device=dev)
+            hi = torch.full((N_PROBES,), sg * 14.0 * s_bi, device=dev)
+            b_root = _bisect(intr, far, hi)
+            if contfun is None:
+                b_star = b_root
+            else:
+                def gfun(bv):
+                    return intr(bv) - torch.clamp(contfun(*xy(bv)), min=0.0)
+
+                b_star = _bisect(gfun, far, b_root)
+            A = dot(Xd.T, wn[:, None] * Xd, "highest")
+            rhs = dot(Xd.T, wn * b_star, "highest")
+            eye = torch.eye(BOUND_DEG + 1, device=dev)
+            coef = torch.linalg.solve_ex(A + 1e-7 * eye, rhs)[0]
+            return coef, not bisect_y, pscale
+
+        def fit_proxy(x, y):
+            """Backward value-iteration fit of the dual proxy chain on the
+            pass-1 state cloud.  The regression target at date j is the
+            closed-form continuation of the date-(j+1) proxy, free of
+            Monte Carlo noise, so the proxy error is pure basis residual
+            per date.  Any fitted chain yields a valid bracket: validity
+            needs exact increments, not a good fit.  Returns the chain and
+            the targets, which are the pass-1 policy's continuations."""
+            gammas = [None] * (k - 1) + [torch.zeros(N_PROXY, device=dev)]
+            bnds = [None] * k
+            bnds[k - 1] = fit_boundary(k - 1, None)
+            conts = [None] * k
+            for j in range(k - 2, -1, -1):
+                gn, bn = gammas[j + 1], bnds[j + 1]
+                T = conts[j + 1] = cont_at(j, x[:, j], y[:, j], gn, bn)
+                bnds[j] = fit_boundary(
+                    j, lambda xv, yv, j=j, gn=gn, bn=bn:
+                    cont_at(j, xv, yv, gn, bn))
+                coef, swap, pscale = bnds[j]
+                pc, v = ((y[:, j], x[:, j]) if swap
+                         else (x[:, j], y[:, j]))
+                bcut = _g2_boundary_eval(coef, pc / pscale)
+                # fit on the continuation side, capped at 4 sigmas: the
+                # few farther cloud points carry residuals ~100x the
+                # bulk's and would dominate the least-squares objective
+                wc = ((sg * (bcut - v) <= 0)
+                      & (x[:, j].abs() < 4.0 * sx[j])
+                      & (y[:, j].abs() < 4.0 * sy[j])).to(F32)
+                X = _g2_proxy_cols(x[:, j], y[:, j], sx[j], sy[j], *lam[j],
+                                   *bnds[j], sg)
+                gv = _wls(X[:, :len(_VAL_COLS)], T, wc, prec)
+                # gamma with W's coefficient 0 (out of place)
+                gammas[j] = torch.cat([gv, gv.new_zeros(1)])
+            return gammas, bnds, conts
+
+        def discounts(I):
+            return torch.stack([disc_det[j] * _exp(-I[:, j])
+                                for j in range(k)], dim=1)
+
+        def greedy(x, y, D, conts):
+            """Cashflow and stopping date of the greedy policy: exercise at
+            the first date whose payoff beats the proxy continuation
+            (conts[j + 1] given state j is the date-j continuation; the
+            last date has none)."""
+            stop = torch.full((x.shape[0],), k - 1, dtype=torch.int64,
+                              device=dev)
+            cf = payoff_at(k - 1, x[:, k - 1], y[:, k - 1]) * D[:, k - 1]
+            for j in range(k - 2, -1, -1):
+                pj = payoff_at(j, x[:, j], y[:, j])
+                contv = torch.clamp(conts[j + 1], min=0.0)
+                exercise = (pj > contv) & (pj > 0.0)
+                cf = torch.where(exercise, pj * D[:, j], cf)
+                stop = torch.where(exercise, j, stop)
+            return cf, stop
+
+        def dual_path_bound(x, y, D, gammas, bnds):
+            """Per path the AB dual max_j (Z_j - M_j) with the closed-form
+            martingale increments of the piecewise proxy, M after each
+            date's increment, and the conditional values (the policy's
+            continuations)."""
+            M = torch.zeros(x.shape[0], device=dev)
+            Ms = []
+            conts = []
+            best = None
+            for j in range(k):
+                coef, swap, pscale = bnds[j]
+                if j == 0:
+                    ratio, cond = cond_at(0, None, None, gammas[0], bnds[0])
+                    step = ratio * cond
+                else:
+                    ratio, cond = cond_at(j, x[:, j - 1], y[:, j - 1],
+                                          gammas[j], bnds[j])
+                    step = D[:, j - 1] * ratio * cond
+                conts.append(ratio * cond)
+                vhat = _g2_piecewise_value(
+                    x[:, j], y[:, j], gammas[j], sx[j], sy[j], *lam[j],
+                    strike, coef, swap, pscale, sg, prec)
+                M = M + D[:, j] * vhat - step
+                Ms.append(M)
+                Z = D[:, j] * payoff_at(j, x[:, j], y[:, j])
+                best = Z - M if best is None else torch.maximum(best, Z - M)
+            return best, torch.stack(Ms, dim=1), conts
+
+        k_est, k_val = key.split(2)
+
+        # pass 1: fit the proxy chain (one batch, noise-free closed-form
+        # targets), and the in-sample greedy price on the same cloud
+        xa, ya, Ia = states(normal(k_est, (n_paths, 3 * k), device=dev))
+        gammas, bnds, conts = fit_proxy(xa, ya)
+        cf_in, _ = greedy(xa, ya, discounts(Ia), conts)
+
+        # pass 2: out-of-sample lower + dual upper, block by block
+        def block(b):
+            xv, yv, Iv = states(block_normals(k_val, b, (n_paths, 3 * k),
+                                              rqmc=rqmc, device=dev))
+            D = discounts(Iv)
+            u, Ms, conts = dual_path_bound(xv, yv, D, gammas, bnds)
+            cf, stop = greedy(xv, yv, D, conts)
+            # martingale control: E[M_tau] = 0 (see bermudan.py)
+            cv = cf - torch.gather(Ms, 1, stop[:, None])[:, 0]
+            return torch.stack([cf.sum(), (cf * cf).sum(), u.sum(),
+                                (u * u).sum(), cv.sum(), (cv * cv).sum()])
+
+        per_block = torch.stack([block(b) for b in range(n_blocks)])
+        sums = per_block.sum(0)
+        n_tot = 1.0 * n_paths * n_blocks
+        means = sums[0::2] / n_tot       # (lower, upper, CV)
+        if rqmc:
+            # the digital shifts are the independent replicates (a block's
+            # Sobol points are deterministic given its shift)
+            ses = ((per_block[:, 0::2] / n_paths).std(0, correction=1)
+                   / math.sqrt(1.0 * n_blocks))
+        else:
+            ses = torch.sqrt(torch.clamp(sums[1::2] / n_tot - means * means,
+                                         min=0.0) / n_tot)
+        return (means[0], cf_in.mean(), ses[0], means[1], ses[1], means[2],
+                ses[2])
+
+    return compute
+
+
+def price_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
+                      market: MarketCurve, sched, exercise_dates, *,
+                      strike: float = 1.0, payer: bool = False,
+                      n_paths: int | None = None, n_blocks: int = 1,
+                      rqmc: bool = False, device) -> G2Bermudan:
+    """Bermudan coupon-bond option under G2++ by closed-form value
+    iteration: the states (x, y, int r) at the exercise dates sampled
+    exactly (3k normals per path, continuous-time law); a piecewise dual
+    value proxy (intrinsic on the exercise side of a fitted curved
+    boundary v = b(pc), degree-6 monomials and boundary splines on the
+    continuation side) fitted backward with noise-free targets, each the
+    closed-form tilted conditional expectation of the next date's proxy
+    (``_g2_piecewise_cond``).  The lower bound exercises greedily against
+    the proxy's own continuation (no LSMC regression), the upper bound is
+    the Andersen-Broadie dual on the same proxy's exact martingale, and the
+    martingale control variate collapses the lower SE.  Oracle: the fp64
+    2-d DP (``dp_oracle_g2``).
+
+    ``n_paths`` is the per-block path count; the evaluation pass runs
+    ``n_blocks`` blocks keyed on their global index, or with ``rqmc=True``
+    draws each block from a 3k-dimensional digitally shifted Sobol
+    sequence (the shifts are the SE replicates)."""
+    dev = resolve_device(device)
+    n_paths = cfg.n_paths if n_paths is None else int(n_paths)
+    ex = _check_dates(sched, exercise_dates, rqmc, n_blocks)
+    p, p_in, se, up, up_se, p_cv, cv_se = _g2_bermudan_fn(
+        cfg, g, ex, tuple(sched.times), tuple(sched.coupons), float(strike),
+        bool(payer), n_paths, int(n_blocks), bool(rqmc), dev)(
+            key, market.to(dev))
+    return G2Bermudan(price=p, price_in_sample=p_in, std_error=se,
+                      n_paths=n_paths * int(n_blocks), exercise_dates=ex,
+                      upper=up, upper_std_error=up_se, price_cv=p_cv,
+                      cv_std_error=cv_se)
+
+
+def vega_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
+                     market: MarketCurve, sched, exercise_dates, *,
+                     strike: float = 1.0, payer: bool = False,
+                     eps: float = 1e-3, n_paths: int | None = None,
+                     n_blocks: int = 1, rqmc: bool = False, device):
+    """(vega_lower, vega_upper): d/dsigma of the G2++ Bermudan bracket by
+    central differences under common random numbers (the same key on both
+    legs; the joint Cholesky and the dual's closed forms carry all the
+    sigma dependence)."""
+    res = [price_bermudan_g2(cfg, g.bump_sigma(s * eps), key, market, sched,
+                             exercise_dates, strike=strike, payer=payer,
+                             n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
+                             device=device) for s in (1.0, -1.0)]
+    return ((float(res[0].price) - float(res[1].price)) / (2.0 * eps),
+            (float(res[0].upper) - float(res[1].upper)) / (2.0 * eps))
+
+
+def delta_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
+                      market: MarketCurve, sched, exercise_dates, *,
+                      strike: float = 1.0, payer: bool = False,
+                      h: float = 1e-3, n_paths: int | None = None,
+                      n_blocks: int = 1, rqmc: bool = False, device):
+    """(delta_lower, delta_upper): d/dh of the G2++ Bermudan bracket under a
+    parallel forward-curve shift (``greeks.shift_curve``), CRN central
+    differences (the same key gives identical exact multi-date states;
+    only the payoff coefficients move)."""
+    res = [price_bermudan_g2(cfg, g, key, shift_curve(cfg, market, s * h),
+                             sched, exercise_dates, strike=strike,
+                             payer=payer, n_paths=n_paths, n_blocks=n_blocks,
+                             rqmc=rqmc, device=device) for s in (1.0, -1.0)]
+    return ((float(res[0].price) - float(res[1].price)) / (2.0 * h),
+            (float(res[0].upper) - float(res[1].upper)) / (2.0 * h))
+
+
+# ---------------------------------------------------------------------------
+# 2-d dynamic-programming oracle for the G2++ Bermudan (host float64)
+# ---------------------------------------------------------------------------
+
+def dp_oracle_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, sched,
+                 exercise_dates, *, strike: float = 1.0,
+                 payer: bool = False, n_grid: int = 121,
+                 width: float = 6.5, n_quad: int = 48) -> float:
+    """float64 G2++ Bermudan price (``dp_solution_g2``'s headline)."""
+    return dp_solution_g2(cfg, g, market, sched, exercise_dates,
+                          strike=strike, payer=payer, n_grid=n_grid,
+                          width=width, n_quad=n_quad)["price"]
+
+
+def dp_solution_g2(cfg: HWConfig, g: G2Params, market: MarketCurve,
+                   sched, exercise_dates, *, strike: float = 1.0,
+                   payer: bool = False, n_grid: int = 121,
+                   width: float = 6.5, n_quad: int = 48,
+                   order: str = "cubic") -> dict:
+    """float64 G2++ Bermudan solution by 2-d backward induction on an
+    (x, y) grid, keeping the per-date grids (``gxs``, ``gys``), values
+    ``V``, continuations ``cont``, payoffs, discount factors ``dd`` and the
+    ``price`` (the exposure oracle's forward pass reads them).  Host work
+    only: the market may lie on any device.
+
+    Per interval, conditional on (x, y): x' = x e^{-a d} + xi_x,
+    y' = y e^{-b d} + xi_y, dI = x Ba(d) + y Bb(d) + xi_I with
+    (xi_x, xi_y, xi_I) ~ _state_cov(g, d).  Tilting by e^{-dI} multiplies
+    by e^{-mI + vI/2} and shifts the innovation means by -Cov(., xi_I).
+    The inner y'-integral of the interpolated V is exact per segment
+    (``range_note._kernel_avg``, cubic Hermite by default); the outer
+    x'-integral of the smoothed function uses Gauss-Hermite with a
+    Catmull-Rom column blend (linear under order="linear").  The tilted
+    conditional y'-mean at node q does not depend on the source x row, so
+    one kernel integration per node serves every x-target column and every
+    source."""
+    ex = tuple(sorted(float(t) for t in exercise_dates))
+    k = len(ex)
+    times = tuple(sched.times)
+    coupons = tuple(sched.coupons)
+    Ts_grid = np.linspace(0.0, cfg.t_final, cfg.n_mat)
+    P_mkt = _np_P(market)
+
+    def payoff_at(j, X, Y):
+        """payoff on meshgrid arrays X, Y at date ex[j] (fp64)."""
+        t_ex = ex[j]
+        P1 = float(np.interp(t_ex, Ts_grid, P_mkt))
+        V = np.zeros_like(X)
+        for t_i, c_i in zip(times, coupons):
+            if t_i <= t_ex + 1e-9:
+                continue
+            tau = t_i - t_ex
+            vadj = 0.5 * (_v_integral(g, tau) - _v_integral(g, t_i)
+                          + _v_integral(g, t_ex))
+            lam = c_i * float(np.interp(t_i, Ts_grid, P_mkt)) / P1 \
+                * math.exp(vadj)
+            V += lam * np.exp(-_B(g.a, tau) * X - _B(g.b, tau) * Y)
+        intrinsic = (strike - V) if payer else (V - strike)
+        return np.maximum(intrinsic, 0.0)
+
+    # deterministic discount factors per date (phi integral + variance adj)
+    dd = [float(np.interp(t, Ts_grid, P_mkt))
+          * math.exp(-0.5 * _v_integral(g, t)) for t in ex]
+
+    sxs = [math.sqrt(_state_cov(g, t)[0, 0] + 1e-18) for t in ex]
+    sys_ = [math.sqrt(_state_cov(g, t)[1, 1] + 1e-18) for t in ex]
+    gxs = [sxs[j] * np.linspace(-width, width, n_grid) for j in range(k)]
+    gys = [sys_[j] * np.linspace(-width, width, n_grid) for j in range(k)]
+
+    nodes, wq = np.polynomial.hermite_e.hermegauss(n_quad)
+    wq = wq / math.sqrt(2.0 * math.pi)
+
+    def backward_step(j_from, j_to, V, x_src, y_src):
+        """cont(x, y) for sources (x_src grid, y_src grid or scalars)."""
+        d = ex[j_to] - (ex[j_from] if j_from >= 0 else 0.0)
+        C = _state_cov(g, d)
+        Ea, Eb = math.exp(-g.a * d), math.exp(-g.b * d)
+        Ba, Bb = _B(g.a, d), _B(g.b, d)
+        vI = C[2, 2]
+        sx_i = math.sqrt(C[0, 0] + 1e-18)
+        sy_i = math.sqrt(C[1, 1] + 1e-18)
+        rho_i = C[0, 1] / (sx_i * sy_i) if sx_i * sy_i > 0 else 0.0
+        gx_t, gy_t = gxs[j_to], gys[j_to]
+        X, Y = np.meshgrid(x_src, y_src, indexing="ij")
+        mI = X * Ba + Y * Bb
+        w0 = np.exp(-mI + 0.5 * vI) * (dd[j_to] / (dd[j_from]
+                                                   if j_from >= 0 else 1.0))
+        m_x = x_src * Ea - C[0, 2]         # tilted x' mean (per x row)
+        # outer GH nodes in x' per source x
+        xq = m_x[:, None] + sx_i * nodes[None, :]          # (nx_src, nq)
+        s_c = sy_i * math.sqrt(max(1.0 - rho_i * rho_i, 1e-14))
+        cont = np.zeros((len(x_src), len(y_src)))
+        for q in range(n_quad):
+            m_y = y_src * Eb - C[1, 2] + rho_i * sy_i * nodes[q]
+            Eq = _kernel_avg(m_y, s_c, gy_t, V.T, order=order)
+            xv = xq[:, q]
+            if order == "cubic":
+                Eg = _ghost_cols(Eq)
+                idx, cw = _catmull_weights(gx_t, xv)
+                blend = (cw[0][:, None] * Eg[:, idx].T
+                         + cw[1][:, None] * Eg[:, idx + 1].T
+                         + cw[2][:, None] * Eg[:, idx + 2].T
+                         + cw[3][:, None] * Eg[:, idx + 3].T)
+            else:
+                idx = np.clip(np.searchsorted(gx_t, xv) - 1, 0,
+                              len(gx_t) - 2)
+                lam = np.clip((xv - gx_t[idx]) / (gx_t[idx + 1]
+                                                  - gx_t[idx]), 0.0, 1.0)
+                blend = ((1.0 - lam)[:, None] * Eq[:, idx].T
+                         + lam[:, None] * Eq[:, idx + 1].T)
+            cont += wq[q] * blend
+        return w0 * cont
+
+    X, Y = np.meshgrid(gxs[k - 1], gys[k - 1], indexing="ij")
+    pays = [None] * k
+    conts = [None] * k
+    Vs = [None] * k
+    pays[k - 1] = payoff_at(k - 1, X, Y)
+    conts[k - 1] = np.zeros_like(pays[k - 1])
+    Vs[k - 1] = pays[k - 1]
+    for j in range(k - 2, -1, -1):
+        conts[j] = backward_step(j, j + 1, Vs[j + 1], gxs[j], gys[j])
+        Xj, Yj = np.meshgrid(gxs[j], gys[j], indexing="ij")
+        pays[j] = payoff_at(j, Xj, Yj)
+        Vs[j] = np.maximum(pays[j], conts[j])
+    price = backward_step(-1, 0, Vs[0], np.array([0.0]), np.array([0.0]))
+    return dict(ex=ex, gxs=gxs, gys=gys, V=Vs, cont=conts, payoff=pays,
+                dd=dd, price=float(price[0, 0]))
 
 
 # ---------------------------------------------------------------------------

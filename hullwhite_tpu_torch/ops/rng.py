@@ -15,6 +15,8 @@ normals, so the same key gives the same normals in both packages.
 ``jax.random.normal(fold_in(key, b), shape, float32)``: threefry2x32 over
 int64 tensors on the device gives ``jax.random.bits`` bit for bit, and
 XLA's float32 ``erf_inv`` turns the bits into normals within a few ulps.
+With ``rqmc=True`` it is the shifted-Sobol half of the JAX package's
+``parallel.mesh.block_normals``.
 ``normal(key, shape)`` is the same draw without the block fold, and
 ``Key.split(n)`` is ``jax.random.split``.
 """
@@ -182,10 +184,24 @@ def normal(key: Key, shape, *, device) -> torch.Tensor:
     return normals_from_bits(random_bits(key, tuple(shape), device=device))
 
 
-def block_normals(key: Key, block_index: int, shape, *,
+def block_normals(key: Key, block_index: int, shape, *, rqmc: bool = False,
                   device) -> torch.Tensor:
-    """Gaussian shocks for one path block, ``jax.random.normal(
-    fold_in(key, block_index), shape, float32)``: the same bits, the
-    normals within an ulp or two (``erf_inv32``).  Deterministic in
-    (key, block_index), so every block is drawn from its global index."""
-    return normal(key.fold_in(block_index), shape, device=device)
+    """Gaussian shocks for one path block, keyed on ``fold_in(key,
+    block_index)`` alone, so every block is drawn from its global index
+    (the JAX package's ``parallel.mesh.block_normals``).
+
+    rqmc=False: ``jax.random.normal(fold_in(key, b), shape, float32)``, the
+    same bits, the normals within an ulp or two (``erf_inv32``).
+    rqmc=True: ``shape`` = (n_points, dim), the first n_points of a
+    dim-dimensional Sobol sequence under the block's digital shift
+    ``jax.random.bits(fold_in(key, b), (dim,))``, through ``ndtri``; each
+    shift is an independent replicate, so the SEs go across blocks."""
+    sub = key.fold_in(block_index)
+    if rqmc:
+        from .qmc import ndtri
+        from .sobol import sobol
+
+        n_points, dim = shape
+        return ndtri(sobol(n_points, dim, random_bits(sub, (dim,),
+                                                       device=device)))
+    return normal(sub, shape, device=device)

@@ -1,11 +1,13 @@
 """Exact Gaussian cell integration of interpolated value functions (the
-part of ``hullwhite_tpu.range_note`` the Bermudan DP oracle needs).
+part of ``hullwhite_tpu.range_note`` the DP oracles need).
 
 ``_kernel_avg`` integrates the piecewise-linear or C^1 cubic-Hermite
 interpolant of a tabulated value function exactly against a Gaussian,
 cell by cell, in host float64 numpy: the plain version the tests hold the
-C++ sweep ``hw_dp_continuation3`` against.  The puttable range-accrual
-note that gives the JAX module its name comes with the exotics layer.
+C++ sweep ``hw_dp_continuation3`` against.  ``_catmull_weights`` and
+``_ghost_cols`` blend tabulated columns with 4-point Catmull-Rom weights
+(the G2++ DP oracle's outer quadrature).  The puttable range-accrual note
+that gives the JAX module its name comes with the exotics layer.
 """
 
 from __future__ import annotations
@@ -14,8 +16,6 @@ import math
 
 import numpy as np
 from scipy.special import ndtr as _ndtr
-
-
 
 
 def _hermite_slopes(xs, Wv, brk):
@@ -111,3 +111,39 @@ def _kernel_avg(mu, s, xs, Wv, order="linear"):
               + beta * beta * (3.0 * alpha * E2 + beta * E3))
         out += S1 @ d1 + S2 @ d2 + S3 @ d3
     return out[:, 0] if one_d else out
+
+
+def _catmull_weights(wg, w_val):
+    """(idx, (c_m1, c_0, c_1, c_2)) 4-point Catmull-Rom weights for
+    evaluating a smooth function tabulated on the uniform grid ``wg`` at
+    ``w_val`` (clipped to the ends: lam 0/1 gives exactly the endpoint
+    columns, so constant extension beyond the grid is preserved).  The
+    cubic kills the 2-point lam-blend's O(h^2) convexity bias and keeps
+    Gauss-Hermite's fast convergence when the blend feeds a quadrature (a
+    C^1 interpolant instead of a kinked piecewise-linear one).  Pair with
+    ``_ghost_cols`` and index idx..idx+3.
+
+    The 0.5 tangent weights hard-code uniform spacing; a nonuniform grid
+    would silently bias the blends, so it is refused."""
+    dw = np.diff(wg)
+    assert np.ptp(dw) <= 1e-6 * np.mean(dw), (
+        "_catmull_weights requires a uniform grid (nonuniform tangents "
+        "not implemented)", float(np.ptp(dw)), float(np.mean(dw)))
+    last = len(wg) - 2
+    idx = np.clip(np.searchsorted(wg, w_val) - 1, 0, last)
+    lam = np.clip((w_val - wg[idx]) / (wg[idx + 1] - wg[idx]), 0.0, 1.0)
+    l2 = lam * lam
+    l3 = l2 * lam
+    return idx, (0.5 * (-l3 + 2.0 * l2 - lam),
+                 0.5 * (3.0 * l3 - 5.0 * l2 + 2.0),
+                 0.5 * (-3.0 * l3 + 4.0 * l2 + lam),
+                 0.5 * (l3 - l2))
+
+
+def _ghost_cols(T):
+    """Extend the last axis with linear-extrapolation ghost columns so
+    Catmull-Rom's 4-point stencil is defined at the edge cells (the ghost
+    reduces the edge cells to the one-sided quadratic)."""
+    g0 = 2.0 * T[..., :1] - T[..., 1:2]
+    g1 = 2.0 * T[..., -1:] - T[..., -2:-1]
+    return np.concatenate([g0, T, g1], axis=-1)

@@ -2,7 +2,8 @@
 ``cli g2pp``, the G2++ lines of ``cli grid`` and ``cli cms --g2``) against
 the JAX package on the same key and market, the random draws at this
 module's shapes, and the mirrors of the part-A tests of
-``tests/test_g2pp.py`` (its Bermudan tests wait for the Bermudan's port)."""
+``tests/test_g2pp.py`` (its Bermudan tests are mirrored in
+``tests/test_torch_g2_bermudan.py``)."""
 
 import json
 import math
@@ -741,9 +742,16 @@ def test_cli_g2pp(q1_dir, capsys):
     argv = ["--device", "cpu", "--paths", "8192"]
     assert cli.main(["g2pp", "--validate", "3", *argv]) == 0
     out = capsys.readouterr().out
-    assert "validation: PASS" in out and "[Bermudan] not ported" in out
+    assert "validation: PASS" in out and "not ported" not in out
+    assert "[Bermudan] (5 annual exercises" in out
     r = json.loads((q1_dir / "g2pp_results.json").read_text())["results"]
-    assert not any(k.startswith("bermudan") for k in r)
+    # the bracket at 8192 paths: the CV lower's SE collapsed against the
+    # raw lower's, the CV within the raw's noise, the upper above both
+    lo, cv, up = (r["bermudan_lower"], r["bermudan_lower_cv"],
+                  r["bermudan_upper"])
+    assert 0.0 < r["bermudan_cv_se"] < r["bermudan_se"] / 10.0
+    assert abs(cv - lo) < 4 * r["bermudan_se"]
+    assert up >= cv - 4 * r["bermudan_cv_se"]
     for kind in ("receiver", "payer"):
         orc = r[f"swaption_{kind}_oracle"]
         assert abs(r[f"swaption_{kind}_mc"] - orc) < \

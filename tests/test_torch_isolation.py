@@ -129,3 +129,46 @@ def test_g2pp_cuda_request_without_a_card_raises(no_cuda, tmp_path,
         with pytest.raises(RuntimeError, match="is_available"):
             cli.main(cmd)
     assert not (tmp_path / "data_torch").exists()
+
+
+def test_rfr_and_g2_bermudan_import_no_jax():
+    code = ("import sys\n"
+            "import hullwhite_tpu_torch.rfr, hullwhite_tpu_torch.cli\n"
+            "from hullwhite_tpu_torch.models.g2pp import price_bermudan_g2, "
+            "dp_solution_g2, vega_bermudan_g2, delta_bermudan_g2\n"
+            "from hullwhite_tpu_torch.range_note import _catmull_weights, "
+            "_ghost_cols\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
+            "or m == 'hullwhite_tpu')\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_rfr_and_g2_bermudan_cuda_request_without_a_card_raises(
+        no_cuda, tmp_path, monkeypatch):
+    from hullwhite_tpu_torch import instruments, rfr
+    from hullwhite_tpu_torch.models import g2pp
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    g = g2pp.G2Params()
+    sched = instruments.swap_fixed_leg(cfg, 0.025, 4.0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        g2pp.price_bermudan_g2(cfg, g, Key(1), market, sched, [5.0],
+                               device="cuda")
+    for fn in (rfr.price_rfr_cap, rfr.vega_rfr_cap):
+        with pytest.raises(RuntimeError, match="is_available"):
+            fn(cfg, Key(1), market, strike=0.02, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        rfr.price_rfr_cap_g2(cfg, g, Key(1), market, strike=0.02,
+                             device="cuda")
+    monkeypatch.chdir(tmp_path)
+    for cmd in (["rfr"], ["rfr", "--g2", "--rqmc"]):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(cmd)
+    assert not (tmp_path / "data_torch").exists()
