@@ -144,7 +144,22 @@ Phases (any failure raises and the script exits non-zero):
    on the host, the RFR caps at 2^20, the RQMC cap at 2^17 x 8) the
    median and range of the wall times, the host ms, the device-busy ms
    and device operations, and the phase's peak device memory, beside the
-   card's name and power limit.
+   card's name and power limit;
+10. the Hull-White note layer (plain PyTorch on the card, no hand-written
+   kernel; the DP oracles in host float64) at full width on a ``cli q1
+   --engine exact`` curve: ``cli notes`` with its three Hull-White
+   agreement lines PASS (the snowball, the callable snowball, the
+   callable capped floater) and its G2++ half named as not ported;
+   ``price_range_note`` under the DP boundary and ``price_tarn`` (m = 1)
+   at 2^20 paths within 4 SE or 2e-4 of their DP oracles;
+   ``vega_range_note`` at 2^16 within 3 SE (16 replicates) of the DP's
+   central difference; ``price_snowball(rqmc=True)`` at 2^16 x 8 within
+   5 SE + 1e-6 of the DP with an SE below the MC's; the five price_*
+   calls at 2^14 on the card against the CPU (0.1 SE); reruns bitwise;
+   no kernel launched; per price_* call at 2^20 the median and range of
+   the wall times, the host ms, the device-busy ms and device operations,
+   each DP oracle's host wall, and the phase's peak device memory, beside
+   the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -2295,6 +2310,274 @@ def phase9(dev, smi):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the Hull-White note layer (the puttable range note, the TARN,
+# the callable capped floater, the snowball and the callable snowball),
+# plain PyTorch on the card (no hand-written kernel on these calls) and
+# host float64 DP oracles
+# ---------------------------------------------------------------------------
+
+NOTE_KW = dict(coupon=0.03, lo=0.010, hi=0.022, tenor=3.0, obs_per_period=5)
+TARN_KW = dict(coupon=0.03, lo=0.005, hi=0.03, target=0.055, tenor=4.0)
+SNOWBALL_KW = dict(initial=0.02, spread=0.013, cap=0.06, floor=0.0,
+                   tenor=4.0)                     # cli notes' defaults
+FLOATER_KW = dict(cap=0.016, floor=0.0, spread=0.004, tenor=3.0)
+# the note vega at 2^16 paths; its SE from 16 independent replicates of
+# 2^12 paths (the same total) under the frozen DP boundary
+NOTE_VEGA_PATHS = 1 << 16
+NOTE_VEGA_REPS = 16
+# RQMC snowball: 2^16 points x 8 shifts
+SNOWBALL_RQMC = (1 << 16, 8)
+# the card against the CPU on one key at 2^14 paths: prices within 0.1 SE
+NOTES_CARD_CPU_PATHS = 1 << 14
+NOTES_CARD_CPU_SE_FRAC = 0.1
+
+
+def phase10_cli(cfg, dev):
+    """``cli q1 --engine exact``, then on its curve ``cli notes`` at full
+    width in a fresh directory; returns the q1 market and the notes
+    results."""
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    argv = ["--device", str(dev), "--reps", "1"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _cli(["q1", "--engine", "exact", *argv], "phase 10")
+            market = hwio.load_market(cfg, device=dev)
+            text = _cli(["notes", *argv], "phase 10")
+            doc = json.load(open(os.path.join("data_torch",
+                                              "notes_results.json")))
+        finally:
+            os.chdir(cwd)
+    check(text.count("(PASS)") == 3 and "CHECK" not in text,
+          "cli notes: a Hull-White agreement line is not PASS")
+    check("not ported" in text and not any(k.endswith("_g2")
+                                           for k in doc["results"]),
+          "cli notes: the G2++ half is not named as not ported")
+    return market, doc["results"]
+
+
+def phase10_direct(cfg, dev, market, smi):
+    """The range note and the TARN (m = 1) at 2^20 paths within 4 SE or
+    2e-4 of their DP oracles, the note vega at 2^16 within 3 SE of the
+    DP's central difference, the RQMC snowball at 2^16 x 8 within 5 SE +
+    1e-6 of its DP with an SE below the MC's at the same paths.  Returns
+    the DP results (the policies the timings reuse) and each oracle's host
+    wall."""
+    import numpy as np
+
+    from hullwhite_tpu_torch import Key, floater, range_note, snowball
+
+    key = Key(cfg.seed).fold_in(77121)              # cli notes' key
+    host = market.to("cpu")
+    dps, dp_wall = {}, {}
+    for name, fn, kw in (
+            ("dp_oracle_range_note", range_note.dp_oracle_range_note,
+             NOTE_KW),
+            ("dp_oracle_tarn", range_note.dp_oracle_tarn, TARN_KW),
+            ("dp_oracle_capped_floater", floater.dp_oracle_capped_floater,
+             FLOATER_KW),
+            ("dp_oracle_snowball", snowball.dp_oracle_snowball,
+             SNOWBALL_KW),
+            ("dp_oracle_callable_snowball",
+             snowball.dp_oracle_callable_snowball, SNOWBALL_KW)):
+        t0 = time.perf_counter()
+        dps[name] = fn(cfg, host, **kw)
+        dp_wall[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[phase 10] {name}: {dps[name].price:.8f} (host wall "
+              f"{dp_wall[name]:.1f} ms) [{smi}]")
+
+    note_dp = dps["dp_oracle_range_note"]
+    r = range_note.price_range_note(cfg, key, market,
+                                    boundaries=note_dp.boundaries,
+                                    device=dev, **NOTE_KW)
+    t = range_note.price_tarn(cfg, key, market, device=dev, **TARN_KW)
+    tarn_dp = dps["dp_oracle_tarn"]
+    for name, res, dpv in (("price_range_note", r, note_dp.price),
+                           ("price_tarn (m = 1)", t, tarn_dp.price)):
+        p, se = float(res.price), float(res.std_error)
+        z = (p - dpv) / max(se, 1e-12)
+        print(f"[phase 10] {name} at {cfg.n_paths} paths: {p:.8f} +/- "
+              f"{se:.2e}, DP {dpv:.8f}: z = {z:+.2f} (gate |z| < 4 or |d| "
+              f"< 2e-4)")
+        check(abs(z) < 4 or abs(p - dpv) < 2e-4, f"{name} vs its DP oracle")
+    ko = float(t.ko_fraction)
+    print(f"[phase 10] TARN knockout fraction {ko:.5f}, DP "
+          f"{tarn_dp.ko_prob:.5f}; range note put fraction "
+          f"{float(r.put_fraction):.5f}")
+
+    v = range_note.vega_range_note(cfg, key, market,
+                                   n_paths=NOTE_VEGA_PATHS, device=dev,
+                                   **NOTE_KW)
+    n_rep = NOTE_VEGA_PATHS // NOTE_VEGA_REPS
+    reps = []
+    for i in range(NOTE_VEGA_REPS):
+        k = key.fold_in(1000 + i)
+        pm, pp = (range_note.price_range_note(
+            cfg, k, market, sigma=cfg.sigma + sgn * v.epsilon,
+            boundaries=note_dp.boundaries, n_paths=n_rep, device=dev,
+            **NOTE_KW).price for sgn in (-1.0, 1.0))
+        reps.append(float(pp - pm) / (2.0 * v.epsilon))
+    se_v = float(np.std(reps, ddof=1)) / math.sqrt(NOTE_VEGA_REPS)
+    d = float(v.vega) - v.dp_vega
+    print(f"[phase 10] vega_range_note at {NOTE_VEGA_PATHS} paths: CRN-FD "
+          f"{float(v.vega):.6f}, DP FD {v.dp_vega:.6f}, |d| {abs(d):.2e} "
+          f"(SE {se_v:.2e} from {NOTE_VEGA_REPS} replicates of {n_rep}, "
+          f"replicate mean {float(np.mean(reps)):.6f}; gate 3 SE)")
+    check(abs(d) <= 3 * se_v, "vega_range_note vs the DP's central "
+          "difference")
+
+    sb_dp = dps["dp_oracle_snowball"]
+    n_pts, n_sh = SNOWBALL_RQMC
+    rq = snowball.price_snowball(cfg, key, market, n_paths=n_pts,
+                                 n_blocks=n_sh, rqmc=True, device=dev,
+                                 **SNOWBALL_KW)
+    mc = snowball.price_snowball(cfg, key, market, n_paths=n_pts,
+                                 n_blocks=n_sh, device=dev, **SNOWBALL_KW)
+    p, se, mse = float(rq.price), float(rq.std_error), float(mc.std_error)
+    print(f"[phase 10] price_snowball RQMC at {n_pts} x {n_sh}: {p:.8f} +/- "
+          f"{se:.2e} (MC SE at the same paths {mse:.2e}), DP "
+          f"{sb_dp.price:.8f}: |d| {abs(p - sb_dp.price):.2e} (tol 5 SE + "
+          f"1e-6 = {5 * se + 1e-6:.2e})")
+    check(abs(p - sb_dp.price) <= 5 * se + 1e-6 and se < mse,
+          "price_snowball(rqmc=True) vs its DP oracle")
+    return dps, dp_wall
+
+
+def _note_calls(cfg, key, market, dps, dev, n_paths=None):
+    """The five price_* calls under the DP policies: name -> fn returning
+    a tensor of (price, SE, the put / knockout / call fraction or the mean
+    final coupon)."""
+    import torch
+
+    from hullwhite_tpu_torch import floater, range_note, snowball
+
+    cdp = dps["dp_oracle_callable_snowball"]
+
+    def stack(res, third):
+        return torch.stack([res.price, res.std_error, getattr(res, third)])
+
+    return {
+        "price_range_note": lambda: stack(range_note.price_range_note(
+            cfg, key, market, n_paths=n_paths,
+            boundaries=dps["dp_oracle_range_note"].boundaries, device=dev,
+            **NOTE_KW), "put_fraction"),
+        "price_tarn": lambda: stack(range_note.price_tarn(
+            cfg, key, market, n_paths=n_paths, device=dev, **TARN_KW),
+            "ko_fraction"),
+        "price_capped_floater": lambda: stack(floater.price_capped_floater(
+            cfg, key, market, n_paths=n_paths,
+            boundaries=dps["dp_oracle_capped_floater"].boundaries,
+            device=dev, **FLOATER_KW), "call_fraction"),
+        "price_snowball": lambda: stack(snowball.price_snowball(
+            cfg, key, market, n_paths=n_paths, device=dev, **SNOWBALL_KW),
+            "mean_final_coupon"),
+        "price_callable_snowball": lambda: stack(
+            snowball.price_callable_snowball(
+                cfg, key, market, n_paths=n_paths,
+                boundaries=cdp.boundaries, c_grid=cdp.c_grid,
+                plain_mean=cdp.plain_price, device=dev, **SNOWBALL_KW),
+            "call_fraction")}
+
+
+def phase10_card_vs_cpu(cfg, dev, market, dps):
+    """Each price_* at 2^14 paths on the card and on the CPU under one key:
+    prices within 0.1 SE."""
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(77121)
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        got[str(d)] = {name: fn().tolist() for name, fn in _note_calls(
+            cfg, key, m, dps, d, n_paths=NOTES_CARD_CPU_PATHS).items()}
+    for name, (p, se, x) in got["cpu"].items():
+        pc, _, xc = got[str(dev)][name]
+        print(f"[phase 10] card vs CPU: {name} at {NOTES_CARD_CPU_PATHS} "
+              f"paths: {pc:.8f} vs {p:.8f}, |d| {abs(pc - p):.2e} (tol "
+              f"{NOTES_CARD_CPU_SE_FRAC} SE = "
+              f"{NOTES_CARD_CPU_SE_FRAC * se:.2e}); third field {xc} vs {x}")
+        check(abs(pc - p) <= NOTES_CARD_CPU_SE_FRAC * se,
+              f"{name} on the card vs the CPU")
+
+
+def phase10_times(cfg, dev, market, smi, dps, dp_wall, reps=3):
+    """Per price_* call at 2^20 paths under the DP policies, after one warm
+    call: the synchronised wall ms of ``reps`` rounds (median, least,
+    most), the host ms until the call returns, the device-busy ms and
+    device operations of one profiler window; every rerun bitwise equal to
+    the warm call.  The DP oracles' host walls come from phase10_direct."""
+    import statistics
+
+    import torch
+
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(77121)
+    calls = _note_calls(cfg, key, market, dps, dev)
+    first = {name: fn() for name, fn in calls.items()}
+    walls = {name: [] for name in calls}
+    hosts = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            hosts[name].append((t1 - t0) * 1e3)
+            check(torch.equal(out, first[name]), f"{name}: reruns differ")
+    print(f"[phase 10] price_* reruns bitwise: "
+          + str({name: out.tolist() for name, out in first.items()}))
+    times = {}
+    for name, fn in calls.items():
+        t = times[f"{name}@{cfg.n_paths}"] = {
+            "wall_ms": statistics.median(walls[name]),
+            "wall_ms_min": min(walls[name]), "wall_ms_max": max(walls[name]),
+            "host_ms": statistics.median(hosts[name])}
+        t["device_ms"], ops = _device_window(fn)
+        t["device_ops"] = ops
+        print(f"[phase 10] {name}@{cfg.n_paths}: wall median "
+              f"{t['wall_ms']:.3f} ms [{t['wall_ms_min']:.3f}, "
+              f"{t['wall_ms_max']:.3f}] over {reps}, host "
+              f"{t['host_ms']:.3f} ms, device busy {t['device_ms']:.3f} ms, "
+              f"{ops:.0f} device ops ({t['host_ms'] * 1e3 / max(ops, 1):.1f} "
+              f"us of host each) per call [{smi}]")
+    for name, ms in dp_wall.items():
+        times[name] = {"host_wall_ms": ms}
+    return times
+
+
+def phase10(dev, smi):
+    """The Hull-White note layer (module docstring, phase 10); returns the
+    kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    market, notes = phase10_cli(cfg, dev)
+    for name, r in notes.items():
+        print(f"[phase 10] cli notes {name}: MC {r['mc_price']:.8f} +/- "
+              f"{r['mc_se']:.2e}, DP {r['dp_price']:.8f}, z = {r['z']:+.2f}; "
+              f"vega CRN-FD {r['vega_crn_fd']:.6f}, DP FD "
+              f"{r['vega_dp_fd']:.6f}")
+    dps, dp_wall = phase10_direct(cfg, dev, market, smi)
+    phase10_card_vs_cpu(cfg, dev, market, dps)
+    times = phase10_times(cfg, dev, market, smi, dps, dp_wall)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 10] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 10] peak device memory of the note phase: {peak:.2f} GiB "
+          f"[{smi}]; phase wall {time.perf_counter() - t0:.1f} s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -2417,6 +2700,13 @@ def main() -> int:
           f"{sum(g2b_counts.values())} kernel launches (plain PyTorch)")
     check(not any(g2b_counts.values()), "a G2++ Bermudan or RFR call "
           "launched a kernel")
+
+    note_counts = phase10(dev, smi)
+    print(f"[phase 10] launches of the hand-written kernels in the note "
+          f"calls (cli q1 --engine exact, cli notes, the direct calls, card "
+          f"vs CPU, the timings): {sum(note_counts.values())} kernel "
+          f"launches (plain PyTorch)")
+    check(not any(note_counts.values()), "a note call launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

@@ -1,5 +1,5 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-swaption / cap / rfr / cms / calibrate / g2pp / benchmark.
+swaption / cap / rfr / cms / notes / calibrate / g2pp / benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
@@ -13,6 +13,7 @@ swaption / cap / rfr / cms / calibrate / g2pp / benchmark.
     python -m hullwhite_tpu_torch.cli cap --floor        # vs ZBP closed form
     python -m hullwhite_tpu_torch.cli rfr --g2 --rqmc    # vs Black/Bachelier
     python -m hullwhite_tpu_torch.cli cms --g2           # vs quadrature
+    python -m hullwhite_tpu_torch.cli notes              # vs the DP oracles
     python -m hullwhite_tpu_torch.cli calibrate          # HW and G2++ fits
     python -m hullwhite_tpu_torch.cli g2pp --validate 5  # the G2++ family
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
@@ -39,13 +40,16 @@ bound, dual upper bound, fp64 DP oracle), ``--delta`` its curve delta and
 multi-date states against their fp64 oracles (``--g2``: also the G2++
 twin).  ``rfr`` prices backward-looking overnight-rate caps and floors
 (compounded, or ``--averaged``) by MC or ``--rqmc`` against their closed
-forms, with the jvp vega (``--g2``: also the G2++ twins).  ``calibrate``
+forms, with the jvp vega (``--g2``: also the G2++ twins).  ``notes``
+prices the snowball, the callable snowball and the callable capped
+floater by MC against their float64 DP oracles, with their CRN-FD vegas
+(the JAX command's G2++ half is not ported yet).  ``calibrate``
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
 ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
 option and the Bermudan bracket.  Results go to ``data_torch/``; q2, q3,
-grid, swaption, cap, rfr, cms, calibrate and g2pp read the market curve
-q1 wrote there.
+grid, swaption, cap, rfr, cms, notes, calibrate and g2pp read the market
+curve q1 wrote there.
 """
 
 from __future__ import annotations
@@ -715,6 +719,130 @@ def cmd_cms(args):
 
 
 # ---------------------------------------------------------------------------
+# notes — the structured-note layer (Hull-White half)
+# ---------------------------------------------------------------------------
+
+def _gate_z(mc, se, dp):
+    """(z, ok): the JAX package's note gate, z < 4 or |MC - DP| < 2e-4."""
+    z = (mc - dp) / max(se, 1e-12)
+    return z, abs(z) < 4 or abs(mc - dp) < 2e-4
+
+
+def cmd_notes(args):
+    """The structured-note layer: the snowball note (2-d (r, coupon) DP
+    oracle, unclipped-linear closed-form CV), the issuer-callable snowball
+    (boundary-curve policy) and the issuer-callable capped floater
+    (closed-form plain leg, 1-d DP oracle, issuer-policy MC upper bound),
+    each with its CRN-FD vega against the DP's central difference.  The
+    G2++ half of the JAX command waits for the port of ``g2_note.py``."""
+    from . import floater, snowball
+
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(77121)
+    market = hwio.load_market(cfg, device=dev)
+    rc = 0
+    results = {}
+    vpaths = min(cfg.n_paths, 1 << 16)
+
+    print(f"--- snowball note: c_j = clip(c_j-1 + spread - L, floor, cap), "
+          f"c_0 {args.sb_initial*100:.2f}%, spread {args.sb_spread*100:.2f}%"
+          f", cap {args.sb_cap*100:.2f}%, tenor {args.tenor}y "
+          f"[{_device_name(dev)}] ---")
+    skw = dict(initial=args.sb_initial, spread=args.sb_spread,
+               cap=args.sb_cap, floor=args.floor, tenor=args.tenor,
+               freq=args.freq)
+    sdp = snowball.dp_oracle_snowball(cfg, market, **skw)
+    smc = snowball.price_snowball(cfg, key, market, device=dev, **skw)
+    p, se = float(smc.price), float(smc.std_error)
+    z_s, ok_s = _gate_z(p, se, sdp.price)
+    print(f"DP oracle:   {sdp.price:.8f} (unclipped linear CF "
+          f"{sdp.linear_price:.8f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(smc.raw_std_error):.2e})")
+    print(f"mean final coupon: MC {float(smc.mean_final_coupon):.6f} "
+          f"vs DP {sdp.mean_final_coupon:.6f}")
+    print(f"agreement: z = {z_s:.2f} ({'PASS' if ok_s else 'CHECK'})")
+    rc |= 0 if ok_s else 1
+    sv = snowball.vega_snowball(cfg, key, market, n_paths=vpaths,
+                                device=dev, **skw)
+    print(f"snowball vega: CRN-FD {float(sv.vega):.6f} vs DP FD "
+          f"{sv.dp_vega:.6f}")
+    results["snowball"] = {
+        "dp_price": sdp.price, "linear_closed_form": sdp.linear_price,
+        "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(smc.raw_std_error), "z": z_s,
+        "mean_final_coupon_mc": float(smc.mean_final_coupon),
+        "mean_final_coupon_dp": sdp.mean_final_coupon,
+        "vega_crn_fd": float(sv.vega), "vega_dp_fd": sv.dp_vega}
+
+    print("--- callable snowball: issuer call at par, boundary-curve "
+          "policy r*(c) over the (r, coupon) DP ---")
+    csdp = snowball.dp_oracle_callable_snowball(cfg, market, **skw)
+    csmc = snowball.price_callable_snowball(
+        cfg, key, market, boundaries=csdp.boundaries, c_grid=csdp.c_grid,
+        plain_mean=csdp.plain_price, device=dev, **skw)
+    p, se = float(csmc.price), float(csmc.std_error)
+    z_cs, ok_cs = _gate_z(p, se, csdp.price)
+    print(f"DP oracle:   {csdp.price:.8f} (plain {csdp.plain_price:.8f}, "
+          f"call discount {csdp.call_premium:.6f})")
+    print(f"MC (2-CV):   {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(csmc.raw_std_error):.2e}); call fraction "
+          f"{float(csmc.call_fraction):.4f}")
+    print(f"agreement: z = {z_cs:.2f} ({'PASS' if ok_cs else 'CHECK'})")
+    rc |= 0 if ok_cs else 1
+    csv_ = snowball.vega_callable_snowball(cfg, key, market, n_paths=vpaths,
+                                           device=dev, **skw)
+    print(f"callable-snowball vega: CRN-FD {float(csv_.vega):.6f} vs DP "
+          f"FD {csv_.dp_vega:.6f} (envelope check)")
+    results["callable_snowball"] = {
+        "dp_price": csdp.price, "dp_plain": csdp.plain_price,
+        "call_premium": csdp.call_premium, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(csmc.raw_std_error), "z": z_cs,
+        "call_fraction": float(csmc.call_fraction),
+        "vega_crn_fd": float(csv_.vega), "vega_dp_fd": csv_.dp_vega}
+
+    print(f"--- callable capped floater: clip(L + "
+          f"{args.fl_spread*100:.2f}%, {args.floor*100:.2f}%, "
+          f"{args.fl_cap*100:.2f}%), tenor {args.fl_tenor}y, issuer call "
+          f"at par ---")
+    fkw = dict(cap=args.fl_cap, floor=args.floor, spread=args.fl_spread,
+               tenor=args.fl_tenor, freq=args.freq)
+    fdp = floater.dp_oracle_capped_floater(cfg, market, **fkw)
+    fcf = floater.capped_floater_closed_form(cfg, market, **fkw)
+    fmc = floater.price_capped_floater(cfg, key, market,
+                                       boundaries=fdp.boundaries,
+                                       device=dev, **fkw)
+    p, se = float(fmc.price), float(fmc.std_error)
+    z_f, ok_f = _gate_z(p, se, fdp.price)
+    print(f"DP oracle:   {fdp.price:.8f} (plain {fdp.plain_price:.8f}, "
+          f"CF coupon leg {fcf[0]:.8f}, call discount "
+          f"{fdp.plain_price - fdp.price:.6f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(fmc.raw_std_error):.2e}); call fraction "
+          f"{float(fmc.call_fraction):.4f}")
+    print(f"agreement: z = {z_f:.2f} ({'PASS' if ok_f else 'CHECK'})")
+    rc |= 0 if ok_f else 1
+    fv = floater.vega_capped_floater(cfg, key, market, n_paths=vpaths,
+                                     device=dev, **fkw)
+    print(f"floater vega: CRN-FD {float(fv.vega):.6f} vs DP FD "
+          f"{fv.dp_vega:.6f} (envelope check)")
+    results["capped_floater"] = {
+        "dp_price": fdp.price, "dp_plain": fdp.plain_price,
+        "closed_form_coupon_leg": fcf[0], "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(fmc.raw_std_error), "z": z_f,
+        "call_fraction": float(fmc.call_fraction),
+        "boundaries": [float(b) for b in fdp.boundaries],
+        "vega_crn_fd": float(fv.vega), "vega_dp_fd": fv.dp_vega}
+
+    print("--- G2++ snowball, callable snowball and callable capped "
+          "floater: not ported (they need g2_note.py, ROADMAP Queue 1) ---")
+    hwio.write_json(hwio.DATA_DIR / "notes_results.json", "notes", cfg,
+                    results=results)
+    return rc
+
+
+# ---------------------------------------------------------------------------
 # calibrate / g2pp — parameter calibration and the G2++ family
 # ---------------------------------------------------------------------------
 
@@ -1017,6 +1145,21 @@ def main(argv=None):
     pcm.add_argument("--floor", action="store_true")
     pcm.add_argument("--g2", action="store_true",
                      help="also the G2++ twin against its fp64 quadrature")
+    pnt = sub.add_parser("notes", parents=[common])
+    pnt.add_argument("--sb-initial", type=float, default=0.02,
+                     help="snowball initial coupon c_0")
+    pnt.add_argument("--sb-spread", type=float, default=0.013)
+    pnt.add_argument("--sb-cap", type=float, default=0.06)
+    pnt.add_argument("--fl-cap", type=float, default=0.016,
+                     help="capped-floater coupon cap")
+    pnt.add_argument("--fl-spread", type=float, default=0.004)
+    pnt.add_argument("--fl-tenor", type=float, default=3.0)
+    pnt.add_argument("--floor", type=float, default=0.0)
+    pnt.add_argument("--tenor", type=float, default=4.0)
+    pnt.add_argument("--freq", type=float, default=1.0)
+    pnt.add_argument("--fine", action="store_true",
+                     help="fine G2 DP oracle grids (the G2++ half, not "
+                          "ported yet)")
     pcal = sub.add_parser("calibrate", parents=[common])
     for flag, dv in g2_flags:
         pcal.add_argument(flag, type=float, default=dv)
@@ -1065,6 +1208,8 @@ def main(argv=None):
         return cmd_rfr(args)
     if args.cmd == "cms":
         return cmd_cms(args)
+    if args.cmd == "notes":
+        return cmd_notes(args)
     if args.cmd == "calibrate":
         return cmd_calibrate(args)
     if args.cmd == "g2pp":

@@ -43,7 +43,7 @@ from .models import hull_white as hw
 from .models.hull_white import MarketCurve
 from .models.oracles import _phi
 from .ops import engine_exact
-from .ops.accurate import exp32
+from .ops.accurate import cephes_exp, cephes_log, exp32
 from .ops.engine_linear import _shock_shapes, dot
 from .ops.payoffs import CVEstimate, cv_estimate, leg_moments
 from .ops.qmc import _over_shifts, ndtri, sobol2
@@ -702,20 +702,47 @@ class RangeAccrualResult(NamedTuple):
     n_paths: int
 
 
-def _libor_r_bounds(cfg: HWConfig, sigma, market: MarketCurve, t: float,
+def _libor_ab(cfg: HWConfig, sigma, market: MarketCurve, t, delta: float):
+    """(A, B) of P(t, t + delta; r) = A e^{-B r} at the date or dates t,
+    float32 on the market's device, rounded as the JAX package rounds them
+    one Python-float date at a time: T = t + delta and t rounded to
+    float32 for the curve lookups and T - t, the Python products -2 a t
+    and -a delta in float64, exp as XLA's CPU code (``cephes_exp``)."""
+    dev = market.P.device
+    a = cfg.a
+    t64 = np.asarray(t, np.float64)
+    T64 = t64 + delta
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    T, t32 = f32(T64), f32(t64)
+    sigma = hw._f32(sigma, market.P)
+    B_T = (1.0 - cephes_exp(-a * (T - t32))) / a
+    conv = ((sigma * sigma / (4.0 * a))
+            * (1.0 - cephes_exp(f32(-2.0 * a * t64))) * B_T * B_T)
+    A = ((hw.interp_curve(market.P, T, cfg)
+          / hw.interp_curve(market.P, t32, cfg))
+         * cephes_exp(B_T * hw.interp_curve(market.f, t32, cfg) - conv))
+    return A, (1.0 - cephes_exp(f32(-a * (T64 - t64)))) / a
+
+
+def _libor_r_bounds(cfg: HWConfig, sigma, market: MarketCurve, t,
                     delta: float, lo: float, hi: float):
-    """(r_lo, r_hi) so that lo <= L(t, t+delta) <= hi  <=>  r in the
-    interval: P(t, t+delta; r) = A e^{-B r} and 1 + delta L = 1/P give
-    r = (log A + log(1 + delta L)) / B exactly (L increasing in r)."""
-    A = hw.a_hw(cfg, sigma, market, t, t + delta)
-    B = hw.b_func(t, t + delta, cfg.a).to(A.device)
+    """(r_lo, r_hi) at the date or dates t, so that lo <= L(t, t+delta) <=
+    hi  <=>  r in the interval: P(t, t+delta; r) = A e^{-B r} and 1 +
+    delta L = 1/P give r = (log A + log(1 + delta L)) / B exactly (L
+    increasing in r).  The float32 edges are the JAX package's bit for
+    bit (``_libor_ab``, log as XLA's CPU code)."""
+    A, B = _libor_ab(cfg, sigma, market, t, delta)
+    lnA = cephes_log(A)
 
     def bound(level):
         # L > -1/delta always (P > 0): a band edge at or below it maps to
         # r = -inf (never binding)
         if 1.0 + delta * level <= 0.0:
-            return torch.full((), -math.inf, device=A.device)
-        return (torch.log(A) + math.log1p(delta * level)) / B
+            return torch.full_like(lnA, -math.inf)
+        return (lnA + math.log1p(delta * level)) / B
 
     return bound(lo), bound(hi)
 
@@ -754,9 +781,9 @@ def price_range_accrual(cfg: HWConfig, key: Key, market: MarketCurve, *,
     det = _functional_det(cfg, tables.sigma, specs)
     r_det = det[:nm].reshape(n, m)
     i_det = det[nm:]
-    b_lo, b_hi = (torch.stack(b).reshape(n, m) for b in zip(
-        *[_libor_r_bounds(cfg, tables.sigma, market, t, delta, lo, hi)
-          for o in obs for t in o]))
+    b_lo, b_hi = (b.reshape(n, m) for b in _libor_r_bounds(
+        cfg, tables.sigma, market, [t for o in obs for t in o], delta, lo,
+        hi))
 
     def block(x):
         z = tables.sig_st * dot(x, LT, cfg.matmul_precision)
@@ -809,7 +836,10 @@ def range_accrual_closed_form(cfg: HWConfig, market: MarketCurve, *,
     dates = tuple(sorted({t for o in obs for t in o} | set(pays)))
     idx = {t: q for q, t in enumerate(dates)}
     (r_det, i_det), sig = _det_host64(cfg, sigma, dates)
-    sigma32 = torch.tensor(sigma, dtype=torch.float32)
+    flat = [t for o in obs for t in o]
+    band = dict(zip(flat, zip(*(b.tolist() for b in _libor_r_bounds(
+        cfg, torch.tensor(sigma, dtype=torch.float32), market, flat,
+        libor_tenor, lo, hi)))))
     total, per = 0.0, []
     for j in range(n):
         npay = _step_index(cfg, pays[j])
@@ -822,8 +852,7 @@ def range_accrual_closed_form(cfg: HWConfig, market: MarketCurve, *,
             u = np.asarray(_shock_shapes(cfg, ni)[0], np.float64)
             s_r = sig * math.sqrt(float(u @ u))
             mu = r_det[idx[t]] - sig * sig * float(u @ wp[:ni])
-            r_lo, r_hi = (float(b) for b in _libor_r_bounds(
-                cfg, sigma32, market, t, libor_tenor, lo, hi))
+            r_lo, r_hi = band[t]
             p = _phi((r_hi - mu) / s_r) - _phi((r_lo - mu) / s_r)
             v += coupon * tau / m * w0 * p
         per.append(v)

@@ -23,6 +23,12 @@ the reference behaves so and the port reproduces it (PORT.md).
 (``ndtr``: erf near 0, XLA's float32 erf here too; erfc in the tails,
 ``torch.erfc``, a few ulps from XLA's), ``npdf`` the PDF through
 ``exp32``.
+
+``cephes_exp`` and ``cephes_log`` are the float32 exp and log that XLA's
+CPU code emits for ``jnp.exp`` and ``jnp.log`` (Cephes' polynomials, the
+multiply-adds fused), bit for bit: the band edges and LIBOR terms of the
+note layer are float32 scalars the JAX package computes with them, and a
+one-ulp difference there moves a float64 oracle's node (PORT.md).
 """
 
 from __future__ import annotations
@@ -126,3 +132,56 @@ def npdf(x) -> torch.Tensor:
     """Standard normal PDF through ``exp32``."""
     x = _as_f32(x)
     return _f32(_INV_SQRT_2PI) * exp32(-0.5 * x * x)
+
+
+# Cephes expf / logf as XLA's CPU code evaluates them
+_CEPHES_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                 4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_CEPHES_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                 -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_EXP_CLAMP = 88.3762626647950
+
+
+def cephes_exp(x) -> torch.Tensor:
+    """float32 e^x as XLA's CPU code computes ``jnp.exp``, bit for bit:
+    n = floor(x log2 e + 1/2), r = x - n C1 - n C2, a degree-5 Horner
+    polynomial p with e^r = 1 + r + r^2 p(r), scaled by 2^n.  Bit for bit
+    for |x| <= 87; beyond, XLA flushes and saturates where this does not."""
+    x = _as_f32(x)
+    x = torch.clamp(x, -_f32(_EXP_CLAMP), _f32(_EXP_CLAMP))
+    fx = torch.floor(_fma(x, _f32(_LOG2E), 0.5))
+    r = _fma(fx, -_f32(_C1), x)
+    r = _fma(fx, -_f32(_C2), r)
+    y = _fma(r, _f32(_CEPHES_EXP_P[0]), _f32(_CEPHES_EXP_P[1]))
+    for c in _CEPHES_EXP_P[2:]:
+        y = _fma(y, r, _f32(c))
+    y = _fma(y, r * r, r) + 1.0
+    return y * pow2(fx.to(torch.int32))
+
+
+def cephes_log(x) -> torch.Tensor:
+    """float32 log(x) as XLA's CPU code computes ``jnp.log``, bit for bit,
+    for positive normal x: x = m 2^e with m in [sqrt(1/2), sqrt(2)),
+    log(m) = (m-1) - (m-1)^2/2 + (m-1)^3 P(m-1), plus e (C1 + C2)."""
+    x = _as_f32(x)
+    bits = x.view(torch.int32)
+    e = (torch.bitwise_right_shift(bits, 23) & 0xFF).to(torch.float32) - 126.0
+    m = (torch.bitwise_and(bits, 0x807FFFFF)
+         | torch.tensor(0x3F000000, dtype=torch.int32)).view(torch.float32)
+    low = m < _f32(0.707106781186547524)
+    e = torch.where(low, e - 1.0, e)
+    u = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    u2 = u * u
+    u3 = u2 * u
+    P = _CEPHES_LOG_P
+    y = _fma(u, _f32(P[0]), _f32(P[1]))
+    y1 = _fma(u, _f32(P[3]), _f32(P[4]))
+    y2 = _fma(u, _f32(P[6]), _f32(P[7]))
+    y = _fma(y, u, _f32(P[2]))
+    y1 = _fma(y1, u, _f32(P[5]))
+    y2 = _fma(y2, u, _f32(P[8]))
+    y = _fma(y, u3, y1)
+    y = _fma(y, u3, y2)
+    y = _fma(y, u3, e * _f32(_C2))
+    return ((u - 0.5 * u2) + y) + e * _f32(_C1)

@@ -1,4 +1,5 @@
-"""``ops.accurate`` (exp32, npdf, nphi), ``ops.interp.uinterp`` and the
+"""``ops.accurate`` (exp32, npdf, nphi, cephes_exp, cephes_log),
+``ops.interp.uinterp`` and the
 ``exp=`` keyword of ``models.hull_white`` against the JAX package on the
 CPU."""
 
@@ -60,6 +61,29 @@ def test_exp32_python_scalar_and_accuracy():
     true = np.exp(x.astype(np.float64))
     assert np.max(np.abs(got - true) / np.spacing(true.astype(np.float32))) \
         <= 3
+
+
+def test_cephes_exp_and_log_bitwise():
+    """cephes_exp / cephes_log against XLA's jnp.exp / jnp.log run op by op
+    on the CPU (as the JAX note layer's float32 scalars are), bit for bit:
+    exp on [-87, 87] and at the rounding boundaries of its reduction, log
+    on positive normals across the exponent range."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.uniform(-1.0, 1.0, 200_000),
+                        rng.uniform(-87.0, 87.0, 200_000)]).astype(np.float32)
+    half = ((np.arange(-120, 120) + 0.5) / np.log(2.0)).astype(np.float32)
+    x = np.concatenate([x, half, np.nextafter(half, np.float32(np.inf)),
+                        np.nextafter(half, np.float32(-np.inf)),
+                        np.float32([0.0, -0.0, 1e-30, -1e-30])])
+    assert np.array_equal(_bits(accurate.cephes_exp(torch.from_numpy(x))),
+                          _bits(jnp.exp(x)))
+    y = np.concatenate([rng.uniform(0.5, 2.0, 200_000),
+                        np.exp(rng.uniform(-85.0, 85.0, 200_000)),
+                        [1.0, 0.7071067, 0.70710677, 1.4142135, 2.0 ** -126,
+                         3.4e38]]).astype(np.float32)
+    assert np.array_equal(_bits(accurate.cephes_log(torch.from_numpy(y))),
+                          _bits(jnp.log(y)))
+    assert float(accurate.cephes_exp(0.25)) == float(jnp.exp(0.25))
 
 
 def test_npdf_bitwise():

@@ -32,6 +32,7 @@ def test_port_imports_no_jax():
             "hullwhite_tpu_torch.ops.interp, "
             "hullwhite_tpu_torch.instruments, "
             "hullwhite_tpu_torch.bermudan, hullwhite_tpu_torch.range_note, "
+            "hullwhite_tpu_torch.floater, hullwhite_tpu_torch.snowball, "
             "hullwhite_tpu_torch.utils.native\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
@@ -66,6 +67,30 @@ def test_bermudan_cuda_request_without_a_card_raises(no_cuda):
                                 device="cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         instruments.price_cap(cfg, Key(1), market, rate=0.02, device="cuda")
+
+
+def test_note_cuda_request_without_a_card_raises(no_cuda):
+    """A note entry point refuses before its host DP oracle runs."""
+    from hullwhite_tpu_torch import floater, range_note, snowball
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    calls = [
+        lambda: range_note.price_range_note(cfg, Key(1), market, coupon=0.03,
+                                            lo=0.01, hi=0.02,
+                                            device="cuda"),
+        lambda: range_note.price_tarn(cfg, Key(1), market, coupon=0.03,
+                                      lo=0.01, hi=0.02, target=0.05,
+                                      device="cuda"),
+        lambda: floater.price_capped_floater(cfg, Key(1), market, cap=0.02,
+                                             device="cuda"),
+        lambda: snowball.vega_callable_snowball(cfg, Key(1), market,
+                                                initial=0.02, spread=0.01,
+                                                cap=0.06, device="cuda")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card(no_cuda, tmp_path,

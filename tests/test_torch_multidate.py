@@ -35,9 +35,10 @@ KEY = Key(SEED)
 # Measured at this config: MC prices <= 8.2e-8 and per-period values
 # <= 5.9e-8 (the caps: an ulp of torch.exp in P(t1, t2) moves L by ~6e-8),
 # SEs <= 2.5e-7 relative, fd_vega_cap equal; the closed forms and
-# quadratures equal, but for the range accrual's, whose band bounds are
-# float32 logs (torch.log vs XLA's log): 3.3e-8 relative, 5.6e-8 per
-# period.
+# quadratures equal.  The range accrual's band bounds are float32 logs,
+# rounded as XLA's CPU exp and log round them (``ops.accurate.cephes_exp``
+# / ``cephes_log``): its closed form equal too (it was 3.3e-8 relative
+# with torch.log), its MC price 9.3e-10 and periods 2.3e-10 apart.
 TOL = dict(price=3e-7, se_rel=1e-4, vega=1e-4, oracle_rel=1e-10,
            range_oracle_rel=1e-6)
 
