@@ -147,11 +147,15 @@ Phases (any failure raises and the script exits non-zero):
    card's name and power limit;
 10. the Hull-White note layer (plain PyTorch on the card, no hand-written
    kernel; the DP oracles in host float64) at full width on a ``cli q1
-   --engine exact`` curve: ``cli notes`` with its three Hull-White
+   --engine exact`` curve: ``cli notes``, both halves, with its six
    agreement lines PASS (the snowball, the callable snowball, the
-   callable capped floater) and its G2++ half named as not ported;
-   ``price_range_note`` under the DP boundary and ``price_tarn`` (m = 1)
-   at 2^20 paths within 4 SE or 2e-4 of their DP oracles;
+   callable capped floater, Hull-White then G2++), nothing named as not
+   ported and the ``*_g2`` keys written; its three G2++ DP oracles are
+   patched in-process to a small grid (``G2_CLI_GRID``: at the command's
+   defaults they take ~13 minutes of host time), the MC runs at 2^20
+   paths either way; ``price_range_note`` under the DP boundary and
+   ``price_tarn`` (m = 1) at 2^20 paths within 4 SE or 2e-4 of their DP
+   oracles;
    ``vega_range_note`` at 2^16 within 3 SE (16 replicates) of the DP's
    central difference; ``price_snowball(rqmc=True)`` at 2^16 x 8 within
    5 SE + 1e-6 of the DP with an SE below the MC's; the five price_*
@@ -159,7 +163,23 @@ Phases (any failure raises and the script exits non-zero):
    no kernel launched; per price_* call at 2^20 the median and range of
    the wall times, the host ms, the device-busy ms and device operations,
    each DP oracle's host wall, and the phase's peak device memory, beside
-   the card's name and power limit.
+   the card's name and power limit;
+11. the G2++ note layer (``g2_note``: plain PyTorch on the card, no
+   hand-written kernel; the (u, w[, c]) DP oracles in host float64 on the
+   grids of ``G2_DP_GRIDS``, the snowball's at its default, ~3 minutes of
+   host time that dominate the phase) at full width on phase 10's curve with
+   G2Params(): ``price_range_note_g2`` under its DP curves,
+   ``price_tarn_g2``, ``price_capped_floater_g2`` and
+   ``price_snowball_g2`` at 2^20 paths within 4 SE or 2e-4 of their DP
+   oracles, ``price_callable_snowball_g2`` within 5e-4 of its DP;
+   ``vega_range_note_g2`` at 2^16 within 3 SE (16 replicates) of the DP's
+   central difference; ``price_snowball_g2(rqmc=True)`` at 2^16 x 8
+   within 5 SE + 1e-6 of the DP with an SE below the MC's; the five
+   price_*_g2 calls at 2^14 on the card against the CPU (0.1 SE); reruns
+   bitwise; no kernel launched; per price_*_g2 call at 2^20 the median and
+   range of the wall times, the host ms, the device-busy ms and device
+   operations, each DP oracle's host wall, and the phase's peak device
+   memory and wall, beside the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -2333,29 +2353,51 @@ NOTES_CARD_CPU_PATHS = 1 << 14
 NOTES_CARD_CPU_SE_FRAC = 0.1
 
 
+# the G2++ DP oracles inside phase 10's ``cli notes`` run: (61, 21, 8),
+# n_c = 21, whatever grid the command asks for (its defaults, up to
+# (161, 61, 41, 16), take ~13 minutes of host time over its 11 oracles)
+G2_SMALL_GRID = dict(n_u=61, n_w=21, n_quad=8)
+G2_CLI_GRID = {"dp_oracle_snowball_g2": dict(G2_SMALL_GRID, n_c=21),
+               "dp_oracle_callable_snowball_g2": dict(G2_SMALL_GRID, n_c=21),
+               "dp_oracle_capped_floater_g2": G2_SMALL_GRID}
+G2_NOTE_KEYS = ("snowball_g2", "callable_snowball_g2", "capped_floater_g2")
+
+
+def _forced_grid(fn, grid):
+    def call(*args, **kw):
+        return fn(*args, **{**kw, **grid})
+    return call
+
+
 def phase10_cli(cfg, dev):
     """``cli q1 --engine exact``, then on its curve ``cli notes`` at full
-    width in a fresh directory; returns the q1 market and the notes
-    results."""
+    width in a fresh directory, its G2++ DP oracles on ``G2_CLI_GRID``;
+    returns the q1 market and the notes results."""
+    from hullwhite_tpu_torch import g2_note
     from hullwhite_tpu_torch.utils import io as hwio
 
     argv = ["--device", str(dev), "--reps", "1"]
     cwd = os.getcwd()
+    saved = {name: getattr(g2_note, name) for name in G2_CLI_GRID}
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
             _cli(["q1", "--engine", "exact", *argv], "phase 10")
             market = hwio.load_market(cfg, device=dev)
+            for name, grid in G2_CLI_GRID.items():
+                setattr(g2_note, name, _forced_grid(saved[name], grid))
             text = _cli(["notes", *argv], "phase 10")
             doc = json.load(open(os.path.join("data_torch",
                                               "notes_results.json")))
         finally:
+            for name, fn in saved.items():
+                setattr(g2_note, name, fn)
             os.chdir(cwd)
-    check(text.count("(PASS)") == 3 and "CHECK" not in text,
-          "cli notes: a Hull-White agreement line is not PASS")
-    check("not ported" in text and not any(k.endswith("_g2")
-                                           for k in doc["results"]),
-          "cli notes: the G2++ half is not named as not ported")
+    check(text.count("(PASS)") == 6 and "CHECK" not in text,
+          "cli notes: an agreement line is not PASS")
+    check("not ported" not in text
+          and all(k in doc["results"] for k in G2_NOTE_KEYS),
+          "cli notes: the G2++ half did not run")
     return market, doc["results"]
 
 
@@ -2502,20 +2544,16 @@ def phase10_card_vs_cpu(cfg, dev, market, dps):
               f"{name} on the card vs the CPU")
 
 
-def phase10_times(cfg, dev, market, smi, dps, dp_wall, reps=3):
+def _note_times(calls, cfg, smi, dp_wall, tag, reps=3):
     """Per price_* call at 2^20 paths under the DP policies, after one warm
     call: the synchronised wall ms of ``reps`` rounds (median, least,
     most), the host ms until the call returns, the device-busy ms and
     device operations of one profiler window; every rerun bitwise equal to
-    the warm call.  The DP oracles' host walls come from phase10_direct."""
+    the warm call.  The DP oracles' host walls come from the caller."""
     import statistics
 
     import torch
 
-    from hullwhite_tpu_torch import Key
-
-    key = Key(cfg.seed).fold_in(77121)
-    calls = _note_calls(cfg, key, market, dps, dev)
     first = {name: fn() for name, fn in calls.items()}
     walls = {name: [] for name in calls}
     hosts = {name: [] for name in calls}
@@ -2529,7 +2567,7 @@ def phase10_times(cfg, dev, market, smi, dps, dp_wall, reps=3):
             walls[name].append((time.perf_counter() - t0) * 1e3)
             hosts[name].append((t1 - t0) * 1e3)
             check(torch.equal(out, first[name]), f"{name}: reruns differ")
-    print(f"[phase 10] price_* reruns bitwise: "
+    print(f"[{tag}] price_* reruns bitwise: "
           + str({name: out.tolist() for name, out in first.items()}))
     times = {}
     for name, fn in calls.items():
@@ -2539,7 +2577,7 @@ def phase10_times(cfg, dev, market, smi, dps, dp_wall, reps=3):
             "host_ms": statistics.median(hosts[name])}
         t["device_ms"], ops = _device_window(fn)
         t["device_ops"] = ops
-        print(f"[phase 10] {name}@{cfg.n_paths}: wall median "
+        print(f"[{tag}] {name}@{cfg.n_paths}: wall median "
               f"{t['wall_ms']:.3f} ms [{t['wall_ms_min']:.3f}, "
               f"{t['wall_ms_max']:.3f}] over {reps}, host "
               f"{t['host_ms']:.3f} ms, device busy {t['device_ms']:.3f} ms, "
@@ -2555,7 +2593,7 @@ def phase10(dev, smi):
     kernels' launch counts of the whole phase."""
     import torch
 
-    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch import HWConfig, Key
     from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
@@ -2564,17 +2602,221 @@ def phase10(dev, smi):
     t0 = time.perf_counter()
     market, notes = phase10_cli(cfg, dev)
     for name, r in notes.items():
+        gap = (f"z = {r['z']:+.2f}" if "z" in r
+               else f"|d| = {abs(r['mc_price'] - r['dp_price']):.2e}")
         print(f"[phase 10] cli notes {name}: MC {r['mc_price']:.8f} +/- "
-              f"{r['mc_se']:.2e}, DP {r['dp_price']:.8f}, z = {r['z']:+.2f}; "
+              f"{r['mc_se']:.2e}, DP {r['dp_price']:.8f}, {gap}; "
               f"vega CRN-FD {r['vega_crn_fd']:.6f}, DP FD "
               f"{r['vega_dp_fd']:.6f}")
     dps, dp_wall = phase10_direct(cfg, dev, market, smi)
     phase10_card_vs_cpu(cfg, dev, market, dps)
-    times = phase10_times(cfg, dev, market, smi, dps, dp_wall)
+    times = _note_times(_note_calls(cfg, Key(cfg.seed).fold_in(77121),
+                                    market, dps, dev),
+                        cfg, smi, dp_wall, "phase 10")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"[phase 10] times per call [{smi}]: " + json.dumps(times))
     print(f"[phase 10] peak device memory of the note phase: {peak:.2f} GiB "
           f"[{smi}]; phase wall {time.perf_counter() - t0:.1f} s")
+    return fused.launch_counts(), market
+
+# ---------------------------------------------------------------------------
+# phase 11: the G2++ note layer (the puttable range note, the TARN, the
+# callable capped floater, the snowball and the callable snowball under
+# G2++), plain PyTorch on the card (no hand-written kernel on these calls)
+# and host float64 (u, w[, c]) DP oracles
+# ---------------------------------------------------------------------------
+
+# the DP oracles' grids (n_u, n_w, n_quad[, n_c]): (61, 21, 8) where the
+# gate is 2e-4 or 5e-4 absolute (their bias against the (121, 41, 12)
+# grid: 1.3e-5 to 3.9e-5, CPU); the snowball's at its default (161, 61,
+# 41, 16), the one grid within the RQMC gate's 5 SE + 1e-6 (~6.5e-6) of
+# the RQMC price: its errors at (61, 21, 21, 8) / (81, 31, 41, 10) /
+# (121, 41, 41, 12) are +3.4e-5 / -7.4e-6 / +1.3e-5, at the default
+# +3.1e-6 (CPU, the fp64 oracle curve).  The note's grid also serves the
+# vega's three DPs.
+G2_DP_GRIDS = {"dp_oracle_range_note_g2": G2_SMALL_GRID,
+               "dp_oracle_tarn_g2": G2_SMALL_GRID,
+               "dp_oracle_capped_floater_g2": G2_SMALL_GRID,
+               "dp_oracle_snowball_g2": dict(n_u=161, n_w=61, n_c=41,
+                                             n_quad=16),
+               "dp_oracle_callable_snowball_g2": dict(G2_SMALL_GRID,
+                                                      n_c=21)}
+G2_DP_KW = {"dp_oracle_range_note_g2": NOTE_KW,
+            "dp_oracle_tarn_g2": TARN_KW,
+            "dp_oracle_capped_floater_g2": FLOATER_KW,
+            "dp_oracle_snowball_g2": SNOWBALL_KW,
+            "dp_oracle_callable_snowball_g2": SNOWBALL_KW}
+
+
+def phase11_direct(cfg, dev, g, market, smi):
+    """The five G2++ estimators at 2^20 paths against their DP oracles (4
+    SE or 2e-4; the callable snowball 5e-4), the note vega at 2^16 within
+    3 SE of the DP's central difference, the RQMC snowball at 2^16 x 8
+    within 5 SE + 1e-6 of its DP with an SE below the MC's.  Returns the DP
+    results and each oracle's host wall."""
+    import numpy as np
+
+    from hullwhite_tpu_torch import Key, g2_note
+
+    key = Key(cfg.seed).fold_in(77121)
+    host = market.to("cpu")
+    dps, dp_wall = {}, {}
+    for name, grid in G2_DP_GRIDS.items():
+        t0 = time.perf_counter()
+        dps[name] = getattr(g2_note, name)(cfg, g, host, **G2_DP_KW[name],
+                                           **grid)
+        dp_wall[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[phase 11] {name} {grid}: {dps[name].price:.8f} (host wall "
+              f"{dp_wall[name]:.1f} ms) [{smi}]")
+
+    calls = _g2_note_calls(cfg, key, market, dps, dev)
+    for name, dp_name, third in (
+            ("price_range_note_g2", "dp_oracle_range_note_g2",
+             "put fraction"),
+            ("price_tarn_g2", "dp_oracle_tarn_g2", "knockout fraction"),
+            ("price_capped_floater_g2", "dp_oracle_capped_floater_g2",
+             "call fraction"),
+            ("price_snowball_g2", "dp_oracle_snowball_g2",
+             "mean final coupon"),
+            ("price_callable_snowball_g2", "dp_oracle_callable_snowball_g2",
+             "call fraction")):
+        p, se, x = calls[name]().tolist()
+        dpv = dps[dp_name].price
+        z = (p - dpv) / max(se, 1e-12)
+        if name == "price_callable_snowball_g2":
+            ok, gate = abs(p - dpv) < 5e-4, "|d| < 5e-4"
+        else:
+            ok, gate = abs(z) < 4 or abs(p - dpv) < 2e-4, \
+                "|z| < 4 or |d| < 2e-4"
+        print(f"[phase 11] {name} at {cfg.n_paths} paths: {p:.8f} +/- "
+              f"{se:.2e}, DP {dpv:.8f}: z = {z:+.2f}, |d| {abs(p - dpv):.2e} "
+              f"(gate {gate}); {third} {x:.5f}")
+        check(ok, f"{name} vs its DP oracle")
+    print(f"[phase 11] TARN knockout probability (DP) "
+          f"{dps['dp_oracle_tarn_g2'].ko_prob:.5f}")
+
+    grid = G2_DP_GRIDS["dp_oracle_range_note_g2"]
+    note_dp = dps["dp_oracle_range_note_g2"]
+    v = g2_note.vega_range_note_g2(cfg, g, key, market,
+                                   n_paths=NOTE_VEGA_PATHS, dp_kwargs=grid,
+                                   device=dev, **NOTE_KW)
+    n_rep = NOTE_VEGA_PATHS // NOTE_VEGA_REPS
+    reps = []
+    for i in range(NOTE_VEGA_REPS):
+        k = key.fold_in(1000 + i)
+        pm, pp = (g2_note.price_range_note_g2(
+            cfg, g.bump_sigma(sgn * v.epsilon), k, market,
+            boundaries=note_dp.boundaries, n_paths=n_rep, device=dev,
+            **NOTE_KW).price for sgn in (-1.0, 1.0))
+        reps.append(float(pp - pm) / (2.0 * v.epsilon))
+    se_v = float(np.std(reps, ddof=1)) / math.sqrt(NOTE_VEGA_REPS)
+    d = float(v.vega) - v.dp_vega
+    print(f"[phase 11] vega_range_note_g2 at {NOTE_VEGA_PATHS} paths: CRN-FD "
+          f"{float(v.vega):.6f}, DP FD {v.dp_vega:.6f}, |d| {abs(d):.2e} "
+          f"(SE {se_v:.2e} from {NOTE_VEGA_REPS} replicates of {n_rep}, "
+          f"replicate mean {float(np.mean(reps)):.6f}; gate 3 SE)")
+    check(abs(d) <= 3 * se_v, "vega_range_note_g2 vs the DP's central "
+          "difference")
+
+    sb_dp = dps["dp_oracle_snowball_g2"]
+    n_pts, n_sh = SNOWBALL_RQMC
+    rq = g2_note.price_snowball_g2(cfg, g, key, market, n_paths=n_pts,
+                                   n_blocks=n_sh, rqmc=True, device=dev,
+                                   **SNOWBALL_KW)
+    mc = g2_note.price_snowball_g2(cfg, g, key, market, n_paths=n_pts,
+                                   n_blocks=n_sh, device=dev, **SNOWBALL_KW)
+    p, se, mse = float(rq.price), float(rq.std_error), float(mc.std_error)
+    print(f"[phase 11] price_snowball_g2 RQMC at {n_pts} x {n_sh}: {p:.8f} "
+          f"+/- {se:.2e} (MC SE at the same paths {mse:.2e}), DP "
+          f"{sb_dp.price:.8f}: |d| {abs(p - sb_dp.price):.2e} (tol 5 SE + "
+          f"1e-6 = {5 * se + 1e-6:.2e})")
+    check(abs(p - sb_dp.price) <= 5 * se + 1e-6 and se < mse,
+          "price_snowball_g2(rqmc=True) vs its DP oracle")
+    return dps, dp_wall
+
+
+def _g2_note_calls(cfg, key, market, dps, dev, n_paths=None):
+    """The five price_*_g2 calls at G2Params() under the DP policies: name
+    -> fn returning a tensor of (price, SE, the put / knockout / call
+    fraction or the mean final coupon)."""
+    import torch
+
+    from hullwhite_tpu_torch import g2_note
+    from hullwhite_tpu_torch.models import g2pp
+
+    g = g2pp.G2Params()
+    cdp = dps["dp_oracle_callable_snowball_g2"]
+
+    def stack(res, third):
+        return torch.stack([res.price, res.std_error, getattr(res, third)])
+
+    return {
+        "price_range_note_g2": lambda: stack(g2_note.price_range_note_g2(
+            cfg, g, key, market, n_paths=n_paths,
+            boundaries=dps["dp_oracle_range_note_g2"].boundaries,
+            device=dev, **NOTE_KW), "put_fraction"),
+        "price_tarn_g2": lambda: stack(g2_note.price_tarn_g2(
+            cfg, g, key, market, n_paths=n_paths, device=dev, **TARN_KW),
+            "ko_fraction"),
+        "price_capped_floater_g2": lambda: stack(
+            g2_note.price_capped_floater_g2(
+                cfg, g, key, market, n_paths=n_paths,
+                boundaries=dps["dp_oracle_capped_floater_g2"].boundaries,
+                device=dev, **FLOATER_KW), "call_fraction"),
+        "price_snowball_g2": lambda: stack(g2_note.price_snowball_g2(
+            cfg, g, key, market, n_paths=n_paths, device=dev,
+            **SNOWBALL_KW), "mean_final_coupon"),
+        "price_callable_snowball_g2": lambda: stack(
+            g2_note.price_callable_snowball_g2(
+                cfg, g, key, market, n_paths=n_paths,
+                boundaries=cdp.boundaries, c_grid=cdp.c_grid,
+                plain_mean=cdp.plain_price, device=dev, **SNOWBALL_KW),
+            "call_fraction")}
+
+
+def phase11_card_vs_cpu(cfg, dev, market, dps):
+    """Each price_*_g2 at 2^14 paths on the card and on the CPU under one
+    key: prices within 0.1 SE."""
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(77121)
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        got[str(d)] = {name: fn().tolist() for name, fn in _g2_note_calls(
+            cfg, key, m, dps, d, n_paths=NOTES_CARD_CPU_PATHS).items()}
+    for name, (p, se, x) in got["cpu"].items():
+        pc, _, xc = got[str(dev)][name]
+        print(f"[phase 11] card vs CPU: {name} at {NOTES_CARD_CPU_PATHS} "
+              f"paths: {pc:.8f} vs {p:.8f}, |d| {abs(pc - p):.2e} (tol "
+              f"{NOTES_CARD_CPU_SE_FRAC} SE = "
+              f"{NOTES_CARD_CPU_SE_FRAC * se:.2e}); third field {xc} vs {x}")
+        check(abs(pc - p) <= NOTES_CARD_CPU_SE_FRAC * se,
+              f"{name} on the card vs the CPU")
+
+
+def phase11(dev, smi, market):
+    """The G2++ note layer on phase 10's curve (module docstring, phase
+    11); returns the kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import g2pp
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    dps, dp_wall = phase11_direct(cfg, dev, g2pp.G2Params(), market, smi)
+    phase11_card_vs_cpu(cfg, dev, market, dps)
+    times = _note_times(_g2_note_calls(cfg, Key(cfg.seed).fold_in(77121),
+                                       market, dps, dev),
+                        cfg, smi, dp_wall, "phase 11")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 11] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 11] peak device memory of the G2++ note phase: "
+          f"{peak:.2f} GiB [{smi}]; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
     return fused.launch_counts()
 
 
@@ -2701,12 +2943,19 @@ def main() -> int:
     check(not any(g2b_counts.values()), "a G2++ Bermudan or RFR call "
           "launched a kernel")
 
-    note_counts = phase10(dev, smi)
+    note_counts, note_market = phase10(dev, smi)
     print(f"[phase 10] launches of the hand-written kernels in the note "
           f"calls (cli q1 --engine exact, cli notes, the direct calls, card "
           f"vs CPU, the timings): {sum(note_counts.values())} kernel "
           f"launches (plain PyTorch)")
     check(not any(note_counts.values()), "a note call launched a kernel")
+
+    g2_note_counts = phase11(dev, smi, note_market)
+    print(f"[phase 11] launches of the hand-written kernels in the G2++ "
+          f"note calls (the direct calls, card vs CPU, the timings): "
+          f"{sum(g2_note_counts.values())} kernel launches (plain PyTorch)")
+    check(not any(g2_note_counts.values()), "a G2++ note call launched a "
+          "kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

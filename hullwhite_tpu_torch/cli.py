@@ -42,8 +42,9 @@ twin).  ``rfr`` prices backward-looking overnight-rate caps and floors
 (compounded, or ``--averaged``) by MC or ``--rqmc`` against their closed
 forms, with the jvp vega (``--g2``: also the G2++ twins).  ``notes``
 prices the snowball, the callable snowball and the callable capped
-floater by MC against their float64 DP oracles, with their CRN-FD vegas
-(the JAX command's G2++ half is not ported yet).  ``calibrate``
+floater by MC against their float64 DP oracles, with their CRN-FD vegas,
+under Hull-White and then under G2++ (``--fine``: finer G2++ DP grids).
+``calibrate``
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
 ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
@@ -719,7 +720,7 @@ def cmd_cms(args):
 
 
 # ---------------------------------------------------------------------------
-# notes — the structured-note layer (Hull-White half)
+# notes — the structured-note layer (Hull-White, then G2++)
 # ---------------------------------------------------------------------------
 
 def _gate_z(mc, se, dp):
@@ -733,9 +734,11 @@ def cmd_notes(args):
     oracle, unclipped-linear closed-form CV), the issuer-callable snowball
     (boundary-curve policy) and the issuer-callable capped floater
     (closed-form plain leg, 1-d DP oracle, issuer-policy MC upper bound),
-    each with its CRN-FD vega against the DP's central difference.  The
-    G2++ half of the JAX command waits for the port of ``g2_note.py``."""
-    from . import floater, snowball
+    each with its CRN-FD vega against the DP's central difference; then
+    their G2++ twins (``g2_note``: (u, w[, c]) DP oracles on the host, the
+    callable snowball's boundary surfaces u*(w, c)) at G2Params() on the
+    same key and curve."""
+    from . import floater, g2_note, snowball
 
     cfg = _cfg(args)
     dev = pricing.resolve_device(args.device)
@@ -835,8 +838,97 @@ def cmd_notes(args):
         "boundaries": [float(b) for b in fdp.boundaries],
         "vega_crn_fd": float(fv.vega), "vega_dp_fd": fv.dp_vega}
 
-    print("--- G2++ snowball, callable snowball and callable capped "
-          "floater: not ported (they need g2_note.py, ROADMAP Queue 1) ---")
+    g2 = g2pp.G2Params()
+    fine = dict(n_u=241, n_w=91, n_quad=20) if args.fine else {}
+    print("--- G2++ snowball note ((u, w, c) DP oracle, surface-batched "
+          "c-levels) ---")
+    sdp = g2_note.dp_oracle_snowball_g2(cfg, g2, market, **skw, **fine)
+    smc = g2_note.price_snowball_g2(cfg, g2, key, market, device=dev, **skw)
+    p, se = float(smc.price), float(smc.std_error)
+    z_s, ok_s = _gate_z(p, se, sdp.price)
+    print(f"DP oracle:   {sdp.price:.8f} (unclipped linear CF "
+          f"{sdp.linear_price:.8f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(smc.raw_std_error):.2e})")
+    print(f"mean final coupon: MC {float(smc.mean_final_coupon):.6f} "
+          f"vs DP {sdp.mean_final_coupon:.6f}")
+    print(f"agreement: z = {z_s:.2f} ({'PASS' if ok_s else 'CHECK'})")
+    rc |= 0 if ok_s else 1
+    sv = g2_note.vega_snowball_g2(cfg, g2, key, market, n_paths=vpaths,
+                                  dp_kwargs=fine, device=dev, **skw)
+    print(f"snowball vega: CRN-FD {float(sv.vega):.6f} vs DP FD "
+          f"{sv.dp_vega:.6f}")
+    results["snowball_g2"] = {
+        "dp_price": sdp.price, "linear_closed_form": sdp.linear_price,
+        "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(smc.raw_std_error), "z": z_s,
+        "mean_final_coupon_mc": float(smc.mean_final_coupon),
+        "mean_final_coupon_dp": sdp.mean_final_coupon,
+        "vega_crn_fd": float(sv.vega), "vega_dp_fd": sv.dp_vega}
+
+    print("--- G2++ callable snowball (issuer call at par, boundary "
+          "SURFACES u*(w, c) over the (u, w, c) DP) ---")
+    # moderate grids: the callable DP runs the backward pass twice (call
+    # on and off); --fine takes the snowball's defaults
+    csg = (dict(n_u=161, n_w=61, n_quad=16) if args.fine
+           else dict(n_u=121, n_w=41, n_quad=12))
+    csdp = g2_note.dp_oracle_callable_snowball_g2(cfg, g2, market, **skw,
+                                                  **csg)
+    csmc = g2_note.price_callable_snowball_g2(
+        cfg, g2, key, market, boundaries=csdp.boundaries,
+        c_grid=csdp.c_grid, plain_mean=csdp.plain_price, device=dev, **skw)
+    p, se = float(csmc.price), float(csmc.std_error)
+    # the (u, w) DP carries an O(h^2) grid bias: the gate is absolute
+    ok_cs = abs(p - csdp.price) < 5e-4
+    print(f"DP oracle:   {csdp.price:.8f} (plain {csdp.plain_price:.8f}, "
+          f"call discount {csdp.call_premium:.6f})")
+    print(f"MC (2-CV):   {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(csmc.raw_std_error):.2e}); call fraction "
+          f"{float(csmc.call_fraction):.4f}")
+    print(f"agreement: |MC - DP| = {abs(p - csdp.price):.2e} "
+          f"({'PASS' if ok_cs else 'CHECK'})")
+    rc |= 0 if ok_cs else 1
+    csv_ = g2_note.vega_callable_snowball_g2(cfg, g2, key, market,
+                                             n_paths=vpaths, dp_kwargs=csg,
+                                             device=dev, **skw)
+    print(f"callable-snowball vega: CRN-FD {float(csv_.vega):.6f} vs DP "
+          f"FD {csv_.dp_vega:.6f} (frozen-surface envelope check)")
+    results["callable_snowball_g2"] = {
+        "dp_price": csdp.price, "dp_plain": csdp.plain_price,
+        "call_premium": csdp.call_premium, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(csmc.raw_std_error),
+        "call_fraction": float(csmc.call_fraction),
+        "vega_crn_fd": float(csv_.vega), "vega_dp_fd": csv_.dp_vega}
+
+    print("--- G2++ callable capped floater (2-d (u, w) DP oracle, "
+          "boundary-curve issuer policy) ---")
+    fdp = g2_note.dp_oracle_capped_floater_g2(cfg, g2, market, **fkw,
+                                              **fine)
+    fcf = g2_note.capped_floater_closed_form_g2(cfg, g2, market, **fkw)
+    fmc = g2_note.price_capped_floater_g2(cfg, g2, key, market,
+                                          boundaries=fdp.boundaries,
+                                          device=dev, **fkw)
+    p, se = float(fmc.price), float(fmc.std_error)
+    z_f, ok_f = _gate_z(p, se, fdp.price)
+    print(f"DP oracle:   {fdp.price:.8f} (plain {fdp.plain_price:.8f}, "
+          f"CF coupon leg {fcf[0]:.8f}, call discount "
+          f"{fdp.call_premium:.6f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(fmc.raw_std_error):.2e}); call fraction "
+          f"{float(fmc.call_fraction):.4f}")
+    print(f"agreement: z = {z_f:.2f} ({'PASS' if ok_f else 'CHECK'})")
+    rc |= 0 if ok_f else 1
+    fv = g2_note.vega_capped_floater_g2(cfg, g2, key, market,
+                                        n_paths=vpaths, dp_kwargs=fine,
+                                        device=dev, **fkw)
+    print(f"floater vega: CRN-FD {float(fv.vega):.6f} vs DP FD "
+          f"{fv.dp_vega:.6f} (2-d envelope check)")
+    results["capped_floater_g2"] = {
+        "dp_price": fdp.price, "dp_plain": fdp.plain_price,
+        "closed_form_coupon_leg": fcf[0], "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(fmc.raw_std_error), "z": z_f,
+        "call_fraction": float(fmc.call_fraction),
+        "vega_crn_fd": float(fv.vega), "vega_dp_fd": fv.dp_vega}
     hwio.write_json(hwio.DATA_DIR / "notes_results.json", "notes", cfg,
                     results=results)
     return rc
@@ -1158,8 +1250,8 @@ def main(argv=None):
     pnt.add_argument("--tenor", type=float, default=4.0)
     pnt.add_argument("--freq", type=float, default=1.0)
     pnt.add_argument("--fine", action="store_true",
-                     help="fine G2 DP oracle grids (the G2++ half, not "
-                          "ported yet)")
+                     help="fine G2++ DP oracle grids (241, 91, 20); the "
+                          "callable snowball's (161, 61, 16)")
     pcal = sub.add_parser("calibrate", parents=[common])
     for flag, dv in g2_flags:
         pcal.add_argument(flag, type=float, default=dv)

@@ -42,7 +42,7 @@ from ..bermudan import _bisect, _check_dates, _wls
 from ..config import HWConfig, resolve_device
 from ..greeks import shift_curve
 from ..instruments import _leg_estimate, _leg_moments, _leg_sums
-from ..ops.accurate import exp32 as _exp, nphi, npdf as _npdf
+from ..ops.accurate import cephes_log, exp32 as _exp, nphi, npdf as _npdf
 from ..ops.engine_linear import dot
 from ..ops.payoffs import leg_moments
 from ..ops.qmc import _over_shifts, ndtri
@@ -1947,25 +1947,61 @@ def _range_dates_g2(start: float, n: int, tau: float, m: int):
     return obs, pays, dates
 
 
+def _strip_scalars_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, ts,
+                      delta: float, levels=()):
+    """float32 (lnA, *edges) at the observation times ``ts``, with lnA so
+    that L(t, t+delta) = (e^{u - lnA} - 1)/delta for the strip projection
+    u = Ba x + Bb y, and the u-edge of L = level per entry of ``levels``
+    (-inf where 1 + delta level <= 0).  Computed for all dates at once on
+    the host and copied to the market's device once, rounded as the JAX
+    package's jitted estimators compute them: the lookups on XLA's folded
+    grid (``hw.jit_maturity_grid``) at float32(t + delta) and float32(t),
+    XLA's CPU log (``cephes_log``), lnA = (log - log) + float32(vadj), and
+    each edge (log - log) + float32(float32(vadj) + float32(log1p(delta
+    level))): XLA reassociates the two constant additions."""
+    host = market.P.to("cpu")
+    xp = hw.jit_maturity_grid(cfg)
+    t64 = np.asarray(ts, np.float64)
+
+    def log_at(t):
+        return cephes_log(hw.interp_curve(
+            host, torch.from_numpy(np.asarray(t, np.float32)), cfg, xp=xp))
+
+    d = log_at(t64 + delta) - log_at(t64)
+    vadj = np.asarray([0.5 * (_v_integral(g, delta) - _v_integral(g, t + delta)
+                              + _v_integral(g, t)) for t in ts], np.float32)
+    out = [d + torch.from_numpy(vadj)]
+    for level in levels:
+        if 1.0 + delta * level <= 0.0:
+            out.append(torch.full_like(d, -math.inf))
+        else:
+            c = vadj + np.float32(math.log1p(delta * level))
+            out.append(d + torch.from_numpy(c.astype(np.float32)))
+    return tuple(v.to(market.P.device) for v in out)
+
+
 def _libor_strip_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, ts,
                     delta: float, lo: float, hi: float):
     """(Ba, Bb, c_lo, c_hi) at the observation times ``ts``:
     lo <= L(t, t+delta) <= hi  <=>  c_lo <= Ba x + Bb y <= c_hi, with
     c = ln A + log1p(delta L) and A = (P0(t+d)/P0(t))
-    e^{(V(d) - V(t+d) + V(t))/2}; an edge with 1 + delta L <= 0 is -inf."""
-    dev = market.P.device
-    Ba, Bb = _B(g.a, delta), _B(g.b, delta)
-    vadj = [0.5 * (_v_integral(g, delta) - _v_integral(g, t + delta)
-                   + _v_integral(g, t)) for t in ts]
-    lnA = (torch.log(_at(market, [t + delta for t in ts], cfg))
-           - torch.log(_at(market, list(ts), cfg)) + _vec32(vadj, dev))
+    e^{(V(d) - V(t+d) + V(t))/2}; the float32 edges are the JAX package's
+    jitted values bit for bit (``_strip_scalars_g2``)."""
+    _, c_lo, c_hi = _strip_scalars_g2(cfg, g, market, ts, delta, (lo, hi))
+    return _B(g.a, delta), _B(g.b, delta), c_lo, c_hi
 
-    def edge(level):
-        if 1.0 + delta * level <= 0.0:
-            return -math.inf
-        return math.log1p(delta * level)
 
-    return Ba, Bb, lnA + edge(lo), lnA + edge(hi)
+def _disc0_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, pays):
+    """float32 P(0, T) e^{-V(T)/2} at the payment times ``pays``, on the
+    host, copied to the market's device once, rounded as JAX's jitted
+    estimators compute it: the lookup on XLA's folded grid, the exp of the
+    float32 constant folded by XLA in correctly rounded float32."""
+    e = np.asarray([math.exp(float(np.float32(-0.5 * _v_integral(g, p))))
+                    for p in pays], np.float32)
+    P = hw.interp_curve(market.P.to("cpu"),
+                        torch.from_numpy(np.asarray(pays, np.float32)), cfg,
+                        xp=hw.jit_maturity_grid(cfg))
+    return (P * torch.from_numpy(e)).to(market.P.device)
 
 
 @lru_cache(maxsize=None)
@@ -2043,7 +2079,6 @@ def price_range_accrual_g2(cfg: HWConfig, g: G2Params, key: Key,
     delta = tau / m if libor_tenor is None else float(libor_tenor)
     coupon = float(coupon)
     obs, pays, _ = _range_dates_g2(start, n, tau, m)
-    v_half = [0.5 * _v_integral(g, p) for p in pays]
     # sample exactly the functionals the payoff touches, in payoff order:
     # the strip projection u = Ba x + Bb y at each observation (itself
     # Gaussian) and I at the payments: n*m + n columns
@@ -2056,8 +2091,7 @@ def price_range_accrual_g2(cfg: HWConfig, g: G2Params, key: Key,
                                        [t for o in obs for t in o], delta,
                                        float(lo), float(hi))
     c_lo, c_hi = c_lo.reshape(n, m), c_hi.reshape(n, m)
-    disc0 = _at(market, pays, cfg) * torch.exp(
-        _vec32([-v for v in v_half], dev))
+    disc0 = _disc0_g2(cfg, g, market, pays)
 
     def block(xn):
         z = dot(xn, LT, cfg.matmul_precision)

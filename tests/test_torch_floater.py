@@ -231,18 +231,45 @@ NOTES_KEYS = {
                        "mc_price", "mc_se", "mc_raw_se", "z",
                        "call_fraction", "boundaries", "vega_crn_fd",
                        "vega_dp_fd"},
+    "snowball_g2": {"dp_price", "linear_closed_form", "mc_price", "mc_se",
+                    "mc_raw_se", "z", "mean_final_coupon_mc",
+                    "mean_final_coupon_dp", "vega_crn_fd", "vega_dp_fd"},
+    "callable_snowball_g2": {"dp_price", "dp_plain", "call_premium",
+                             "mc_price", "mc_se", "mc_raw_se",
+                             "call_fraction", "vega_crn_fd", "vega_dp_fd"},
+    "capped_floater_g2": {"dp_price", "dp_plain", "closed_form_coupon_leg",
+                          "mc_price", "mc_se", "mc_raw_se", "z",
+                          "call_fraction", "vega_crn_fd", "vega_dp_fd"},
 }
+# the G2++ DP oracles' grid in the CLI test: at the command's defaults the
+# G2++ half runs eleven oracles of 10-180 s each on an 8-core CPU
+G2_SMALL = {"dp_oracle_snowball_g2": dict(n_u=61, n_w=21, n_c=21, n_quad=8),
+            "dp_oracle_callable_snowball_g2": dict(n_u=61, n_w=21, n_c=21,
+                                                   n_quad=8),
+            "dp_oracle_capped_floater_g2": dict(n_u=61, n_w=21, n_quad=8)}
+
+
+def _forced(fn, grid, *args, **kw):
+    return fn(*args, **{**kw, **grid})
 
 
 def test_cli_notes(tmp_path, monkeypatch, capsys):
-    """The Hull-White half of ``cli notes`` at 8192 paths on the fp64
-    oracle curve: rc 0, the three z-gates PASS, the G2++ half named as
-    not ported, the JAX command's JSON keys (no G2++ keys)."""
+    """``cli notes`` at 8192 paths on the fp64 oracle curve, both halves:
+    rc 0, the six agreement lines PASS, the six vega lines, nothing named
+    as not ported, the JAX command's JSON keys.  The three G2++ DP oracles
+    are patched to the small grid of G2_SMALL (whatever grid the command
+    asks for), so the G2++ half takes seconds: this test holds its lines,
+    gates and keys; the grids' accuracy is held by
+    tests/test_torch_g2_*.py."""
+    import functools
     import json
 
-    from hullwhite_tpu_torch import HWConfig, cli
+    from hullwhite_tpu_torch import HWConfig, cli, g2_note
     from hullwhite_tpu_torch.utils import io as hwio
 
+    for name, grid in G2_SMALL.items():
+        monkeypatch.setattr(g2_note, name, functools.partial(
+            _forced, getattr(g2_note, name), grid))
     monkeypatch.chdir(tmp_path)
     cfg = HWConfig(n_paths=8192, path_block=8192)
     Ts = np.linspace(0, cfg.t_final, cfg.n_mat)
@@ -251,14 +278,17 @@ def test_cli_notes(tmp_path, monkeypatch, capsys):
         P, oracles.forward_rate(cfg, Ts), device="cpu"))
     assert cli.main(["notes", "--device", "cpu", "--paths", "8192"]) == 0
     out = capsys.readouterr().out
-    assert out.count("(PASS)") == 3 and "CHECK" not in out
-    assert out.count("vega: CRN-FD") == 3
-    assert "not ported" in out and "g2_note.py" in out
+    assert out.count("(PASS)") == 6 and "CHECK" not in out
+    assert out.count("vega: CRN-FD") == 6
+    assert "not ported" not in out
     doc = json.loads((tmp_path / "data_torch" / "notes_results.json")
                      .read_text())
     r = doc["results"]
     assert set(r) == set(NOTES_KEYS)
     for name, keys in NOTES_KEYS.items():
         assert set(r[name]) == keys, name
-        assert abs(r[name]["z"]) < 4, (name, r[name]["z"])
+        if "z" in keys:
+            assert abs(r[name]["z"]) < 4, (name, r[name]["z"])
+    g2 = r["callable_snowball_g2"]
+    assert abs(g2["mc_price"] - g2["dp_price"]) < 5e-4
     assert len(r["capped_floater"]["boundaries"]) == 2

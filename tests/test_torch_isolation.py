@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
             "hullwhite_tpu_torch.instruments, "
             "hullwhite_tpu_torch.bermudan, hullwhite_tpu_torch.range_note, "
             "hullwhite_tpu_torch.floater, hullwhite_tpu_torch.snowball, "
-            "hullwhite_tpu_torch.utils.native\n"
+            "hullwhite_tpu_torch.g2_note, hullwhite_tpu_torch.utils.native\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
             "or m == 'hullwhite_tpu')\n"
@@ -91,6 +91,42 @@ def test_note_cuda_request_without_a_card_raises(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
             call()
+
+
+def test_g2_note_cuda_request_without_a_card_raises(no_cuda, tmp_path,
+                                                   monkeypatch):
+    """A G2++ note entry point, and ``cli notes``, refuse before any host
+    DP oracle runs."""
+    from hullwhite_tpu_torch import g2_note
+    from hullwhite_tpu_torch.models import g2pp
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    g = g2pp.G2Params()
+    sb = dict(initial=0.02, spread=0.013, cap=0.06)
+    calls = [
+        lambda: g2_note.price_range_note_g2(cfg, g, Key(1), market,
+                                            coupon=0.03, lo=0.01, hi=0.02,
+                                            device="cuda"),
+        lambda: g2_note.price_tarn_g2(cfg, g, Key(1), market, coupon=0.03,
+                                      lo=0.01, hi=0.02, target=0.05,
+                                      device="cuda"),
+        lambda: g2_note.price_capped_floater_g2(cfg, g, Key(1), market,
+                                                cap=0.02, device="cuda"),
+        lambda: g2_note.price_snowball_g2(cfg, g, Key(1), market,
+                                          device="cuda", **sb),
+        lambda: g2_note.price_callable_snowball_g2(cfg, g, Key(1), market,
+                                                   device="cuda", **sb),
+        lambda: g2_note.vega_callable_snowball_g2(cfg, g, Key(1), market,
+                                                  device="cuda", **sb)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["notes"])
+    assert not (tmp_path / "data_torch").exists()
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card(no_cuda, tmp_path,
