@@ -180,6 +180,22 @@ Phases (any failure raises and the script exits non-zero):
    range of the wall times, the host ms, the device-busy ms and device
    operations, each DP oracle's host wall, and the phase's peak device
    memory and wall, beside the card's name and power limit.
+12. the exotics layer (``ratchet``, ``barrier``, ``chooser``: plain
+   PyTorch on the card, no hand-written kernel; host float64 oracles) on
+   phase 10's curve: ``cli exotics`` at full width (2^20 paths, the
+   command's default DP grids) with its 15 agreement lines PASS (the CMS
+   spread, the range accrual and its G2++ twin, the puttable note, the
+   TARN and their G2++ twins, the chooser cap and the auto-cap under
+   both models, the G2++ chooser at 2^17 paths within 2.5e-4 of its DP,
+   the ratchet cap and the up-and-out cap under both models) and the JAX
+   command's sections written; each oracle's host wall (the G2++ DPs on
+   ``G2_SMALL_GRID``); the nine new price_* calls (the ratchet plain,
+   RQMC at 2^17 x 8 and G2++, the knock-out cap under both models, the
+   chooser and the auto-cap under both models) at 2^14 on the card
+   against the CPU (0.1 SE); reruns bitwise; no kernel launched; per
+   call at 2^20 the median and range of the wall times, the host ms, the
+   device-busy ms and device operations, and the phase's peak device
+   memory and wall, beside the card's name and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -2820,6 +2836,247 @@ def phase11(dev, smi, market):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the exotics layer (the ratchet cap, the up-and-out cap, the
+# chooser cap and auto-cap, each under Hull-White and G2++), plain PyTorch
+# on the card (no hand-written kernel on these calls) and host float64
+# oracles
+# ---------------------------------------------------------------------------
+
+# cli exotics' products at its defaults (tenor 3, cap rate 1.3%, barrier
+# 5%, k = 2 rights, ratchet spread 0)
+RATCHET_KW = dict(spread=0.0, tenor=3.0)
+KO_KW = dict(rate=0.013, barrier=0.05, tenor=3.0)
+CHOOSER_KW = dict(rate=0.013, k=2, tenor=3.0)
+# the RQMC ratchet as cli exotics runs it: 8 shifts of a 1/8 of the paths
+RQMC_SHIFTS = 8
+EXOTICS_KEYS = ("cms_spread", "range_accrual", "range_accrual_g2",
+                "range_note", "range_note_vega", "tarn", "range_note_g2",
+                "range_note_g2_vega", "tarn_g2", "chooser_cap",
+                "chooser_cap_g2", "ratchet_cap", "ratchet_cap_g2", "ko_cap",
+                "ko_cap_g2")
+
+
+# the DP oracles cli exotics calls twice with the same arguments (the
+# price's and its vega's base-sigma oracle): phase 12 answers the second
+# call from the first (deterministic host functions; an argument left to
+# its default counts as the value the oracle resolves it to)
+EXOTICS_MEMO = (("range_note", "dp_oracle_range_note"),
+                ("g2_note", "dp_oracle_range_note_g2"),
+                ("chooser", "dp_oracle_chooser_cap"))
+
+
+def _memoized(fn, hits):
+    import inspect
+
+    sig = inspect.signature(fn)
+    cache = {}
+
+    def key(name, a, cfg):
+        if a is None and name in ("sigma", "start"):
+            return cfg.sigma if name == "sigma" else cfg.s1
+        try:
+            hash(a)
+            return a
+        except TypeError:                       # the market's tensors
+            return ("id", id(a))
+
+    def call(*args, **kw):
+        b = sig.bind(*args, **kw)
+        b.apply_defaults()
+        cfg = b.arguments["cfg"]
+        k = tuple((n, key(n, a, cfg)) for n, a in b.arguments.items())
+        if k in cache:
+            hits.append(fn.__name__)
+        else:
+            cache[k] = fn(*args, **kw)
+        return cache[k]
+    return call
+
+
+def phase12_cli(cfg, dev, market):
+    """``cli exotics`` at full width (2^20 paths, the command's default DP
+    grids) in a fresh directory on phase 10's curve, the oracles of
+    ``EXOTICS_MEMO`` computed once per argument set: rc 0, its 15
+    agreement lines PASS, no CHECK, the JAX command's sections written."""
+    import importlib
+
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    mods = {m: importlib.import_module(f"hullwhite_tpu_torch.{m}")
+            for m, _ in EXOTICS_MEMO}
+    saved = {(m, n): getattr(mods[m], n) for m, n in EXOTICS_MEMO}
+    hits = []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            hwio.save_market(cfg, market)
+            for (m, n), fn in saved.items():
+                setattr(mods[m], n, _memoized(fn, hits))
+            t0 = time.perf_counter()
+            text = _cli(["exotics", "--device", str(dev), "--reps", "1"],
+                        "phase 12")
+            wall = time.perf_counter() - t0
+            doc = json.load(open(os.path.join("data_torch",
+                                              "exotics_results.json")))
+        finally:
+            for (m, n), fn in saved.items():
+                setattr(mods[m], n, fn)
+            os.chdir(cwd)
+    print(f"[phase 12] cli exotics: oracle calls answered from an earlier "
+          f"identical call: {hits}")
+    check(text.count("(PASS)") == 15 and "CHECK" not in text,
+          "cli exotics: an agreement line is not PASS")
+    check(set(doc["results"]) == set(EXOTICS_KEYS),
+          "cli exotics: its sections differ from the JAX command's")
+    return doc["results"], wall
+
+
+def phase12_oracles(cfg, g, market, smi):
+    """The oracles the direct calls read (the chooser policies and their
+    CV means; the G2++ chooser's curves on ``G2_SMALL_GRID``, which only
+    the timings use) and the host wall of each of the module's oracles."""
+    from hullwhite_tpu_torch import barrier, chooser, ratchet
+
+    host = market.to("cpu")
+    out, wall = {}, {}
+    for name, fn in (
+            ("ratchet_cap_quadrature", lambda: ratchet.ratchet_cap_quadrature(
+                cfg, host, **RATCHET_KW)[0]),
+            ("ratchet_cap_quadrature_g2",
+             lambda: ratchet.ratchet_cap_quadrature_g2(
+                 cfg, g, host, **RATCHET_KW)[0]),
+            ("dp_oracle_ko_cap", lambda: barrier.dp_oracle_ko_cap(
+                cfg, host, **KO_KW)),
+            ("dp_oracle_ko_cap_g2 (61, 21, 8)",
+             lambda: barrier.dp_oracle_ko_cap_g2(cfg, g, host, **KO_KW,
+                                                 **G2_SMALL_GRID)),
+            ("dp_oracle_chooser_cap", lambda: chooser.dp_oracle_chooser_cap(
+                cfg, host, **CHOOSER_KW)),
+            ("dp_oracle_chooser_cap auto",
+             lambda: chooser.dp_oracle_chooser_cap(cfg, host, auto=True,
+                                                   **CHOOSER_KW)),
+            ("dp_oracle_chooser_cap_g2 (61, 21, 8)",
+             lambda: chooser.dp_oracle_chooser_cap_g2(
+                 cfg, g, host, **CHOOSER_KW, **G2_SMALL_GRID)),
+            ("cap_closed_form_g2", lambda: barrier.cap_closed_form_g2(
+                cfg, g, host, rate=CHOOSER_KW["rate"],
+                tenor=CHOOSER_KW["tenor"])[0])):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        v = out[name] if isinstance(out[name], float) else out[name].price
+        print(f"[phase 12] {name}: {v:.8f} (host wall {wall[name]:.1f} ms) "
+              f"[{smi}]")
+    return out, wall
+
+
+def _exotic_calls(cfg, g, key, market, orc, dev, n_paths=None):
+    """The new price_* calls (the chooser under the oracles' policies, the
+    CV means given): name -> fn returning a tensor of (price, SE, the raw
+    price / knock-out fraction / mean rights used).  ``n_paths`` is the
+    total: the RQMC ratchet splits it over its shifts."""
+    import torch
+
+    from hullwhite_tpu_torch import barrier, chooser, ratchet
+
+    n = cfg.n_paths if n_paths is None else n_paths
+    rq = dict(n_paths=n // RQMC_SHIFTS, n_blocks=RQMC_SHIFTS, rqmc=True)
+    ch, au = orc["dp_oracle_chooser_cap"], orc["dp_oracle_chooser_cap auto"]
+    ch2 = orc["dp_oracle_chooser_cap_g2 (61, 21, 8)"]
+    cap2 = orc["cap_closed_form_g2"]
+
+    def stack(res, third):
+        return torch.stack([res.price, res.std_error, getattr(res, third)])
+
+    return {
+        "price_ratchet_cap": lambda: stack(ratchet.price_ratchet_cap(
+            cfg, key, market, n_paths=n, device=dev, **RATCHET_KW),
+            "raw_price"),
+        "price_ratchet_cap rqmc": lambda: stack(ratchet.price_ratchet_cap(
+            cfg, key, market, device=dev, **rq, **RATCHET_KW), "raw_price"),
+        "price_ratchet_cap_g2": lambda: stack(ratchet.price_ratchet_cap_g2(
+            cfg, g, key, market, n_paths=n, device=dev, **RATCHET_KW),
+            "raw_price"),
+        "price_ko_cap": lambda: stack(barrier.price_ko_cap(
+            cfg, key, market, n_paths=n, device=dev, **KO_KW),
+            "ko_fraction"),
+        "price_ko_cap_g2": lambda: stack(barrier.price_ko_cap_g2(
+            cfg, g, key, market, n_paths=n, device=dev, **KO_KW),
+            "ko_fraction"),
+        "price_chooser_cap": lambda: stack(chooser.price_chooser_cap(
+            cfg, key, market, boundaries=ch.boundaries,
+            cap_mean=ch.cap_price, n_paths=n, device=dev, **CHOOSER_KW),
+            "used_mean"),
+        "price_chooser_cap auto": lambda: stack(chooser.price_chooser_cap(
+            cfg, key, market, auto=True, boundaries=(),
+            cap_mean=au.cap_price, n_paths=n, device=dev, **CHOOSER_KW),
+            "used_mean"),
+        "price_chooser_cap_g2": lambda: stack(chooser.price_chooser_cap_g2(
+            cfg, g, key, market, boundaries=ch2.boundaries, cap_mean=cap2,
+            n_paths=n, device=dev, **CHOOSER_KW), "used_mean"),
+        "price_chooser_cap_g2 auto": lambda: stack(
+            chooser.price_chooser_cap_g2(
+                cfg, g, key, market, auto=True, cap_mean=cap2, n_paths=n,
+                device=dev, **CHOOSER_KW), "used_mean")}
+
+
+def phase12_card_vs_cpu(cfg, g, dev, market, orc):
+    """Each new price_* at 2^14 paths on the card and on the CPU under one
+    key: prices within 0.1 SE (the gap printed)."""
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(9393)
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        got[str(d)] = {name: fn().tolist() for name, fn in _exotic_calls(
+            cfg, g, key, m, orc, d, n_paths=NOTES_CARD_CPU_PATHS).items()}
+    for name, (p, se, x) in got["cpu"].items():
+        pc, _, xc = got[str(dev)][name]
+        print(f"[phase 12] card vs CPU: {name} at {NOTES_CARD_CPU_PATHS} "
+              f"paths: {pc:.8f} vs {p:.8f}, |d| {abs(pc - p):.2e} (tol "
+              f"{NOTES_CARD_CPU_SE_FRAC} SE = "
+              f"{NOTES_CARD_CPU_SE_FRAC * se:.2e}); third field {xc} vs {x}")
+        check(abs(pc - p) <= NOTES_CARD_CPU_SE_FRAC * se,
+              f"{name} on the card vs the CPU")
+
+
+def phase12(dev, smi, market):
+    """The exotics layer on phase 10's curve (module docstring, phase 12);
+    returns the kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import g2pp
+
+    cfg = HWConfig()
+    g = g2pp.G2Params()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, cli_wall = phase12_cli(cfg, dev, market)
+    for name in ("ratchet_cap", "ratchet_cap_g2", "ko_cap", "ko_cap_g2",
+                 "chooser_cap", "chooser_cap_g2"):
+        r = res[name]
+        orc = r.get("quadrature", r.get("dp_price"))
+        print(f"[phase 12] cli exotics {name}: MC {r['mc_price']:.8f} +/- "
+              f"{r['mc_se']:.2e}, oracle {orc:.8f}, |d| "
+              f"{abs(r['mc_price'] - orc):.2e}")
+    orc, dp_wall = phase12_oracles(cfg, g, market, smi)
+    phase12_card_vs_cpu(cfg, g, dev, market, orc)
+    times = _note_times(_exotic_calls(cfg, g, Key(cfg.seed).fold_in(9393),
+                                      market, orc, dev),
+                        cfg, smi, dp_wall, "phase 12")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 12] times per call [{smi}]: " + json.dumps(times))
+    print(f"[phase 12] peak device memory of the exotics phase: {peak:.2f} "
+          f"GiB [{smi}]; cli exotics {cli_wall:.1f} s; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -2955,6 +3212,13 @@ def main() -> int:
           f"note calls (the direct calls, card vs CPU, the timings): "
           f"{sum(g2_note_counts.values())} kernel launches (plain PyTorch)")
     check(not any(g2_note_counts.values()), "a G2++ note call launched a "
+          "kernel")
+
+    exotic_counts = phase12(dev, smi, note_market)
+    print(f"[phase 12] launches of the hand-written kernels in the exotics "
+          f"calls (cli exotics, the oracles, card vs CPU, the timings): "
+          f"{sum(exotic_counts.values())} kernel launches (plain PyTorch)")
+    check(not any(exotic_counts.values()), "an exotics call launched a "
           "kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",

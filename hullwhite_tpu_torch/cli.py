@@ -1,5 +1,6 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-swaption / cap / rfr / cms / notes / calibrate / g2pp / benchmark.
+swaption / cap / rfr / cms / notes / exotics / calibrate / g2pp /
+benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
@@ -14,6 +15,7 @@ swaption / cap / rfr / cms / notes / calibrate / g2pp / benchmark.
     python -m hullwhite_tpu_torch.cli rfr --g2 --rqmc    # vs Black/Bachelier
     python -m hullwhite_tpu_torch.cli cms --g2           # vs quadrature
     python -m hullwhite_tpu_torch.cli notes              # vs the DP oracles
+    python -m hullwhite_tpu_torch.cli exotics            # vs the fp64 oracles
     python -m hullwhite_tpu_torch.cli calibrate          # HW and G2++ fits
     python -m hullwhite_tpu_torch.cli g2pp --validate 5  # the G2++ family
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
@@ -44,13 +46,18 @@ forms, with the jvp vega (``--g2``: also the G2++ twins).  ``notes``
 prices the snowball, the callable snowball and the callable capped
 floater by MC against their float64 DP oracles, with their CRN-FD vegas,
 under Hull-White and then under G2++ (``--fine``: finer G2++ DP grids).
+``exotics`` prices the CMS spread cap, the range accrual, the puttable
+range-accrual note and the TARN, the chooser cap and auto-cap, the
+ratchet cap (and its RQMC) and the up-and-out cap, each against its
+float64 oracle, under Hull-White and under G2++, with the vegas of the
+note (both models), the chooser, the ratchet and the knock-out cap.
 ``calibrate``
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
 ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
 option and the Bermudan bracket.  Results go to ``data_torch/``; q2, q3,
-grid, swaption, cap, rfr, cms, notes, calibrate and g2pp read the market
-curve q1 wrote there.
+grid, swaption, cap, rfr, cms, notes, exotics, calibrate and g2pp read
+the market curve q1 wrote there.
 """
 
 from __future__ import annotations
@@ -935,6 +942,371 @@ def cmd_notes(args):
 
 
 # ---------------------------------------------------------------------------
+# exotics — the exotic payoff layer (Hull-White and G2++ twins)
+# ---------------------------------------------------------------------------
+
+def _agree(mc, se, oracle):
+    """Print the agreement line of ``_gate_z``; return (z, ok)."""
+    z, ok = _gate_z(mc, se, oracle)
+    print(f"agreement: z = {z:.2f} ({'PASS' if ok else 'CHECK'})")
+    return z, ok
+
+
+def cmd_exotics(args):
+    """The exotic payoff layer on the exact multi-date states: the CMS
+    spread cap against its fp64 quadrature; the range accrual (Hull-White
+    and G2++) against its closed form; the puttable range-accrual note and
+    the TARN (both models) against their DP oracles; the chooser cap and
+    auto-cap, the ratchet cap (with RQMC) and the up-and-out cap, each
+    with its G2++ twin; and the vegas of the note (both models), the
+    chooser, the ratchet and the knock-out cap.  Every gate is z < 4 or |MC - oracle| <
+    2e-4, the G2++ chooser's |MC - DP| < 2.5e-4; each feeds the exit
+    code.  ``--fine`` runs the G2++ note and TARN DPs on (241, 91, 20)."""
+    from . import barrier as ko
+    from . import chooser as flexi
+    from . import g2_note, range_note, ratchet
+
+    cfg = _cfg(args)
+    dev = pricing.resolve_device(args.device)
+    key = _key(cfg, args).fold_in(9393)
+    market = hwio.load_market(cfg, device=dev)
+    rc = 0
+    results = {}
+    vpaths = min(cfg.n_paths, 1 << 16)
+    g2 = g2pp.G2Params()
+
+    print(f"--- CMS spread cap: start {cfg.s1}y, tenor {args.tenor}y, "
+          f"(S_{args.long_tenor:g}y - S_{args.short_tenor:g}y - "
+          f"{args.strike*100:.2f}%)^+ [{_device_name(dev)}] ---")
+    skw = dict(strike=args.strike, tenor=args.tenor, freq=args.freq,
+               long_tenor=args.long_tenor, short_tenor=args.short_tenor)
+    res = instruments.price_cms_spread(cfg, key, market, device=dev, **skw)
+    orc, per = instruments.cms_spread_quadrature(cfg, market, **skw)
+    p, se = float(res.price), float(res.std_error)
+    print(f"MC:         {p:.8f} +/- {se:.2e} (SE)")
+    print(f"quadrature: {orc:.8f}")
+    z, ok = _agree(p, se, orc)
+    rc |= 0 if ok else 1
+    results["cms_spread"] = {
+        "mc_price": p, "mc_se": se, "quadrature": orc, "z": z,
+        "periods_mc": [float(x) for x in res.periods],
+        "periods_quadrature": per}
+
+    print(f"--- range accrual: coupon {args.coupon*100:.2f}%, band "
+          f"[{args.lo*100:.2f}%, {args.hi*100:.2f}%], tenor {args.tenor}y, "
+          f"{args.obs} obs/period ---")
+    rkw = dict(coupon=args.coupon, lo=args.lo, hi=args.hi, tenor=args.tenor,
+               freq=args.freq, obs_per_period=args.obs)
+    ra = instruments.price_range_accrual(cfg, key, market, device=dev, **rkw)
+    orc_ra, per_ra = instruments.range_accrual_closed_form(cfg, market,
+                                                           **rkw)
+    p, se = float(ra.price), float(ra.std_error)
+    print(f"MC:          {p:.8f} +/- {se:.2e} (SE)")
+    print(f"closed form: {orc_ra:.8f}")
+    print("mean accrual fractions:",
+          np.array2string(ra.mean_fraction.cpu().numpy(), precision=4))
+    z, ok = _agree(p, se, orc_ra)
+    rc |= 0 if ok else 1
+    results["range_accrual"] = {
+        "mc_price": p, "mc_se": se, "closed_form": orc_ra, "z": z,
+        "periods_mc": [float(x) for x in ra.periods],
+        "periods_closed_form": per_ra,
+        "mean_fractions": [float(x) for x in ra.mean_fraction]}
+
+    print("--- G2++ range accrual (two-factor twin, same band) ---")
+    ra2 = g2pp.price_range_accrual_g2(cfg, g2, key, market, device=dev,
+                                      **rkw)
+    orc_ra2, _ = g2pp.range_accrual_closed_form_g2(cfg, g2, market, **rkw)
+    p, se = float(ra2.price), float(ra2.std_error)
+    print(f"MC:          {p:.8f} +/- {se:.2e} (SE)")
+    print(f"closed form: {orc_ra2:.8f}")
+    z, ok = _agree(p, se, orc_ra2)
+    rc |= 0 if ok else 1
+    results["range_accrual_g2"] = {"mc_price": p, "mc_se": se,
+                                   "closed_form": orc_ra2, "z": z}
+
+    print(f"--- puttable range-accrual note (Bermudan put at par, "
+          f"T_1..T_{int(args.tenor*args.freq)-1}) ---")
+    dp = range_note.dp_oracle_range_note(cfg, market, **rkw)
+    nt = range_note.price_range_note(cfg, key, market,
+                                     boundaries=dp.boundaries, device=dev,
+                                     **rkw)
+    p, se = float(nt.price), float(nt.std_error)
+    print(f"DP oracle:   {dp.price:.8f} (plain {dp.plain_price:.8f}, "
+          f"put premium {dp.put_premium:.6f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(nt.raw_std_error):.2e})")
+    print(f"put fraction {float(nt.put_fraction):.4f}, boundaries "
+          + np.array2string(np.asarray(dp.boundaries), precision=5))
+    z_nt, ok = _agree(p, se, dp.price)
+    rc |= 0 if ok else 1
+    nv = range_note.vega_range_note(cfg, key, market, n_paths=vpaths,
+                                    device=dev, **rkw)
+    print(f"note vega: CRN-FD {float(nv.vega):.6f} vs DP FD "
+          f"{nv.dp_vega:.6f} (envelope check)")
+    results["range_note_vega"] = {"mc_crn_fd": float(nv.vega),
+                                  "dp_fd": nv.dp_vega}
+    results["range_note"] = {
+        "dp_price": dp.price, "dp_plain": dp.plain_price,
+        "put_premium": dp.put_premium,
+        "boundaries": [float(b) for b in dp.boundaries],
+        "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(nt.raw_std_error),
+        "put_fraction": float(nt.put_fraction), "z": z_nt,
+        "profile_r": list(dp.profile_x[::4]),
+        "profile_cont": list(dp.profile_cont[::4]),
+        "coupon": args.coupon, "lo": args.lo, "hi": args.hi}
+
+    print(f"--- range-accrual TARN: target {args.target*100:.2f}% "
+          f"cumulative coupon (1 obs/period, exact lattice DP) ---")
+    tkw = dict(coupon=args.coupon, lo=args.lo, hi=args.hi,
+               target=args.target, tenor=args.tenor, freq=args.freq)
+    tdp = range_note.dp_oracle_tarn(cfg, market, **tkw)
+    tmc = range_note.price_tarn(cfg, key, market, device=dev, **tkw)
+    p, se = float(tmc.price), float(tmc.std_error)
+    print(f"DP (lattice): {tdp.price:.8f}  knockout prob "
+          f"{tdp.ko_prob:.4f}")
+    print(f"MC:           {p:.8f} +/- {se:.2e} (SE); knockout fraction "
+          f"{float(tmc.ko_fraction):.4f}, mean coupon total "
+          f"{float(tmc.mean_total):.5f}")
+    z, ok = _agree(p, se, tdp.price)
+    rc |= 0 if ok else 1
+    results["tarn"] = {
+        "dp_price": tdp.price, "dp_ko_prob": tdp.ko_prob,
+        "mc_price": p, "mc_se": se,
+        "mc_ko_fraction": float(tmc.ko_fraction),
+        "mc_mean_total": float(tmc.mean_total), "z": z,
+        "target": args.target}
+
+    print("--- G2++ puttable range-accrual note (2-d (u, w) DP oracle, "
+          "boundary-curve policy MC) ---")
+    # --fine is a cross-check only: the default-grid bias of the cubic
+    # (u, w) surfaces on the headline note is ~+2e-6
+    fine = dict(n_u=241, n_w=91, n_quad=20) if args.fine else {}
+    dp2 = g2_note.dp_oracle_range_note_g2(cfg, g2, market, **rkw, **fine)
+    nt2 = g2_note.price_range_note_g2(cfg, g2, key, market,
+                                      boundaries=dp2.boundaries, device=dev,
+                                      **rkw)
+    p, se = float(nt2.price), float(nt2.std_error)
+    print(f"DP oracle:   {dp2.price:.8f} (plain {dp2.plain_price:.8f}, "
+          f"put premium {dp2.put_premium:.6f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(nt2.raw_std_error):.2e})")
+    print(f"put fraction {float(nt2.put_fraction):.4f}")
+    z_n2, ok = _agree(p, se, dp2.price)
+    rc |= 0 if ok else 1
+    nv2 = g2_note.vega_range_note_g2(cfg, g2, key, market, n_paths=vpaths,
+                                     dp_kwargs=fine, device=dev, **rkw)
+    print(f"note vega: CRN-FD {float(nv2.vega):.6f} vs DP FD "
+          f"{nv2.dp_vega:.6f} (2-d envelope check)")
+    results["range_note_g2_vega"] = {"mc_crn_fd": float(nv2.vega),
+                                     "dp_fd": nv2.dp_vega}
+    results["range_note_g2"] = {
+        "dp_price": dp2.price, "dp_plain": dp2.plain_price,
+        "put_premium": dp2.put_premium, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(nt2.raw_std_error),
+        "put_fraction": float(nt2.put_fraction), "z": z_n2,
+        "boundary_w": [list(b[0][::8]) for b in dp2.boundaries],
+        "boundary_u": [list(b[1][::8]) for b in dp2.boundaries]}
+
+    print("--- G2++ range-accrual TARN (lattice DP over (K, u, w)) ---")
+    tdp2 = g2_note.dp_oracle_tarn_g2(cfg, g2, market, **tkw, **fine)
+    tmc2 = g2_note.price_tarn_g2(cfg, g2, key, market, device=dev, **tkw)
+    p, se = float(tmc2.price), float(tmc2.std_error)
+    print(f"DP (lattice): {tdp2.price:.8f}  knockout prob "
+          f"{tdp2.ko_prob:.4f}")
+    print(f"MC:           {p:.8f} +/- {se:.2e} (SE); knockout fraction "
+          f"{float(tmc2.ko_fraction):.4f}, mean coupon total "
+          f"{float(tmc2.mean_total):.5f}")
+    z, ok = _agree(p, se, tdp2.price)
+    rc |= 0 if ok else 1
+    results["tarn_g2"] = {
+        "dp_price": tdp2.price, "dp_ko_prob": tdp2.ko_prob,
+        "mc_price": p, "mc_se": se,
+        "mc_ko_fraction": float(tmc2.ko_fraction),
+        "mc_mean_total": float(tmc2.mean_total), "z": z,
+        "target": args.target}
+
+    print(f"--- chooser (flexi) cap: k = {args.rights} of "
+          f"{int(args.tenor * args.freq)} caplets at "
+          f"{args.cap_rate*100:.2f}%, vs auto-cap ---")
+    ckw = dict(rate=args.cap_rate, k=args.rights, tenor=args.tenor,
+               freq=args.freq)
+    cdp = flexi.dp_oracle_chooser_cap(cfg, market, **ckw)
+    cmc = flexi.price_chooser_cap(cfg, key, market, device=dev, **ckw)
+    p, se = float(cmc.price), float(cmc.std_error)
+    cap_cf, _ = instruments.cap_closed_form(cfg, market, rate=args.cap_rate,
+                                            tenor=args.tenor, freq=args.freq)
+    print(f"DP oracle:   {cdp.price:.8f}  (full cap {cdp.cap_price:.8f}, "
+          f"closed form {cap_cf:.8f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(cmc.raw_std_error):.2e}); mean rights used "
+          f"{float(cmc.used_mean):.3f}")
+    z_c, ok = _agree(p, se, cdp.price)
+    rc |= 0 if ok else 1
+    adp = flexi.dp_oracle_chooser_cap(cfg, market, auto=True, **ckw)
+    amc = flexi.price_chooser_cap(cfg, key, market, auto=True, device=dev,
+                                  **ckw)
+    z_a, ok_a = _gate_z(float(amc.price), float(amc.std_error), adp.price)
+    print(f"auto-cap DP: {adp.price:.8f}   MC {float(amc.price):.8f} "
+          f"+/- {float(amc.std_error):.2e}  z = {z_a:.2f} "
+          f"({'PASS' if ok_a else 'CHECK'}); choice premium "
+          f"{cdp.price - adp.price:.6f}")
+    rc |= 0 if ok_a else 1
+    cv = flexi.vega_chooser_cap(cfg, key, market, n_paths=vpaths,
+                                device=dev, **ckw)
+    print(f"chooser vega: CRN-FD {float(cv.vega):.6f} vs DP FD "
+          f"{cv.dp_vega:.6f} (frozen-policy envelope check)")
+    results["chooser_cap"] = {
+        "dp_price": cdp.price, "dp_cap": cdp.cap_price,
+        "cap_closed_form": cap_cf, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(cmc.raw_std_error),
+        "used_mean": float(cmc.used_mean), "z": z_c,
+        "auto_dp": adp.price, "auto_mc": float(amc.price),
+        "auto_z": z_a, "choice_premium": cdp.price - adp.price,
+        "vega_mc_crn_fd": float(cv.vega), "vega_dp_fd": cv.dp_vega,
+        "k": args.rights, "rate": args.cap_rate}
+
+    print("--- G2++ chooser cap (two-factor twin: boundary CURVES u*(w) "
+          "per (date, rights) on the (u, w) swing DP) ---")
+    c2kw = dict(ckw, n_paths=min(cfg.n_paths, 1 << 17), device=dev)
+    cdp2 = flexi.dp_oracle_chooser_cap_g2(cfg, g2, market, **ckw)
+    cmc2 = flexi.price_chooser_cap_g2(cfg, g2, key, market,
+                                      boundaries=cdp2.boundaries, **c2kw)
+    p, se = float(cmc2.price), float(cmc2.std_error)
+    # the default-grid (u, w) DP carries an O(h^2) bias: the gate is on
+    # the absolute gap, as for the note products
+    ok = abs(p - cdp2.price) < 2.5e-4
+    print(f"DP oracle:   {cdp2.price:.8f}  (full cap {cdp2.cap_price:.8f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(cmc2.raw_std_error):.2e}); mean rights used "
+          f"{float(cmc2.used_mean):.3f}")
+    print(f"agreement: |MC - DP| = {abs(p - cdp2.price):.2e} "
+          f"({'PASS' if ok else 'CHECK'})")
+    rc |= 0 if ok else 1
+    adp2 = flexi.dp_oracle_chooser_cap_g2(cfg, g2, market, auto=True,
+                                          **ckw)
+    amc2 = flexi.price_chooser_cap_g2(cfg, g2, key, market, auto=True,
+                                      **c2kw)
+    z_a2, ok_a2 = _gate_z(float(amc2.price), float(amc2.std_error),
+                          adp2.price)
+    print(f"auto-cap DP: {adp2.price:.8f}   MC {float(amc2.price):.8f} "
+          f"+/- {float(amc2.std_error):.2e}  z = {z_a2:.2f} "
+          f"({'PASS' if ok_a2 else 'CHECK'}); choice premium "
+          f"{cdp2.price - adp2.price:.6f}")
+    rc |= 0 if ok_a2 else 1
+    results["chooser_cap_g2"] = {
+        "dp_price": cdp2.price, "dp_cap": cdp2.cap_price,
+        "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(cmc2.raw_std_error),
+        "used_mean": float(cmc2.used_mean),
+        "auto_dp": adp2.price, "auto_mc": float(amc2.price),
+        "auto_z": z_a2, "choice_premium": cdp2.price - adp2.price,
+        "k": args.rights, "rate": args.cap_rate}
+
+    print(f"--- ratchet cap: strike resets to previous LIBOR + "
+          f"{args.ratchet_spread*100:.2f}% (Rao-Blackwell MC vs "
+          f"GH-outer/closed-inner fp64 quadrature) ---")
+    tk = dict(spread=args.ratchet_spread, tenor=args.tenor, freq=args.freq)
+    rq_paths = dict(n_paths=max(cfg.n_paths // 8, 1 << 12), n_blocks=8,
+                    rqmc=True, device=dev)
+    rq, rq_per = ratchet.ratchet_cap_quadrature(cfg, market, **tk)
+    rmc = ratchet.price_ratchet_cap(cfg, key, market, device=dev, **tk)
+    p, se = float(rmc.price), float(rmc.std_error)
+    print(f"quadrature:  {rq:.8f}")
+    print(f"MC (RB+CV):  {p:.8f} +/- {se:.2e} (SE; raw kinked-payoff SE "
+          f"{float(rmc.raw_std_error):.2e})")
+    z_rt, ok = _agree(p, se, rq)
+    rc |= 0 if ok else 1
+    rrq = ratchet.price_ratchet_cap(cfg, key, market, **rq_paths, **tk)
+    print(f"RQMC (8 shifts): {float(rrq.price):.8f} "
+          f"+/- {float(rrq.std_error):.2e} (smooth RB integrand: "
+          f"~50x the MC SE at equal paths)")
+    rv = ratchet.vega_ratchet_cap(cfg, key, market, n_paths=vpaths,
+                                  device=dev, **tk)
+    print(f"ratchet vega: CRN-FD {float(rv.vega):.6f} vs quadrature FD "
+          f"{rv.oracle_vega:.6f}")
+    results["ratchet_cap"] = {
+        "quadrature": rq, "periods_quadrature": rq_per,
+        "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(rmc.raw_std_error),
+        "periods_mc": [float(x) for x in rmc.periods], "z": z_rt,
+        "rqmc": {"price": float(rrq.price), "se": float(rrq.std_error)},
+        "vega_mc_crn_fd": float(rv.vega),
+        "vega_quadrature_fd": rv.oracle_vega,
+        "spread": args.ratchet_spread}
+
+    print("--- G2++ ratchet cap (two-factor twin on the strip "
+          "projection) ---")
+    rq2, _ = ratchet.ratchet_cap_quadrature_g2(cfg, g2, market, **tk)
+    rmc2 = ratchet.price_ratchet_cap_g2(cfg, g2, key, market, device=dev,
+                                        **tk)
+    p, se = float(rmc2.price), float(rmc2.std_error)
+    print(f"quadrature:  {rq2:.8f}")
+    print(f"MC (RB+CV):  {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(rmc2.raw_std_error):.2e})")
+    z_rt2, ok = _agree(p, se, rq2)
+    rc |= 0 if ok else 1
+    rrq2 = ratchet.price_ratchet_cap_g2(cfg, g2, key, market, **rq_paths,
+                                        **tk)
+    print(f"RQMC (8 shifts): {float(rrq2.price):.8f} "
+          f"+/- {float(rrq2.std_error):.2e}")
+    results["ratchet_cap_g2"] = {
+        "quadrature": rq2, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(rmc2.raw_std_error), "z": z_rt2,
+        "rqmc": {"price": float(rrq2.price), "se": float(rrq2.std_error)}}
+
+    print(f"--- up-and-out cap: strike {args.cap_rate*100:.2f}%, "
+          f"knock-out at L >= {args.ko_barrier*100:.2f}% (survival-"
+          f"indicator MC vs 1-d double-node DP) ---")
+    kkw = dict(rate=args.cap_rate, barrier=args.ko_barrier,
+               tenor=args.tenor, freq=args.freq)
+    kdp = ko.dp_oracle_ko_cap(cfg, market, **kkw)
+    kmc = ko.price_ko_cap(cfg, key, market, device=dev, **kkw)
+    p, se = float(kmc.price), float(kmc.std_error)
+    print(f"DP oracle:   {kdp.price:.8f} (full cap {kdp.cap_price:.8f}, "
+          f"survival {kdp.survival:.4f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(kmc.raw_std_error):.2e}); knock-out fraction "
+          f"{float(kmc.ko_fraction):.4f}")
+    z_ko, ok = _agree(p, se, kdp.price)
+    rc |= 0 if ok else 1
+    kv = ko.vega_ko_cap(cfg, key, market, n_paths=vpaths, device=dev, **kkw)
+    print(f"KO-cap vega: CRN-FD {float(kv.vega):.6f} vs DP FD "
+          f"{kv.dp_vega:.6f} (indicator-FD envelope check)")
+    results["ko_cap"] = {
+        "dp_price": kdp.price, "dp_cap": kdp.cap_price,
+        "dp_survival": kdp.survival, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(kmc.raw_std_error),
+        "ko_fraction": float(kmc.ko_fraction), "z": z_ko,
+        "vega_mc_crn_fd": float(kv.vega), "vega_dp_fd": kv.dp_vega,
+        "barrier": args.ko_barrier, "rate": args.cap_rate}
+
+    print("--- G2++ up-and-out cap (two-factor twin: barrier is a vertical "
+          "line in u, (u, w) double-node DP) ---")
+    kdp2 = ko.dp_oracle_ko_cap_g2(cfg, g2, market, **kkw)
+    kmc2 = ko.price_ko_cap_g2(cfg, g2, key, market, device=dev, **kkw)
+    p, se = float(kmc2.price), float(kmc2.std_error)
+    print(f"DP oracle:   {kdp2.price:.8f} (full cap {kdp2.cap_price:.8f},"
+          f" survival {kdp2.survival:.4f})")
+    print(f"MC (CV):     {p:.8f} +/- {se:.2e} (SE; raw SE "
+          f"{float(kmc2.raw_std_error):.2e}); knock-out fraction "
+          f"{float(kmc2.ko_fraction):.4f}")
+    z_ko2, ok = _agree(p, se, kdp2.price)
+    rc |= 0 if ok else 1
+    results["ko_cap_g2"] = {
+        "dp_price": kdp2.price, "dp_cap": kdp2.cap_price,
+        "dp_survival": kdp2.survival, "mc_price": p, "mc_se": se,
+        "mc_raw_se": float(kmc2.raw_std_error),
+        "ko_fraction": float(kmc2.ko_fraction), "z": z_ko2,
+        "barrier": args.ko_barrier, "rate": args.cap_rate}
+
+    hwio.write_json(hwio.DATA_DIR / "exotics_results.json", "exotics", cfg,
+                    results=results)
+    return rc
+
+
+# ---------------------------------------------------------------------------
 # calibrate / g2pp — parameter calibration and the G2++ family
 # ---------------------------------------------------------------------------
 
@@ -1252,6 +1624,33 @@ def main(argv=None):
     pnt.add_argument("--fine", action="store_true",
                      help="fine G2++ DP oracle grids (241, 91, 20); the "
                           "callable snowball's (161, 61, 16)")
+    pex = sub.add_parser("exotics", parents=[common])
+    pex.add_argument("--strike", type=float, default=0.002,
+                     help="CMS spread strike")
+    pex.add_argument("--tenor", type=float, default=3.0)
+    pex.add_argument("--freq", type=float, default=1.0)
+    pex.add_argument("--long-tenor", type=float, default=4.0)
+    pex.add_argument("--short-tenor", type=float, default=1.0)
+    pex.add_argument("--coupon", type=float, default=0.03,
+                     help="range-accrual coupon")
+    pex.add_argument("--lo", type=float, default=0.010)
+    pex.add_argument("--hi", type=float, default=0.022)
+    pex.add_argument("--obs", type=int, default=5,
+                     help="range observations per period")
+    pex.add_argument("--target", type=float, default=0.055,
+                     help="TARN cumulative-coupon knockout target")
+    pex.add_argument("--cap-rate", type=float, default=0.013,
+                     help="chooser/auto and knock-out cap strike rate")
+    pex.add_argument("--rights", type=int, default=2,
+                     help="chooser cap exercise budget k")
+    pex.add_argument("--ratchet-spread", type=float, default=0.0,
+                     help="ratchet cap reset spread over the previous "
+                          "fixing")
+    pex.add_argument("--ko-barrier", type=float, default=0.05,
+                     help="up-and-out cap knock-out LIBOR level")
+    pex.add_argument("--fine", action="store_true",
+                     help="fine G2++ note and TARN DP grids (241, 91, 20), "
+                          "a cross-check")
     pcal = sub.add_parser("calibrate", parents=[common])
     for flag, dv in g2_flags:
         pcal.add_argument(flag, type=float, default=dv)
@@ -1302,6 +1701,8 @@ def main(argv=None):
         return cmd_cms(args)
     if args.cmd == "notes":
         return cmd_notes(args)
+    if args.cmd == "exotics":
+        return cmd_exotics(args)
     if args.cmd == "calibrate":
         return cmd_calibrate(args)
     if args.cmd == "g2pp":

@@ -56,8 +56,8 @@ from .ops.engine_linear import dot
 from .ops.interp import uinterp
 from .ops.rng import Key
 from .range_note import (_block_rows, _catmull_weights, _cv_estimate,
-                         _ghost_cols, _kernel_avg, _moments, _note_dates,
-                         _note_terms, _nphi)
+                         _cv_rows, _ghost_cols, _kernel_avg, _moments,
+                         _note_dates, _note_terms, _nphi)
 
 F32 = torch.float32
 
@@ -1323,17 +1323,8 @@ def _g2_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
         legs = [leg(1.0), leg(-1.0)]
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
-    rows = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block, rqmc=rqmc)
-    s = rows.sum(0)
-    n_tot = 1.0 * n_paths * n_blocks
-    price, se, mv, raw_se, beta = _cv_estimate(s, n_tot, linear_mean)
-    if rqmc:
-        # the digital shifts are the independent replicates
-        cv_b = (rows[:, 0] - beta * rows[:, 2]) / n_paths
-        se = torch.std(cv_b, correction=1) / math.sqrt(n_blocks)
-        raw_se = torch.std(rows[:, 0] / n_paths, correction=1) \
-            / math.sqrt(n_blocks)
-    return price, se, mv, raw_se, beta, s[5] / n_tot
+    return _cv_rows(_block_rows(key, n_paths, n_blocks, 2 * n, dev, block,
+                                rqmc=rqmc), n_paths, linear_mean, rqmc)
 
 
 def price_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
@@ -1475,10 +1466,9 @@ def _g2_callable_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
                             (V * Z).sum(), (Y * Z).sum(), F.sum()])
 
     # exact mean of the second control: E[e^{-I(T_1)}] = P(0, T_1), the
-    # float32 lookup on XLA's folded grid and float32 product of JAX's jit
+    # float32 lookup and float32 product of JAX's jit
     P1 = hw.interp_curve(market.P.to("cpu"),
-                         torch.tensor([bounds[1]], dtype=F32), cfg,
-                         xp=hw.jit_maturity_grid(cfg))
+                         torch.tensor([bounds[1]], dtype=F32), cfg)
     z_mean = float(np.float32(1.0 + tau * initial) * P1.numpy()[0])
     s = _block_rows(key, n_paths, n_blocks, n + (n - 1) + n, dev,
                     block).sum(0)

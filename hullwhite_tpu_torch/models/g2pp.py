@@ -1954,18 +1954,17 @@ def _strip_scalars_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, ts,
     u = Ba x + Bb y, and the u-edge of L = level per entry of ``levels``
     (-inf where 1 + delta level <= 0).  Computed for all dates at once on
     the host and copied to the market's device once, rounded as the JAX
-    package's jitted estimators compute them: the lookups on XLA's folded
-    grid (``hw.jit_maturity_grid``) at float32(t + delta) and float32(t),
+    package's jitted estimators compute them: the lookups
+    (``hw.interp_curve``) at float32(t + delta) and float32(t),
     XLA's CPU log (``cephes_log``), lnA = (log - log) + float32(vadj), and
     each edge (log - log) + float32(float32(vadj) + float32(log1p(delta
     level))): XLA reassociates the two constant additions."""
     host = market.P.to("cpu")
-    xp = hw.jit_maturity_grid(cfg)
     t64 = np.asarray(ts, np.float64)
 
     def log_at(t):
         return cephes_log(hw.interp_curve(
-            host, torch.from_numpy(np.asarray(t, np.float32)), cfg, xp=xp))
+            host, torch.from_numpy(np.asarray(t, np.float32)), cfg))
 
     d = log_at(t64 + delta) - log_at(t64)
     vadj = np.asarray([0.5 * (_v_integral(g, delta) - _v_integral(g, t + delta)
@@ -1994,13 +1993,12 @@ def _libor_strip_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, ts,
 def _disc0_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, pays):
     """float32 P(0, T) e^{-V(T)/2} at the payment times ``pays``, on the
     host, copied to the market's device once, rounded as JAX's jitted
-    estimators compute it: the lookup on XLA's folded grid, the exp of the
+    estimators compute it: the float32 lookup, the exp of the
     float32 constant folded by XLA in correctly rounded float32."""
     e = np.asarray([math.exp(float(np.float32(-0.5 * _v_integral(g, p))))
                     for p in pays], np.float32)
     P = hw.interp_curve(market.P.to("cpu"),
-                        torch.from_numpy(np.asarray(pays, np.float32)), cfg,
-                        xp=hw.jit_maturity_grid(cfg))
+                        torch.from_numpy(np.asarray(pays, np.float32)), cfg)
     return (P * torch.from_numpy(e)).to(market.P.device)
 
 

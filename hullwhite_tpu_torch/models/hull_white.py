@@ -155,34 +155,24 @@ class MarketCurve(NamedTuple):
 
 
 def maturity_grid(cfg: HWConfig, device="cpu"):
-    """float32 maturity grid, rounded as ``jnp.linspace`` rounds it:
-    start (1 - s) + stop s with s = i / (n - 1), and the exact end point."""
-    div = cfg.n_mat - 1
-    step = torch.arange(div, dtype=F32, device=device) / float(div)
-    start, stop = 0.0, float(cfg.t_final)
-    out = start * (1.0 - step) + stop * step
-    return torch.cat([out, torch.full((1,), stop, dtype=F32, device=device)])
-
-
-def jit_maturity_grid(cfg: HWConfig) -> torch.Tensor:
-    """The float32 maturity grid as ``jnp.linspace`` comes out under
-    ``jax.jit`` (host): XLA's simplifier turns s = i / (n - 1) into i
+    """float32 maturity grid as the JAX package computes it: ``jnp.linspace``
+    is itself jitted, and XLA's simplifier turns s = i / (n - 1) into i
     float32(1 / (n - 1)) and folds the constant t_final into it, so point i
-    is i float32(t_final float32(1 / (n - 1))), one rounding where
-    ``maturity_grid`` takes two (60 of the 101 points of ``HWConfig()``
-    differ by an ulp; ``tiny_config``'s are the integers either way)."""
+    is i float32(t_final float32(1 / (n - 1))), one rounding, and the end
+    point is exact (60 of the 101 points of ``HWConfig()`` lie an ulp below
+    the unfolded (1 - s) 0 + t_final s; ``tiny_config``'s are the integers
+    either way)."""
     div = cfg.n_mat - 1
     c = np.float32(cfg.t_final) * (np.float32(1.0) / np.float32(div))
-    out = np.arange(div, dtype=np.float32) * np.float32(c)
-    return torch.from_numpy(np.append(out, np.float32(cfg.t_final)))
+    out = torch.arange(div, dtype=F32, device=device) * float(c)
+    return torch.cat([out, torch.full((1,), float(cfg.t_final), dtype=F32,
+                                      device=device)])
 
 
-def interp_curve(data: torch.Tensor, T, cfg: HWConfig,
-                 xp: torch.Tensor | None = None):
-    """Linear interpolation into the maturity grid ``xp`` (default
-    ``maturity_grid``), clamped at both ends (the arithmetic of
-    ``jnp.interp``: torch has no ``interp``)."""
-    xp = maturity_grid(cfg, data.device) if xp is None else xp.to(data.device)
+def interp_curve(data: torch.Tensor, T, cfg: HWConfig):
+    """Linear interpolation into the maturity grid, clamped at both ends
+    (the arithmetic of ``jnp.interp``: torch has no ``interp``)."""
+    xp = maturity_grid(cfg, data.device)
     x = _f32(T, data).to(data.device)
     n = xp.shape[0]
     # gather with a 1-D index: a 0-dim index tensor would be read on the

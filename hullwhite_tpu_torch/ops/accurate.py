@@ -20,9 +20,11 @@ Beyond |x| ~ 87 the clamped scale keeps the result finite but not exp:
 the reference behaves so and the port reproduces it (PORT.md).
 
 ``nphi`` is the normal CDF as ``jax.scipy.stats.norm.cdf`` computes it
-(``ndtr``: erf near 0, XLA's float32 erf here too; erfc in the tails,
-``torch.erfc``, a few ulps from XLA's), ``npdf`` the PDF through
-``exp32``.
+(``ndtr``: erf near 0, erfc in the tails), bit for bit on the CPU: both
+are XLA's float32 approximations (``erf32``, ``erfc32``), and the
+subnormal results are flushed to zero as XLA's CPU code flushes them; on
+the card the tails take ``torch.special.erfc``.  ``npdf`` is the PDF
+through ``exp32``.
 
 ``cephes_exp`` and ``cephes_log`` are the float32 exp and log that XLA's
 CPU code emits for ``jnp.exp`` and ``jnp.log`` (Cephes' polynomials, the
@@ -53,6 +55,20 @@ _ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185,
              0.0010179625278914885, 0.014070470171167667,
              0.11098505178285482, 0.49746925110067538, 1.0)
 _ERF_CLAMP = 3.7439211627767994
+# XLA's float32 erfc (Cephes): 1 - x T(x^2) for |x| < 1, else
+# e^{-x^2} / |x| P(1/x^2) for |x| < 2 and e^{-x^2} / |x| R(1/x^2) beyond
+_ERFC_T = (7.853861353153693e-5, -8.010193625184903e-4, 5.188327685732524e-3,
+           -2.685381193529856e-2, 1.128358514861418e-1,
+           -3.761262582423300e-1, 1.128379165726710e+0)
+_ERFC_P = (2.326819970068386e-2, -1.387039388740657e-1, 3.687424674597105e-1,
+           -5.824733027278666e-1, 6.210004621745983e-1,
+           -4.944515323274145e-1, 3.404879937665872e-1,
+           -2.741127028184656e-1, 5.638259427386472e-1)
+_ERFC_R = (-1.047766399936249e+1, 1.297719955372516e+1,
+           -7.495518717768503e+0, 2.921019019210786e+0,
+           -1.015265279202700e+0, 4.218463358204948e-1,
+           -2.820767439740514e-1, 5.641895067754075e-1)
+_ERFC_MAXLOG = 88.72283905206835
 
 
 def _f32(v: float) -> float:
@@ -75,6 +91,8 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     of the steps that XLA's CPU code (and nvcc's FFMA) contracts."""
     if isinstance(b, torch.Tensor):
         b = b.double()
+        if a.dim() and b.dim():  # the product itself promotes a to float64
+            return (a * b + c).float()
     return (a.double() * b + c).float()
 
 
@@ -95,16 +113,16 @@ def exp32(x) -> torch.Tensor:
               _INV[0]):
         p = _fma(p, r, _f32(c))
     ki = torch.clamp(k, -126.0, 126.0).to(torch.int32)
-    out = p * pow2(ki)
     # XLA's CPU code flushes subnormal results to zero (x below ~ -87.3)
-    return torch.where(out.abs() < _TINY, torch.zeros_like(out), out)
+    return _flush(p * pow2(ki))
 
 
 def _horner(coeffs, t: torch.Tensor) -> torch.Tensor:
     """Horner from the highest coefficient, each step one fused
     multiply-add, as XLA's CPU code evaluates a polynomial (``jnp.polyval``
     and XLA's own)."""
-    y = torch.full_like(t, _f32(coeffs[0]))
+    t = t.double()
+    y = torch.full_like(t, _f32(coeffs[0]), dtype=torch.float32)
     for c in coeffs[1:]:
         y = _fma(y, t, _f32(c))
     return y
@@ -117,15 +135,41 @@ def erf32(x: torch.Tensor) -> torch.Tensor:
     return x * _horner(_ERF_ALPHA, x2) / _horner(_ERF_BETA, x2)
 
 
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values to zero, as XLA's CPU code flushes them."""
+    return torch.where(x.abs() < _TINY, 0.0, x)
+
+
+def erfc32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erfc, bit for bit on the CPU: below |x| = 1 the
+    subtraction 1 - x T(x^2) is one fused multiply-add (XLA contracts it
+    through the clamp to [-1, 1] of x T), beyond it the exp is XLA's
+    (``cephes_exp``)."""
+    ax = x.abs()
+    x2 = x * x
+    near = torch.clamp(_fma(-x, _horner(_ERFC_T, x2), 1.0), 0.0, 2.0)
+    rx2 = 1.0 / x2
+    poly = torch.where(ax < 2.0, _horner(_ERFC_P, rx2),
+                       _horner(_ERFC_R, rx2))
+    far = _flush(cephes_exp(-x2) * (1.0 / ax) * poly)
+    far = torch.where(-x2 < -_f32(_ERFC_MAXLOG), 0.0, far)
+    return torch.where(ax < 1.0, near, torch.where(x < 0.0, 2.0 - far, far))
+
+
 def nphi(x) -> torch.Tensor:
-    """Standard normal CDF, ``jax.scipy.special.ndtr``'s formula."""
+    """Standard normal CDF, ``jax.scipy.special.ndtr``'s formula over XLA's
+    float32 erf and erfc: ``jax.scipy.stats.norm.cdf`` bit for bit on the
+    CPU.  On a CUDA tensor the tails take ``torch.special.erfc`` (one
+    operation, within ~1.2e-6 relative of XLA's): ``erfc32``'s ~130 would
+    make the G2++ Bermudan's calls ~4 times slower on the card (PORT.md)."""
     x = _as_f32(x)
     half_sqrt_2 = _f32(0.5 * _f32(math.sqrt(2.0)))
     w = x * half_sqrt_2
     z = w.abs()
+    e = torch.special.erfc(z) if z.is_cuda else erfc32(z)
     y = torch.where(z < half_sqrt_2, 1.0 + erf32(w),
-                    torch.where(w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
-    return 0.5 * y
+                    torch.where(w > 0.0, 2.0 - e, e))
+    return _flush(0.5 * y)
 
 
 def npdf(x) -> torch.Tensor:
@@ -151,11 +195,13 @@ def cephes_exp(x) -> torch.Tensor:
     x = _as_f32(x)
     x = torch.clamp(x, -_f32(_EXP_CLAMP), _f32(_EXP_CLAMP))
     fx = torch.floor(_fma(x, _f32(_LOG2E), 0.5))
-    r = _fma(fx, -_f32(_C1), x)
-    r = _fma(fx, -_f32(_C2), r)
-    y = _fma(r, _f32(_CEPHES_EXP_P[0]), _f32(_CEPHES_EXP_P[1]))
+    fx64 = fx.double()
+    r = _fma(fx64, -_f32(_C1), x)
+    r = _fma(fx64, -_f32(_C2), r)
+    r64 = r.double()
+    y = _fma(r64, _f32(_CEPHES_EXP_P[0]), _f32(_CEPHES_EXP_P[1]))
     for c in _CEPHES_EXP_P[2:]:
-        y = _fma(y, r, _f32(c))
+        y = _fma(y, r64, _f32(c))
     y = _fma(y, r * r, r) + 1.0
     return y * pow2(fx.to(torch.int32))
 

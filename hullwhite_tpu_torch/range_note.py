@@ -445,6 +445,23 @@ def _cv_estimate(s: torch.Tensor, n_tot: float, mean_y: float):
             torch.sqrt(bessel * var_v / n_tot), beta)
 
 
+def _cv_rows(rows: torch.Tensor, n_paths: int, mean_y, rqmc: bool = False):
+    """(price, SE, raw price, raw SE, beta, mean of the sixth sum) of the
+    one-control estimator from the blocks' moment rows (``_moments`` with
+    one extra column); with ``rqmc`` the SEs go across the blocks (the
+    digital shifts are the independent replicates, ddof 1)."""
+    n_blocks = rows.shape[0]
+    s = rows.sum(0)
+    n_tot = 1.0 * n_paths * n_blocks
+    price, se, mv, raw_se, beta = _cv_estimate(s, n_tot, mean_y)
+    if rqmc:
+        cv_b = (rows[:, 0] - beta * rows[:, 2]) / n_paths
+        se = torch.std(cv_b, correction=1) / math.sqrt(n_blocks)
+        raw_se = torch.std(rows[:, 0] / n_paths, correction=1) \
+            / math.sqrt(n_blocks)
+    return price, se, mv, raw_se, beta, s[5] / n_tot
+
+
 def _moments(*cols: torch.Tensor) -> torch.Tensor:
     """Sums of V, V^2, Y, Y^2, V Y over the paths, then of each extra
     column, of the antithetic averages (V, Y, *extra)."""

@@ -233,3 +233,49 @@ def test_rfr_and_g2_bermudan_cuda_request_without_a_card_raises(
         with pytest.raises(RuntimeError, match="is_available"):
             cli.main(cmd)
     assert not (tmp_path / "data_torch").exists()
+
+
+def test_exotics_import_no_jax():
+    code = ("import sys\n"
+            "import hullwhite_tpu_torch.ratchet, hullwhite_tpu_torch.barrier, "
+            "hullwhite_tpu_torch.chooser, hullwhite_tpu_torch.cli\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
+            "or m == 'hullwhite_tpu')\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_exotics_cuda_request_without_a_card_raises(no_cuda, tmp_path,
+                                                    monkeypatch):
+    """The ratchet, knock-out and chooser entry points, and ``cli
+    exotics``, refuse before any host oracle runs."""
+    from hullwhite_tpu_torch import barrier, chooser, ratchet
+    from hullwhite_tpu_torch.models import g2pp
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    g = g2pp.G2Params()
+    ko = dict(rate=0.013, barrier=0.05, device="cuda")
+    ch = dict(rate=0.013, k=2, device="cuda")
+    calls = [
+        lambda: ratchet.price_ratchet_cap(cfg, Key(1), market, device="cuda"),
+        lambda: ratchet.vega_ratchet_cap_g2(cfg, g, Key(1), market,
+                                            device="cuda"),
+        lambda: barrier.price_ko_cap(cfg, Key(1), market, **ko),
+        lambda: barrier.vega_ko_cap_g2(cfg, g, Key(1), market, **ko),
+        lambda: chooser.price_chooser_cap(cfg, Key(1), market, **ch),
+        lambda: chooser.vega_chooser_cap(cfg, Key(1), market, **ch),
+        lambda: chooser.price_chooser_cap_g2(cfg, g, Key(1), market, **ch),
+        lambda: chooser.vega_chooser_cap_g2(cfg, g, Key(1), market, **ch)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["exotics"])
+    assert not (tmp_path / "data_torch").exists()
