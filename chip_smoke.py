@@ -196,6 +196,21 @@ Phases (any failure raises and the script exits non-zero):
    call at 2^20 the median and range of the wall times, the host ms, the
    device-busy ms and device operations, and the phase's peak device
    memory and wall, beside the card's name and power limit.
+13. the Hull-White XVA layer (``credit``, ``xva``: plain PyTorch on the
+   card, no hand-written kernel; host float64 oracles) on phase 10's
+   curve: ``cli xva --netting --csa --bilateral --wwr --mva --kva --cds``
+   at full width (2^20 paths x 4 blocks) with its "validation:" line
+   PASS, no CHECK, the CS01 line "[agree]" and the JAX command's sections
+   written; each oracle's host wall; the XVA product x @ LT against
+   float64 with TF32 off (and the same product on TF32-rounded operands
+   past the gate's bound); the nine new estimators (``price_exposure``
+   plain and RQMC, ``vega_cva``, ``price_netting``, ``price_collateral``,
+   ``price_bilateral``, ``price_wwr``, ``price_mva``, ``price_kva``) at
+   2^14 x 4 on the card against the CPU (0.1 SE); reruns bitwise; no
+   kernel launched; per call at 2^20 x 4 the median and range of the
+   wall times, the host ms, the device-busy ms and device operations,
+   and the phase's peak device memory and wall, beside the card's name
+   and power limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -3077,6 +3092,271 @@ def phase12(dev, smi, market):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Hull-White XVA layer (credit.py and the Hull-White half of
+# xva.py: exposure, netting, CSA collateral, bilateral, wrong-way risk, MVA,
+# KVA, CS01), plain PyTorch on the card (no hand-written kernel on these
+# calls) and host float64 oracles
+# ---------------------------------------------------------------------------
+
+# cli xva with every ported section; the CDS quotes of the JAX package's
+# tests
+XVA_QUOTES = ((1.0, 0.006), (3.0, 0.009), (5.0, 0.013))
+XVA_ARGV = ["--netting", "--csa", "--bilateral", "--wwr", "--mva", "--kva",
+            "--cds", ",".join(f"{m:g}:{q:g}" for m, q in XVA_QUOTES)]
+XVA_KEYS = ("netting", "csa", "bilateral", "wwr", "mva", "kva", "cds",
+            "side", "dates", "ee_mc", "ee_se", "ee_oracle", "pfe", "exceed",
+            "epe", "cva_mc", "cva_se", "cva_oracle", "cva_z",
+            "hazard_delta_mc", "hazard_delta_oracle", "vega_jvp", "vega_fd",
+            "vega_oracle", "quantile", "n_paths")
+# the direct calls' books at cli xva's defaults (rate 2%, tenor 4): the
+# three-swap netting book, the one swap of the CSA, bilateral and WWR
+# sections, and the MVA book of short payers and a long receiver whose
+# gradient changes sign (cli xva's own MVA book is one-signed: its CV is
+# exact and its SE 0, which a 0.1 SE card-vs-CPU gate cannot read)
+XVA_BOOK = ((0.02, 4.0, False), (0.012, 3.0, True), (0.03, 2.0, False))
+XVA_SWAP = ((0.02, 4.0, False),)
+XVA_MVA_BOOK = ((0.02, 2.0, True), (0.02, 2.0, True), (0.0, 4.0, False))
+XVA_CSA = dict(threshold=0.005, lag=1)
+XVA_BIL = dict(hazard_own=0.01, recovery_own=0.4, spread_borrow=0.005,
+               spread_lend=0.002)
+XVA_BLOCKS = 4
+# the XVA product x @ LT (2^20 x 8 normals, the netting book's 8 x 8
+# Cholesky factor) against float64, relative to the largest entry: true
+# float32 ~1e-7; a TF32 product (10-bit mantissas) ~1e-3
+XVA_PRODUCT_RTOL = 1e-5
+
+
+def phase13_cli(cfg, dev, market):
+    """``cli xva`` with every ported section at full width (2^20 paths x 4
+    blocks) in a fresh directory on phase 10's curve: rc 0, its
+    "validation:" line PASS, no CHECK, the CS01 line "[agree]", the JAX
+    command's sections written."""
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            hwio.save_market(cfg, market)
+            t0 = time.perf_counter()
+            text = _cli(["xva", "--device", str(dev), "--reps", "1",
+                         *XVA_ARGV], "phase 13")
+            wall = time.perf_counter() - t0
+            doc = json.load(open(os.path.join("data_torch",
+                                              "xva_results.json")))
+        finally:
+            os.chdir(cwd)
+    check("validation: PASS" in text and "CHECK" not in text
+          and "[agree]" in text, "cli xva: an agreement line is not PASS")
+    check(set(doc["results"]) == set(XVA_KEYS),
+          "cli xva: its sections differ from the JAX command's")
+    return doc["results"], wall
+
+
+def phase13_oracles(cfg, market, smi):
+    """Each oracle of the layer once at the direct calls' arguments: its
+    value and host wall."""
+    from hullwhite_tpu_torch import credit, xva
+
+    host = market.to("cpu")
+    wall = {}
+    for name, fn in (
+            ("exposure_oracle", lambda: xva.exposure_oracle(cfg, host).cva),
+            ("netting_oracle",
+             lambda: xva.netting_oracle(cfg, host, XVA_BOOK).cva),
+            ("collateral_oracle", lambda: xva.collateral_oracle(
+                cfg, host, XVA_SWAP, **XVA_CSA).cva),
+            ("bilateral_oracle", lambda: xva.bilateral_oracle(
+                cfg, host, XVA_SWAP, **XVA_BIL).bcva),
+            ("wwr_oracle", lambda: xva.wwr_oracle(cfg, host, XVA_SWAP).cva),
+            ("mva_oracle",
+             lambda: xva.mva_oracle(cfg, host, XVA_MVA_BOOK).mva),
+            ("kva_oracle", lambda: xva.kva_oracle(cfg, host, XVA_BOOK).kva),
+            ("bootstrap_cds + cs01_weights", lambda: credit.cs01_weights(
+                credit.market_df(cfg, host), XVA_QUOTES,
+                xva.exposure_dates(cfg, 4.0))[0].hazards[-1])):
+        t0 = time.perf_counter()
+        v = fn()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[phase 13] {name}: {v:.8f} (host wall {wall[name]:.1f} ms) "
+              f"[{smi}]")
+    return wall
+
+
+def _xva_calls(cfg, key, market, dev, n_paths=None):
+    """The new estimators at ``n_paths`` paths per block x ``XVA_BLOCKS``
+    blocks: name -> fn returning a float64 tensor of (estimate, SE, a
+    third number: the raw estimate, the FVA or the gamma delta; for
+    vega_cva the jvp and the CRN-FD vega and the CVA at sigma)."""
+    import torch
+
+    from hullwhite_tpu_torch import xva
+
+    kw = dict(n_paths=cfg.n_paths if n_paths is None else n_paths,
+              n_blocks=XVA_BLOCKS, device=dev)
+
+    def stack(*ts):
+        return torch.stack([t.to(torch.float64) for t in ts])
+
+    def vega():
+        v = xva.vega_cva(cfg, key, market, **kw)
+        return stack(v.vega, v.fd_vega, xva.price_exposure(
+            cfg, key, market, **kw).cva)
+
+    return {
+        "price_exposure": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.raw_cva))(
+                xva.price_exposure(cfg, key, market, **kw)),
+        "price_exposure rqmc": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.raw_cva))(
+                xva.price_exposure(cfg, key, market, rqmc=True, **kw)),
+        "vega_cva": vega,
+        "price_netting": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.raw_cva))(
+                xva.price_netting(cfg, key, market, XVA_BOOK, **kw)),
+        "price_collateral": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.raw_cva))(
+                xva.price_collateral(cfg, key, market, XVA_SWAP, **XVA_CSA,
+                                     **kw)),
+        "price_bilateral": lambda: (lambda r: stack(
+            r.bcva, r.bcva_se, r.fva))(
+                xva.price_bilateral(cfg, key, market, XVA_SWAP, **XVA_BIL,
+                                    **kw)),
+        "price_wwr": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.gamma_delta))(
+                xva.price_wwr(cfg, key, market, XVA_SWAP, **kw)),
+        "price_mva": lambda: (lambda r: stack(
+            r.mva, r.std_error, r.raw_mva))(
+                xva.price_mva(cfg, key, market, XVA_MVA_BOOK, **kw)),
+        "price_kva": lambda: (lambda r: stack(
+            r.kva, r.std_error, r.raw_kva))(
+                xva.price_kva(cfg, key, market, XVA_BOOK, **kw))}
+
+
+def phase13_card_vs_cpu(cfg, dev, market):
+    """Each new estimator at 2^14 paths x 4 blocks on the card and on the
+    CPU under one key: estimates within 0.1 SE (vega_cva: both vegas within
+    0.1 SE / eps, eps = 1e-3, the CRN legs each within 0.1 SE)."""
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(9292)
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        got[str(d)] = {name: fn().tolist() for name, fn in _xva_calls(
+            cfg, key, m, d, n_paths=NOTES_CARD_CPU_PATHS).items()}
+    se_cva = got["cpu"]["price_exposure"][1]
+    for name, cpu in got["cpu"].items():
+        card = got[str(dev)][name]
+        if name == "vega_cva":
+            tol = NOTES_CARD_CPU_SE_FRAC * se_cva / 1e-3
+            pairs = ((card[0], cpu[0]), (card[1], cpu[1]))
+        else:
+            tol = NOTES_CARD_CPU_SE_FRAC * cpu[1]
+            pairs = ((card[0], cpu[0]),)
+        print(f"[phase 13] card vs CPU: {name} at {NOTES_CARD_CPU_PATHS} x "
+              f"{XVA_BLOCKS} paths: {card} vs {cpu}, |d| "
+              f"{[abs(a - b) for a, b in pairs]} (tol {tol:.2e})")
+        check(all(abs(a - b) <= tol for a, b in pairs),
+              f"{name} on the card vs the CPU")
+
+
+def _tf32_round(x):
+    """float32 values rounded to TF32's 10-bit mantissa (nearest, ties
+    away), the operands a TF32 tensor-core product multiplies."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def phase13_tf32(cfg, dev):
+    """The XVA product ``dot(x, LT)`` (the netting book's 8 functionals at
+    2^20 paths) against float64 on the same operands: TF32 off and the
+    product float32 (max rel <= ``XVA_PRODUCT_RTOL``); the same product on
+    TF32-rounded operands moves past that bound, so the gate would see a
+    TF32 product.  The card's own product with TF32 allowed is printed."""
+    import torch
+
+    from hullwhite_tpu_torch import Key, xva
+    from hullwhite_tpu_torch.bermudan import _functional_chol
+    from hullwhite_tpu_torch.ops.engine_linear import dot
+    from hullwhite_tpu_torch.ops.rng import block_normals
+
+    dates = xva.exposure_dates(cfg, 4.0)
+    LT = torch.as_tensor(_functional_chol(cfg, xva._specs(dates)),
+                         device=dev)
+    x = block_normals(Key(cfg.seed).fold_in(9292), 0,
+                      (cfg.n_paths, 2 * len(dates)), device=dev)
+    z64 = x.double() @ LT.double()
+    scale = float(z64.abs().max())
+
+    def rel(z):
+        return float((z.double() - z64).abs().max()) / scale
+
+    r32 = rel(dot(x, LT, cfg.matmul_precision))
+    r_emul = rel(_tf32_round(x).double() @ _tf32_round(LT).double())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r_card = rel(x @ LT)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[phase 13] XVA product x @ LT at {tuple(x.shape)} x "
+          f"{tuple(LT.shape)} vs float64: max rel {r32:.2e} (tol "
+          f"{XVA_PRODUCT_RTOL}); on TF32-rounded operands {r_emul:.2e}; "
+          f"the card's product with TF32 allowed {r_card:.2e}; allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and r32 <= XVA_PRODUCT_RTOL, "the XVA product is not float32")
+    check(r_emul > XVA_PRODUCT_RTOL, "the TF32 gate cannot see a TF32 "
+          "product")
+
+
+def phase13(dev, smi, market):
+    """The Hull-White XVA layer on phase 10's curve (module docstring,
+    phase 13); returns the kernels' launch counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.kernels import fused
+
+    cfg = HWConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, cli_wall = phase13_cli(cfg, dev, market)
+    for name, z in (("cva", res["cva_z"]),
+                    ("netting", res["netting"]["cva_z"]),
+                    ("csa", res["csa"]["cva_z"]),
+                    ("bilateral BCVA", res["bilateral"]["bcva_z"]),
+                    ("bilateral FVA", res["bilateral"]["fva_z"]),
+                    ("wwr", res["wwr"]["cva_z"]),
+                    ("kva", res["kva"]["kva_z"]),
+                    ("cds", res["cds"]["cva_z"])):
+        print(f"[phase 13] cli xva {name}: z = {z:+.2f}")
+    mva = res["mva"]
+    print(f"[phase 13] cli xva mva: MC {mva['mva_mc']:.10f} +/- "
+          f"{mva['mva_se']:.2e}, oracle {mva['mva_oracle']:.10f}, |d| "
+          f"{abs(mva['mva_mc'] - mva['mva_oracle']):.2e} (its book's "
+          f"gradient is one-signed: the CV is exact)")
+    print(f"[phase 13] cli xva vega: jvp {res['vega_jvp']:.6f}, CRN-FD "
+          f"{res['vega_fd']:.6f}, oracle FD {res['vega_oracle']:.6f}; CS01 "
+          f"MC {res['cds']['cs01_mc']} vs oracle {res['cds']['cs01_oracle']}")
+    wall = phase13_oracles(cfg, market, smi)
+    phase13_tf32(cfg, dev)
+    phase13_card_vs_cpu(cfg, dev, market)
+    times = _note_times(_xva_calls(cfg, Key(cfg.seed).fold_in(9292), market,
+                                   dev),
+                        cfg, smi, wall, "phase 13")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 13] times per call at {cfg.n_paths} x {XVA_BLOCKS} paths "
+          f"[{smi}]: " + json.dumps(times))
+    print(f"[phase 13] peak device memory of the XVA phase: {peak:.2f} GiB "
+          f"[{smi}]; cli xva {cli_wall:.1f} s; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return fused.launch_counts()
+
+
 def main() -> int:
     import torch
 
@@ -3220,6 +3500,13 @@ def main() -> int:
           f"{sum(exotic_counts.values())} kernel launches (plain PyTorch)")
     check(not any(exotic_counts.values()), "an exotics call launched a "
           "kernel")
+
+    xva_counts = phase13(dev, smi, note_market)
+    print(f"[phase 13] launches of the hand-written kernels in the XVA "
+          f"calls (cli xva, the oracles, the TF32 gate, card vs CPU, the "
+          f"timings): {sum(xva_counts.values())} kernel launches (plain "
+          f"PyTorch)")
+    check(not any(xva_counts.values()), "an XVA call launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

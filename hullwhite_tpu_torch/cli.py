@@ -1,5 +1,5 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
-swaption / cap / rfr / cms / notes / exotics / calibrate / g2pp /
+swaption / cap / rfr / cms / notes / exotics / xva / calibrate / g2pp /
 benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
@@ -16,6 +16,8 @@ benchmark.
     python -m hullwhite_tpu_torch.cli cms --g2           # vs quadrature
     python -m hullwhite_tpu_torch.cli notes              # vs the DP oracles
     python -m hullwhite_tpu_torch.cli exotics            # vs the fp64 oracles
+    python -m hullwhite_tpu_torch.cli xva --netting --csa --bilateral --wwr \
+        --mva --kva --cds 1:0.006,3:0.009,5:0.013      # the XVA layer
     python -m hullwhite_tpu_torch.cli calibrate          # HW and G2++ fits
     python -m hullwhite_tpu_torch.cli g2pp --validate 5  # the G2++ family
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
@@ -51,12 +53,17 @@ range-accrual note and the TARN, the chooser cap and auto-cap, the
 ratchet cap (and its RQMC) and the up-and-out cap, each against its
 float64 oracle, under Hull-White and under G2++, with the vegas of the
 note (both models), the chooser, the ratchet and the knock-out cap.
+``xva`` prices a swap's exposure profile and CVA with its vega, and with
+its section flags a netting set, CSA collateral, bilateral BCVA/FVA,
+wrong-way risk, MVA, KVA and a CDS-bootstrapped curve with its bucketed
+CS01, each against its float64 oracle (``cli_xva.py``; ``--g2`` and
+``--bermudan`` are not ported yet).
 ``calibrate``
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
 ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
 option and the Bermudan bracket.  Results go to ``data_torch/``; q2, q3,
-grid, swaption, cap, rfr, cms, notes, exotics, calibrate and g2pp read
+grid, swaption, cap, rfr, cms, notes, exotics, xva, calibrate and g2pp read
 the market curve q1 wrote there.
 """
 
@@ -1651,6 +1658,78 @@ def main(argv=None):
     pex.add_argument("--fine", action="store_true",
                      help="fine G2++ note and TARN DP grids (241, 91, 20), "
                           "a cross-check")
+    pxv = sub.add_parser("xva", parents=[common])
+    pxv.add_argument("--rate", type=float, default=0.02)
+    pxv.add_argument("--tenor", type=float, default=4.0)
+    pxv.add_argument("--freq", type=float, default=1.0)
+    pxv.add_argument("--payer", action="store_true",
+                     help="payer swap (default receiver)")
+    pxv.add_argument("--quantile", type=float, default=0.95,
+                     help="PFE quantile")
+    pxv.add_argument("--hazard", type=float, default=0.02,
+                     help="flat default intensity")
+    pxv.add_argument("--recovery", type=float, default=0.4)
+    pxv.add_argument("--n-blocks", type=int, default=4, dest="n_blocks")
+    pxv.add_argument("--rqmc", action="store_true",
+                     help="digitally-shifted Sobol blocks")
+    pxv.add_argument("--g2", action="store_true",
+                     help="the G2++ twin (not ported yet: prints a line "
+                          "and runs nothing)")
+    pxv.add_argument("--netting", action="store_true",
+                     help="also run a 3-swap netting set vs its "
+                          "segment-decomposed oracle")
+    pxv.add_argument("--csa", action="store_true",
+                     help="also run the collateralized (threshold CSA, "
+                          "lagged MPoR) profile vs its oracle")
+    pxv.add_argument("--threshold", type=float, default=0.005,
+                     help="CSA threshold H (posts (V-H)^+)")
+    pxv.add_argument("--lag", type=int, default=1,
+                     help="margin period of risk in reset periods "
+                          "(0 = continuous margining)")
+    pxv.add_argument("--bilateral", action="store_true",
+                     help="also quote BCVA = CVA - DVA and asymmetric "
+                          "FVA vs the bilateral oracle")
+    pxv.add_argument("--wwr", action="store_true",
+                     help="also quote the wrong-way-risk CVA under "
+                          "lambda_t = hazard + gamma r_t vs its "
+                          "two-tilt closed-form oracle")
+    pxv.add_argument("--gamma", type=float, default=0.5,
+                     help="intensity-rate slope (wrong-way for a payer, "
+                          "right-way for a receiver)")
+    pxv.add_argument("--mva", action="store_true",
+                     help="also quote the MVA of delta-normal dynamic "
+                          "initial margin vs its closed-form oracle")
+    pxv.add_argument("--cds", metavar="QUOTES", default=None,
+                     help="bootstrap a piecewise-constant hazard curve "
+                          "from par CDS quotes 'mat:spread,...' (e.g. "
+                          "'1:0.006,3:0.009,5:0.013') and price the "
+                          "netted CVA under the term structure")
+    pxv.add_argument("--bermudan", action="store_true",
+                     help="the Bermudan-swaption exposure profile (not "
+                          "ported yet: prints a line and runs nothing)")
+    pxv.add_argument("--kva", action="store_true",
+                     help="also quote the KVA (capital cost of the "
+                          "netted 3-swap book, K = kappa EE) vs its "
+                          "closed-form oracle")
+    pxv.add_argument("--cost-capital", type=float, default=0.10,
+                     help="capital hurdle rate c_h")
+    pxv.add_argument("--capital-ratio", type=float, default=0.08,
+                     help="capital per unit exposure kappa "
+                          "(capital ratio x risk weight)")
+    pxv.add_argument("--mpor", type=float, default=0.1,
+                     help="margin period of risk in years (snapped to "
+                          "the step grid)")
+    pxv.add_argument("--spread-im", type=float, default=0.005,
+                     help="IM funding spread")
+    pxv.add_argument("--quantile-im", type=float, default=0.99,
+                     help="IM quantile (z_q scale)")
+    pxv.add_argument("--hazard-own", type=float, default=0.01,
+                     help="own default intensity (DVA leg)")
+    pxv.add_argument("--recovery-own", type=float, default=0.4)
+    pxv.add_argument("--spread-borrow", type=float, default=0.005,
+                     help="funding borrow spread (FCA)")
+    pxv.add_argument("--spread-lend", type=float, default=0.002,
+                     help="funding lend spread (FBA)")
     pcal = sub.add_parser("calibrate", parents=[common])
     for flag, dv in g2_flags:
         pcal.add_argument(flag, type=float, default=dv)
@@ -1703,6 +1782,10 @@ def main(argv=None):
         return cmd_notes(args)
     if args.cmd == "exotics":
         return cmd_exotics(args)
+    if args.cmd == "xva":
+        from .cli_xva import cmd_xva
+
+        return cmd_xva(args)
     if args.cmd == "calibrate":
         return cmd_calibrate(args)
     if args.cmd == "g2pp":

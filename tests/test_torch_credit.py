@@ -1,0 +1,203 @@
+"""The credit layer of the port (``hullwhite_tpu_torch.credit``) against
+the JAX package's, and the mirrors of the tests of ``tests/test_credit.py``:
+the 8 tier-1 tests, and the exposure half of
+``test_exposure_and_bermudan_accept_curves`` (slow, as in JAX; its
+Bermudan half waits for the Bermudan exposure slice).
+
+Port vs JAX: the layer is host float64 (numpy, math, scipy's ``brentq``)
+on the same discount function (the float32 curve read through a float64
+``np.linspace`` grid), so the discount factors, the bootstrapped hazards,
+the par spreads, the pd increments and the CS01 reweighting rows equal
+the JAX package's bit for bit on ``tiny_config`` and ``HWConfig()``
+(measured gap 0; the tests hold equality)."""
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from hullwhite_tpu import credit as jcredit  # noqa: E402
+
+from hullwhite_tpu_torch import credit, xva  # noqa: E402
+
+from test_torch_xva_exposure import CFG, CONFIGS, JCFG, _markets  # noqa: E402
+from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
+
+SEED = 321
+KEY, JKEY = Key(SEED), jax.random.key(SEED)
+QUOTES = ((1.0, 0.006), (3.0, 0.009), (5.0, 0.013), (7.0, 0.011))
+LEGS = ((0.02, 4.0, False), (0.012, 3.0, True), (0.03, 2.0, False))
+
+
+@pytest.fixture(scope="module")
+def market():
+    return _markets(JCFG)[1]
+
+
+@pytest.fixture(scope="module")
+def curve(market):
+    return credit.bootstrap_cds(credit.market_df(CFG, market), QUOTES)
+
+
+# ---------------------------------------------------------------------------
+# port vs JAX
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_credit_layer_matches_jax(name):
+    jc, tc = CONFIGS[name]
+    jm, tm = _markets(jc)
+    df, jdf = credit.market_df(tc, tm), jcredit.market_df(jc, jm)
+    for t in np.linspace(0.0, 10.5, 43):
+        assert df(float(t)) == jdf(float(t))
+    for recovery, freq in ((0.4, 4), (0.25, 2)):
+        got = credit.bootstrap_cds(df, QUOTES, recovery=recovery, freq=freq)
+        want = jcredit.bootstrap_cds(jdf, QUOTES, recovery=recovery,
+                                     freq=freq)
+        assert got == want
+        for mat, _ in QUOTES:
+            assert credit.par_spread(df, got, mat, freq=freq) \
+                == jcredit.par_spread(jdf, want, mat, freq=freq)
+    dates = (5.0, 6.0, 7.0, 8.0)
+    c = credit.bootstrap_cds(df, QUOTES)
+    jc_curve = jcredit.bootstrap_cds(jdf, QUOTES)
+    assert credit.pd_increments(c, dates) \
+        == jcredit.pd_increments(jc_curve, dates)
+    assert credit.pd_increments(0.02, dates) \
+        == jcredit.pd_increments(0.02, dates)
+    for t in (0.0, 0.5, 3.0, 7.0, 9.5):
+        assert credit.cum_hazard(c, t) == jcredit.cum_hazard(jc_curve, t)
+        assert credit.survival(c, t) == jcredit.survival(jc_curve, t)
+    base, rows = credit.cs01_weights(df, QUOTES, dates)
+    jbase, jrows = jcredit.cs01_weights(jdf, QUOTES, dates)
+    assert base == jbase and rows == jrows
+
+
+# ---------------------------------------------------------------------------
+# mirrors of tests/test_credit.py
+# ---------------------------------------------------------------------------
+
+def test_bootstrap_roundtrip(market, curve):
+    """par_spread of the bootstrapped curve reproduces every quote to
+    root-solver precision."""
+    df = credit.market_df(CFG, market)
+    for mat, spr in QUOTES:
+        assert abs(credit.par_spread(df, curve, mat) - spr) < 1e-12
+    # hazards positive; the inverted 5y->7y quote gives a LOWER forward
+    # hazard in the last bucket (term-structure shape preserved)
+    assert all(h > 0 for h in curve.hazards)
+    assert curve.hazards[3] < curve.hazards[2]
+
+
+def test_credit_triangle(market, curve):
+    """h ~ s / (1 - R) within the accrual correction (the credit
+    triangle), bucket by bucket not just on average."""
+    for h, (mat, spr) in zip(curve.hazards[:1], QUOTES[:1]):
+        assert abs(h - spr / (1.0 - curve.recovery)) < 0.1 * h
+
+
+def test_survival_dispatch_flat_equivalence():
+    """A one-bucket curve extending flat equals the float path
+    exactly."""
+    c = credit.CreditCurve(knots=(1.0,), hazards=(0.02,))
+    for t in (0.0, 0.5, 1.0, 4.7, 9.0):
+        assert abs(credit.survival(c, t)
+                   - credit.survival(0.02, t)) < 2e-16   # one ulp
+    assert abs(credit.cum_hazard(c, 9.0) - 0.18) < 1e-15
+
+
+def test_flat_curve_matches_flat_float(market):
+    """Every weight function gives IDENTICAL results for a flat curve
+    and the equivalent float, oracle and MC paths both."""
+    c = credit.CreditCurve(knots=(50.0,), hazards=(0.02,))
+    of = xva.netting_oracle(CFG, market, LEGS, hazard=0.02)
+    oc = xva.netting_oracle(CFG, market, LEGS, hazard=c)
+    assert abs(of.cva - oc.cva) < 1e-15
+    rf = xva.price_netting(CFG, KEY, market, LEGS, hazard=0.02,
+                           n_paths=1 << 12, device="cpu")
+    rc = xva.price_netting(CFG, KEY, market, LEGS, hazard=c,
+                           n_paths=1 << 12, device="cpu")
+    assert abs(float(rf.cva) - float(rc.cva)) < 1e-12
+    bf = xva.bilateral_oracle(CFG, market, LEGS, hazard=0.02,
+                              hazard_own=0.01)
+    bc = xva.bilateral_oracle(CFG, market, LEGS, hazard=c,
+                              hazard_own=0.01)
+    assert abs(bf.bcva - bc.bcva) < 1e-16
+    kf = xva.kva_oracle(CFG, market, LEGS, hazard=0.02)
+    kc = xva.kva_oracle(CFG, market, LEGS, hazard=c)
+    assert abs(kf.kva - kc.kva) < 1e-16
+
+
+def test_netting_mc_matches_oracle_under_curve(market, curve):
+    """Term-structure pd weights flow through the netted CVA: MC vs
+    oracle within 5 SE, and the curve CVA differs from the flat one
+    (the weights really moved)."""
+    o = xva.netting_oracle(CFG, market, LEGS, hazard=curve)
+    r = xva.price_netting(CFG, KEY, market, LEGS, hazard=curve,
+                          n_blocks=4, device="cpu")
+    assert abs(float(r.cva) - o.cva) < 5.0 * float(r.std_error) + 1e-9
+    of = xva.netting_oracle(CFG, market, LEGS, hazard=0.02)
+    assert abs(o.cva - of.cva) > 1e-5
+
+
+@pytest.mark.slow
+def test_exposure_and_bermudan_accept_curves(market, curve):
+    """The single-swap exposure pricer takes curves end to end (the
+    Bermudan exposure half waits for its slice)."""
+    o = xva.exposure_oracle(CFG, market, hazard=curve)
+    r = xva.price_exposure(CFG, KEY, market, hazard=curve, n_blocks=2,
+                           device="cpu")
+    assert abs(float(r.cva) - o.cva) < 5.0 * float(r.std_error) + 1e-9
+
+
+def test_mva_kva_curve_weights(market, curve):
+    """MVA/KVA survival weights under a curve: MC equals its own oracle
+    (host weights, so the identity carries over)."""
+    legs = ((0.02, 2.0, True), (0.0, 4.0, False))
+    om = xva.mva_oracle(CFG, market, legs, hazard=curve)
+    rm = xva.price_mva(CFG, KEY, market, legs, hazard=curve,
+                       n_blocks=2, device="cpu")
+    assert abs(float(rm.mva) - om.mva) \
+        < 5.0 * float(rm.std_error) + 1e-9
+    ok = xva.kva_oracle(CFG, market, legs, hazard=curve)
+    rk = xva.price_kva(CFG, KEY, market, legs, hazard=curve, n_blocks=2,
+                       device="cpu")
+    assert abs(float(rk.kva) - ok.kva) \
+        < 5.0 * float(rk.std_error) + 1e-9
+
+
+def test_cs01_oracle_is_exact_recompute(market, curve):
+    """The re-dot CS01 equals the brute recompute (bootstrap with the
+    bumped quote, full netting_oracle) EXACTLY: the EE profile is
+    hazard-independent, so the two routes are the same fp64 sum."""
+    df = credit.market_df(CFG, market)
+    r = xva.cva_cs01(CFG, KEY, market, LEGS, quotes=QUOTES,
+                     n_paths=1 << 12, device="cpu")
+    for k, (mat, spr) in enumerate(QUOTES):
+        q2 = [(m, s + (1e-4 if i == k else 0.0))
+              for i, (m, s) in enumerate(QUOTES)]
+        c2 = credit.bootstrap_cds(df, q2)
+        brute = (xva.netting_oracle(CFG, market, LEGS, hazard=c2).cva
+                 - r.cva)
+        assert abs(r.deltas[k] - brute) < 1e-15
+
+
+def test_cs01_mc_matches_oracle(market):
+    r = xva.cva_cs01(CFG, KEY, market, LEGS, quotes=QUOTES, n_blocks=4,
+                     device="cpu")
+    assert abs(float(r.cva_mc) - r.cva) < 5.0 * float(r.cva_se) + 1e-9
+    for k in range(len(QUOTES)):
+        assert abs(r.deltas_mc[k] - r.deltas[k]) \
+            < 5.0 * r.delta_bounds[k] + 1e-12
+    # a parallel 1bp bump raises the default leg: the bucket deltas
+    # sum to a positive total for this positive-EE book
+    assert sum(r.deltas) > 0.0
+    # the exposure window (5-8y) sits beyond the early knots: bumping
+    # the 1y/3y spreads front-loads default probability BEFORE the
+    # window (negative delta), while the 5y/7y quotes, whose hazards
+    # cover the window and its flat extrapolation, carry the risk
+    assert r.deltas[0] < 0.0 and r.deltas[1] < 0.0
+    assert r.deltas[2] > 0.0 and r.deltas[3] > 0.0
+    assert r.deltas[3] == max(r.deltas)

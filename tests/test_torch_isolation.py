@@ -279,3 +279,51 @@ def test_exotics_cuda_request_without_a_card_raises(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="is_available"):
         cli.main(["exotics"])
     assert not (tmp_path / "data_torch").exists()
+
+
+def test_xva_imports_no_jax():
+    code = ("import sys\n"
+            "import hullwhite_tpu_torch.credit, hullwhite_tpu_torch.xva, "
+            "hullwhite_tpu_torch.cli_xva, hullwhite_tpu_torch.cli\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
+            "or m == 'hullwhite_tpu')\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_xva_cuda_request_without_a_card_raises(no_cuda, tmp_path,
+                                                monkeypatch):
+    """Every XVA entry point, and ``cli xva``, refuses before any host
+    oracle runs."""
+    from hullwhite_tpu_torch import xva
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = tiny_config()
+    market = hw.MarketCurve(P=torch.ones(cfg.n_mat), f=torch.zeros(cfg.n_mat))
+    legs = ((0.02, 4.0, False),)
+    calls = [
+        lambda: xva.price_exposure(cfg, Key(1), market, device="cuda"),
+        lambda: xva.vega_cva(cfg, Key(1), market, device="cuda"),
+        lambda: xva.price_netting(cfg, Key(1), market, legs, device="cuda"),
+        lambda: xva.vega_cva_netting(cfg, Key(1), market, legs,
+                                     device="cuda"),
+        lambda: xva.price_collateral(cfg, Key(1), market, legs,
+                                     device="cuda"),
+        lambda: xva.price_bilateral(cfg, Key(1), market, legs,
+                                    device="cuda"),
+        lambda: xva.price_wwr(cfg, Key(1), market, legs, device="cuda"),
+        lambda: xva.price_mva(cfg, Key(1), market, legs, device="cuda"),
+        lambda: xva.price_kva(cfg, Key(1), market, legs, device="cuda"),
+        lambda: xva.cva_cs01(cfg, Key(1), market, legs,
+                             quotes=((1.0, 0.006),), device="cuda")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["xva", "--netting"])
+    assert not (tmp_path / "data_torch").exists()
