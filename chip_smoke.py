@@ -211,6 +211,27 @@ Phases (any failure raises and the script exits non-zero):
    wall times, the host ms, the device-busy ms and device operations,
    and the phase's peak device memory and wall, beside the card's name
    and power limit.
+14. the rest of the XVA layer (the G2++ twins of ``xva``: exposure,
+   netting, CSA, bilateral, WWR, MVA, KVA; the Bermudan swaption's
+   exposure under Hull-White and G2++; plain PyTorch on the card, no
+   hand-written kernel; host float64 oracles) on phase 10's curve: each
+   new oracle once at the command's arguments with its host wall; ``cli
+   xva --g2 --netting --csa --bilateral --wwr --mva --kva --bermudan`` at
+   full width (2^20 paths x 4 blocks, the Hull-White Bermudan oracle at
+   3001 nodes) with its "validation:" line PASS (every z-gate, the G2++
+   Bermudan's 5 SE + 3e-6), no CHECK, FAIL or "not ported" line, and the
+   JAX command's sections written (``"bermudan"``, ``"g2"`` with its
+   seven); the G2++ product xn @ LT and the Bermudan product sig_st x @ LT
+   against float64 with TF32 off (and on TF32-rounded operands past the
+   gate's bound); the ten new estimators (``price_exposure_g2``,
+   ``vega_cva_g2``, ``price_netting_g2``, ``price_collateral_g2``,
+   ``price_bilateral_g2``, ``price_wwr_g2``, ``price_mva_g2``,
+   ``price_kva_g2``, ``price_bermudan_xva``, ``price_bermudan_xva_g2``) at
+   2^14 x 4 on the card against the CPU (0.1 SE); reruns bitwise; no
+   kernel launched; per call at 2^20 x 4 the median and range of the wall
+   times, the host ms, the device-busy ms and device operations, and the
+   phase's peak device memory and wall, beside the card's name and power
+   limit.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -3270,17 +3291,48 @@ def _tf32_round(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _tf32_gate(tag, what, x, LT, precision, scale=1.0):
+    """A product ``scale * dot(x, LT)`` against float64 on the same
+    operands: TF32 off and the product float32 (max rel <=
+    ``XVA_PRODUCT_RTOL``); the same product on TF32-rounded operands moves
+    past that bound, so the gate would see a TF32 product.  The card's own
+    product with TF32 allowed is printed."""
+    import torch
+
+    from hullwhite_tpu_torch.ops.engine_linear import dot
+
+    z64 = scale * (x.double() @ LT.double())
+    top = float(z64.abs().max())
+
+    def rel(z):
+        return float((z.double() - z64).abs().max()) / top
+
+    r32 = rel(scale * dot(x, LT, precision))
+    r_emul = rel(scale * (_tf32_round(x).double()
+                          @ _tf32_round(LT).double()))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r_card = rel(scale * (x @ LT))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[{tag}] {what} at {tuple(x.shape)} x {tuple(LT.shape)} vs "
+          f"float64: max rel {r32:.2e} (tol {XVA_PRODUCT_RTOL}); on "
+          f"TF32-rounded operands {r_emul:.2e}; the card's product with "
+          f"TF32 allowed {r_card:.2e}; allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and r32 <= XVA_PRODUCT_RTOL, f"{what} is not float32")
+    check(r_emul > XVA_PRODUCT_RTOL, f"the TF32 gate cannot see a TF32 "
+          f"{what}")
+
+
 def phase13_tf32(cfg, dev):
     """The XVA product ``dot(x, LT)`` (the netting book's 8 functionals at
-    2^20 paths) against float64 on the same operands: TF32 off and the
-    product float32 (max rel <= ``XVA_PRODUCT_RTOL``); the same product on
-    TF32-rounded operands moves past that bound, so the gate would see a
-    TF32 product.  The card's own product with TF32 allowed is printed."""
+    2^20 paths) through ``_tf32_gate``."""
     import torch
 
     from hullwhite_tpu_torch import Key, xva
     from hullwhite_tpu_torch.bermudan import _functional_chol
-    from hullwhite_tpu_torch.ops.engine_linear import dot
     from hullwhite_tpu_torch.ops.rng import block_normals
 
     dates = xva.exposure_dates(cfg, 4.0)
@@ -3288,28 +3340,8 @@ def phase13_tf32(cfg, dev):
                          device=dev)
     x = block_normals(Key(cfg.seed).fold_in(9292), 0,
                       (cfg.n_paths, 2 * len(dates)), device=dev)
-    z64 = x.double() @ LT.double()
-    scale = float(z64.abs().max())
-
-    def rel(z):
-        return float((z.double() - z64).abs().max()) / scale
-
-    r32 = rel(dot(x, LT, cfg.matmul_precision))
-    r_emul = rel(_tf32_round(x).double() @ _tf32_round(LT).double())
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        r_card = rel(x @ LT)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[phase 13] XVA product x @ LT at {tuple(x.shape)} x "
-          f"{tuple(LT.shape)} vs float64: max rel {r32:.2e} (tol "
-          f"{XVA_PRODUCT_RTOL}); on TF32-rounded operands {r_emul:.2e}; "
-          f"the card's product with TF32 allowed {r_card:.2e}; allow_tf32 = "
-          f"{torch.backends.cuda.matmul.allow_tf32}")
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and r32 <= XVA_PRODUCT_RTOL, "the XVA product is not float32")
-    check(r_emul > XVA_PRODUCT_RTOL, "the TF32 gate cannot see a TF32 "
-          "product")
+    _tf32_gate("phase 13", "the XVA product x @ LT", x, LT,
+               cfg.matmul_precision)
 
 
 def phase13(dev, smi, market):
@@ -3354,6 +3386,293 @@ def phase13(dev, smi, market):
     print(f"[phase 13] peak device memory of the XVA phase: {peak:.2f} GiB "
           f"[{smi}]; cli xva {cli_wall:.1f} s; phase wall "
           f"{time.perf_counter() - t0:.1f} s")
+    return fused.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the XVA layer (the G2++ twins of xva.py and the
+# Bermudan swaption's exposure under both models), plain PyTorch on the card
+# (no hand-written kernel on these calls) and host float64 oracles
+# ---------------------------------------------------------------------------
+
+# cli xva with the G2++ twin, the Bermudan exposure and every section the
+# twin reads
+XVA14_ARGV = ["--g2", "--netting", "--csa", "--bilateral", "--wwr", "--mva",
+              "--kva", "--bermudan"]
+XVA14_G2_SECTIONS = ("netting", "csa", "bilateral", "wwr", "mva", "kva",
+                     "bermudan")
+# the command's defaults (rate 2%, tenor 4, receiver, ...): the direct
+# calls take the command's books and arguments, built as it builds them,
+# so that the command reads the oracles the direct calls computed from the
+# oracle memo
+XVA14_RATE, XVA14_TENOR = 0.02, 4.0
+XVA14_BOOK = ((XVA14_RATE, XVA14_TENOR, False),
+              (XVA14_RATE * 0.6, max(XVA14_TENOR - 1.0, 1.0), True),
+              (XVA14_RATE * 1.5, max(XVA14_TENOR - 2.0, 1.0), False))
+XVA14_SWAP = ((XVA14_RATE, XVA14_TENOR, False),)
+XVA14_MVA_BOOK = ((XVA14_RATE, XVA14_TENOR, False),
+                  (XVA14_RATE, max(XVA14_TENOR - 2.0, 1.0), False),
+                  (XVA14_RATE * 0.0, XVA14_TENOR, True))
+XVA14_KW = dict(freq=1.0, quantile=0.95, hazard=0.02, recovery=0.4)
+XVA14_CSA = dict(threshold=0.005, lag=1)
+XVA14_BIL = dict(freq=1.0, hazard=0.02, recovery=0.4, hazard_own=0.01,
+                 recovery_own=0.4, spread_borrow=0.005, spread_lend=0.002)
+XVA14_WWR = dict(lambda0=0.02, gamma=0.5, freq=1.0, recovery=0.4)
+XVA14_MVA = dict(mpor=0.1, quantile_im=0.99, spread_im=0.005, freq=1.0,
+                 hazard=0.02, hazard_own=0.01)
+XVA14_KVA = dict(freq=1.0, cost_of_capital=0.10, capital_ratio=0.08,
+                 hazard=0.02, hazard_own=0.01)
+# the Bermudan exposure: the command's 4-year 2% receiver, annual
+# exercises from 5y (four under Hull-White on the 3001-node DP, three under
+# G2++ on the 121 x 121 DP)
+XVA14_BERM_EX = (5.0, 6.0, 7.0, 8.0)
+XVA14_BERM_EX_G2 = (5.0, 6.0, 7.0)
+XVA14_BERM_GRID = 3001
+
+
+def phase14_oracles(cfg, g2, market, smi):
+    """Each new oracle once (the memo emptied first) at the command's
+    arguments: its value and host wall.  The command then reads them from
+    the memo."""
+    from hullwhite_tpu_torch import xva
+    from hullwhite_tpu_torch.instruments import swap_fixed_leg
+
+    host = market.to("cpu")
+    xva._G2_ORACLE_CACHE.clear()
+    sched = swap_fixed_leg(cfg, XVA14_RATE, XVA14_TENOR)
+    swap_kw = dict(rate=XVA14_RATE, tenor=XVA14_TENOR, payer=False,
+                   **XVA14_KW)
+    wall = {}
+    for name, fn in (
+            ("exposure_oracle_g2", lambda: xva.exposure_oracle_g2(
+                cfg, g2, host, **swap_kw).cva),
+            ("netting_oracle_g2", lambda: xva.netting_oracle_g2(
+                cfg, g2, host, XVA14_BOOK, **XVA14_KW).cva),
+            ("collateral_oracle_g2", lambda: xva.collateral_oracle_g2(
+                cfg, g2, host, XVA14_SWAP, **XVA14_CSA, **XVA14_KW).cva),
+            ("bilateral_oracle_g2", lambda: xva.bilateral_oracle_g2(
+                cfg, g2, host, XVA14_SWAP, **XVA14_BIL).bcva),
+            ("wwr_oracle_g2", lambda: xva.wwr_oracle_g2(
+                cfg, g2, host, XVA14_SWAP, **XVA14_WWR).cva),
+            ("mva_oracle_g2", lambda: xva.mva_oracle_g2(
+                cfg, g2, host, XVA14_MVA_BOOK, **XVA14_MVA).mva),
+            ("kva_oracle_g2", lambda: xva.kva_oracle_g2(
+                cfg, g2, host, XVA14_BOOK, **XVA14_KVA).kva),
+            ("bermudan_exposure_oracle", lambda: xva.bermudan_exposure_oracle(
+                cfg, host, sched, XVA14_BERM_EX, n_grid=XVA14_BERM_GRID,
+                **{k: v for k, v in XVA14_KW.items() if k != "freq"}).cva),
+            ("bermudan_exposure_oracle_g2",
+             lambda: xva.bermudan_exposure_oracle_g2(
+                 cfg, g2, host, sched, XVA14_BERM_EX_G2,
+                 **{k: v for k, v in XVA14_KW.items() if k != "freq"}).cva)):
+        t0 = time.perf_counter()
+        v = fn()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[phase 14] {name}: {v:.8f} (host wall {wall[name]:.1f} ms) "
+              f"[{smi}]")
+    return wall
+
+
+def phase14_cli(cfg, dev, market):
+    """``cli xva --g2 --netting --csa --bilateral --wwr --mva --kva
+    --bermudan`` at full width (2^20 paths x 4 blocks) in a fresh
+    directory on phase 10's curve: rc 0, its "validation:" line PASS, no
+    CHECK, FAIL or "not ported" line, the JAX command's sections written
+    (the G2++ twin's under "g2"); also the oracle entries the command added
+    to the memo."""
+    from hullwhite_tpu_torch import xva
+    from hullwhite_tpu_torch.utils import io as hwio
+
+    cwd = os.getcwd()
+    memo = len(xva._G2_ORACLE_CACHE)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            hwio.save_market(cfg, market)
+            t0 = time.perf_counter()
+            text = _cli(["xva", "--device", str(dev), "--reps", "1",
+                         *XVA14_ARGV], "phase 14")
+            wall = time.perf_counter() - t0
+            doc = json.load(open(os.path.join("data_torch",
+                                              "xva_results.json")))
+        finally:
+            os.chdir(cwd)
+    check("validation: PASS" in text and "CHECK" not in text
+          and "FAIL" not in text and "not ported" not in text,
+          "cli xva --g2 --bermudan: an agreement line is not PASS")
+    res = doc["results"]
+    check(set(res) == (set(XVA_KEYS) - {"cds"}) | {"g2", "bermudan"}
+          and set(XVA14_G2_SECTIONS) <= set(res["g2"]),
+          "cli xva --g2 --bermudan: its sections differ from the JAX "
+          "command's")
+    return res, wall, len(xva._G2_ORACLE_CACHE) - memo
+
+
+def _xva14_calls(cfg, g2, key, market, dev, n_paths=None):
+    """The ten new estimators at ``n_paths`` paths per block x
+    ``XVA_BLOCKS`` blocks: name -> fn returning a float64 tensor of
+    (estimate, SE, a third number: the raw estimate, the FVA or the gamma
+    delta; for vega_cva_g2 the CRN vega twice and the CVA at sigma)."""
+    import torch
+
+    from hullwhite_tpu_torch import xva
+    from hullwhite_tpu_torch.instruments import swap_fixed_leg
+
+    kw = dict(n_paths=cfg.n_paths if n_paths is None else n_paths,
+              n_blocks=XVA_BLOCKS, device=dev)
+    sched = swap_fixed_leg(cfg, XVA14_RATE, XVA14_TENOR)
+    swap_kw = dict(rate=XVA14_RATE, tenor=XVA14_TENOR, payer=False,
+                   **XVA14_KW)
+    berm_kw = {k: v for k, v in XVA14_KW.items() if k != "freq"}
+
+    def stack(*ts):
+        return torch.stack([torch.as_tensor(t).to(torch.float64)
+                            for t in ts])
+
+    def cva3(r):
+        return stack(r.cva, r.std_error, r.raw_cva)
+
+    def vega():
+        v = xva.vega_cva_g2(cfg, g2, key, market, **swap_kw, **kw)
+        return stack(v.vega, v.fd_vega, xva.price_exposure_g2(
+            cfg, g2, key, market, **swap_kw, **kw).cva)
+
+    return {
+        "price_exposure_g2": lambda: cva3(xva.price_exposure_g2(
+            cfg, g2, key, market, **swap_kw, **kw)),
+        "vega_cva_g2": vega,
+        "price_netting_g2": lambda: cva3(xva.price_netting_g2(
+            cfg, g2, key, market, XVA14_BOOK, **XVA14_KW, **kw)),
+        "price_collateral_g2": lambda: cva3(xva.price_collateral_g2(
+            cfg, g2, key, market, XVA14_SWAP, **XVA14_CSA, **XVA14_KW,
+            **kw)),
+        "price_bilateral_g2": lambda: (lambda r: stack(
+            r.bcva, r.bcva_se, r.fva))(xva.price_bilateral_g2(
+                cfg, g2, key, market, XVA14_SWAP, quantile=0.95,
+                **XVA14_BIL, **kw)),
+        "price_wwr_g2": lambda: (lambda r: stack(
+            r.cva, r.std_error, r.gamma_delta))(xva.price_wwr_g2(
+                cfg, g2, key, market, XVA14_SWAP, quantile=0.95,
+                **XVA14_WWR, **kw)),
+        "price_mva_g2": lambda: (lambda r: stack(
+            r.mva, r.std_error, r.raw_mva))(xva.price_mva_g2(
+                cfg, g2, key, market, XVA14_MVA_BOOK, **XVA14_MVA, **kw)),
+        "price_kva_g2": lambda: (lambda r: stack(
+            r.kva, r.std_error, r.raw_kva))(xva.price_kva_g2(
+                cfg, g2, key, market, XVA14_BOOK, **XVA14_KVA, **kw)),
+        "price_bermudan_xva": lambda: cva3(xva.price_bermudan_xva(
+            cfg, key, market, sched, XVA14_BERM_EX,
+            n_grid=XVA14_BERM_GRID, **berm_kw, **kw)[0]),
+        "price_bermudan_xva_g2": lambda: cva3(xva.price_bermudan_xva_g2(
+            cfg, g2, key, market, sched, XVA14_BERM_EX_G2, **berm_kw,
+            **kw)[0])}
+
+
+def phase14_card_vs_cpu(cfg, g2, dev, market):
+    """Each new estimator at 2^14 paths x 4 blocks on the card and on the
+    CPU under one key: estimates within 0.1 SE (vega_cva_g2: the CRN vega
+    within 0.1 SE / eps, eps = 1e-3)."""
+    from hullwhite_tpu_torch import Key
+
+    key = Key(cfg.seed).fold_in(9292)
+    got = {}
+    for d, m in ((dev, market), ("cpu", market.to("cpu"))):
+        got[str(d)] = {name: fn().tolist() for name, fn in _xva14_calls(
+            cfg, g2, key, m, d, n_paths=NOTES_CARD_CPU_PATHS).items()}
+    se_cva = got["cpu"]["price_exposure_g2"][1]
+    for name, cpu in got["cpu"].items():
+        card = got[str(dev)][name]
+        if name == "vega_cva_g2":
+            tol = NOTES_CARD_CPU_SE_FRAC * se_cva / 1e-3
+            pairs = ((card[0], cpu[0]),)
+        else:
+            tol = NOTES_CARD_CPU_SE_FRAC * cpu[1]
+            pairs = ((card[0], cpu[0]),)
+        print(f"[phase 14] card vs CPU: {name} at {NOTES_CARD_CPU_PATHS} x "
+              f"{XVA_BLOCKS} paths: {card} vs {cpu}, |d| "
+              f"{[abs(a - b) for a, b in pairs]} (tol {tol:.2e})")
+        check(all(abs(a - b) <= tol for a, b in pairs),
+              f"{name} on the card vs the CPU")
+
+
+def phase14_tf32(cfg, g2, dev):
+    """The G2++ product ``dot(xn, LT)`` (x, y, I at the netting book's four
+    dates: 12 functionals at 2^20 paths) and the Hull-White Bermudan
+    product ``sig_st dot(x, LT)`` (r, I at the four exercise dates) through
+    ``_tf32_gate``."""
+    import torch
+
+    from hullwhite_tpu_torch import Key, xva
+    from hullwhite_tpu_torch.bermudan import _functional_chol
+    from hullwhite_tpu_torch.models import hull_white as hw
+    from hullwhite_tpu_torch.models.g2pp import _g2_functional_chol
+    from hullwhite_tpu_torch.ops.rng import block_normals
+
+    key = Key(cfg.seed).fold_in(9292)
+    dates = xva.exposure_dates(cfg, XVA14_TENOR)
+    LT = torch.as_tensor(_g2_functional_chol(g2, xva._g2_specs(dates)),
+                         device=dev)
+    xn = block_normals(key, 0, (cfg.n_paths, 3 * len(dates)), device=dev)
+    _tf32_gate("phase 14", "the G2++ XVA product xn @ LT", xn, LT,
+               cfg.matmul_precision)
+    specs = tuple([("r", t) for t in XVA14_BERM_EX]
+                  + [("I", t) for t in XVA14_BERM_EX])
+    LT = torch.as_tensor(_functional_chol(cfg, specs), device=dev)
+    x = block_normals(key, 0, (cfg.n_paths, len(specs)), device=dev)
+    sig_st = float(hw.step_tables(cfg, cfg.sigma, cfg.sigma,
+                                  device="cpu").sig_st)
+    _tf32_gate("phase 14", "the Bermudan exposure product sig_st x @ LT",
+               x, LT, cfg.matmul_precision, scale=sig_st)
+
+
+def phase14(dev, smi, market):
+    """The G2++ twins of the XVA layer and the Bermudan exposure on phase
+    10's curve (module docstring, phase 14); returns the kernels' launch
+    counts of the whole phase."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models.g2pp import G2Params
+
+    cfg = HWConfig()
+    g2 = G2Params()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    wall = phase14_oracles(cfg, g2, market, smi)
+    res, cli_wall, fresh = phase14_cli(cfg, dev, market)
+    g2res = res["g2"]
+    for name, z in (("g2 cva", g2res["cva_z"]),
+                    ("g2 netting", g2res["netting"]["cva_z"]),
+                    ("g2 csa", g2res["csa"]["cva_z"]),
+                    ("g2 bilateral BCVA", g2res["bilateral"]["bcva_z"]),
+                    ("g2 bilateral FVA", g2res["bilateral"]["fva_z"]),
+                    ("g2 wwr", g2res["wwr"]["cva_z"]),
+                    ("g2 wwr dCVA/dgamma", g2res["wwr"]["gamma_delta_z"]),
+                    ("g2 mva", g2res["mva"]["mva_z"]),
+                    ("g2 kva", g2res["kva"]["kva_z"]),
+                    ("bermudan", res["bermudan"]["cva_z"])):
+        print(f"[phase 14] cli xva {name}: z = {z:+.2f}")
+    for tag, b in (("bermudan", res["bermudan"]),
+                   ("g2 bermudan", g2res["bermudan"])):
+        print(f"[phase 14] cli xva {tag}: DP price {b['price']:.8f}, "
+              f"stopping identity {b['stopping_identity']:.1e}, CVA MC "
+              f"{b['cva_mc']:.10f} +/- {b['cva_se']:.2e}, oracle "
+              f"{b['cva_oracle']:.10f}, |d| "
+              f"{abs(b['cva_mc'] - b['cva_oracle']):.2e}")
+    print(f"[phase 14] cli xva --g2 --bermudan: {cli_wall:.1f} s; oracle "
+          f"entries it added to the memo: {fresh}")
+    phase14_tf32(cfg, g2, dev)
+    phase14_card_vs_cpu(cfg, g2, dev, market)
+    times = _note_times(_xva14_calls(cfg, g2, Key(cfg.seed).fold_in(9292),
+                                     market, dev),
+                        cfg, smi, wall, "phase 14")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[phase 14] times per call at {cfg.n_paths} x {XVA_BLOCKS} paths "
+          f"[{smi}]: " + json.dumps(times))
+    print(f"[phase 14] peak device memory of the phase: {peak:.2f} GiB "
+          f"[{smi}]; phase wall {time.perf_counter() - t0:.1f} s")
     return fused.launch_counts()
 
 
@@ -3507,6 +3826,14 @@ def main() -> int:
           f"timings): {sum(xva_counts.values())} kernel launches (plain "
           f"PyTorch)")
     check(not any(xva_counts.values()), "an XVA call launched a kernel")
+
+    xva14_counts = phase14(dev, smi, note_market)
+    print(f"[phase 14] launches of the hand-written kernels in the G2++ XVA "
+          f"and Bermudan exposure calls (the oracles, cli xva --g2 "
+          f"--bermudan, the TF32 gates, card vs CPU, the timings): "
+          f"{sum(xva14_counts.values())} kernel launches (plain PyTorch)")
+    check(not any(xva14_counts.values()), "a G2++ XVA or Bermudan exposure "
+          "call launched a kernel")
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

@@ -55,9 +55,9 @@ float64 oracle, under Hull-White and under G2++, with the vegas of the
 note (both models), the chooser, the ratchet and the knock-out cap.
 ``xva`` prices a swap's exposure profile and CVA with its vega, and with
 its section flags a netting set, CSA collateral, bilateral BCVA/FVA,
-wrong-way risk, MVA, KVA and a CDS-bootstrapped curve with its bucketed
-CS01, each against its float64 oracle (``cli_xva.py``; ``--g2`` and
-``--bermudan`` are not ported yet).
+wrong-way risk, MVA, KVA, a CDS-bootstrapped curve with its bucketed
+CS01 and a Bermudan swaption's exposure, each against its float64 oracle,
+and with ``--g2`` their G2++ twins (``cli_xva.py``).
 ``calibrate``
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
@@ -1673,8 +1673,7 @@ def main(argv=None):
     pxv.add_argument("--rqmc", action="store_true",
                      help="digitally-shifted Sobol blocks")
     pxv.add_argument("--g2", action="store_true",
-                     help="the G2++ twin (not ported yet: prints a line "
-                          "and runs nothing)")
+                     help="also run the G2++ twin vs its oracle")
     pxv.add_argument("--netting", action="store_true",
                      help="also run a 3-swap netting set vs its "
                           "segment-decomposed oracle")
@@ -1705,8 +1704,9 @@ def main(argv=None):
                           "'1:0.006,3:0.009,5:0.013') and price the "
                           "netted CVA under the term structure")
     pxv.add_argument("--bermudan", action="store_true",
-                     help="the Bermudan-swaption exposure profile (not "
-                          "ported yet: prints a line and runs nothing)")
+                     help="also quote the Bermudan-swaption exposure "
+                          "profile + CVA (American-MC XVA) vs the "
+                          "forward-DP oracle")
     pxv.add_argument("--kva", action="store_true",
                      help="also quote the KVA (capital cost of the "
                           "netted 3-swap book, K = kappa EE) vs its "

@@ -1,8 +1,7 @@
 """The credit layer of the port (``hullwhite_tpu_torch.credit``) against
 the JAX package's, and the mirrors of the tests of ``tests/test_credit.py``:
-the 8 tier-1 tests, and the exposure half of
-``test_exposure_and_bermudan_accept_curves`` (slow, as in JAX; its
-Bermudan half waits for the Bermudan exposure slice).
+the 8 tier-1 tests, and ``test_exposure_and_bermudan_accept_curves``
+(slow, as in JAX).
 
 Port vs JAX: the layer is host float64 (numpy, math, scipy's ``brentq``)
 on the same discount function (the float32 curve read through a float64
@@ -144,12 +143,19 @@ def test_netting_mc_matches_oracle_under_curve(market, curve):
 
 @pytest.mark.slow
 def test_exposure_and_bermudan_accept_curves(market, curve):
-    """The single-swap exposure pricer takes curves end to end (the
-    Bermudan exposure half waits for its slice)."""
+    """The single-swap exposure pricer and the Bermudan exposure layer
+    take curves end to end."""
     o = xva.exposure_oracle(CFG, market, hazard=curve)
     r = xva.price_exposure(CFG, KEY, market, hazard=curve, n_blocks=2,
                            device="cpu")
     assert abs(float(r.cva) - o.cva) < 5.0 * float(r.std_error) + 1e-9
+    from hullwhite_tpu_torch.instruments import swap_fixed_leg
+
+    sched = swap_fixed_leg(CFG, 0.025, 4.0)
+    rb, ob = xva.price_bermudan_xva(CFG, KEY, market, sched,
+                                    (5.0, 6.0, 7.0), hazard=curve,
+                                    n_blocks=2, device="cpu")
+    assert abs(float(rb.cva) - ob.cva) < 5.0 * float(rb.std_error) + 1e-9
 
 
 def test_mva_kva_curve_weights(market, curve):

@@ -11,6 +11,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from hullwhite_tpu_torch import cli, pricing, tiny_config  # noqa: E402
+from hullwhite_tpu_torch.instruments import CouponSchedule  # noqa: E402
+from hullwhite_tpu_torch.models.g2pp import G2Params  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -297,8 +299,9 @@ def test_xva_imports_no_jax():
 
 def test_xva_cuda_request_without_a_card_raises(no_cuda, tmp_path,
                                                 monkeypatch):
-    """Every XVA entry point, and ``cli xva``, refuses before any host
-    oracle runs."""
+    """Every XVA entry point, the G2++ twins and the Bermudan exposure
+    included, and ``cli xva`` (also with ``--g2 --bermudan``), refuses
+    before any host oracle runs."""
     from hullwhite_tpu_torch import xva
     from hullwhite_tpu_torch.models import hull_white as hw
 
@@ -320,10 +323,44 @@ def test_xva_cuda_request_without_a_card_raises(no_cuda, tmp_path,
         lambda: xva.price_kva(cfg, Key(1), market, legs, device="cuda"),
         lambda: xva.cva_cs01(cfg, Key(1), market, legs,
                              quotes=((1.0, 0.006),), device="cuda")]
+    # the G2++ twins and the Bermudan exposure; every oracle of theirs is
+    # replaced by one that fails the test, so a call that reached it
+    # before the device check would show
+    g2 = G2Params()
+    sched = CouponSchedule(times=(6.0, 7.0), coupons=(0.02, 1.02))
+    for name in ("exposure_oracle_g2", "netting_oracle_g2",
+                 "collateral_oracle_g2", "wwr_oracle_g2", "mva_oracle_g2",
+                 "bermudan_exposure_oracle", "bermudan_exposure_oracle_g2"):
+        monkeypatch.setattr(xva, name, _no_oracle)
+    calls += [
+        lambda: xva.price_exposure_g2(cfg, g2, Key(1), market,
+                                      device="cuda"),
+        lambda: xva.vega_cva_g2(cfg, g2, Key(1), market, device="cuda"),
+        lambda: xva.price_netting_g2(cfg, g2, Key(1), market, legs,
+                                     device="cuda"),
+        lambda: xva.price_collateral_g2(cfg, g2, Key(1), market, legs,
+                                        device="cuda"),
+        lambda: xva.price_bilateral_g2(cfg, g2, Key(1), market, legs,
+                                       device="cuda"),
+        lambda: xva.price_wwr_g2(cfg, g2, Key(1), market, legs,
+                                 device="cuda"),
+        lambda: xva.price_mva_g2(cfg, g2, Key(1), market, legs,
+                                 device="cuda"),
+        lambda: xva.price_kva_g2(cfg, g2, Key(1), market, legs,
+                                 device="cuda"),
+        lambda: xva.price_bermudan_xva(cfg, Key(1), market, sched, (5.0,),
+                                       device="cuda"),
+        lambda: xva.price_bermudan_xva_g2(cfg, g2, Key(1), market, sched,
+                                          (5.0,), device="cuda")]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(RuntimeError, match="is_available"):
-        cli.main(["xva", "--netting"])
+    for argv in (["xva", "--netting"], ["xva", "--g2", "--bermudan"]):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(argv)
     assert not (tmp_path / "data_torch").exists()
+
+
+def _no_oracle(*args, **kwargs):
+    raise AssertionError("a host oracle ran before the device check")

@@ -1,10 +1,13 @@
-"""``cli xva`` in the port with every ported section (``--netting --csa
---bilateral --wwr --mva --kva --cds``) at 8192 paths on the float64
-oracle curve: rc 0, the one "validation:" line PASS and no CHECK
-anywhere, the CS01 line "[agree]", the JAX command's JSON keys in
-``data_torch/xva_results.json``; and under ``--g2`` and ``--bermudan``
-one "not ported yet" line each, with no section run for them and the
-run still PASS."""
+"""``cli xva`` in the port on the float64 oracle curve: with the Hull-White
+sections (``--netting --csa --bilateral --wwr --mva --kva --cds``) at 8192
+paths, and with ``--g2 --bermudan`` beside the sections the G2++ twins
+read (``--netting --csa --bilateral --wwr --mva --kva``) at 4096 x 2: rc
+0, the one "validation:" line PASS and no CHECK anywhere, the CS01 line
+"[agree]", no "not ported" line, the JAX command's JSON keys in
+``data_torch/xva_results.json`` (``"bermudan"`` and ``"g2"`` with its
+sections included).  The second run takes the CSA at ``--lag 0``: the
+lag-1 G2++ CSA oracle costs ~25 s a call on a CPU core, and
+test_torch_xva_g2_csa.py holds it."""
 
 import json
 
@@ -50,6 +53,33 @@ SECTION_KEYS = {
             "cva_oracle", "cva_z", "cs01_oracle", "cs01_mc", "cs01_bounds"},
 }
 
+# the JAX command's keys of the Bermudan section and of the G2++ twin
+# (cli_xva.py), under ``--g2 --bermudan`` with the G2++ twins' sections
+G2_SECTIONS = ["--netting", "--csa", "--bilateral", "--wwr", "--mva",
+               "--kva"]
+BERMUDAN_KEYS = {"ex_dates", "price", "stopping_identity", "cva_mc",
+                 "cva_se", "cva_oracle", "cva_z", "ee_oracle", "ee_mc",
+                 "ee_se", "pfe", "exceed"}
+G2_KEYS = {"cva_mc", "cva_se", "cva_oracle", "cva_z", "ee_mc", "ee_se",
+           "ee_oracle", "pfe", "exceed"}
+G2_SECTION_KEYS = {
+    "netting": {"legs", "cva_mc", "cva_se", "cva_oracle", "cva_z",
+                "ee_oracle", "ee_mc", "pfe", "exceed"},
+    "csa": {"threshold", "lag", "cva_mc", "cva_se", "cva_oracle", "cva_z",
+            "cva_reduction", "ee_oracle", "ee_mc", "pfe", "exceed"},
+    "bilateral": {"bcva_mc", "bcva_se", "bcva_oracle", "bcva_z", "fva_mc",
+                  "fva_se", "fva_oracle", "fva_z", "cva", "dva"},
+    "wwr": {"gamma", "lambda0", "cva_mc", "cva_se", "cva_oracle", "cva_z",
+            "wwr_ratio", "gamma_delta_mc", "gamma_delta_oracle",
+            "gamma_delta_z"},
+    "mva": {"mva_mc", "mva_se", "mva_oracle", "mva_z", "im_oracle",
+            "im_mc"},
+    "kva": {"kva_mc", "kva_se", "kva_oracle", "kva_z", "capital_oracle",
+            "capital_mc"},
+    "bermudan": {"ex_dates", "price", "stopping_identity", "cva_mc",
+                 "cva_se", "cva_oracle", "cva_z", "ee_oracle", "ee_mc"},
+}
+
 
 @pytest.fixture
 def workdir(tmp_path, monkeypatch):
@@ -84,17 +114,28 @@ def test_cli_xva(workdir, capsys):
 
 
 def test_cli_xva_unported_sections(workdir, capsys):
-    """``--g2`` and ``--bermudan`` each print one line and run nothing;
-    the run's own gate still decides the exit code."""
+    """``--g2`` and ``--bermudan`` run their sections (the sections that
+    were once skipped): the Bermudan exposure and the G2++ twin of the
+    exposure and of every chosen section, each gate in the one
+    "validation:" line, and the JAX command's keys written."""
     argv = ["xva", "--device", "cpu", "--paths", "4096", "--n-blocks", "2",
-            "--g2", "--bermudan"]
+            "--g2", "--bermudan", "--lag", "0", *G2_SECTIONS]
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
-    lines = [ln for ln in out.splitlines() if "not ported yet" in ln]
-    assert lines == ["Bermudan exposure (--bermudan): not ported yet, "
-                     "section skipped",
-                     "G2++ XVA (--g2): not ported yet, section skipped"]
-    assert "validation: PASS" in out
+    assert "validation: PASS" in out and "CHECK" not in out, out
+    assert "not ported" not in out and "FAIL" not in out, out
+    assert "G2++ Bermudan exposure (3 ex dates" in out
     r = json.loads((workdir / "data_torch" / "xva_results.json")
                    .read_text())["results"]
-    assert set(r) == TOP_KEYS
+    assert set(r) == TOP_KEYS | {"g2", "bermudan"} | {
+        name for name in SECTION_KEYS if name != "cds"}
+    assert set(r["bermudan"]) == BERMUDAN_KEYS
+    assert set(r["g2"]) == G2_KEYS | set(G2_SECTION_KEYS)
+    for name, keys in G2_SECTION_KEYS.items():
+        assert set(r["g2"][name]) == keys, name
+    assert r["n_paths"] == 2 * 4096
+    zs = [r["bermudan"]["cva_z"], r["g2"]["cva_z"]] + [
+        r["g2"][name]["cva_z"] for name in ("netting", "csa", "wwr")]
+    assert all(np.isfinite(z) and abs(z) < 5 for z in zs), zs
+    assert len(r["bermudan"]["ee_mc"]) == 4
+    assert len(r["g2"]["bermudan"]["ee_mc"]) == 3
