@@ -182,8 +182,10 @@ Phases (any failure raises and the script exits non-zero):
    memory and wall, beside the card's name and power limit.
 12. the exotics layer (``ratchet``, ``barrier``, ``chooser``: plain
    PyTorch on the card, no hand-written kernel; host float64 oracles) on
-   phase 10's curve: ``cli exotics`` at full width (2^20 paths, the
-   command's default DP grids) with its 15 agreement lines PASS (the CMS
+   phase 10's curve: ``cli exotics`` at full width (2^20 paths; its four
+   G2++ DPs on ``G2_SMALL_GRID``, as phase 10's ``cli notes``, the
+   Hull-White ones at the command's grids) with its 15 agreement lines
+   PASS (the CMS
    spread, the range accrual and its G2++ twin, the puttable note, the
    TARN and their G2++ twins, the chooser cap and the auto-cap under
    both models, the G2++ chooser at 2^17 paths within 2.5e-4 of its DP,
@@ -232,6 +234,23 @@ Phases (any failure raises and the script exits non-zero):
    times, the host ms, the device-busy ms and device operations, and the
    phase's peak device memory and wall, beside the card's name and power
    limit.
+15. the path mesh (``parallel/``: ranks of ``torch.distributed`` started
+   by ``parallel.launch``) and ``cli pipeline``: each fused kernel a rank
+   launches (the exact curve, ZBC, vega and surface kernels, the
+   full-step curve, ZBC and vega kernels) at 2^16 pairs from a non-zero
+   base tile (rank 1's first tile of a 2-rank 2^24-pair sweep) against
+   its plain version at the same base tile, and unequal to its base-0
+   run; a 1-rank NCCL group running ``bootstrap_curve``, ``price_zbc``
+   and ``pathwise_vega`` through the mesh at full width, bitwise equal
+   to the meshless calls; ``cli q1``, then ``cli pipeline`` at full width
+   (both calibrations recovered, every gate PASS, the artifact's keys
+   the JAX command's); ``cli sweep`` at 2^24 pairs with ``--mesh 1``
+   (NCCL) and ``--mesh 2`` (two gloo ranks on the card), P(0,10), the
+   ZBC, the vega and the surface's middle cell within the JAX package's
+   sharded-vs-single tolerances of each other, the times per call of the
+   slowest rank beside the card's name and power limit; the sweep's
+   kernel launches, counted by its ranks, join the ``kernels`` line as
+   its own path.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -2900,6 +2919,16 @@ EXOTICS_KEYS = ("cms_spread", "range_accrual", "range_accrual_g2",
 EXOTICS_MEMO = (("range_note", "dp_oracle_range_note"),
                 ("g2_note", "dp_oracle_range_note_g2"),
                 ("chooser", "dp_oracle_chooser_cap"))
+# the G2++ DP oracles of cli exotics, run on G2_SMALL_GRID: at the
+# command's (161, 61, 16) they took 169-212 s of host time, which pushed
+# the script past 1050 s once phase 15 came (the grids' accuracy is held
+# by tests/test_torch_g2_note.py, test_torch_chooser.py and
+# test_torch_barrier.py; at G2_SMALL_GRID the chooser and knock-out DPs
+# move by ~4e-6 and phase 11 gates the note and the TARN)
+EXOTICS_G2_DPS = (("g2_note", "dp_oracle_range_note_g2"),
+                  ("g2_note", "dp_oracle_tarn_g2"),
+                  ("chooser", "dp_oracle_chooser_cap_g2"),
+                  ("barrier", "dp_oracle_ko_cap_g2"))
 
 
 def _memoized(fn, hits):
@@ -2931,17 +2960,19 @@ def _memoized(fn, hits):
 
 
 def phase12_cli(cfg, dev, market):
-    """``cli exotics`` at full width (2^20 paths, the command's default DP
-    grids) in a fresh directory on phase 10's curve, the oracles of
-    ``EXOTICS_MEMO`` computed once per argument set: rc 0, its 15
-    agreement lines PASS, no CHECK, the JAX command's sections written."""
+    """``cli exotics`` at full width (2^20 paths; the G2++ DPs of
+    ``EXOTICS_G2_DPS`` on ``G2_SMALL_GRID``) in a fresh directory on phase
+    10's curve, the oracles of ``EXOTICS_MEMO`` computed once per argument
+    set: rc 0, its 15 agreement lines PASS, no CHECK, the JAX command's
+    sections written."""
     import importlib
 
     from hullwhite_tpu_torch.utils import io as hwio
 
+    names = EXOTICS_MEMO + EXOTICS_G2_DPS
     mods = {m: importlib.import_module(f"hullwhite_tpu_torch.{m}")
-            for m, _ in EXOTICS_MEMO}
-    saved = {(m, n): getattr(mods[m], n) for m, n in EXOTICS_MEMO}
+            for m, _ in names}
+    saved = {(m, n): getattr(mods[m], n) for m, n in names}
     hits = []
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2949,7 +2980,11 @@ def phase12_cli(cfg, dev, market):
         try:
             hwio.save_market(cfg, market)
             for (m, n), fn in saved.items():
-                setattr(mods[m], n, _memoized(fn, hits))
+                if (m, n) in EXOTICS_MEMO:
+                    fn = _memoized(fn, hits)
+                if (m, n) in EXOTICS_G2_DPS:
+                    fn = _forced_grid(fn, G2_SMALL_GRID)
+                setattr(mods[m], n, fn)
             t0 = time.perf_counter()
             text = _cli(["exotics", "--device", str(dev), "--reps", "1"],
                         "phase 12")
@@ -3676,6 +3711,222 @@ def phase14(dev, smi, market):
     return fused.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the path mesh (parallel/mesh.py on torch.distributed) and cli
+# pipeline
+# ---------------------------------------------------------------------------
+
+# the fused kernels a rank of the mesh launches at a non-zero base tile,
+# with the seed kind and the pairs per tile of each
+MESH_KERNELS = (("curve_exact", "curve", "CURVE_TILE_PATHS"),
+                ("zbc_exact", "zbc", "OPTION_TILE_PATHS"),
+                ("vega_exact", "vega", "OPTION_TILE_PATHS"),
+                ("grid_exact", "grid", "OPTION_TILE_PATHS"),
+                ("curve_full", "curve", "CURVE_FULL_TILE_PATHS"),
+                ("zbc_full", "zbc", "OPTION_FULL_TILE_PATHS"),
+                ("vega_full", "vega", "OPTION_FULL_TILE_PATHS"))
+MESH_CHECK_PAIRS = 1 << 16
+# rank 1's first block in cli sweep --mesh 2 (2^24 pairs in blocks of 2^15)
+MESH_BASE_BLOCK = 256
+# the kernels of cli sweep's default engine (fused_exact)
+SWEEP_KERNELS = ("curve_exact", "zbc_exact", "vega_exact", "grid_exact")
+# cli sweep --mesh 2 against --mesh 1: the JAX package's tolerances of its
+# sharded runs against the single-device ones (tests/test_sharding.py,
+# tests/test_grid.py::test_grid_sharded)
+SWEEP_TOL = dict(P10_rel=1e-5, zbc=1e-6, vega=1e-6, grid_mid=1e-6)
+# the keys of the JAX package's data/pipeline_results.json
+PIPELINE_KEYS = ("cap", "cva", "g2_calibration", "g2_netted_cva", "g2_zbc",
+                 "hw_calibration", "range_accrual", "swaption")
+
+
+def phase15_base_tiles(dev):
+    """Each fused kernel that a rank launches, at MESH_CHECK_PAIRS pairs
+    from rank 1's first tile of a 2-rank 2^24-pair sweep, against its plain
+    version at the same base tile (``compare``'s tolerances); its result
+    must differ from the run at base tile 0 (the base tile reaches the
+    stream).  Returns the errors."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key, cli
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.models import hull_white as hw
+
+    cfg = HWConfig()
+    key = Key(2026)
+    tables = hw.step_tables(cfg, cfg.sigma, cfg.sigma, device=dev)
+    market = analytic_market(cfg, dev)
+    cp = fused.curve_prepared(cfg, tables)
+    op = fused.option_prepared(cfg, tables, market, cfg.sigma)
+    consts = torch.as_tensor(op.consts, device=dev)
+    cfp = fused.curve_full_prepared(cfg, tables)
+    ofp = fused.option_full_prepared(cfg, tables, market, cfg.sigma)
+    consts_full = torch.as_tensor(ofp.consts, device=dev)
+    gp = fused.grid_prepared(cfg, tables, market, cfg.sigma,
+                             *cli.grid_axes(cfg))
+    grid_ops = [torch.as_tensor(x, device=dev)
+                for x in (gp.consts, gp.Bs, gp.Ks)]
+    prec, n_live = cfg.matmul_precision, cfg.n_mat - 1
+    pairs = {
+        "curve_exact": (
+            lambda s, n: fused.curve_exact(s, cp, n, n_live, prec),
+            lambda s, n: fused.curve_exact_plain(s, cp.W, cp.c, n, n_live,
+                                                 prec)),
+        "zbc_exact": (lambda s, n: fused.zbc_exact(s, op, n),
+                      lambda s, n: fused.zbc_exact_plain(s, consts, n)),
+        "vega_exact": (lambda s, n: fused.vega_exact(s, op, n),
+                       lambda s, n: fused.vega_exact_plain(s, consts, n)),
+        "grid_exact": (lambda s, n: fused.grid_exact(s, gp, n),
+                       lambda s, n: fused.grid_exact_plain(s, *grid_ops, n)),
+        "curve_full": (
+            lambda s, n: fused.curve_full(s, cfp, n, cfg.n_mat, prec),
+            lambda s, n: fused.curve_full_plain(s, cfp.W, cfp.exp_c, n,
+                                                cfg.n_mat, prec)),
+        "zbc_full": (
+            lambda s, n: fused.zbc_full(s, ofp, n, prec),
+            lambda s, n: fused.zbc_full_plain(s, ofp.W, consts_full, n,
+                                              prec)),
+        "vega_full": (
+            lambda s, n: fused.vega_full(s, ofp, n, prec),
+            lambda s, n: fused.vega_full_plain(s, ofp.W, consts_full, n,
+                                               prec))}
+    err = {}
+    for name, kind, tile_attr in MESH_KERNELS:
+        tile = getattr(fused, tile_attr)
+        base = MESH_BASE_BLOCK * (cfg.path_block // tile)
+        n_tiles = MESH_CHECK_PAIRS // tile
+        seeds = fused.kernel_seeds(key, kind, base)
+        kern, plain = pairs[name]
+        k = kern(seeds, n_tiles)
+        p = plain(seeds, n_tiles)
+        torch.cuda.synchronize()
+        err[name], text = compare(name, k, p)
+        k0 = kern(fused.kernel_seeds(key, kind, 0), n_tiles)
+        check(not torch.equal(k, k0), f"{name}: base tile {base} gives the "
+              "base-0 result")
+        print(f"[phase 15] {name} at base tile {base}, {n_tiles} tiles "
+              f"({MESH_CHECK_PAIRS} pairs) vs its plain version: {text}")
+    return err
+
+
+def phase15_nccl(dev):
+    """A 1-rank NCCL group (``parallel.launch``) running bootstrap_curve,
+    price_zbc and pathwise_vega through the mesh at full width, each bitwise
+    equal to the same call without the mesh in the same rank."""
+    import torch
+
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.parallel import launch
+
+    cfg = HWConfig()
+    key = Key(2026)
+    market = analytic_market(cfg, "cpu")
+    names = ("bootstrap_curve", "price_zbc", "pathwise_vega")
+    calls = [("hullwhite_tpu_torch.pricing:bootstrap_curve", (cfg, key), {}),
+             ("hullwhite_tpu_torch.pricing:price_zbc", (cfg, key, market),
+              {}),
+             ("hullwhite_tpu_torch.pricing:pathwise_vega",
+              (cfg, key, market), {})]
+    _, backend = launch.placement(1, dev)
+    check(backend == "nccl", f"a 1-rank group on the card is {backend}")
+    t0 = time.perf_counter()
+    (res,) = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 1,
+                        calls, device=dev, single=True)
+    wall = time.perf_counter() - t0
+    for name, (mesh_run, single) in zip(names, res):
+        if name == "bootstrap_curve":
+            same = torch.equal(mesh_run.P, single.P)
+            value = float(mesh_run.P[-1])
+        elif name == "price_zbc":
+            same = (torch.equal(mesh_run.price, single.price)
+                    and torch.equal(mesh_run.beta, single.beta))
+            value = float(mesh_run.price)
+        else:
+            same = torch.equal(mesh_run, single)
+            value = float(mesh_run)
+        print(f"[phase 15] 1-rank NCCL mesh {name}: {value!r}, bitwise equal "
+              f"to the meshless run: {same}")
+        check(same, f"{name} through the 1-rank NCCL mesh differs")
+    print(f"[phase 15] 1-rank NCCL group: {wall:.1f} s from spawn to exit")
+
+
+def phase15_cli(dev, smi):
+    """``cli q1``, then ``cli pipeline`` on its curve and ``cli sweep`` at
+    2^24 pairs with ``--mesh 1`` (NCCL) and ``--mesh 2`` (two gloo ranks
+    on the card), in a fresh directory; returns the sweeps' kernel
+    launches."""
+    argv = ["--device", str(dev)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _cli(["q1", "--reps", "1", *argv], "phase 15")
+            text = _cli(["pipeline", *argv], "phase 15")
+            pipe = json.load(open(os.path.join("data_torch",
+                                               "pipeline_results.json")))
+            sweeps = {}
+            for n in (1, 2):
+                t0 = time.perf_counter()
+                _cli(["sweep", "--mesh", str(n), *argv], "phase 15")
+                sweeps[n] = json.load(open(os.path.join(
+                    "data_torch", "sweep_results.json")))
+                sweeps[n]["wall"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    r = pipe["results"]
+    check("pipeline validation: PASS" in text and "CHECK" not in text,
+          "cli pipeline: a gate failed")
+    check(tuple(sorted(r)) == PIPELINE_KEYS,
+          f"cli pipeline: the artifact's keys {sorted(r)}")
+    check(r["hw_calibration"]["ok"] and r["g2_calibration"]["ok"],
+          "cli pipeline: a calibration missed its parameters")
+    print(f"[phase 15] cli pipeline: every gate PASS; z "
+          + str({k: round(r[k]["z"], 2) for k in PIPELINE_KEYS
+                 if "z" in r[k]}))
+    one, two = sweeps[1], sweeps[2]
+    check(one["performance"]["backend"] == "nccl"
+          and two["performance"]["backend"] == "gloo",
+          "cli sweep: the backends are "
+          f"{one['performance']['backend']}, {two['performance']['backend']}")
+    a, b = one["results"], two["results"]
+    diffs = {"P10_rel": abs(b["P10"] - a["P10"]) / a["P10"],
+             **{k: abs(b[k] - a[k]) for k in ("zbc", "vega", "grid_mid")}}
+    for k, d in diffs.items():
+        check(d <= SWEEP_TOL[k], f"cli sweep --mesh 2 vs 1: {k} {d:.3e} > "
+              f"{SWEEP_TOL[k]}")
+    for n, doc in sweeps.items():
+        res = doc["results"]
+        print(f"[phase 15] cli sweep --mesh {n} ({doc['performance']['backend']}"
+              f"): P(0,10) {res['P10']!r}, ZBC {res['zbc']!r}, vega "
+              f"{res['vega']!r}, surface mid {res['grid_mid']!r}; ms per "
+              f"call (slowest rank) curve {res['curve_ms']:.3f}, ZBC "
+              f"{res['zbc_ms']:.3f}, vega {res['vega_ms']:.3f} [{smi}]; "
+              f"command {doc['wall']:.1f} s")
+    print(f"[phase 15] cli sweep --mesh 2 vs --mesh 1: "
+          + str({k: float(f"{d:.3e}") for k, d in diffs.items()})
+          + f" (tol {SWEEP_TOL})")
+    launches = {}
+    for doc in sweeps.values():
+        for name, n in doc["performance"]["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def phase15(dev, smi):
+    """The path mesh and cli pipeline (module docstring, phase 15); returns
+    the sweep path's kernel launches (counted by its ranks) and the base
+    tile errors."""
+    t0 = time.perf_counter()
+    err = phase15_base_tiles(dev)
+    t1 = time.perf_counter()
+    phase15_nccl(dev)
+    t2 = time.perf_counter()
+    launches = phase15_cli(dev, smi)
+    print(f"[phase 15] phase wall {time.perf_counter() - t0:.1f} s (base "
+          f"tiles {t1 - t0:.1f} s, NCCL group {t2 - t1:.1f} s, CLI "
+          f"{time.perf_counter() - t2:.1f} s)")
+    return launches, err
+
+
 def main() -> int:
     import torch
 
@@ -3835,6 +4086,14 @@ def main() -> int:
     check(not any(xva14_counts.values()), "a G2++ XVA or Bermudan exposure "
           "call launched a kernel")
 
+    sweep_counts, _ = phase15(dev, smi)
+    print(f"[phase 15] launches in the sweep main-path run (cli sweep --mesh "
+          f"1 and --mesh 2, counted by the ranks): {sweep_counts}")
+    for name in SWEEP_KERNELS:
+        check(sweep_counts[name] > 0,
+              f"kernel {name} was not launched by the sweep path")
+        launches[name] += sweep_counts[name]
+
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",
                 "vega_exact": "hullwhite_tpu/pallas/fused.py:555",
@@ -3937,7 +4196,8 @@ def main() -> int:
                 "library_ms": None}
 
     # kernels: the main paths', launches counted in each path's run (the
-    # surface kernel's summed over both engines' cli grid);
+    # surface kernel's summed over both engines' cli grid; the sweep's
+    # counted by its ranks and added to the exact tier's);
     # check_kernels: the generator's check kernel, launches counted in its
     # own window
     print(json.dumps({

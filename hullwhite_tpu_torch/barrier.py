@@ -25,8 +25,9 @@ untilted), and ``cap_closed_form_g2`` prices the full cap in closed form
 under the sampler's functional law.
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh``, PORT.md), antithetic legs,
-the normal CDF ``ops.accurate.nphi``; the float32 LIBOR terms, strip lnA
+global index one after the other (no ``mesh`` before its second slice,
+PORT.md), antithetic legs, the normal CDF ``ops.accurate.nphi``; the float32
+LIBOR terms, strip lnA
 and discounts are computed on the host as the JAX package rounds them and
 copied to the device once.
 """

@@ -45,6 +45,7 @@ from .models.hull_white import MarketCurve, StepTables
 from .ops.accurate import exp32 as _exp, nphi, npdf as _npdf
 from .ops.engine_linear import _det_recursion, _shock_shapes, dot
 from .ops.rng import Key, block_normals, normal
+from .parallel import mesh as pmesh
 
 BASIS_DEGREE = 3   # polynomial part of the basis: [1, r, r^2, r^3]
 RIDGE = 1e-9
@@ -389,10 +390,11 @@ class BermudanResult(NamedTuple):
 
 def _bermudan_fn(cfg: HWConfig, ex_dates: tuple, sched: CouponSchedule,
                  strike: float, payer: bool, n_paths: int, n_blocks: int,
-                 rqmc: bool, dev: torch.device):
+                 rqmc: bool, dev: torch.device, mesh=None):
     """``compute(key, sigma, market)`` -> (lower, in-sample, SE, upper,
     upper SE, CV lower, CV SE): the two-pass estimator as a function of a
-    float32 sigma tensor on ``dev`` (``torch.func.jvp`` differentiates it)."""
+    float32 sigma tensor on ``dev`` (``torch.func.jvp`` differentiates it);
+    the evaluation pass's blocks optionally sharded over ``mesh``."""
     k = len(ex_dates)
     prec = cfg.matmul_precision
     ivp = _interval_params(cfg, ex_dates)
@@ -549,7 +551,7 @@ def _bermudan_fn(cfg: HWConfig, ex_dates: tuple, sched: CouponSchedule,
             return torch.stack([cf.sum(), (cf * cf).sum(), u.sum(),
                                 (u * u).sum(), cv.sum(), (cv * cv).sum()])
 
-        per_block = torch.stack([block(b) for b in range(n_blocks)])
+        per_block = pmesh.map_blocks(block, n_blocks, mesh)  # (n_blocks, 6)
         n_tot = 1.0 * n_paths * n_blocks
         # (lower, upper, CV) means and their SEs, as (3,) vectors
         means = per_block.sum(0) / n_tot
@@ -584,7 +586,8 @@ def price_bermudan(cfg: HWConfig, key: Key, market: MarketCurve,
                    sched: CouponSchedule, exercise_dates: Sequence[float],
                    *, strike: float = 1.0, payer: bool = False, sigma=None,
                    n_paths: int | None = None, n_blocks: int = 1,
-                   rqmc: bool = False, device) -> BermudanResult:
+                   rqmc: bool = False, mesh=None,
+                   device) -> BermudanResult:
     """Two-pass LSMC Bermudan price bracketed by the AB dual upper bound.
 
     ``n_paths`` is the per-block path count (the policy pass uses one
@@ -599,7 +602,7 @@ def price_bermudan(cfg: HWConfig, key: Key, market: MarketCurve,
     n_paths = cfg.n_paths if n_paths is None else n_paths
     ex = _check_dates(sched, exercise_dates, rqmc, n_blocks)
     fn = _bermudan_fn(cfg, ex, sched, float(strike), bool(payer),
-                      int(n_paths), int(n_blocks), bool(rqmc), dev)
+                      int(n_paths), int(n_blocks), bool(rqmc), dev, mesh)
     p_out, p_in, se, up, up_se, p_cv, cv_se = fn(
         key, torch.as_tensor(sigma, dtype=torch.float32, device=dev),
         market)

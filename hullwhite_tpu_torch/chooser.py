@@ -24,8 +24,9 @@ c-levels batched through ``g2_note._expect_bilinear_multi``), its policy a
 boundary CURVE u*(w) per (date, rights) (exercise when u > u*).
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh``, PORT.md), antithetic legs;
-the float32 LIBOR terms, strip lnA, discounts and boundary tables are
+global index one after the other (no ``mesh`` before its second slice,
+PORT.md), antithetic legs; the float32 LIBOR terms, strip lnA, discounts and
+boundary tables are
 computed on the host and copied to the device once per call.  The
 threshold lookups clamp the rights index (``jnp.take(..., mode="clip")``
 in the JAX package), and a boundary row that is +-inf throughout (the

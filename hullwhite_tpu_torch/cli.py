@@ -1,6 +1,6 @@
 """Command-line entry points of the port: q1 / q2 / q3 / all / grid /
 swaption / cap / rfr / cms / notes / exotics / xva / calibrate / g2pp /
-benchmark.
+sweep / pipeline / benchmark.
 
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
@@ -20,6 +20,8 @@ benchmark.
         --mva --kva --cds 1:0.006,3:0.009,5:0.013      # the XVA layer
     python -m hullwhite_tpu_torch.cli calibrate          # HW and G2++ fits
     python -m hullwhite_tpu_torch.cli g2pp --validate 5  # the G2++ family
+    python -m hullwhite_tpu_torch.cli sweep --mesh 2     # 2^24 pairs, 2 ranks
+    python -m hullwhite_tpu_torch.cli pipeline           # calibrate -> XVA
     python -m hullwhite_tpu_torch.cli benchmark          # engine table
     python -m hullwhite_tpu_torch.cli benchmark --ab precision
     python -m hullwhite_tpu_torch.cli benchmark --roofline  # GPU only
@@ -62,9 +64,13 @@ and with ``--g2`` their G2++ twins (``cli_xva.py``).
 recovers Hull-White (a, sigma) and G2++ (sigma, eta, rho) from
 closed-form quotes (host float64); ``g2pp`` runs the G2++ family: curve,
 ZBC by MC, RQMC and closed form, swaptions, vegas, the bond-exchange
-option and the Bermudan bracket.  Results go to ``data_torch/``; q2, q3,
-grid, swaption, cap, rfr, cms, notes, exotics, xva, calibrate and g2pp read
-the market curve q1 wrote there.
+option and the Bermudan bracket.  ``sweep`` runs the curve, the ZBC, the
+vega and the 5 x 5 surface at 2^24 pairs over ``--mesh N`` ranks of the
+path mesh (``cli_sweep.py``, ``parallel/``); ``pipeline`` calibrates both
+models to quotes at hidden parameters and reprices a book and its CVA at
+the calibrated ones (``cli_pipeline.py``).  Results go to
+``data_torch/``; q2, q3, grid, swaption, cap, rfr, cms, notes, exotics,
+xva, calibrate, g2pp and pipeline read the market curve q1 wrote there.
 """
 
 from __future__ import annotations
@@ -1549,9 +1555,10 @@ def main(argv=None):
                         choices=["default", "high", "highest"],
                         help="Q1 sampling-product precision (see "
                              "HWConfig.matmul_precision)")
-    common.add_argument("--engine", default="fused_exact",
+    common.add_argument("--engine", default=None,
                         choices=list(pricing.ENGINES),
-                        help="fused_exact: exact sampling (default); fused: "
+                        help="fused_exact: exact sampling (default; "
+                             "swaption: exact); fused: "
                              "full step, one random value per path per "
                              "time step; linear, scan, exact: the XLA "
                              "engines on threefry block normals")
@@ -1570,7 +1577,6 @@ def main(argv=None):
         if name != "q2":
             p.add_argument("--eps", type=float, default=1e-3)
     ps = sub.add_parser("swaption", parents=[common])
-    ps.set_defaults(engine="exact")
     ps.add_argument("--rate", type=float, default=0.025)
     ps.add_argument("--tenor", type=float, default=5.0)
     ps.add_argument("--freq", type=float, default=1.0)
@@ -1741,6 +1747,12 @@ def main(argv=None):
     pg2.add_argument("--freq", type=float, default=1.0)
     pg2.add_argument("--eps", type=float, default=1e-2)
     pg2.add_argument("--validate", type=int, default=0, metavar="N")
+    psw = sub.add_parser("sweep", parents=[common])
+    psw.add_argument("--mesh", type=int, default=None, metavar="N",
+                     help="ranks of the path mesh (default: one per visible "
+                          "CUDA device; one with --device cpu); above the "
+                          "device count they share the cards round-robin")
+    sub.add_parser("pipeline", parents=[common])
     pb = sub.add_parser("benchmark", parents=[common])
     pb.add_argument("--roofline", action="store_true",
                     help="each tier's fractions of the fp32 peak and of "
@@ -1759,6 +1771,10 @@ def main(argv=None):
     pb.add_argument("--ab-runs", type=int, default=20)
 
     args = ap.parse_args(argv)
+    # the subcommands share the --engine action of ``common``, so a
+    # subparser's set_defaults would change every command's default
+    if args.engine is None:
+        args.engine = "exact" if args.cmd == "swaption" else "fused_exact"
     if args.cmd == "benchmark":
         return cmd_benchmark(args)
     pricing.resolve_device(args.device)
@@ -1790,6 +1806,14 @@ def main(argv=None):
         return cmd_calibrate(args)
     if args.cmd == "g2pp":
         return cmd_g2pp(args)
+    if args.cmd == "sweep":
+        from .cli_sweep import cmd_sweep
+
+        return cmd_sweep(args)
+    if args.cmd == "pipeline":
+        from .cli_pipeline import cmd_pipeline
+
+        return cmd_pipeline(args)
     rc = cmd_q1(args)
     rc |= cmd_q2(args)
     rc |= cmd_q3(args)

@@ -26,8 +26,8 @@ of r(T_j), so
   non-callable note the control variate of exact mean.
 
 The MC is plain PyTorch on the device, blocks drawn from their global
-index one after the other (no ``mesh``, PORT.md); the LIBOR terms are
-float32 scalars rounded as the JAX package rounds them.
+index one after the other (no ``mesh`` before its second slice, PORT.md); the
+LIBOR terms are float32 scalars rounded as the JAX package rounds them.
 """
 
 from __future__ import annotations

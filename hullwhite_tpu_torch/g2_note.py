@@ -28,8 +28,9 @@ sampler, so oracle and Monte Carlo integrate the same law.
   the payments) drawn exactly, z = x L^T with L the functional Cholesky
   factor (``engine_linear.dot`` at ``cfg.matmul_precision``), blocks from
   their global index one after the other (``range_note._block_rows``;
-  no ``mesh``, PORT.md), antithetic, the fixed DP policy (a boundary
-  curve u*(w) per date, a surface u*(w, c) for the callable snowball)
+  no ``mesh`` before its second slice, PORT.md), antithetic, the fixed DP
+  policy (a boundary curve u*(w) per date, a surface u*(w, c) for the callable
+  snowball)
   and a control variate of exact mean.  The float32 scalars (the strip
   edges, lnA and P(0, T) e^{-V(T)/2}) are the JAX package's jitted values
   bit for bit, computed on the host and copied to the device once

@@ -49,19 +49,19 @@ class FDVega(NamedTuple):
 
 
 def fd_vega_crn(cfg: HWConfig, key: Key, market: MarketCurve, *,
-                eps: float = 1e-3, engine: str = "fused_exact",
+                eps: float = 1e-3, engine: str = "fused_exact", mesh=None,
                 device) -> FDVega:
     """Central-difference vega of the CV-adjusted ZBC price, CRN by key reuse."""
     p_m = pricing.price_zbc(cfg, key, market, sigma=cfg.sigma - eps,
-                            engine=engine, device=device).price
+                            engine=engine, mesh=mesh, device=device).price
     p_p = pricing.price_zbc(cfg, key, market, sigma=cfg.sigma + eps,
-                            engine=engine, device=device).price
+                            engine=engine, mesh=mesh, device=device).price
     return FDVega((p_p - p_m) / (2.0 * eps), p_m, p_p, eps)
 
 
 def fd_vega_recalibrated(cfg: HWConfig, key: Key, curve_key: Key, *,
                          eps: float = 1e-3, engine: str = "fused_exact",
-                         device) -> FDVega:
+                         mesh=None, device) -> FDVega:
     """FD vega with full market recalibration at each sigma bump: at sigma'
     the model takes the ground-truth theta (sigma0 = sigma'), the curves are
     re-simulated with the same ``curve_key`` and the option is priced
@@ -70,21 +70,25 @@ def fd_vega_recalibrated(cfg: HWConfig, key: Key, curve_key: Key, *,
     for sgn in (-1.0, 1.0):
         sig = cfg.sigma + sgn * eps
         mkt = pricing.bootstrap_curve(cfg, curve_key, sigma=sig, sigma0=sig,
-                                      engine=engine, device=device)
+                                      engine=engine, mesh=mesh,
+                                      device=device)
         legs.append(pricing.price_zbc(cfg, key, mkt, sigma=sig, sigma0=sig,
-                                      engine=engine, device=device).price)
+                                      engine=engine, mesh=mesh,
+                                      device=device).price)
     p_m, p_p = legs
     return FDVega((p_p - p_m) / (2.0 * eps), p_m, p_p, eps)
 
 
 def jvp_vega(cfg: HWConfig, key: Key, market: MarketCurve, *,
-             antithetic: bool = False, device):
+             mesh=None, antithetic: bool = False, device):
     """(raw price, vega) by forward-mode AD through the simulation on the
     linear engine: the mean discounted payoff (no control variate) as a
     function of sigma, differentiated through the calibration-consistent
     drift tables, the shock scale, the deterministic part at S1, the bond
     reconstruction and the payoff kink.  One +G leg per path (like the
-    pathwise dual process) unless ``antithetic``."""
+    pathwise dual process) unless ``antithetic``.  Under ``mesh`` each
+    rank differentiates its partial sum and the gather carries the
+    tangent with it (``parallel.mesh``)."""
     dev = pricing.resolve_device(device)
     n1 = cfg.n_steps_s1
 
@@ -103,7 +107,7 @@ def jvp_vega(cfg: HWConfig, key: Key, market: MarketCurve, *,
                 x = x + leg(st.r_m, st.i_m).sum()
             return x[None]
 
-        total = pricing._sum_blocks(cfg, key, n1, dev, block_sum)[0]
+        total = pricing._sum_blocks(cfg, key, n1, dev, block_sum, mesh)[0]
         return total / ((2.0 if antithetic else 1.0) * cfg.n_paths)
 
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
@@ -111,7 +115,8 @@ def jvp_vega(cfg: HWConfig, key: Key, market: MarketCurve, *,
 
 
 def gamma_zbc(cfg: HWConfig, key: Key, market: MarketCurve, *,
-              eps: float = 1e-4, engine: str = "fused_exact", device):
+              eps: float = 1e-4, engine: str = "fused_exact", mesh=None,
+              device):
     """Gamma (d^2 price / d r0^2) by a CRN central difference of the
     pathwise delta.  The payoff kink makes a pure second-order pathwise
     estimator ill-defined (a Dirac term); differencing the pathwise delta
@@ -121,13 +126,13 @@ def gamma_zbc(cfg: HWConfig, key: Key, market: MarketCurve, *,
     for sgn in (-1.0, 1.0):
         d[sgn] = pricing.pathwise_delta(cfg.replace(r0=cfg.r0 + sgn * eps),
                                         key, market, engine=engine,
-                                        device=device)
+                                        mesh=mesh, device=device)
     return (d[1.0] - d[-1.0]) / (2.0 * eps)
 
 
 def vega_swaption(cfg: HWConfig, key: Key, market: MarketCurve, sched,
                   strike: float = 1.0, *, payer: bool = False,
-                  engine: str = "exact", device):
+                  engine: str = "exact", mesh=None, device):
     """(price, vega) of a coupon-bond option / swaption by forward-mode AD
     (``torch.func.jvp``) through the CV-adjusted pricer, with the
     calibration-consistent sigma bump of the ZBC vega.  The sigma tangent
@@ -137,8 +142,9 @@ def vega_swaption(cfg: HWConfig, key: Key, market: MarketCurve, sched,
     dev = pricing.resolve_device(device)
 
     def price_of(sigma):
-        moments, ey = instruments._cbo_moments(cfg, key, market, sched, float(strike),
-                                   bool(payer), sigma, engine, dev)
+        moments, ey = instruments._cbo_moments(
+            cfg, key, market, sched, float(strike), bool(payer), sigma,
+            engine, dev, mesh)
         return cv_estimate(moments, ey).price
 
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
@@ -149,7 +155,7 @@ def bermudan_vega(cfg: HWConfig, key: Key, market: MarketCurve, sched,
                   exercise_dates, *, strike: float = 1.0,
                   payer: bool = False, n_paths: int | None = None,
                   n_blocks: int = 1, rqmc: bool = False,
-                  eps: float = 1e-3, mode: str = "jvp", device):
+                  eps: float = 1e-3, mode: str = "jvp", mesh=None, device):
     """(price, vega, upper, upper_vega): d/dsigma of the Bermudan bracket.
 
     mode="jvp": forward-mode AD (``torch.func.jvp``) through the whole
@@ -172,7 +178,7 @@ def bermudan_vega(cfg: HWConfig, key: Key, market: MarketCurve, sched,
         raise ValueError("mode must be 'jvp' or 'fd'")
     fn = bermudan_mod._bermudan_fn(cfg, ex, sched, float(strike),
                                    bool(payer), int(n_paths), int(n_blocks),
-                                   bool(rqmc), dev)
+                                   bool(rqmc), dev, mesh)
     sigma = torch.tensor(cfg.sigma, dtype=torch.float32, device=dev)
     if mode == "jvp":
         def lo_up(s):
@@ -200,7 +206,7 @@ def bermudan_delta(cfg: HWConfig, key: Key, market: MarketCurve, sched,
                    exercise_dates, *, strike: float = 1.0,
                    payer: bool = False, n_paths: int | None = None,
                    n_blocks: int = 1, rqmc: bool = False,
-                   h: float = 1e-3, device):
+                   h: float = 1e-3, mesh=None, device):
     """(delta_lower, delta_upper): d/dh of the Bermudan bracket under a
     parallel forward-curve shift, by central differences with common
     random numbers (the same key gives identical states on both legs: the
@@ -211,7 +217,7 @@ def bermudan_delta(cfg: HWConfig, key: Key, market: MarketCurve, sched,
     res = [bermudan_mod.price_bermudan(
         cfg, key, shift_curve(cfg, market, s * h), sched, exercise_dates,
         strike=strike, payer=payer, n_paths=n_paths, n_blocks=n_blocks,
-        rqmc=rqmc, device=device) for s in (1.0, -1.0)]
+        rqmc=rqmc, mesh=mesh, device=device) for s in (1.0, -1.0)]
     return ((float(res[0].price) - float(res[1].price)) / (2.0 * h),
             (float(res[0].upper) - float(res[1].upper)) / (2.0 * h))
 
@@ -219,7 +225,8 @@ def bermudan_delta(cfg: HWConfig, key: Key, market: MarketCurve, sched,
 def fd_vega_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                 rate: float, tenor: float, start: float | None = None,
                 freq: float = 1.0, floor: bool = False, eps: float = 1e-3,
-                n_paths: int | None = None, n_blocks: int = 1, device):
+                n_paths: int | None = None, n_blocks: int = 1, mesh=None,
+                device):
     """Cap/floor vega by central differences under common random numbers
     (sigma enters the multi-date sampler through the tables.sig_st scale
     only, so one key gives identical normals on both legs).  Oracle: the
@@ -227,7 +234,7 @@ def fd_vega_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
     legs = [instruments.price_cap(
         cfg, key, market, rate=rate, start=start, tenor=tenor, freq=freq,
         floor=floor, sigma=cfg.sigma + s * eps, n_paths=n_paths,
-        n_blocks=n_blocks, device=device) for s in (1.0, -1.0)]
+        n_blocks=n_blocks, mesh=mesh, device=device) for s in (1.0, -1.0)]
     return (float(legs[0].price) - float(legs[1].price)) / (2.0 * eps)
 
 

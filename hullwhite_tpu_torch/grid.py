@@ -98,9 +98,10 @@ def surface(m: dict, Ks: torch.Tensor, S2s: torch.Tensor) -> ZBCGrid:
 
 def _xla_grid_moments(cfg: HWConfig, engine: str, key: Key, sigma,
                       market: MarketCurve, Ks: torch.Tensor,
-                      S2s: torch.Tensor) -> dict:
+                      S2s: torch.Tensor, mesh=None) -> dict:
     """``_grid_moments`` summed over the configuration's blocks of an XLA
-    engine's normals, in block order."""
+    engine's normals, in block order (over ``mesh``: each rank's share,
+    the ranks' sums in rank order)."""
     dev = Ks.device
     tables = hw.step_tables(cfg, sigma, cfg.sigma, device=dev)
     n_cols, state_of = pricing._xla_state_setup(cfg, engine, tables,
@@ -108,15 +109,17 @@ def _xla_grid_moments(cfg: HWConfig, engine: str, key: Key, sigma,
     return pricing._sum_blocks(
         cfg, key, n_cols, dev,
         lambda G: _grid_moments(cfg, tables.sigma, market, state_of(G), Ks,
-                                S2s))
+                                S2s), mesh)
 
 
 def price_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
                    strikes: Sequence[float], maturities: Sequence[float], *,
-                   sigma=None, engine: str = "fused_exact", device) -> ZBCGrid:
-    """CV-adjusted price surface over (strikes x maturities), shared paths.
-    ``maturities`` are the bond maturities S2 > S1 of the underlying
-    P(S1, S2); every option is exercised at ``cfg.s1``."""
+                   sigma=None, engine: str = "fused_exact", mesh=None,
+                   device) -> ZBCGrid:
+    """CV-adjusted price surface over (strikes x maturities), shared paths,
+    the blocks optionally sharded over ``mesh``.  ``maturities`` are the
+    bond maturities S2 > S1 of the underlying P(S1, S2); every option is
+    exercised at ``cfg.s1``."""
     pricing._check_engine(engine)
     sigma = cfg.sigma if sigma is None else sigma
     dev = pricing.resolve_device(device)
@@ -126,21 +129,23 @@ def price_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
     S2s = torch.tensor(S2_t, dtype=torch.float32, device=dev)
     if engine in pricing.XLA_ENGINES:
         return surface(_xla_grid_moments(cfg, engine, key, sigma, market, Ks,
-                                         S2s), Ks, S2s)
+                                         S2s, mesh), Ks, S2s)
     tables = hw.step_tables(cfg, sigma, cfg.sigma, device=dev)
-    rows = fused.grid_exact(
-        fused.kernel_seeds(key, "grid"),
-        fused.grid_prepared(cfg, tables, market, sigma, Ks_t, S2_t),
-        pricing._tiles(cfg, fused.OPTION_TILE_PATHS))
+    prepared = fused.grid_prepared(cfg, tables, market, sigma, Ks_t, S2_t)
+    rows = pricing._fused_sum(
+        cfg, key, "grid", fused.OPTION_TILE_PATHS,
+        lambda seeds, n_tiles: fused.grid_exact(seeds, prepared, n_tiles),
+        mesh)
     return surface(moments_from_rows(rows, len(Ks_t), len(S2_t)), Ks, S2s)
 
 
 def vega_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
                   strikes: Sequence[float], maturities: Sequence[float], *,
-                  sigma=None, engine: str = "exact", device):
+                  sigma=None, engine: str = "exact", mesh=None, device):
     """(price_raw, vega) surfaces over (strikes x maturities) by forward-mode
     AD through the shared-path simulation: every cell's vega from the same
-    draws, one ``torch.func.jvp``.  AD cannot flow through a fused kernel's
+    draws, one ``torch.func.jvp`` (through the mesh's gather under
+    ``mesh``).  AD cannot flow through a fused kernel's
     generator, so the fused engine names run on "exact" (the same
     estimator law), as in the JAX package."""
     pricing._check_engine(engine)
@@ -155,7 +160,7 @@ def vega_zbc_grid(cfg: HWConfig, key: Key, market: MarketCurve,
                          dtype=torch.float32, device=dev)
 
     def raw_surface(s):
-        m = _xla_grid_moments(cfg, engine, key, s, market, Ks, S2s)
+        m = _xla_grid_moments(cfg, engine, key, s, market, Ks, S2s, mesh)
         return m["sx"] / m["n"]
 
     return torch.func.jvp(raw_surface, (sigma,), (torch.ones_like(sigma),))

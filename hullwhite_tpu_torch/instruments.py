@@ -16,17 +16,18 @@ Validation: Jamshidian's decomposition (exact for monotone one-factor
 models), in float64 on the host as ``jamshidian_price``.
 
 The Monte Carlo runs on the XLA engines (``linear``, ``scan``, ``exact``)
-block by block (``pricing._sum_blocks``) on one device; the JAX package's
-``mesh`` argument is not ported (PORT.md).
+block by block (``pricing._sum_blocks``), the blocks optionally sharded
+over a path mesh (``parallel.mesh``, ``mesh=``).
 
 Part B prices the multi-date products (caps and floors, CMS and CMS
 spread legs, range accruals) from one exactly sampled set of (r, I)
 states at their reset and payment dates: the Bermudan machinery's joint
 Cholesky (``bermudan._joint_chol``, ``_functional_chol``) over the dates,
 the deterministic part ``bermudan._det_states``, blocks drawn from their
-global index one after the other.  Each has a float64 host oracle: the
-per-caplet ZBP closed form, a tilted Gauss-Legendre quadrature, or the
-range accrual's closed form.
+global index one after the other or over a mesh (``_leg_sums``: the
+sharded run equals the single one bit for bit).  Each has a float64 host
+oracle: the per-caplet ZBP closed form, a tilted Gauss-Legendre
+quadrature, or the range accrual's closed form.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from .ops.accurate import cephes_exp, cephes_log, exp32
 from .ops.engine_linear import _shock_shapes, dot
 from .ops.payoffs import CVEstimate, cv_estimate, leg_moments
 from .ops.qmc import _over_shifts, ndtri, sobol2
-from .ops.rng import Key, random_bits
+from .ops.rng import Key, block_normals, random_bits
+from .parallel import mesh as pmesh
 
 
 class CouponSchedule(NamedTuple):
@@ -89,9 +91,9 @@ def _bond_value(cA: torch.Tensor, B: torch.Tensor, r: torch.Tensor):
 
 def _cbo_moments(cfg: HWConfig, key: Key, market: MarketCurve,
                  sched: CouponSchedule, strike: float, payer: bool, sigma,
-                 engine: str, dev: torch.device):
+                 engine: str, dev: torch.device, mesh=None):
     """((6,) CV moments summed over the blocks, E[Y]) of the coupon-bond
-    option on an XLA engine."""
+    option on an XLA engine, over ``mesh`` (``pmesh.shard_blocks``)."""
     if engine not in pricing.XLA_ENGINES:
         raise ValueError(f"the coupon-bond option runs on an XLA engine "
                          f"{tuple(pricing.XLA_ENGINES)}, not {engine!r}: the "
@@ -115,33 +117,34 @@ def _cbo_moments(cfg: HWConfig, key: Key, market: MarketCurve,
         st = state_of(G)
         return leg_moments(*leg(st.r_p, st.i_p), *leg(st.r_m, st.i_m))
 
-    return pricing._sum_blocks(cfg, key, n_cols, dev, block), ey
+    return pricing._sum_blocks(cfg, key, n_cols, dev, block, mesh), ey
 
 
 def price_coupon_bond_option(cfg: HWConfig, key: Key, market: MarketCurve,
                              sched: CouponSchedule, strike: float = 1.0,
                              *, payer: bool = False, sigma=None,
-                             engine: str = "exact", device) -> CVEstimate:
+                             engine: str = "exact", mesh=None,
+                             device) -> CVEstimate:
     """CV-adjusted MC price of a call (payer=False) or put (payer=True) on
     the coupon bond, exercised at cfg.s1."""
     sigma = cfg.sigma if sigma is None else sigma
     moments, ey = _cbo_moments(cfg, key, market, sched, float(strike),
                                bool(payer), sigma, engine,
-                               pricing.resolve_device(device))
+                               pricing.resolve_device(device), mesh)
     return cv_estimate(moments, ey)
 
 
 def price_swaption(cfg: HWConfig, key: Key, market: MarketCurve, *,
                    rate: float, tenor: float, freq: float = 1.0,
                    payer: bool = True, sigma=None, engine: str = "exact",
-                   device) -> CVEstimate:
+                   mesh=None, device) -> CVEstimate:
     """European swaption with expiry cfg.s1 on a (rate, tenor) swap:
     payer = put on the fixed-leg coupon bond at strike 1; receiver =
     call."""
     sched = swap_fixed_leg(cfg, rate, tenor, freq)
     return price_coupon_bond_option(cfg, key, market, sched, 1.0,
                                     payer=payer, sigma=sigma, engine=engine,
-                                    device=device)
+                                    mesh=mesh, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +338,14 @@ def cap_closed_form(cfg: HWConfig, market: MarketCurve, *, rate: float,
 
 
 def _leg_sums(cfg: HWConfig, key: Key, n_paths: int, n_blocks: int,
-              n_cols: int, dev: torch.device, block):
-    """``pricing._sum_blocks`` over ``n_blocks`` blocks of ``n_paths``."""
-    return pricing._sum_blocks(cfg.replace(n_paths=n_paths * n_blocks,
-                                           path_block=n_paths),
-                               key, n_cols, dev, block)
+              n_cols: int, dev: torch.device, block, mesh=None):
+    """The sum of ``block(x)`` over ``n_blocks`` blocks of (n_paths,
+    n_cols) normals, each drawn from its global index, added in block
+    order: the rows come from ``pmesh.map_blocks``, so a sharded run equals
+    the single one bit for bit."""
+    return pmesh.sum_rows(pmesh.map_blocks(
+        lambda b: block(block_normals(key, b, (n_paths, n_cols),
+                                      device=dev)), n_blocks, mesh))
 
 
 def _leg_moments(V: torch.Tensor) -> torch.Tensor:
@@ -381,7 +387,7 @@ def _antithetic_legs(cfg, tables, LT, r_det, i_det, x, payoff):
 def price_cap(cfg: HWConfig, key: Key, market: MarketCurve, *, rate: float,
               start: float | None = None, tenor: float = 5.0,
               freq: float = 1.0, floor: bool = False, sigma=None,
-              n_paths: int | None = None, n_blocks: int = 1,
+              n_paths: int | None = None, n_blocks: int = 1, mesh=None,
               device) -> CapResult:
     """Monte Carlo cap/floor on the simple forward rate, all periods from
     one exactly sampled multi-date state set (antithetic); blocks are
@@ -410,7 +416,7 @@ def price_cap(cfg: HWConfig, key: Key, market: MarketCurve, *, rate: float,
 
     s = _leg_sums(cfg, key, n_paths, n_blocks, 2 * len(dates), dev,
                   lambda x: _leg_moments(_antithetic_legs(
-                      cfg, tables, LT, r_det, i_det, x, payoff)))
+                      cfg, tables, LT, r_det, i_det, x, payoff)), mesh)
     price, se, caplets = _leg_estimate(s, 1.0 * n_paths * n_blocks)
     return CapResult(price=price, std_error=se, caplets=caplets,
                      reset_times=tuple(start + j * tau for j in range(n)),
@@ -456,7 +462,7 @@ def price_cms(cfg: HWConfig, key: Key, market: MarketCurve, *, rate: float,
               start: float | None = None, tenor: float = 4.0,
               freq: float = 1.0, swap_tenor: float = 5.0,
               swap_freq: float = 1.0, floor: bool = False, sigma=None,
-              n_paths: int | None = None, n_blocks: int = 1,
+              n_paths: int | None = None, n_blocks: int = 1, mesh=None,
               device) -> CMSResult:
     """Monte Carlo CMS cap/floor leg: tau (S(T_j) - K)^+ paid at T_{j+1},
     all periods from one exactly sampled multi-date (r, I) state set
@@ -483,7 +489,7 @@ def price_cms(cfg: HWConfig, key: Key, market: MarketCurve, *, rate: float,
 
     s = _leg_sums(cfg, key, n_paths, n_blocks, 2 * len(dates), dev,
                   lambda x: _leg_moments(_antithetic_legs(
-                      cfg, tables, LT, r_det, i_det, x, payoff)))
+                      cfg, tables, LT, r_det, i_det, x, payoff)), mesh)
     price, se, periods = _leg_estimate(s, 1.0 * n_paths * n_blocks)
     return CMSResult(price=price, std_error=se, periods=periods,
                      reset_times=tuple(start + j * tau for j in range(n)),
@@ -587,7 +593,7 @@ def price_cms_spread(cfg: HWConfig, key: Key, market: MarketCurve, *,
                      long_tenor: float = 10.0, short_tenor: float = 2.0,
                      swap_freq: float = 1.0, floor: bool = False,
                      sigma=None, n_paths: int | None = None,
-                     n_blocks: int = 1, device) -> CMSResult:
+                     n_blocks: int = 1, mesh=None, device) -> CMSResult:
     """Monte Carlo CMS spread cap/floor leg, all periods from one exactly
     sampled multi-date (r, I) state set (antithetic).  fp64 oracle:
     ``cms_spread_quadrature``."""
@@ -615,7 +621,7 @@ def price_cms_spread(cfg: HWConfig, key: Key, market: MarketCurve, *,
 
     s = _leg_sums(cfg, key, n_paths, n_blocks, 2 * len(dates), dev,
                   lambda x: _leg_moments(_antithetic_legs(
-                      cfg, tables, LT, r_det, i_det, x, payoff)))
+                      cfg, tables, LT, r_det, i_det, x, payoff)), mesh)
     price, se, periods = _leg_estimate(s, 1.0 * n_paths * n_blocks)
     return CMSResult(price=price, std_error=se, periods=periods,
                      reset_times=tuple(start + j * tau for j in range(n)),
@@ -753,7 +759,7 @@ def price_range_accrual(cfg: HWConfig, key: Key, market: MarketCurve, *,
                         freq: float = 1.0, obs_per_period: int = 5,
                         libor_tenor: float | None = None, sigma=None,
                         n_paths: int | None = None, n_blocks: int = 1,
-                        device) -> RangeAccrualResult:
+                        mesh=None, device) -> RangeAccrualResult:
     """Monte Carlo range-accrual leg, every observation and payment drawn
     from one exactly sampled multi-date (r, I) state set (antithetic):
     only the functionals the payoff touches, r at the n m observations
@@ -798,7 +804,7 @@ def price_range_accrual(cfg: HWConfig, key: Key, market: MarketCurve, *,
         F = 0.5 * (out[0][1] + out[1][1])
         return torch.cat([_leg_moments(V), F.sum(0)])
 
-    s = _leg_sums(cfg, key, n_paths, n_blocks, nm + n, dev, block)
+    s = _leg_sums(cfg, key, n_paths, n_blocks, nm + n, dev, block, mesh)
     n_tot = 1.0 * n_paths * n_blocks
     price, se, periods = _leg_estimate(s[:2 + n], n_tot)
     return RangeAccrualResult(price=price, std_error=se, periods=periods,

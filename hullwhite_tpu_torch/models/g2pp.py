@@ -18,14 +18,17 @@ dates) and no time grid: the law is the exact continuous-time one.
 * On the device, plain PyTorch (no hand-written kernel): the Monte Carlo
   and randomized-QMC estimators.  The normals are ``jax.random.normal``'s
   threefry draws (``ops.rng``: block b from ``fold_in(key, b)``, the
-  blocks one after the other on one device, ``pricing._sum_blocks``), the
+  blocks one after the other or sharded over a path mesh, ``mesh=``,
+  ``instruments._leg_sums``: the sharded run equals the single one bit
+  for bit), the
   RQMC shifts ``jax.random.bits`` and the Sobol points ``ops.sobol``, both
   bit for bit, the inverse CDF ``ops.qmc.ndtri`` (JAX's float32 algorithm),
   every product ``engine_linear.dot`` at ``cfg.matmul_precision``.  On one
   key the estimates equal the JAX package's up to float32 rounding.
 
-The JAX package's ``mesh`` argument is not ported (PORT.md), nor, yet, its
-Bermudan (``price_bermudan_g2``, the DP oracle and the Bermudan greeks).
+The Bermudan (``price_bermudan_g2``, the DP oracle ``dp_oracle_g2`` and
+the Bermudan greeks) follows the value-iteration estimator of the JAX
+package; its evaluation pass shards over a mesh like the rest.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..ops.payoffs import leg_moments
 from ..ops.qmc import _over_shifts, ndtri
 from ..ops.rng import Key, block_normals, normal, random_bits
 from ..ops.sobol import sobol
+from ..parallel import mesh as pmesh
 from ..range_note import _catmull_weights, _ghost_cols, _kernel_avg
 from . import hull_white as hw
 from .hull_white import MarketCurve
@@ -216,7 +220,7 @@ def _zbc_consts(cfg: HWConfig, g: G2Params):
 
 
 def _zbc_sums(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
-              n_paths: int, n_blocks: int, dev) -> torch.Tensor:
+              n_paths: int, n_blocks: int, dev, mesh=None) -> torch.Tensor:
     LT_np, Ba, Bb, vadj, d0 = _zbc_consts(cfg, g)
     LT = torch.as_tensor(LT_np).to(dev)
     P1 = _at(market, cfg.s1, cfg)
@@ -237,19 +241,19 @@ def _zbc_sums(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
 
         return leg_moments(*leg(1.0), *leg(-1.0))
 
-    return _leg_sums(cfg, key, n_paths, n_blocks, 3, dev, block)
+    return _leg_sums(cfg, key, n_paths, n_blocks, 3, dev, block, mesh)
 
 
 def price_zbc_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
-                 n_paths: int | None = None, n_blocks: int = 1, *,
-                 device) -> G2ZBC:
+                 n_paths: int | None = None, n_blocks: int = 1, mesh=None,
+                 *, device) -> G2ZBC:
     """CV-adjusted G2++ ZBC price by exact functional sampling: 3 normals
     per path, exact continuous-time law (no time grid).  ``n_paths`` is
     per block; blocks are keyed by their global index."""
     dev = resolve_device(device)
     n_paths = cfg.n_paths if n_paths is None else int(n_paths)
     sums = _zbc_sums(cfg, g, key, market.to(dev), n_paths, int(n_blocks),
-                     dev)
+                     dev, mesh)
     price, raw, beta, se = _cv_stats(sums, 2.0 * n_paths * n_blocks)
     return G2ZBC(price=price, price_raw=raw, beta=beta, std_error_raw=se,
                  n=n_paths * int(n_blocks))
@@ -309,7 +313,8 @@ def _curve_chol_g2(cfg: HWConfig, g: G2Params):
 
 def bootstrap_curve_g2(cfg: HWConfig, g: G2Params, key: Key,
                        target: MarketCurve, n_paths: int | None = None,
-                       n_blocks: int = 1, *, device) -> MarketCurve:
+                       n_blocks: int = 1, mesh=None, *,
+                       device) -> MarketCurve:
     """Monte-Carlo P(0,T) curve under G2++ calibrated to ``target``.
 
     The MC estimate must reproduce ``target.P`` within noise — the G2++
@@ -330,7 +335,7 @@ def bootstrap_curve_g2(cfg: HWConfig, g: G2Params, key: Key,
         return torch.exp(-z).sum(0) + torch.exp(z).sum(0)
 
     s = _leg_sums(cfg, key, n_paths, int(n_blocks), cfg.n_mat - 1, dev,
-                  block)
+                  block, mesh)
     ez = s / (2.0 * n_paths * n_blocks)
     P = target.P.to(dev)[1:] * torch.exp(-v_half) * ez
     P = torch.cat([torch.ones(1, dtype=F32, device=dev), P])
@@ -488,7 +493,7 @@ def _bond_value(lam0, Ba, Bb, x, y):
 def price_swaption_g2(cfg: HWConfig, g: G2Params, key: Key,
                       market: MarketCurve, sched, strike: float = 1.0,
                       payer: bool = False, n_paths: int | None = None,
-                      n_blocks: int = 1, *, device) -> G2CBO:
+                      n_blocks: int = 1, mesh=None, *, device) -> G2CBO:
     """CV-adjusted G2++ coupon-bond option (== European swaption on the
     fixed leg) by exact functional sampling: 3 normals per path.
     Blocks key on their global index."""
@@ -514,7 +519,7 @@ def price_swaption_g2(cfg: HWConfig, g: G2Params, key: Key,
 
         return leg_moments(*leg(1.0), *leg(-1.0))
 
-    sums = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block)
+    sums = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block, mesh)
     price, raw, beta, se = _cv_stats(sums, 2.0 * n_paths * n_blocks)
     return G2CBO(price=price, price_raw=raw, beta=beta, std_error_raw=se,
                  n=n_paths * int(n_blocks))
@@ -602,7 +607,7 @@ def exchange_analytic_g2(cfg: HWConfig, g: G2Params, market: MarketCurve,
 def price_exchange_g2(cfg: HWConfig, g: G2Params, key: Key,
                       market: MarketCurve, Ta: float, Tb: float,
                       K: float = 1.0, *, n_paths: int | None = None,
-                      n_blocks: int = 1, device) -> G2ZBC:
+                      n_blocks: int = 1, mesh=None, device) -> G2ZBC:
     """CV-adjusted MC bond-exchange option (see exchange_analytic_g2):
     exact 3-normal states, antithetic, martingale control disc*Pa."""
     dev = resolve_device(device)
@@ -634,7 +639,7 @@ def price_exchange_g2(cfg: HWConfig, g: G2Params, key: Key,
 
         return leg_moments(*leg(1.0), *leg(-1.0))
 
-    sums = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block)
+    sums = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block, mesh)
     price, raw, beta, se = _cv_stats(sums, 2.0 * n_paths * n_blocks)
     return G2ZBC(price=price, price_raw=raw, beta=beta, std_error_raw=se,
                  n=n_paths * int(n_blocks))
@@ -660,7 +665,7 @@ def _surface_terms(cfg: HWConfig, g: G2Params, market: MarketCurve,
 def price_zbc_grid_g2(cfg: HWConfig, g: G2Params, key: Key,
                       market: MarketCurve, strikes, maturities, *,
                       n_paths: int | None = None, n_blocks: int = 1,
-                      device):
+                      mesh=None, device):
     """CV-adjusted G2++ ZBC price surface over (strikes x maturities)
     from ONE shared set of exact 3-normal states — the two-factor twin of
     grid.price_zbc_grid (exercise at cfg.s1; per-maturity martingale
@@ -699,7 +704,7 @@ def price_zbc_grid_g2(cfg: HWConfig, g: G2Params, key: Key,
              + (x2 * y2[:, None, :]).sum(0)).reshape(-1),
             y1.sum(0) + y2.sum(0), (y1 * y1).sum(0) + (y2 * y2).sum(0)])
 
-    srow = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block)
+    srow = _leg_sums(cfg, key, n_paths, int(n_blocks), 3, dev, block, mesh)
     c = n_k * n_s2
     n = 2.0 * n_paths * n_blocks
     mean_x = srow[:c].reshape(n_k, n_s2) / n
@@ -1434,9 +1439,11 @@ def _g2_bermudan_statics(g: G2Params, ex_dates: tuple, times: tuple):
 
 def _g2_bermudan_fn(cfg: HWConfig, g: G2Params, ex_dates: tuple, times,
                     coupons, strike: float, payer: bool, n_paths: int,
-                    n_blocks: int, rqmc: bool, dev: torch.device):
+                    n_blocks: int, rqmc: bool, dev: torch.device,
+                    mesh=None):
     """``compute(key, market)`` -> (lower, in-sample, SE, upper, upper SE,
-    CV lower, CV SE) of the two-pass value-iteration estimator on ``dev``."""
+    CV lower, CV SE) of the two-pass value-iteration estimator on ``dev``,
+    the evaluation pass's blocks optionally sharded over ``mesh``."""
     k = len(ex_dates)
     prec = cfg.matmul_precision
     date_stat, sx, sy, icond = _g2_bermudan_statics(g, ex_dates,
@@ -1635,7 +1642,7 @@ def _g2_bermudan_fn(cfg: HWConfig, g: G2Params, ex_dates: tuple, times,
             return torch.stack([cf.sum(), (cf * cf).sum(), u.sum(),
                                 (u * u).sum(), cv.sum(), (cv * cv).sum()])
 
-        per_block = torch.stack([block(b) for b in range(n_blocks)])
+        per_block = pmesh.map_blocks(block, n_blocks, mesh)  # (n_blocks, 6)
         sums = per_block.sum(0)
         n_tot = 1.0 * n_paths * n_blocks
         means = sums[0::2] / n_tot       # (lower, upper, CV)
@@ -1657,7 +1664,8 @@ def price_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
                       market: MarketCurve, sched, exercise_dates, *,
                       strike: float = 1.0, payer: bool = False,
                       n_paths: int | None = None, n_blocks: int = 1,
-                      rqmc: bool = False, device) -> G2Bermudan:
+                      rqmc: bool = False, mesh=None,
+                      device) -> G2Bermudan:
     """Bermudan coupon-bond option under G2++ by closed-form value
     iteration: the states (x, y, int r) at the exercise dates sampled
     exactly (3k normals per path, continuous-time law); a piecewise dual
@@ -1680,7 +1688,7 @@ def price_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
     ex = _check_dates(sched, exercise_dates, rqmc, n_blocks)
     p, p_in, se, up, up_se, p_cv, cv_se = _g2_bermudan_fn(
         cfg, g, ex, tuple(sched.times), tuple(sched.coupons), float(strike),
-        bool(payer), n_paths, int(n_blocks), bool(rqmc), dev)(
+        bool(payer), n_paths, int(n_blocks), bool(rqmc), dev, mesh)(
             key, market.to(dev))
     return G2Bermudan(price=p, price_in_sample=p_in, std_error=se,
                       n_paths=n_paths * int(n_blocks), exercise_dates=ex,
@@ -1692,7 +1700,8 @@ def vega_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
                      market: MarketCurve, sched, exercise_dates, *,
                      strike: float = 1.0, payer: bool = False,
                      eps: float = 1e-3, n_paths: int | None = None,
-                     n_blocks: int = 1, rqmc: bool = False, device):
+                     n_blocks: int = 1, rqmc: bool = False, mesh=None,
+                     device):
     """(vega_lower, vega_upper): d/dsigma of the G2++ Bermudan bracket by
     central differences under common random numbers (the same key on both
     legs; the joint Cholesky and the dual's closed forms carry all the
@@ -1700,7 +1709,7 @@ def vega_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
     res = [price_bermudan_g2(cfg, g.bump_sigma(s * eps), key, market, sched,
                              exercise_dates, strike=strike, payer=payer,
                              n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
-                             device=device) for s in (1.0, -1.0)]
+                             mesh=mesh, device=device) for s in (1.0, -1.0)]
     return ((float(res[0].price) - float(res[1].price)) / (2.0 * eps),
             (float(res[0].upper) - float(res[1].upper)) / (2.0 * eps))
 
@@ -1709,7 +1718,8 @@ def delta_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
                       market: MarketCurve, sched, exercise_dates, *,
                       strike: float = 1.0, payer: bool = False,
                       h: float = 1e-3, n_paths: int | None = None,
-                      n_blocks: int = 1, rqmc: bool = False, device):
+                      n_blocks: int = 1, rqmc: bool = False, mesh=None,
+                      device):
     """(delta_lower, delta_upper): d/dh of the G2++ Bermudan bracket under a
     parallel forward-curve shift (``greeks.shift_curve``), CRN central
     differences (the same key gives identical exact multi-date states;
@@ -1717,7 +1727,8 @@ def delta_bermudan_g2(cfg: HWConfig, g: G2Params, key: Key,
     res = [price_bermudan_g2(cfg, g, key, shift_curve(cfg, market, s * h),
                              sched, exercise_dates, strike=strike,
                              payer=payer, n_paths=n_paths, n_blocks=n_blocks,
-                             rqmc=rqmc, device=device) for s in (1.0, -1.0)]
+                             rqmc=rqmc, mesh=mesh, device=device)
+           for s in (1.0, -1.0)]
     return ((float(res[0].price) - float(res[1].price)) / (2.0 * h),
             (float(res[0].upper) - float(res[1].upper)) / (2.0 * h))
 
@@ -2063,7 +2074,7 @@ def price_range_accrual_g2(cfg: HWConfig, g: G2Params, key: Key,
                            obs_per_period: int = 5,
                            libor_tenor: float | None = None,
                            n_paths: int | None = None, n_blocks: int = 1,
-                           device) -> G2Range:
+                           mesh=None, device) -> G2Range:
     """Monte Carlo G2++ range-accrual leg from one exactly-sampled
     multi-date state set (antithetic); blocks key on the global index.
     fp64 oracle: range_accrual_closed_form_g2 (exact, no quadrature)."""
@@ -2106,7 +2117,8 @@ def price_range_accrual_g2(cfg: HWConfig, g: G2Params, key: Key,
         return torch.cat([_leg_moments(0.5 * (Vp + Vm)),
                           (0.5 * (Fp + Fm)).sum(0)])
 
-    s = _leg_sums(cfg, key, n_paths, int(n_blocks), nm + n, dev, block)
+    s = _leg_sums(cfg, key, n_paths, int(n_blocks), nm + n, dev, block,
+                  mesh)
     mean, se, rest = _leg_estimate(s, 1.0 * n_paths * n_blocks)
     return G2Range(price=mean, std_error=se, periods=rest[:n],
                    mean_fraction=rest[n:],
@@ -2201,7 +2213,7 @@ def price_cms_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                  tenor: float = 4.0, freq: float = 1.0,
                  swap_tenor: float = 5.0, swap_freq: float = 1.0,
                  floor: bool = False, n_paths: int | None = None,
-                 n_blocks: int = 1, device) -> G2Range:
+                 n_blocks: int = 1, mesh=None, device) -> G2Range:
     """Monte Carlo G2++ CMS cap/floor leg (convexity-bearing payoff) from
     one exactly-sampled multi-date (x, y, I) state set (antithetic);
     blocks key on the global index.  fp64 oracle: cms_quadrature_g2."""
@@ -2244,7 +2256,7 @@ def price_cms_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
 
         return _leg_moments(0.5 * (leg(1.0) + leg(-1.0)))
 
-    s = _leg_sums(cfg, key, n_paths, int(n_blocks), 3 * k, dev, block)
+    s = _leg_sums(cfg, key, n_paths, int(n_blocks), 3 * k, dev, block, mesh)
     mean, se, periods = _leg_estimate(s, 1.0 * n_paths * n_blocks)
     return G2Range(price=mean, std_error=se, periods=periods,
                    mean_fraction=periods * 0.0,

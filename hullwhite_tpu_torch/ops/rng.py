@@ -80,8 +80,15 @@ class Key:
     def __hash__(self):
         return hash(self.words)
 
+    def __reduce__(self):
+        return (_key_of_words, (self.words,))
+
     def __repr__(self):
         return f"Key(words={self.words})"
+
+
+def _key_of_words(words) -> Key:
+    return Key(words=words)
 
 
 def key_seed(key: Key, base_tile: int, salt: int) -> np.ndarray:

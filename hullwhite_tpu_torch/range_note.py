@@ -29,10 +29,11 @@ cell by cell: the plain version the tests hold the C++ sweep
 (the G2++ DP oracle's outer quadrature).
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index (``ops.rng.block_normals``) one after the other, the only
-matrix product ``engine_linear.dot`` at ``cfg.matmul_precision``, the
-path discounts ``torch.exp``.  The JAX package's ``mesh`` argument is not
-ported (PORT.md).  The band edges are float32 scalars rounded as the JAX
+global index (``ops.rng.block_normals``) one after the other, or sharded
+over a path mesh (``mesh=``, ``parallel.mesh.map_blocks``: the sharded
+run equals the single one bit for bit), the only matrix product
+``engine_linear.dot`` at ``cfg.matmul_precision``, the path discounts
+``torch.exp``.  The band edges are float32 scalars rounded as the JAX
 package rounds them (``instruments._libor_r_bounds``).
 """
 
@@ -51,6 +52,7 @@ from .models import hull_white as hw
 from .models.hull_white import MarketCurve
 from .ops.engine_linear import _shock_shapes, dot
 from .ops.rng import Key, block_normals
+from .parallel import mesh as pmesh
 
 _nphi = np.vectorize(lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0))))
 
@@ -412,12 +414,13 @@ def dp_oracle_range_note(cfg: HWConfig, market: MarketCurve, *,
 # ---------------------------------------------------------------------------
 
 def _block_rows(key: Key, n_paths: int, n_blocks: int, dim: int, dev,
-                block, rqmc: bool = False) -> torch.Tensor:
+                block, rqmc: bool = False, mesh=None) -> torch.Tensor:
     """(n_blocks, k) rows ``block(x)`` of the blocks' (n_paths, dim) draws,
-    each from its global index (``block_normals``), one after the other."""
-    return torch.stack([block(block_normals(key, b, (n_paths, dim),
-                                            rqmc=rqmc, device=dev))
-                        for b in range(n_blocks)])
+    each from its global index (``block_normals``), one after the other or
+    sharded over ``mesh`` (``pmesh.map_blocks``)."""
+    return pmesh.map_blocks(
+        lambda b: block(block_normals(key, b, (n_paths, dim), rqmc=rqmc,
+                                      device=dev)), n_blocks, mesh)
 
 
 def _note_states(cfg: HWConfig, sigma, specs: tuple, dev):
@@ -504,7 +507,8 @@ def _band_tensors(cfg, sigma, market, obs, delta, lo, hi, n, m):
 def _note_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
              coupon: float, lo: float, hi: float, start: float, n: int,
              tau: float, m: int, delta: float, boundaries: tuple,
-             plain_mean: float, n_paths: int, n_blocks: int, dev):
+             plain_mean: float, n_paths: int, n_blocks: int, dev,
+             mesh=None):
     """The puttable note's estimator: (price, SE, raw price, raw SE, beta,
     put fraction) under the threshold policy ``boundaries``."""
     obs, bounds, _ = _note_dates(start, n, tau, m)
@@ -538,7 +542,8 @@ def _note_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         legs = [leg(1.0), leg(-1.0)]
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
-    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block).sum(0)
+    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block,
+                    mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     return (*_cv_estimate(s, n_tot, plain_mean), s[5] / n_tot)
 
@@ -550,7 +555,7 @@ def price_range_note(cfg: HWConfig, key: Key, market: MarketCurve, *,
                      libor_tenor: float | None = None, sigma=None,
                      boundaries: tuple | None = None,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     device) -> NoteResult:
+                     mesh=None, device) -> NoteResult:
     """Monte Carlo lower bound for the puttable range-accrual note under
     the fixed threshold policy ``boundaries`` (default: read off the fp64
     DP oracle; any fixed policy is an unbiased lower bound, and with the
@@ -578,7 +583,7 @@ def price_range_note(cfg: HWConfig, key: Key, market: MarketCurve, *,
                    m=m, delta=delta,
                    boundaries=tuple(float(b) for b in boundaries),
                    plain_mean=float(plain_mean), n_paths=int(n_paths),
-                   n_blocks=int(n_blocks), dev=dev)
+                   n_blocks=int(n_blocks), dev=dev, mesh=mesh)
     return NoteResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -596,7 +601,7 @@ def vega_range_note(cfg: HWConfig, key: Key, market: MarketCurve, *,
                     freq: float = 1.0, obs_per_period: int = 5,
                     libor_tenor: float | None = None, eps: float = 1e-3,
                     n_paths: int | None = None, n_blocks: int = 1,
-                    device) -> NoteVega:
+                    mesh=None, device) -> NoteVega:
     """CRN central-difference vega of the puttable note with the put
     boundary FROZEN at the base-sigma DP policy (envelope theorem: at the
     optimal threshold the policy's derivative is zero to first order).
@@ -613,7 +618,7 @@ def vega_range_note(cfg: HWConfig, key: Key, market: MarketCurve, *,
     dp_m = dp_oracle_range_note(cfg, market, sigma=cfg.sigma - eps, **kw)
     dp_p = dp_oracle_range_note(cfg, market, sigma=cfg.sigma + eps, **kw)
     mc = dict(kw, boundaries=base.boundaries, n_paths=n_paths,
-              n_blocks=n_blocks, device=device)
+              n_blocks=n_blocks, mesh=mesh, device=device)
     p_m = price_range_note(cfg, key, market, sigma=cfg.sigma - eps,
                            **mc).price
     p_p = price_range_note(cfg, key, market, sigma=cfg.sigma + eps,
@@ -719,7 +724,7 @@ class TarnResult(NamedTuple):
 def _tarn_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
              coupon: float, lo: float, hi: float, target: float,
              start: float, n: int, tau: float, m: int, delta: float,
-             n_paths: int, n_blocks: int, dev):
+             n_paths: int, n_blocks: int, dev, mesh=None):
     """The TARN's estimator: (price, SE, knockout fraction, mean total)."""
     obs, bounds, _ = _note_dates(start, n, tau, m)
     specs = _note_specs(obs, bounds)
@@ -754,7 +759,8 @@ def _tarn_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         V, Ko, K = (0.5 * (a + b) for a, b in zip(leg(1.0), leg(-1.0)))
         return torch.stack([V.sum(), (V * V).sum(), Ko.sum(), K.sum()])
 
-    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block).sum(0)
+    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block,
+                    mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     mean = s[0] / n_tot
     var = torch.clamp(s[1] / n_tot - mean ** 2, min=0.0)
@@ -768,7 +774,7 @@ def price_tarn(cfg: HWConfig, key: Key, market: MarketCurve, *,
                freq: float = 1.0, obs_per_period: int = 1,
                libor_tenor: float | None = None, sigma=None,
                n_paths: int | None = None, n_blocks: int = 1,
-               device) -> TarnResult:
+               mesh=None, device) -> TarnResult:
     """Monte Carlo range-accrual TARN from the exact multi-date states
     (antithetic): the cumulative coupon K knocks the note out at the first
     payment where it reaches ``target`` (final coupon capped at target -
@@ -783,5 +789,6 @@ def price_tarn(cfg: HWConfig, key: Key, market: MarketCurve, *,
     out = _tarn_fn(cfg, key, sigma, market, coupon=float(coupon),
                    lo=float(lo), hi=float(hi), target=float(target),
                    start=start, n=n, tau=tau, m=m, delta=delta,
-                   n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev)
+                   n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev,
+                   mesh=mesh)
     return TarnResult(*out, n_paths=int(n_paths) * int(n_blocks))

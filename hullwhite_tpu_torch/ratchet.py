@@ -31,8 +31,9 @@ GH-outer / closed-inner integral with u in place of B r, covariances off
 ``g2pp._g2_functional_cov`` (the sampler's own matrix).
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh``, PORT.md), antithetic legs,
-the normal CDF ``ops.accurate.nphi`` (``jax.scipy.stats.norm.cdf`` bit
+global index one after the other (no ``mesh`` before its second slice,
+PORT.md), antithetic legs, the normal CDF ``ops.accurate.nphi``
+(``jax.scipy.stats.norm.cdf`` bit
 for bit); the float32 LIBOR terms, strip lnA and discounts are computed
 on the host as the JAX package rounds them and copied to the device once.
 """

@@ -27,11 +27,12 @@ the averaged twin samples the unit strip projection ("u", t, 1, 1) =
 x + y.  Their discounting is market-consistent.
 
 The Monte Carlo is plain PyTorch on the device (no hand-written kernel):
-blocks drawn one after the other from their global index
-(``ops.rng.block_normals``, iid threefry normals or, with ``rqmc=True``,
-digitally shifted Sobol points whose shifts are the SE replicates), the
-product at ``cfg.matmul_precision`` (``engine_linear.dot``).  The JAX
-package's ``mesh`` argument is not ported (PORT.md).
+blocks drawn from their global index (``ops.rng.block_normals``, iid
+threefry normals or, with ``rqmc=True``, digitally shifted Sobol points
+whose shifts are the SE replicates) one after the other or sharded over a
+path mesh (``mesh=``, ``parallel.mesh.map_blocks``: the sharded run
+equals the single one bit for bit), the product at
+``cfg.matmul_precision`` (``engine_linear.dot``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .models.hull_white import MarketCurve
 from .models.oracles import _phi
 from .ops.engine_linear import _shock_shapes, dot
 from .ops.rng import Key, block_normals
+from .parallel import mesh as pmesh
 
 
 class RFRResult(NamedTuple):
@@ -173,7 +175,7 @@ def _antithetic(leg):
 
 def _rfr_fn(cfg: HWConfig, style: str, strike: float, bounds: tuple,
             n_obs, n_paths: int, n_blocks: int, rqmc: bool,
-            dev: torch.device):
+            dev: torch.device, mesh=None):
     """``compute(key, sigma)`` -> ``_strip_stats``, a function of a float32
     sigma tensor on ``dev`` (``torch.func.jvp`` differentiates it)."""
     specs = _specs(bounds, n_obs, style, cfg)
@@ -211,7 +213,7 @@ def _rfr_fn(cfg: HWConfig, style: str, strike: float, bounds: tuple,
 
             return _block_sums(*_antithetic(leg))
 
-        per_block = torch.stack([block(b) for b in range(n_blocks)])
+        per_block = pmesh.map_blocks(block, n_blocks, mesh)
         return _strip_stats(per_block, n_paths, n_blocks, n, rqmc)
 
     return compute
@@ -241,7 +243,7 @@ def price_rfr_cap(cfg: HWConfig, key: Key, market: MarketCurve = None, *,
                   freq: float = 1.0, style: str = "compounded",
                   n_obs: int | None = None, floor: bool = False,
                   sigma=None, n_paths: int | None = None,
-                  n_blocks: int = 1, rqmc: bool = False,
+                  n_blocks: int = 1, rqmc: bool = False, mesh=None,
                   device) -> RFRResult:
     """Monte Carlo backward-looking RFR cap (or floor) under Hull-White: a
     strip of compounded or averaged caplets over [start, start + tenor] at
@@ -257,8 +259,8 @@ def price_rfr_cap(cfg: HWConfig, key: Key, market: MarketCurve = None, *,
     bounds, n_obs = _bounds(cfg, start, end, tenor, freq, n_obs, style)
     cap, cap_se, flo, flo_se, cper, fper = _rfr_fn(
         cfg, style, float(strike), bounds, n_obs, n_paths, int(n_blocks),
-        bool(rqmc), dev)(key, torch.as_tensor(sigma, dtype=torch.float32,
-                                              device=dev))
+        bool(rqmc), dev, mesh)(key, torch.as_tensor(
+            sigma, dtype=torch.float32, device=dev))
     price, se, per = ((flo, flo_se, fper) if floor
                       else (cap, cap_se, cper))
     return RFRResult(price=price, std_error=se, caplets=per,
@@ -270,7 +272,7 @@ def price_rfr_caplet(cfg: HWConfig, key: Key, market: MarketCurve = None,
                      end: float | None = None, style: str = "compounded",
                      n_obs: int | None = None, floor: bool = False,
                      sigma=None, n_paths: int | None = None,
-                     n_blocks: int = 1, rqmc: bool = False,
+                     n_blocks: int = 1, rqmc: bool = False, mesh=None,
                      device) -> RFRResult:
     """Single backward-looking RFR caplet/floorlet: the one-period strip
     over [start, end] (defaults: [s1, s1 + one maturity decade])."""
@@ -278,7 +280,7 @@ def price_rfr_caplet(cfg: HWConfig, key: Key, market: MarketCurve = None,
                          end=_caplet_end(cfg, start, end), style=style,
                          n_obs=n_obs, floor=floor, sigma=sigma,
                          n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
-                         device=device)
+                         mesh=mesh, device=device)
 
 
 def rfr_cap_closed_form(cfg: HWConfig, *, strike: float,
@@ -372,17 +374,17 @@ def vega_rfr_cap(cfg: HWConfig, key: Key, market: MarketCurve = None, *,
                  freq: float = 1.0, style: str = "compounded",
                  n_obs: int | None = None, floor: bool = False,
                  sigma=None, n_paths: int | None = None,
-                 n_blocks: int = 1, rqmc: bool = False, device):
+                 n_blocks: int = 1, rqmc: bool = False, mesh=None, device):
     """(price, vega) by one ``torch.func.jvp`` through the sigma-scalar
     form (sigma enters only through sig_st and the affine drift, so the
-    tangent is exact)."""
+    tangent is exact; under ``mesh`` the gather carries it)."""
     del market
     dev = resolve_device(device)
     sigma = cfg.sigma if sigma is None else sigma
     n_paths = _common(cfg, n_paths, n_blocks, rqmc)
     bounds, n_obs = _bounds(cfg, start, end, tenor, freq, n_obs, style)
     fn = _rfr_fn(cfg, style, float(strike), bounds, n_obs, n_paths,
-                 int(n_blocks), bool(rqmc), dev)
+                 int(n_blocks), bool(rqmc), dev, mesh)
     idx = 2 if floor else 0
     s = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     return torch.func.jvp(lambda v: fn(key, v)[idx], (s,),
@@ -394,7 +396,8 @@ def vega_rfr_caplet(cfg: HWConfig, key: Key, market: MarketCurve = None, *,
                     end: float | None = None, style: str = "compounded",
                     n_obs: int | None = None, floor: bool = False,
                     sigma=None, n_paths: int | None = None,
-                    n_blocks: int = 1, rqmc: bool = False, device):
+                    n_blocks: int = 1, rqmc: bool = False, mesh=None,
+                    device):
     """(price, vega) of the single one-period caplet, with
     price_rfr_caplet's end default (end = start + one maturity decade);
     vega_rfr_cap without ``end`` would price the multi-period strip."""
@@ -402,7 +405,7 @@ def vega_rfr_caplet(cfg: HWConfig, key: Key, market: MarketCurve = None, *,
                         end=_caplet_end(cfg, start, end), style=style,
                         n_obs=n_obs, floor=floor, sigma=sigma,
                         n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
-                        device=device)
+                        mesh=mesh, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -429,8 +432,8 @@ def _specs_g2(bounds: tuple, n_obs, style: str, cfg: HWConfig):
 def _rfr_g2_stats(cfg: HWConfig, g, key: Key, market: MarketCurve,
                   style: str, strike: float, bounds: tuple, n_obs,
                   n_paths: int, n_blocks: int, rqmc: bool,
-                  dev: torch.device):
-    """``_strip_stats`` of the G2++ strip on ``dev``."""
+                  dev: torch.device, mesh=None):
+    """``_strip_stats`` of the G2++ strip on ``dev``, over ``mesh``."""
     specs = _specs_g2(bounds, n_obs, style, cfg)
     LT = torch.as_tensor(_g2_functional_chol(g, specs), device=dev)
     n = len(bounds) - 1
@@ -473,7 +476,7 @@ def _rfr_g2_stats(cfg: HWConfig, g, key: Key, market: MarketCurve,
 
         return _block_sums(*_antithetic(leg))
 
-    per_block = torch.stack([block(b) for b in range(n_blocks)])
+    per_block = pmesh.map_blocks(block, n_blocks, mesh)
     return _strip_stats(per_block, n_paths, n_blocks, n, rqmc)
 
 
@@ -483,7 +486,8 @@ def price_rfr_cap_g2(cfg: HWConfig, g, key: Key, market: MarketCurve, *,
                      freq: float = 1.0, style: str = "compounded",
                      n_obs: int | None = None, floor: bool = False,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     rqmc: bool = False, device) -> RFRResult:
+                     rqmc: bool = False, mesh=None,
+                     device) -> RFRResult:
     """G2++ twin of price_rfr_cap: the compounded style samples I at the
     period boundaries; the averaged style samples the unit strip
     projection x + y at the observations (r = phi + x + y, phi(t) =
@@ -494,7 +498,7 @@ def price_rfr_cap_g2(cfg: HWConfig, g, key: Key, market: MarketCurve, *,
     bounds, n_obs = _bounds(cfg, start, end, tenor, freq, n_obs, style)
     cap, cap_se, flo, flo_se, cper, fper = _rfr_g2_stats(
         cfg, g, key, market.to(dev), style, float(strike), bounds, n_obs,
-        n_paths, int(n_blocks), bool(rqmc), dev)
+        n_paths, int(n_blocks), bool(rqmc), dev, mesh)
     price, se, per = ((flo, flo_se, fper) if floor
                       else (cap, cap_se, cper))
     return RFRResult(price=price, std_error=se, caplets=per,
@@ -507,13 +511,14 @@ def price_rfr_caplet_g2(cfg: HWConfig, g, key: Key, market: MarketCurve, *,
                         style: str = "compounded",
                         n_obs: int | None = None, floor: bool = False,
                         n_paths: int | None = None, n_blocks: int = 1,
-                        rqmc: bool = False, device) -> RFRResult:
+                        rqmc: bool = False, mesh=None,
+                        device) -> RFRResult:
     """Single G2++ RFR caplet/floorlet (one-period strip)."""
     return price_rfr_cap_g2(cfg, g, key, market, strike=strike,
                             start=start, end=_caplet_end(cfg, start, end),
                             style=style, n_obs=n_obs, floor=floor,
                             n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
-                            device=device)
+                            mesh=mesh, device=device)
 
 
 def rfr_cap_closed_form_g2(cfg: HWConfig, g, market: MarketCurve, *,

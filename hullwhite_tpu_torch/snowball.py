@@ -22,8 +22,8 @@ reads the call boundary CURVE r*(c) per date, and the MC applies it
 with two controls, the non-callable note and the call-at-T_1 leg.
 
 The MC is plain PyTorch on the device, blocks drawn from their global
-index one after the other (no ``mesh``, PORT.md); the LIBOR terms are
-float32 scalars rounded as the JAX package rounds them.
+index one after the other (no ``mesh`` before its second slice, PORT.md); the
+LIBOR terms are float32 scalars rounded as the JAX package rounds them.
 """
 
 from __future__ import annotations

@@ -32,8 +32,9 @@ port's copies of its helpers (``instruments._np_AB``, ``bermudan.
 _det_affine``, ``engine_linear._shock_shapes``, ``range_note._nphi``), so
 they equal the JAX package's.  The Monte Carlo is plain PyTorch on the
 device: blocks drawn from their global index one after the other
-(``range_note._block_rows``; no ``mesh``, PORT.md), antithetic legs, the
-product ``x @ LT`` through ``engine_linear.dot`` at the configuration's
+(``range_note._block_rows``; no ``mesh`` before its second slice, PORT.md),
+antithetic legs, the product ``x @ LT`` through ``engine_linear.dot`` at the
+configuration's
 precision.  The bodies are called per call; the bond terms, deterministic
 states, CV means and weights are computed on the host as float32 torch
 functions of sigma (so ``torch.func.jvp`` sees them) and copied to the

@@ -2,8 +2,8 @@
 the JAX package on the same key and market, and the mirrors of the tests
 of ``tests/test_barrier.py`` that need no mesh: the 7 tier-1 tests and the
 3 slow ones.  ``test_sharded_matches_single`` and
-``test_g2_sharded_matches_single`` wait for the mesh's port (ROADMAP
-Queue 1 item 6)."""
+``test_g2_sharded_matches_single`` wait for the mesh's second
+slice (ROADMAP Queue 1 item 3)."""
 
 import math
 

@@ -3,7 +3,7 @@
 and market, and the mirrors of the tests of ``tests/test_chooser.py`` that
 need no mesh: the 11 tier-1 tests and the 6 slow ones.
 ``test_mesh_matches_single`` and ``test_g2_mesh_matches_single`` wait for
-the mesh's port (ROADMAP Queue 1 item 6)."""
+the mesh's second slice (ROADMAP Queue 1 item 3)."""
 
 import math
 

@@ -1,7 +1,7 @@
 """The callable capped floater in the port (``hullwhite_tpu_torch.floater``)
 against the JAX package on the same key and market, and the mirrors of
 the 8 tests of ``tests/test_floater.py`` that need no mesh (its
-``test_sharded_matches_single`` waits for the mesh's port)."""
+``test_sharded_matches_single`` waits for the mesh's second slice)."""
 
 import math
 

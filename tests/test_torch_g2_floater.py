@@ -2,7 +2,8 @@
 (``hullwhite_tpu_torch.g2_note``) against the JAX package on the same key
 and market, and the mirrors of the floater tests of
 ``tests/test_g2_note.py`` that need no mesh (its
-``test_floater_mesh_matches_single_device`` waits for the mesh's port)."""
+``test_floater_mesh_matches_single_device`` waits for the mesh's second
+slice)."""
 
 import math
 

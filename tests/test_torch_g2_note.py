@@ -3,7 +3,8 @@
 and market, the float32 strip scalars every G2++ note estimator reads,
 and the mirrors of the note and TARN tests of ``tests/test_g2_note.py``
 that need no mesh (its ``test_mesh_matches_single_device`` and
-``test_tarn_mesh_matches_single_device`` wait for the mesh's port)."""
+``test_tarn_mesh_matches_single_device`` wait for the mesh's second
+slice)."""
 
 import math
 

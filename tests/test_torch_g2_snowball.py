@@ -4,7 +4,7 @@ and market, and the mirrors of the snowball tests of
 ``tests/test_g2_note.py`` that need no mesh (its
 ``test_snowball_sharded_matches_single`` and
 ``test_callable_snowball_sharded_matches_single`` wait for the mesh's
-port)."""
+second slice)."""
 
 import math
 

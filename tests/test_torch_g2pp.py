@@ -668,9 +668,13 @@ def test_g2_range_accrual_matches_closed_form(analytic_market):
 
 def test_g2_range_accrual_wide_band_and_blocks(markets):
     """Wide band accrues everything: leg == coupon tau sum_j P(0,T_p)
-    exactly; and 8 blocks of 512 paths, one after the other on one
-    device, equal the JAX package's 8 blocks (whose sharded run the JAX
-    test holds to its single-device run within 1e-6)."""
+    exactly; 8 blocks of 512 paths, one after the other on one device,
+    equal the JAX package's 8 blocks; and the same 8 blocks sharded over
+    4 gloo CPU ranks of the port's path mesh equal the single run within
+    the JAX test's 1e-6 (mirror of test_g2_range_accrual_wide_band_and_
+    mesh)."""
+    from hullwhite_tpu_torch.parallel import launch
+
     jm, tm = markets
     wide, _ = g2pp.range_accrual_closed_form_g2(
         CFG, G2, tm, coupon=0.03, lo=-0.5, hi=5.0, tenor=3.0)
@@ -685,6 +689,12 @@ def test_g2_range_accrual_wide_band_and_blocks(markets):
     r8 = g2pp.price_range_accrual_g2(CFG, G2, KEY, tm, device="cpu", **kw)
     assert r8.n_paths == 4096
     assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    ranks = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 4,
+                       [("hullwhite_tpu_torch.models.g2pp:"
+                         "price_range_accrual_g2", (CFG, G2, KEY, tm), kw)],
+                       device="cpu")
+    for (r4,) in ranks:
+        assert abs(float(r4.price) - float(r8.price)) < 1e-6
 
 
 def test_g2_cms_matches_quadrature(analytic_market):
@@ -701,8 +711,11 @@ def test_g2_cms_matches_quadrature(analytic_market):
 def test_g2_cms_floor_parity_and_blocks(markets):
     """cap - floor at the same strike equals the forward CMS leg (pure MC
     identity on shared states); 8 blocks one after the other on one
-    device equal the JAX package's 8 blocks (its sharded run is the JAX
-    test's)."""
+    device equal the JAX package's 8 blocks; and sharded over 4 gloo CPU
+    ranks of the port's path mesh they equal the single run within the
+    JAX test's 1e-6 (mirror of test_g2_cms_floor_parity_and_mesh)."""
+    from hullwhite_tpu_torch.parallel import launch
+
     jm, tm = markets
     kw = dict(rate=0.025, tenor=2.0, swap_tenor=4.0, n_paths=1 << 14,
               n_blocks=2, device="cpu")
@@ -719,6 +732,11 @@ def test_g2_cms_floor_parity_and_blocks(markets):
     c1 = jg2.price_cms_g2(JCFG, JG2, jax.random.key(SEED), jm, **kw8)
     c8 = g2pp.price_cms_g2(CFG, G2, KEY, tm, device="cpu", **kw8)
     assert abs(float(c1.price) - float(c8.price)) < 1e-6
+    ranks = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 4,
+                       [("hullwhite_tpu_torch.models.g2pp:price_cms_g2",
+                         (CFG, G2, KEY, tm), kw8)], device="cpu")
+    for (c4,) in ranks:
+        assert abs(float(c4.price) - float(c8.price)) < 1e-6
 
 
 # ---------------------------------------------------------------------------

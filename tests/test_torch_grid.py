@@ -3,8 +3,8 @@ kernel's plain version) vs the JAX package's ``_grid_exact_kernel`` run in
 interpret mode, fed the same operands; plus the deterministic surface
 gate, the single-option cell, mirrors of tests/test_grid.py and the CLI.
 
-Not mirrored: ``test_grid_sharded`` waits for multi-GPU scale-out (the
-port runs on one GPU); the two vega-surface tests are mirrored in
+``test_grid_sharded`` is mirrored on 4 gloo CPU ranks of the port's path
+mesh; the two vega-surface tests are mirrored in
 ``test_torch_xla_pricing.py``.
 """
 
@@ -209,6 +209,30 @@ def test_grid_monotonicity(markets):
                             [8.0, 10.0], device="cpu").price.numpy()
     assert np.all(p >= 0)
     assert np.all(np.diff(p, axis=0) < 0)
+
+
+def test_grid_sharded(markets):
+    """The surface over the path mesh (4 gloo CPU ranks, 2 blocks each) on
+    the XLA ``exact`` engine, the JAX test's default, and through the
+    surface kernel's plain version from each rank's base tile, both within
+    the JAX test's 1e-6 of the single-device run."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    _, tm = markets
+    cfg = ttiny(n_paths=1 << 14, path_block=1 << 11)
+    fcfg = ttiny(n_paths=4 * (1 << 15), path_block=1 << 15, n_steps=100,
+                 n_mat=11)
+    key = Key(SEED)
+    calls = [("hullwhite_tpu_torch.grid:price_zbc_grid",
+              (c, key, tm, [0.9], [10.0]), {"engine": engine})
+             for c, engine in ((cfg, "exact"), (fcfg, "fused_exact"))]
+    res = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 4,
+                     calls, device="cpu")
+    for i, (_, args, kw) in enumerate(calls):
+        g4 = res[0][i]
+        g1 = grid.price_zbc_grid(*args, device="cpu", **kw)
+        assert abs(float(g1.price[0, 0]) - float(g4.price[0, 0])) < 1e-6
+        assert all(torch.equal(r[i].price, g4.price) for r in res[1:])
 
 
 def test_grid_kernel_size_bound():

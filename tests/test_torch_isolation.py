@@ -364,3 +364,48 @@ def test_xva_cuda_request_without_a_card_raises(no_cuda, tmp_path,
 
 def _no_oracle(*args, **kwargs):
     raise AssertionError("a host oracle ran before the device check")
+
+
+def _is_jax(name: str) -> bool:
+    return (name in ("jax", "jaxlib", "hullwhite_tpu")
+            or name.startswith(("jax.", "jaxlib.", "hullwhite_tpu.")))
+
+
+def test_every_module_imports_no_jax():
+    """Every module of the package, found by ``pkgutil`` (so each later
+    slice's modules are covered without a list), imported in a clean
+    interpreter: none brings in JAX or the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import hullwhite_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'hullwhite_tpu') or m.startswith(('jax.', 'jaxlib.', "
+            "'hullwhite_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print('\\n'.join(names))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    names = set(proc.stdout.split())
+    assert {"hullwhite_tpu_torch.parallel.mesh",
+            "hullwhite_tpu_torch.parallel.launch",
+            "hullwhite_tpu_torch.cli_sweep",
+            "hullwhite_tpu_torch.cli_pipeline"} <= names
+    assert len(names) >= 40, sorted(names)
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank that ``parallel.launch`` spawns from this process (which has
+    JAX and the JAX package imported) imports neither."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    assert "jax" in sys.modules
+    mods = launch.run("hullwhite_tpu_torch.parallel.launch:loaded_modules",
+                      2, device="cpu")
+    for names in mods:
+        assert "hullwhite_tpu_torch.parallel.mesh" in names
+        assert not [m for m in names if _is_jax(m)]

@@ -148,6 +148,7 @@ def test_cli_round_trip(tmp_path, monkeypatch, capsys):
         assert (data / name).exists(), name
     q1 = json.loads((data / "q1_results.json").read_text())
     assert abs(q1["results"]["P_0_10"] - 0.8768) < 2e-3
+    assert q1["results"]["engine"] == "fused_exact"  # the default engine
     assert q1["performance"]["device"] == "cpu"
     q2b = json.loads((data / "q2b_results.json").read_text())
     assert 0.034 < q2b["results"]["ZBC_control_variate"] < 0.037

@@ -1,8 +1,9 @@
 """The puttable range-accrual note and the range-accrual TARN in the port
 (``hullwhite_tpu_torch.range_note``) against the JAX package on the same
 key and market, and the mirrors of the 10 tests of
-``tests/test_range_note.py`` that need no mesh (its
-``test_tarn_sharded_matches_single`` waits for the mesh's port)."""
+``tests/test_range_note.py`` that need no mesh, and its
+``test_tarn_sharded_matches_single`` on 4 gloo CPU ranks of the port's path
+mesh."""
 
 import math
 
@@ -288,3 +289,18 @@ def test_tarn_instant_knockout(analytic_market):
     assert abs(float(res.price) - dp.price) < 5 * float(res.std_error) \
         + 2e-5
     assert float(res.mean_total) <= 0.01 + 1e-9
+
+
+def test_tarn_sharded_matches_single(analytic_market):
+    """8 blocks over 4 gloo CPU ranks (map_blocks): the JAX test's 1e-6 to
+    the single-device run, which the mesh reproduces bit for bit."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    kw = dict(n_paths=512, n_blocks=8, **TARN_KW)
+    r1 = range_note.price_tarn(CFG, KEY, analytic_market, device="cpu", **kw)
+    ranks = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 4,
+                       [("hullwhite_tpu_torch.range_note:price_tarn",
+                         (CFG, KEY, analytic_market), kw)], device="cpu")
+    for (r4,) in ranks:
+        assert abs(float(r1.price) - float(r4.price)) < 1e-6
+        assert torch.equal(r4.price, r1.price)

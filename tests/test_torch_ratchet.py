@@ -3,7 +3,7 @@ JAX package on the same key and market, and the mirrors of the tests of
 ``tests/test_ratchet.py`` that need no mesh: the 8 tier-1 tests, and
 ``test_g2_rqmc_collapses_se`` (slow, as in JAX) without its sharded half.
 ``test_sharded_matches_single`` and ``test_g2_sharded_matches_single``
-wait for the mesh's port (ROADMAP Queue 1 item 6)."""
+wait for the mesh's second slice (ROADMAP Queue 1 item 3)."""
 
 import math
 

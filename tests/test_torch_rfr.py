@@ -3,9 +3,8 @@ the two-mode block draw they share with the Bermudans
 (``ops.rng.block_normals(..., rqmc=...)``) against the JAX package on the
 same key and market, and the mirrors of the tests of ``tests/test_rfr.py``.
 
-``tests/test_rfr.py::test_sharded_matches_single`` is not mirrored: the
-port has no ``parallel/mesh.py`` yet (every block loop runs on one
-device), and that test comes with the mesh's port."""
+``tests/test_rfr.py::test_sharded_matches_single`` runs on 4 gloo CPU
+ranks of the port's path mesh (``parallel/``)."""
 
 import json
 
@@ -301,6 +300,31 @@ def test_vega_jvp_vs_oracle_fd():
                                        sigma=CFG.sigma - eps, **DATES)
           ) / (2 * eps)
     assert abs(float(v) - fd) / abs(fd) < 5e-3
+
+
+@pytest.mark.slow
+def test_sharded_matches_single(market):
+    """Both styles, Hull-White and G2++, 8 blocks over 4 gloo CPU ranks
+    (map_blocks): within the JAX test's 1e-6 of the single-device run."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    cfg = ttiny(n_paths=1 << 11)
+    g = G2Params()
+    calls = []
+    for style in ("compounded", "averaged"):
+        kw = dict(strike=K, style=style, n_blocks=8, **DATES)
+        calls += [("hullwhite_tpu_torch.rfr:price_rfr_caplet",
+                   (cfg, KEY, market), kw),
+                  ("hullwhite_tpu_torch.rfr:price_rfr_caplet_g2",
+                   (cfg, g, KEY, market), kw)]
+    ranks = launch.run("hullwhite_tpu_torch.parallel.launch:call_each", 4,
+                       calls, device="cpu")
+    for i, (path, args, kw) in enumerate(calls):
+        fn = rfr.price_rfr_caplet_g2 if path.endswith("_g2") \
+            else rfr.price_rfr_caplet
+        r1 = fn(*args, device="cpu", **kw)
+        for r in ranks:
+            assert abs(float(r1.price) - float(r[i].price)) < 1e-6
 
 
 def test_vega_caplet_default_is_single_period():

@@ -2,7 +2,7 @@
 (``hullwhite_tpu_torch.snowball``) against the JAX package on the same key
 and market, and the mirrors of 10 of the 12 tests of
 ``tests/test_snowball.py`` (``test_callable_vega_envelope`` kept slow as
-there; its two sharded tests wait for the mesh's port)."""
+there; its two sharded tests wait for the mesh's second slice)."""
 
 import jax
 import jax.numpy as jnp

@@ -8,7 +8,7 @@ the same key and market, and the mirrors of the tests of
 ``test_g2_bermudan_exposure_mc_matches_oracle``.
 ``test_bermudan_exposure_sharded_matches_single`` and
 ``test_g2_bermudan_exposure_sharded_matches_single`` wait for the mesh's
-port (ROADMAP Queue 1).
+second slice (ROADMAP Queue 1 item 3).
 
 Tolerances: the layer's (test_torch_xva_exposure.py), with two stated
 differences. The Hull-White oracle's backward pass is the port's
