@@ -104,7 +104,7 @@ Phases (any failure raises and the script exits non-zero):
    SEs 1% relative); reruns bitwise; no kernel launched; per call
    (``price_bermudan`` at 2^17 x 8 and 2^20 x 1, ``bermudan_vega`` jvp,
    ``dp_oracle`` host wall only, ``price_cap`` and ``price_cms`` at 2^20)
-   the median and range of five wall times after a warm call, the host
+   the median and range of three wall times after a warm call, the host
    ms, the device-busy ms and device operations, and the phase's peak
    device memory, beside the card's name and power limit;
 8. calibration and the European half of G2++ (plain PyTorch on the card,
@@ -251,6 +251,19 @@ Phases (any failure raises and the script exits non-zero):
    slowest rank beside the card's name and power limit; the sweep's
    kernel launches, counted by its ranks, join the ``kernels`` line as
    its own path.
+16. the mesh's second slice: the certificate ``parallel.dryrun`` (the
+   JAX package's ``dryrun_multichip``, 51 checks: every product priced
+   through a 2-rank mesh and without it in each rank, within 1e-6, the
+   Bermudans 2e-6; the ``fused_exact`` ZBC from each rank's base tile,
+   whose ``zbc_exact`` launches join that kernel's count) on two gloo
+   ranks on the card, then its companion (the core trio and the uneven
+   blocks' rejection) on four; then at full width (``HWConfig()``) the
+   ``price_*`` functions of the note, exotic and XVA modules and
+   ``cva_cs01`` (the certificate's hand-set policies; 2^20 paths a block,
+   two blocks for the notes and exotics, four for XVA) through a 2-rank
+   mesh against the same call without it in the rank, every number
+   within 1e-6 (bit for bit where the block loop is ``map_blocks``),
+   with the ms per call with one rank and with two.
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -1757,7 +1770,7 @@ def _device_window(fn):
     return sum(ns) / 1e6, len(ns)
 
 
-def phase7_times(cfg, dev, market, smi, reps=5):
+def phase7_times(cfg, dev, market, smi, reps=3):
     """Per call, after one warm call of each: the synchronised wall ms of
     ``reps`` rounds (median, least, most), the host ms until the call
     returns, the device-busy ms and device operations of one profiler
@@ -3927,6 +3940,150 @@ def phase15(dev, smi):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh's second slice (mesh= on the note, exotic and XVA
+# functions) and the certificate parallel/dryrun.py
+# ---------------------------------------------------------------------------
+
+MESH2_RANKS = 2
+# the companion's ranks (the certificate's 2N) run if the phase has spent
+# less than this when the certificate ends
+MESH2_COMPANION_BUDGET_S = 90.0
+MESH2_TOL = 1e-6
+MESH2_NOTE = dict(n_paths=1 << 20, n_blocks=2)
+MESH2_XVA = dict(n_paths=1 << 20, n_blocks=4)
+# the tail products of the seven modules at MESH2_NOTE, then at MESH2_XVA
+# (the RFR caps and range_note's two ran under the mesh in phase 15's
+# slice)
+MESH2_NOTES = ("snowball", "callable_snowball", "capped_floater",
+               "g2_range_note", "g2_tarn", "g2_capped_floater",
+               "g2_snowball", "g2_callable_snowball", "chooser_cap",
+               "ratchet_cap", "ko_cap", "g2_ratchet_cap", "g2_ko_cap",
+               "g2_chooser_cap")
+MESH2_XVAS = ("xva", "xva_netting", "xva_csa", "xva_bilateral", "g2_netting",
+              "g2_bilateral", "g2_csa", "xva_wwr", "g2_wwr", "xva_mva",
+              "g2_mva", "xva_kva", "g2_kva", "bermudan_xva",
+              "g2_bermudan_xva")
+
+
+def phase16_dryrun(dev, t_phase):
+    """``dryrun_multichip(2)`` on the card, then its 4-rank companion if
+    the phase's budget allows; returns the certificate's kernel launches
+    (counted by its ranks)."""
+    from hullwhite_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(MESH2_RANKS, device=dev, companion=False)
+    wall = time.perf_counter() - t0
+    check(list(out["deltas"]) == dryrun.check_names(),
+          "dryrun: the checks differ from the certificate's")
+    worst = max(out["deltas"].items(), key=lambda kv: kv[1])
+    print(f"[phase 16] dryrun_multichip({MESH2_RANKS}) on the card: "
+          f"{len(out['deltas'])} checks within tolerance (largest "
+          f"{worst[0]} {worst[1]:.2e}), fused ZBC "
+          f"{out['core']['zbc_fused']!r} vs linear {out['core']['zbc']!r}; "
+          f"{wall:.1f} s (rank 0 {out['seconds']:.1f} s after spawn); "
+          f"launches {out['launches']}")
+    check(out["launches"]["zbc_exact"] > 0,
+          "dryrun: zbc_exact was not launched under the mesh")
+    spent = time.perf_counter() - t_phase
+    if spent < MESH2_COMPANION_BUDGET_S:
+        t1 = time.perf_counter()
+        d = dryrun.run_companion(2 * MESH2_RANKS, device=dev)
+        print(f"[phase 16] companion on {2 * MESH2_RANKS} gloo ranks: "
+              f"{d}; {time.perf_counter() - t1:.1f} s")
+    else:
+        print(f"[phase 16] companion skipped: the phase had spent "
+              f"{spent:.1f} s of its {MESH2_COMPANION_BUDGET_S:.0f} s "
+              "budget before it")
+    return out["launches"]
+
+
+def _leaf_delta(a, b):
+    """(largest |a - b| over the float leaves, every leaf bitwise equal)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        same = a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        if not a.is_floating_point():
+            return (0.0 if same else math.inf), same
+        d = (a.double().cpu() - b.double().cpu()).abs()
+        return (float(d.max()) if d.numel() else 0.0), same
+    if isinstance(a, (tuple, list)):
+        worst, same = 0.0, len(a) == len(b)
+        for x, y in zip(a, b):
+            dx, sx = _leaf_delta(x, y)
+            worst, same = max(worst, dx), same and sx
+        return worst, same
+    if isinstance(a, float):
+        return abs(a - b), a == b
+    return (0.0 if a == b else math.inf), a == b
+
+
+def phase16_full_width(dev, smi):
+    """Each ``price_*`` of the seven modules and ``cva_cs01`` at full width
+    through a 2-rank gloo mesh on the card against the same call without
+    the mesh in the rank (``launch.timed_pairs``)."""
+    from hullwhite_tpu_torch import HWConfig, Key
+    from hullwhite_tpu_torch.models import g2pp
+    from hullwhite_tpu_torch.parallel import dryrun, launch
+
+    cfg = HWConfig()
+    key = Key(2026)
+    market = analytic_market(cfg, "cpu")
+    calls, names = [], []
+    for products, kw in ((MESH2_NOTES, MESH2_NOTE), (MESH2_XVAS, MESH2_XVA)):
+        tail = dryrun.tail_calls(cfg, key, market, **kw)
+        for product in products:
+            fn, args, kwargs = tail[product]
+            calls.append((f"{fn.__module__}:{fn.__name__}", args, kwargs))
+            names.append(f"{fn.__name__} ({product})")
+    legs = ((0.02, 3.0, False), (0.012, 2.0, True))
+    calls += [("hullwhite_tpu_torch.xva:price_exposure_g2",
+               (cfg, g2pp.G2Params(), key, market), dict(MESH2_XVA)),
+              ("hullwhite_tpu_torch.xva:cva_cs01", (cfg, key, market, legs),
+               dict(quotes=XVA_QUOTES, **MESH2_XVA))]
+    names += ["price_exposure_g2", "cva_cs01"]
+    # the 30 price_* of the seven modules and cva_cs01, each once
+    check(len({path for path, _, _ in calls}) == len(calls) == 31,
+          f"{len(calls)} full-width calls, not 31")
+    t0 = time.perf_counter()
+    ranks = launch.run("hullwhite_tpu_torch.parallel.launch:timed_pairs",
+                       MESH2_RANKS, calls, device=dev)
+    wall = time.perf_counter() - t0
+    for i, name in enumerate(names):
+        per = [r[i] for r in ranks]
+        delta, same = _leaf_delta(per[0]["sharded"], per[0]["single"])
+        _, s_ranks = _leaf_delta(per[0]["sharded"], per[1]["sharded"])
+        check(s_ranks, f"{name}: the ranks' mesh results differ")
+        check(delta < MESH2_TOL, f"{name}: sharded vs single {delta:.2e}")
+        head = dryrun.result_of(per[0]["sharded"])
+        value = getattr(head, "price", None)
+        for attr in ("cva", "bcva", "mva", "kva", "cva_mc"):
+            if value is None:
+                value = getattr(head, attr, None)
+        ms_mesh = max(r["ms_mesh"] for r in per)
+        print(f"[phase 16] {name}: {float(value)!r}; 2-rank mesh vs "
+              f"meshless {delta:.2e} (bitwise: {same}); ms per call one "
+              f"rank {per[0]['ms_single']:.1f}, two ranks {ms_mesh:.1f} "
+              f"[{smi}]")
+    print(f"[phase 16] {len(calls)} full-width calls on {MESH2_RANKS} gloo "
+          f"ranks: {wall:.1f} s from spawn to exit")
+
+
+def phase16(dev, smi):
+    """The mesh's second slice (module docstring, phase 16); returns the
+    certificate's kernel launches, counted by its ranks."""
+    t0 = time.perf_counter()
+    launches = phase16_dryrun(dev, t0)
+    t1 = time.perf_counter()
+    phase16_full_width(dev, smi)
+    print(f"[phase 16] phase wall {time.perf_counter() - t0:.1f} s "
+          f"(certificate {t1 - t0:.1f} s, full width "
+          f"{time.perf_counter() - t1:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4093,6 +4250,13 @@ def main() -> int:
         check(sweep_counts[name] > 0,
               f"kernel {name} was not launched by the sweep path")
         launches[name] += sweep_counts[name]
+
+    dryrun_counts = phase16(dev, smi)
+    print(f"[phase 16] launches in the certificate's run (dryrun_multichip"
+          f"({MESH2_RANKS}), counted by its ranks): {dryrun_counts}")
+    check(dryrun_counts["zbc_exact"] > 0,
+          "kernel zbc_exact was not launched by the certificate's path")
+    launches["zbc_exact"] += dryrun_counts["zbc_exact"]
 
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",

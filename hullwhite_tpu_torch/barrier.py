@@ -25,11 +25,11 @@ untilted), and ``cap_closed_form_g2`` prices the full cap in closed form
 under the sampler's functional law.
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh`` before its second slice,
-PORT.md), antithetic legs, the normal CDF ``ops.accurate.nphi``; the float32
-LIBOR terms, strip lnA
-and discounts are computed on the host as the JAX package rounds them and
-copied to the device once.
+global index one after the other or sharded over a path mesh (``mesh=``,
+``parallel.mesh.map_blocks``), antithetic legs, the normal CDF
+``ops.accurate.nphi``; the float32 LIBOR terms, strip lnA and discounts
+are computed on the host as the JAX package rounds them and copied to the
+device once.
 """
 
 from __future__ import annotations
@@ -198,7 +198,8 @@ def _ko_legs(x, LT, scale, det_r, det_i, disc0, lnA, B, *, rate, barrier,
 
 def _ko_cap_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
                rate: float, barrier: float, start: float, n: int, tau: float,
-               delta: float, n_paths: int, n_blocks: int, rqmc: bool, dev):
+               delta: float, n_paths: int, n_blocks: int, rqmc: bool, dev,
+               mesh=None):
     """The Hull-White knock-out estimator."""
     fixes = tuple(start + j * tau for j in range(n))
     pays = tuple(start + (j + 1) * tau for j in range(n))
@@ -228,7 +229,8 @@ def _ko_cap_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         key, n_paths, n_blocks, 2 * n, dev,
         lambda x: _ko_legs(x, LT, float(sig_st), r_det, i_det, None, lnA, B,
                            rate=rate, barrier=barrier, tau=tau, delta=delta,
-                           n=n, prec=cfg.matmul_precision), rqmc=rqmc)
+                           n=n, prec=cfg.matmul_precision), rqmc=rqmc,
+                           mesh=mesh)
     return _cv_rows(rows, n_paths, float(cv_mean), rqmc)
 
 
@@ -237,7 +239,7 @@ def price_ko_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                  tenor: float = 4.0, freq: float = 1.0,
                  libor_tenor: float | None = None, sigma=None,
                  n_paths: int | None = None, n_blocks: int = 1,
-                 rqmc: bool = False, device) -> KoCapResult:
+                 rqmc: bool = False, mesh=None, device) -> KoCapResult:
     """Monte Carlo up-and-out cap on exactly sampled multi-date (r, I)
     functionals (survival via a cumulative product over fixings), the
     single-date truncated caplets the control variate at their exact
@@ -251,7 +253,8 @@ def price_ko_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
     out = _ko_cap_fn(cfg, key, sigma, market.to(dev), rate=float(rate),
                      barrier=float(barrier), start=start, n=n, tau=tau,
                      delta=delta, n_paths=int(n_paths),
-                     n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                     n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                     mesh=mesh)
     return KoCapResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -269,13 +272,13 @@ def vega_ko_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                 libor_tenor: float | None = None,
                 sigma: float | None = None, eps: float = 1e-3,
                 n_paths: int | None = None, n_blocks: int = 1,
-                device) -> KoCapVega:
+                mesh=None, device) -> KoCapVega:
     """CRN central-difference vega against the fp64 DP's own FD."""
     resolve_device(device)
     sigma = cfg.sigma if sigma is None else sigma
     kw = dict(rate=rate, barrier=barrier, start=start, tenor=tenor,
               freq=freq, libor_tenor=libor_tenor)
-    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device)
+    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device, mesh=mesh)
     pm = price_ko_cap(cfg, key, market, sigma=sigma - eps, **mc, **kw)
     pp = price_ko_cap(cfg, key, market, sigma=sigma + eps, **mc, **kw)
     om = dp_oracle_ko_cap(cfg, market, sigma=float(sigma) - eps, **kw)
@@ -432,7 +435,7 @@ def _ko_cap_g2_stats(g: G2Params, start: float, n: int, tau: float,
 def _ko_cap_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                   market: MarketCurve, *, rate: float, barrier: float,
                   start: float, n: int, tau: float, delta: float,
-                  n_paths: int, n_blocks: int, rqmc: bool, dev):
+                  n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The G2++ knock-out estimator."""
     fixes = tuple(start + j * tau for j in range(n))
     pays = tuple(start + (j + 1) * tau for j in range(n))
@@ -462,7 +465,8 @@ def _ko_cap_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
         key, n_paths, n_blocks, 2 * n, dev,
         lambda x: _ko_legs(x, LT, None, zero, zero, disc0, lnA, None,
                            rate=rate, barrier=barrier, tau=tau, delta=delta,
-                           n=n, prec=cfg.matmul_precision), rqmc=rqmc)
+                           n=n, prec=cfg.matmul_precision), rqmc=rqmc,
+                           mesh=mesh)
     return _cv_rows(rows, n_paths, float(cv_mean), rqmc)
 
 
@@ -471,7 +475,7 @@ def price_ko_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                     start: float | None = None, tenor: float = 4.0,
                     freq: float = 1.0, libor_tenor: float | None = None,
                     n_paths: int | None = None, n_blocks: int = 1,
-                    rqmc: bool = False, device) -> KoCapResult:
+                    rqmc: bool = False, mesh=None, device) -> KoCapResult:
     """Monte Carlo G2++ up-and-out cap on exactly sampled (u, I)
     functionals (survival via a cumulative product over fixings), the
     single-date truncated caplets the control variate at their exact
@@ -483,7 +487,8 @@ def price_ko_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
     out = _ko_cap_g2_fn(cfg, g, key, market, rate=float(rate),
                         barrier=float(barrier), start=start, n=n, tau=tau,
                         delta=delta, n_paths=int(n_paths),
-                        n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                        n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                        mesh=mesh)
     return KoCapResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -492,14 +497,14 @@ def vega_ko_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                    start: float | None = None, tenor: float = 4.0,
                    freq: float = 1.0, libor_tenor: float | None = None,
                    eps: float = 1e-3, n_paths: int | None = None,
-                   n_blocks: int = 1, device) -> KoCapVega:
+                   n_blocks: int = 1, mesh=None, device) -> KoCapVega:
     """CRN central-difference d price / d sigma (the x-factor vol) against
     the fp64 DP oracle's own FD."""
     resolve_device(device)
     kw = dict(rate=rate, barrier=barrier, start=start, tenor=tenor,
               freq=freq, libor_tenor=libor_tenor)
     gm, gp = g.bump_sigma(-eps), g.bump_sigma(eps)
-    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device)
+    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device, mesh=mesh)
     pm = price_ko_cap_g2(cfg, gm, key, market, **kw, **mc)
     pp = price_ko_cap_g2(cfg, gp, key, market, **kw, **mc)
     om = dp_oracle_ko_cap_g2(cfg, gm, market, **kw)

@@ -24,13 +24,13 @@ c-levels batched through ``g2_note._expect_bilinear_multi``), its policy a
 boundary CURVE u*(w) per (date, rights) (exercise when u > u*).
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh`` before its second slice,
-PORT.md), antithetic legs; the float32 LIBOR terms, strip lnA, discounts and
-boundary tables are
-computed on the host and copied to the device once per call.  The
-threshold lookups clamp the rights index (``jnp.take(..., mode="clip")``
-in the JAX package), and a boundary row that is +-inf throughout (the
-c = 0 "never" row a caller may supply) gives its infinity on every path.
+global index one after the other or sharded over a path mesh (``mesh=``,
+``parallel.mesh.map_blocks``), antithetic legs; the float32 LIBOR terms,
+strip lnA, discounts and boundary tables are computed on the host and
+copied to the device once per call. The threshold lookups clamp the rights
+index (``jnp.take(..., mode="clip")`` in the JAX package), and a boundary
+row that is +-inf throughout (the c = 0 "never" row a caller may supply)
+gives its infinity on every path.
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def _exercise_legs(n, k, leg_state, threshold, auto):
 def _chooser_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
                 rate: float, start: float, n: int, tau: float, k: int,
                 auto: bool, boundaries: tuple, cap_mean: float,
-                n_paths: int, n_blocks: int, rqmc: bool, dev):
+                n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The Hull-White chooser / auto-cap estimator."""
     obs, bounds, _ = _note_dates(start, n, tau, 1)
     delta = tau
@@ -235,7 +235,7 @@ def _chooser_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
             lambda j, sgn, c: bnd[j][torch.clamp(c, 0, k).long()], auto)
 
     return _cv_rows(_block_rows(key, n_paths, n_blocks, 2 * n, dev, block,
-                                rqmc=rqmc), n_paths, cap_mean, rqmc)
+                                rqmc=rqmc, mesh=mesh), n_paths, cap_mean, rqmc)
 
 
 def price_chooser_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
@@ -245,7 +245,7 @@ def price_chooser_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                       boundaries: tuple | None = None,
                       cap_mean: float | None = None,
                       n_paths: int | None = None, n_blocks: int = 1,
-                      rqmc: bool = False, device) -> ChooserResult:
+                      rqmc: bool = False, mesh=None, device) -> ChooserResult:
     """Monte Carlo chooser cap (or auto-cap) under the fixed DP threshold
     policy (default: the policy and the CV's exact full-cap mean read off
     the fp64 DP oracle, the discrete-law mean of the law the sampler
@@ -269,7 +269,8 @@ def price_chooser_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                       boundaries=tuple(tuple(float(b) for b in row)
                                        for row in boundaries),
                       cap_mean=float(cap_mean), n_paths=int(n_paths),
-                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                      mesh=mesh)
     return ChooserResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -286,7 +287,7 @@ def vega_chooser_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                      tenor: float = 5.0, freq: float = 1.0,
                      auto: bool = False, eps: float = 1e-3,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     device) -> ChooserVega:
+                     mesh=None, device) -> ChooserVega:
     """CRN central-difference vega with the exercise thresholds FROZEN at
     the base-sigma DP policy (envelope theorem at the holder-optimal
     thresholds).  Oracle: the central difference of the fp64 DP value,
@@ -300,7 +301,7 @@ def vega_chooser_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
     dp_m = dp_oracle_chooser_cap(cfg, market, sigma=cfg.sigma - eps, **kw)
     dp_p = dp_oracle_chooser_cap(cfg, market, sigma=cfg.sigma + eps, **kw)
     mc = dict(kw, boundaries=base.boundaries, n_paths=n_paths,
-              n_blocks=n_blocks, device=device)
+              n_blocks=n_blocks, device=device, mesh=mesh)
     p_m = price_chooser_cap(cfg, key, market, sigma=cfg.sigma - eps,
                             cap_mean=dp_m.cap_price, **mc).price
     p_p = price_chooser_cap(cfg, key, market, sigma=cfg.sigma + eps,
@@ -442,7 +443,7 @@ def _chooser_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                    market: MarketCurve, *, rate: float, start: float,
                    n: int, tau: float, k: int, auto: bool,
                    boundaries: tuple, cap_mean: float, n_paths: int,
-                   n_blocks: int, rqmc: bool, dev):
+                   n_blocks: int, rqmc: bool, dev, mesh=None):
     """The G2++ chooser / auto-cap estimator."""
     obs, bounds, _ = _note_dates(start, n, tau, 1)
     fixes = tuple(o[0] for o in obs)
@@ -476,7 +477,7 @@ def _chooser_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                                                sgn * z[:, n + j], k), auto)
 
     return _cv_rows(_block_rows(key, n_paths, n_blocks, 3 * n, dev, block,
-                                rqmc=rqmc), n_paths, cap_mean, rqmc)
+                                rqmc=rqmc, mesh=mesh), n_paths, cap_mean, rqmc)
 
 
 def price_chooser_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
@@ -486,7 +487,8 @@ def price_chooser_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                          boundaries: tuple | None = None,
                          cap_mean: float | None = None,
                          n_paths: int | None = None, n_blocks: int = 1,
-                         rqmc: bool = False, device) -> ChooserResult:
+                         rqmc: bool = False,
+                         mesh=None, device) -> ChooserResult:
     """Monte Carlo G2++ chooser cap (or auto-cap) under the fixed DP
     boundary-curve policy (exercise right c at T_j when u_j >
     u*_{j,c}(w_j); default: the curves off the fp64 (u, w) DP and the CV's
@@ -510,7 +512,7 @@ def price_chooser_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                          n=n, tau=tau, k=k, auto=bool(auto),
                          boundaries=boundaries, cap_mean=float(cap_mean),
                          n_paths=int(n_paths), n_blocks=int(n_blocks),
-                         rqmc=bool(rqmc), dev=dev)
+                         rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return ChooserResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -519,7 +521,7 @@ def vega_chooser_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                         start: float | None = None, tenor: float = 5.0,
                         freq: float = 1.0, auto: bool = False,
                         eps: float = 1e-3, n_paths: int | None = None,
-                        n_blocks: int = 1, device) -> ChooserVega:
+                        n_blocks: int = 1, mesh=None, device) -> ChooserVega:
     """CRN central-difference d price / d sigma (the x-factor vol) with
     the exercise curves FROZEN at the base-sigma DP policy (envelope
     theorem); oracle: the re-optimizing fp64 DP's own FD.  The CV's exact
@@ -534,7 +536,7 @@ def vega_chooser_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
     dp_m = dp_oracle_chooser_cap_g2(cfg, gm, market, **kw)
     dp_p = dp_oracle_chooser_cap_g2(cfg, gp, market, **kw)
     mc = dict(kw, boundaries=base, n_paths=n_paths, n_blocks=n_blocks,
-              device=device)
+              device=device, mesh=mesh)
     p_m = price_chooser_cap_g2(cfg, gm, key, market, **mc).price
     p_p = price_chooser_cap_g2(cfg, gp, key, market, **mc).price
     return ChooserVega(vega=(p_p - p_m) / (2.0 * eps),

@@ -26,7 +26,8 @@ of r(T_j), so
   non-callable note the control variate of exact mean.
 
 The MC is plain PyTorch on the device, blocks drawn from their global
-index one after the other (no ``mesh`` before its second slice, PORT.md); the
+index one after the other or sharded over a path mesh (``mesh=``,
+``parallel.mesh.map_blocks``: bit for bit the single run); the
 LIBOR terms are float32 scalars rounded as the JAX package rounds them.
 """
 
@@ -244,7 +245,8 @@ def _rate_terms(cfg, sigma, market, obs, delta):
 def _floater_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
                 cap: float, floor: float, spread: float, start: float,
                 n: int, tau: float, delta: float, boundaries: tuple,
-                plain_mean: float, n_paths: int, n_blocks: int, dev):
+                plain_mean: float, n_paths: int, n_blocks: int, dev,
+                mesh=None):
     """The callable floater's estimator: (price, SE, raw price, raw SE,
     beta, call fraction) under the issuer threshold policy."""
     obs, bounds, _ = _note_dates(start, n, tau, 1)
@@ -279,7 +281,8 @@ def _floater_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         legs = [leg(1.0), leg(-1.0)]
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
-    s = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block).sum(0)
+    s = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block,
+                    mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     return (*_cv_estimate(s, n_tot, plain_mean), s[5] / n_tot)
 
@@ -291,7 +294,7 @@ def price_capped_floater(cfg: HWConfig, key: Key, market: MarketCurve, *,
                          libor_tenor: float | None = None, sigma=None,
                          boundaries: tuple | None = None,
                          n_paths: int | None = None, n_blocks: int = 1,
-                         device) -> FloaterResult:
+                         mesh=None, device) -> FloaterResult:
     """Monte Carlo upper bound for the callable capped floater under the
     fixed issuer threshold policy ``boundaries`` (default: read off the
     fp64 DP oracle; any fixed policy is an unbiased upper bound on the
@@ -315,7 +318,7 @@ def price_capped_floater(cfg: HWConfig, key: Key, market: MarketCurve, *,
                       n=n, tau=tau, delta=delta,
                       boundaries=tuple(float(b) for b in boundaries),
                       plain_mean=float(plain_mean), n_paths=int(n_paths),
-                      n_blocks=int(n_blocks), dev=dev)
+                      n_blocks=int(n_blocks), dev=dev, mesh=mesh)
     return FloaterResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -333,7 +336,7 @@ def vega_capped_floater(cfg: HWConfig, key: Key, market: MarketCurve, *,
                         tenor: float = 4.0, freq: float = 1.0,
                         libor_tenor: float | None = None, eps: float = 1e-3,
                         n_paths: int | None = None, n_blocks: int = 1,
-                        device) -> FloaterVega:
+                        mesh=None, device) -> FloaterVega:
     """CRN central-difference vega with the call boundary FROZEN at the
     base-sigma DP policy (envelope theorem at the issuer-optimal
     threshold).  Oracle: the central difference of the fp64 DP value,
@@ -349,7 +352,7 @@ def vega_capped_floater(cfg: HWConfig, key: Key, market: MarketCurve, *,
     dp_p = dp_oracle_capped_floater(cfg, market, sigma=cfg.sigma + eps,
                                     **kw)
     mc = dict(kw, boundaries=base.boundaries, n_paths=n_paths,
-              n_blocks=n_blocks, device=device)
+              n_blocks=n_blocks, device=device, mesh=mesh)
     p_m = price_capped_floater(cfg, key, market, sigma=cfg.sigma - eps,
                                **mc).price
     p_p = price_capped_floater(cfg, key, market, sigma=cfg.sigma + eps,

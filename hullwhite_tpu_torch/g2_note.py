@@ -28,7 +28,7 @@ sampler, so oracle and Monte Carlo integrate the same law.
   the payments) drawn exactly, z = x L^T with L the functional Cholesky
   factor (``engine_linear.dot`` at ``cfg.matmul_precision``), blocks from
   their global index one after the other (``range_note._block_rows``;
-  no ``mesh`` before its second slice, PORT.md), antithetic, the fixed DP
+  or sharded over a path mesh, ``mesh=``), antithetic, the fixed DP
   policy (a boundary curve u*(w) per date, a surface u*(w, c) for the callable
   snowball)
   and a control variate of exact mean.  The float32 scalars (the strip
@@ -508,7 +508,8 @@ class G2NoteResult(NamedTuple):
 def _g2_note_fn(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                 *, coupon: float, lo: float, hi: float, start: float,
                 n: int, tau: float, m: int, delta: float, boundaries: tuple,
-                plain_mean: float, n_paths: int, n_blocks: int, dev):
+                plain_mean: float, n_paths: int, n_blocks: int, dev,
+                mesh=None):
     """The puttable note's estimator under the boundary-curve policy:
     (price, SE, raw price, raw SE, beta, put fraction)."""
     obs, bounds, _ = _note_dates(start, n, tau, m)
@@ -553,7 +554,7 @@ def _g2_note_fn(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
     s = _block_rows(key, n_paths, n_blocks, nm + (n - 1) + n, dev,
-                    block).sum(0)
+                    block, mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     return (*_cv_estimate(s, n_tot, plain_mean), s[5] / n_tot)
 
@@ -572,7 +573,7 @@ def price_range_note_g2(cfg: HWConfig, g: G2Params, key: Key,
                         libor_tenor: float | None = None,
                         boundaries: tuple | None = None,
                         n_paths: int | None = None, n_blocks: int = 1,
-                        device) -> G2NoteResult:
+                        mesh=None, device) -> G2NoteResult:
     """Monte Carlo lower bound for the G2++ puttable range-accrual note
     under the fixed boundary-curve policy ``boundaries`` (default: read
     off the fp64 2-d DP oracle; any fixed policy is an unbiased lower
@@ -598,7 +599,8 @@ def price_range_note_g2(cfg: HWConfig, g: G2Params, key: Key,
                       m=m, delta=delta, boundaries=tuple(boundaries),
                       plain_mean=float(leg + _p0(cfg, market,
                                                  start + n * tau)),
-                      n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev)
+                      n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev,
+                      mesh=mesh)
     return G2NoteResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -630,7 +632,7 @@ def vega_range_note_g2(cfg: HWConfig, g: G2Params, key: Key,
                        libor_tenor: float | None = None,
                        eps: float = 1e-3, n_paths: int | None = None,
                        n_blocks: int = 1, dp_kwargs: dict | None = None,
-                       device) -> G2NoteVega:
+                       mesh=None, device) -> G2NoteVega:
     """CRN central-difference d price / d sigma of the G2++ puttable note
     with the put boundary curves FROZEN at the base-sigma DP policy
     (envelope theorem).  Oracle: the central difference of the fp64 2-d
@@ -647,7 +649,8 @@ def vega_range_note_g2(cfg: HWConfig, g: G2Params, key: Key,
     return _vega(
         lambda gg, _: price_range_note_g2(
             cfg, gg, key, market, boundaries=base.boundaries,
-            n_paths=n_paths, n_blocks=n_blocks, device=device, **kw),
+            n_paths=n_paths, n_blocks=n_blocks, device=device,
+            mesh=mesh, **kw),
         lambda gg: dp_oracle_range_note_g2(cfg, gg, market, **kw, **dkw),
         g, eps)
 
@@ -746,7 +749,7 @@ class G2TarnResult(NamedTuple):
 def _g2_tarn_fn(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                 *, coupon: float, lo: float, hi: float, target: float,
                 start: float, n: int, tau: float, m: int, delta: float,
-                n_paths: int, n_blocks: int, dev):
+                n_paths: int, n_blocks: int, dev, mesh=None):
     """The TARN's estimator: (price, SE, knockout fraction, mean total)."""
     obs, bounds, _ = _note_dates(start, n, tau, m)
     nm = n * m
@@ -783,7 +786,8 @@ def _g2_tarn_fn(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
         V, Ko, K = (0.5 * (a + b) for a, b in zip(leg(1.0), leg(-1.0)))
         return torch.stack([V.sum(), (V * V).sum(), Ko.sum(), K.sum()])
 
-    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block).sum(0)
+    s = _block_rows(key, n_paths, n_blocks, nm + n, dev, block,
+                    mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     mean = s[0] / n_tot
     var = torch.clamp(s[1] / n_tot - mean ** 2, min=0.0)
@@ -797,7 +801,7 @@ def price_tarn_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                   freq: float = 1.0, obs_per_period: int = 1,
                   libor_tenor: float | None = None,
                   n_paths: int | None = None, n_blocks: int = 1,
-                  device) -> G2TarnResult:
+                  mesh=None, device) -> G2TarnResult:
     """Monte Carlo G2++ range-accrual TARN from the exact multi-date
     functionals (antithetic): obs_per_period = 1 (the default) is the
     lattice case ``dp_oracle_tarn_g2`` pins exactly; a larger m runs in
@@ -810,7 +814,8 @@ def price_tarn_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
     out = _g2_tarn_fn(cfg, g, key, market, coupon=float(coupon),
                       lo=float(lo), hi=float(hi), target=float(target),
                       start=start, n=n, tau=tau, m=m, delta=delta,
-                      n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev)
+                      n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev,
+                      mesh=mesh)
     return G2TarnResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -961,7 +966,7 @@ def _g2_floater_fn(cfg: HWConfig, g: G2Params, key: Key,
                    market: MarketCurve, *, cap: float, floor: float,
                    spread: float, start: float, n: int, tau: float,
                    delta: float, boundaries: tuple, plain_mean: float,
-                   n_paths: int, n_blocks: int, dev):
+                   n_paths: int, n_blocks: int, dev, mesh=None):
     """The callable floater's estimator under the issuer's boundary-curve
     policy: (price, SE, raw price, raw SE, beta, call fraction)."""
     obs, bounds, _ = _note_dates(start, n, tau, 1)
@@ -1001,7 +1006,7 @@ def _g2_floater_fn(cfg: HWConfig, g: G2Params, key: Key,
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
     s = _block_rows(key, n_paths, n_blocks, n + (n - 1) + n, dev,
-                    block).sum(0)
+                    block, mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     return (*_cv_estimate(s, n_tot, plain_mean), s[5] / n_tot)
 
@@ -1014,7 +1019,7 @@ def price_capped_floater_g2(cfg: HWConfig, g: G2Params, key: Key,
                             libor_tenor: float | None = None,
                             boundaries: tuple | None = None,
                             n_paths: int | None = None, n_blocks: int = 1,
-                            device) -> G2FloaterResult:
+                            mesh=None, device) -> G2FloaterResult:
     """Monte Carlo upper bound for the G2++ issuer-callable capped floater
     under the fixed boundary-curve policy ``boundaries`` (default: read
     off the fp64 2-d DP oracle; any fixed issuer policy is an unbiased
@@ -1042,7 +1047,7 @@ def price_capped_floater_g2(cfg: HWConfig, g: G2Params, key: Key,
                          plain_mean=float(leg + _p0(cfg, market,
                                                     start + n * tau)),
                          n_paths=int(n_paths), n_blocks=int(n_blocks),
-                         dev=dev)
+                         dev=dev, mesh=mesh)
     return G2FloaterResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -1054,7 +1059,7 @@ def vega_capped_floater_g2(cfg: HWConfig, g: G2Params, key: Key,
                            libor_tenor: float | None = None,
                            eps: float = 1e-3, n_paths: int | None = None,
                            n_blocks: int = 1, dp_kwargs: dict | None = None,
-                           device) -> G2NoteVega:
+                           mesh=None, device) -> G2NoteVega:
     """CRN central-difference d price / d sigma of the G2++ callable
     floater with the call boundary curves FROZEN at the base-sigma DP
     policy (envelope theorem at the issuer-optimal boundary), against the
@@ -1069,7 +1074,8 @@ def vega_capped_floater_g2(cfg: HWConfig, g: G2Params, key: Key,
     return _vega(
         lambda gg, _: price_capped_floater_g2(
             cfg, gg, key, market, boundaries=base.boundaries,
-            n_paths=n_paths, n_blocks=n_blocks, device=device, **kw),
+            n_paths=n_paths, n_blocks=n_blocks, device=device,
+            mesh=mesh, **kw),
         lambda gg: dp_oracle_capped_floater_g2(cfg, gg, market, **kw,
                                                **dkw),
         g, eps)
@@ -1291,7 +1297,7 @@ def _g2_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
                     market: MarketCurve, *, initial: float, spread: float,
                     cap: float, floor: float, start: float, n: int,
                     tau: float, delta: float, linear_mean: float,
-                    n_paths: int, n_blocks: int, rqmc: bool, dev):
+                    n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The snowball's estimator: (price, SE, raw price, raw SE, beta, mean
     final coupon); with ``rqmc`` the SEs go across the blocks (ddof 1)."""
     obs, bounds, _ = _note_dates(start, n, tau, 1)
@@ -1325,7 +1331,8 @@ def _g2_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
     return _cv_rows(_block_rows(key, n_paths, n_blocks, 2 * n, dev, block,
-                                rqmc=rqmc), n_paths, linear_mean, rqmc)
+                                rqmc=rqmc,
+                                mesh=mesh), n_paths, linear_mean, rqmc)
 
 
 def price_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
@@ -1334,7 +1341,8 @@ def price_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
                       start: float | None = None, tenor: float = 4.0,
                       freq: float = 1.0, libor_tenor: float | None = None,
                       n_paths: int | None = None, n_blocks: int = 1,
-                      rqmc: bool = False, device) -> G2SnowballResult:
+                      rqmc: bool = False,
+                      mesh=None, device) -> G2SnowballResult:
     """Monte Carlo G2++ snowball from exactly sampled (u, I) functionals
     (antithetic), UNBIASED (no policy), the unclipped linear snowball the
     control variate of exact closed-form mean; ``dp_oracle_snowball_g2``
@@ -1357,7 +1365,7 @@ def price_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
                           floor=float(floor), start=start, n=n, tau=tau,
                           delta=delta, linear_mean=float(linear_mean),
                           n_paths=int(n_paths), n_blocks=int(n_blocks),
-                          rqmc=bool(rqmc), dev=dev)
+                          rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return G2SnowballResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -1368,7 +1376,7 @@ def vega_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
                      freq: float = 1.0, libor_tenor: float | None = None,
                      eps: float = 1e-3, n_paths: int | None = None,
                      n_blocks: int = 1, dp_kwargs: dict | None = None,
-                     device) -> G2NoteVega:
+                     mesh=None, device) -> G2NoteVega:
     """CRN central-difference d price / d sigma of the G2++ snowball (key
     reuse; the CV's exact mean recomputed per bump) against the central
     difference of the fp64 (u, w, c) DP.  No policy to freeze: the
@@ -1381,7 +1389,7 @@ def vega_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
     return _vega(
         lambda gg, _: price_snowball_g2(cfg, gg, key, market,
                                         n_paths=n_paths, n_blocks=n_blocks,
-                                        device=device, **kw),
+                                        device=device, mesh=mesh, **kw),
         lambda gg: dp_oracle_snowball_g2(cfg, gg, market, **kw, **dkw),
         g, eps)
 
@@ -1402,7 +1410,7 @@ def _g2_callable_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
                              start: float, n: int, tau: float,
                              delta: float, boundaries: tuple, cs: tuple,
                              plain_mean: float, n_paths: int,
-                             n_blocks: int, dev):
+                             n_blocks: int, dev, mesh=None):
     """The callable snowball's estimator under the boundary-surface
     policy: (price, SE, raw price, raw SE, beta of the plain note, call
     fraction), two controls (the plain note, the call-at-T_1 leg)."""
@@ -1472,7 +1480,7 @@ def _g2_callable_snowball_fn(cfg: HWConfig, g: G2Params, key: Key,
                          torch.tensor([bounds[1]], dtype=F32), cfg)
     z_mean = float(np.float32(1.0 + tau * initial) * P1.numpy()[0])
     s = _block_rows(key, n_paths, n_blocks, n + (n - 1) + n, dev,
-                    block).sum(0)
+                    block, mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     mv, my, mz = s[0] / n_tot, s[2] / n_tot, s[4] / n_tot
     var_v = torch.clamp(s[1] / n_tot - mv * mv, min=0.0)
@@ -1505,7 +1513,7 @@ def price_callable_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
                                n_paths: int | None = None,
                                n_blocks: int = 1,
                                dp_kwargs: dict | None = None,
-                               device) -> G2CallableSnowballResult:
+                               mesh=None, device) -> G2CallableSnowballResult:
     """Monte Carlo upper bound for the G2++ issuer-callable snowball under
     the fixed boundary-SURFACE policy u*(w, c) per call date (default:
     read off the fp64 (u, w, c) DP; any fixed issuer policy is an
@@ -1533,7 +1541,7 @@ def price_callable_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
         cap=float(cap), floor=float(floor), start=start, n=n, tau=tau,
         delta=delta, boundaries=tuple(boundaries),
         cs=tuple(float(v) for v in c_grid), plain_mean=float(plain_mean),
-        n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev)
+        n_paths=int(n_paths), n_blocks=int(n_blocks), dev=dev, mesh=mesh)
     return G2CallableSnowballResult(*out,
                                     n_paths=int(n_paths) * int(n_blocks))
 
@@ -1549,7 +1557,7 @@ def vega_callable_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
                               n_paths: int | None = None,
                               n_blocks: int = 1,
                               dp_kwargs: dict | None = None,
-                              device) -> G2NoteVega:
+                              mesh=None, device) -> G2NoteVega:
     """CRN central-difference d price / d sigma with the call boundary
     SURFACES frozen at the base-sigma DP policy (envelope theorem at the
     issuer-optimal boundary); oracle: the re-optimizing fp64 DP's own
@@ -1565,7 +1573,7 @@ def vega_callable_snowball_g2(cfg: HWConfig, g: G2Params, key: Key,
         lambda gg, d: price_callable_snowball_g2(
             cfg, gg, key, market, boundaries=base.boundaries,
             c_grid=base.c_grid, plain_mean=d.plain_price, n_paths=n_paths,
-            n_blocks=n_blocks, device=device, **kw),
+            n_blocks=n_blocks, device=device, mesh=mesh, **kw),
         lambda gg: dp_oracle_callable_snowball_g2(cfg, gg, market, **kw,
                                                   **dkw),
         g, eps)

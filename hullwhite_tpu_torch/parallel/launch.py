@@ -7,7 +7,8 @@ analogue of the JAX package's self-provisioned virtual device mesh).
 Each rank is a process started with ``spawn`` (which CUDA requires) that
 imports the target's module, joins a ``torch.distributed`` group through a
 rendezvous file in a fresh temporary directory (no TCP port, so
-concurrent launches never clash), runs with one intra-op thread, builds
+concurrent launches never clash), runs with one intra-op thread and
+one-thread BLAS and OpenMP pools (``ONE_THREAD``), builds
 its ``mesh.path_mesh`` and calls ``target(mesh, *args, **kwargs)``.  The
 ranks are placed round-robin on the visible CUDA devices
 (``device="cuda"``) or all on the CPU (``device="cpu"``).  The group is
@@ -37,6 +38,10 @@ import torch
 from ..config import resolve_device
 
 PACKAGE = __name__.split(".")[0]
+# a rank's thread pools: one thread each, set before its numpy loads
+# OpenBLAS (n ranks of a host-bound fp64 oracle each spawning a pool of
+# every core thrash the host)
+ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
 def to_host(obj):
@@ -135,9 +140,18 @@ def run(target: str, n_ranks: int, *args, device="cuda",
                          args=(r, n_ranks, backend, devices[r],
                                os.path.join(work, "rendezvous"), work,
                                payload)) for r in range(n_ranks)]
+    saved = {k: os.environ.get(k) for k in ONE_THREAD}
     try:
-        for p in procs:
-            p.start()
+        os.environ.update(dict.fromkeys(ONE_THREAD, "1"))
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         deadline = time.monotonic() + timeout
         while any(p.is_alive() for p in procs):
             if any(p.exitcode not in (None, 0) for p in procs):
@@ -186,6 +200,56 @@ def call_each(mesh, calls, *, single: bool = False) -> list:
     return out
 
 
+def call_errors(mesh, calls) -> list:
+    """Rank target: for each ``(function path, args, kwargs)`` of ``calls``,
+    called as ``call_each`` calls it, the ``(exception class name,
+    message)`` it raised, or None where it returned."""
+    out = []
+    for path, args, kwargs in calls:
+        try:
+            resolve(path)(*args, **kwargs, device=mesh.device, mesh=mesh)
+        except Exception as exc:  # reported to the caller, which checks
+            out.append((type(exc).__name__, str(exc)))
+        else:
+            out.append(None)
+    return out
+
+
+def timed_pairs(mesh, calls) -> list:
+    """Rank target: for each call of ``calls`` (as ``call_each``'s) the
+    dict of its result through the mesh (``sharded``) and its wall ms
+    (``ms_mesh``), and on rank 0 the result and ms without the mesh
+    (``single``, ``ms_single``; None on the other ranks).  After one
+    untimed run through the mesh (memoized oracles, first launches), the
+    mesh call is timed after a barrier, its device work finished (the
+    slowest rank's is the window); then rank 0 times the meshless call
+    while the others wait at a barrier, so it has the device to itself."""
+    import torch.distributed as dist
+
+    def barrier():
+        dist.barrier(group=mesh.group)
+
+    def synced(m):
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs, device=mesh.device, mesh=m)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    out = []
+    for path, args, kwargs in calls:
+        fn = resolve(path)
+        synced(mesh)
+        barrier()
+        sharded, ms_mesh = synced(mesh)
+        barrier()
+        single, ms_single = synced(None) if mesh.rank == 0 else (None, None)
+        barrier()
+        out.append(dict(sharded=sharded, single=single, ms_mesh=ms_mesh,
+                        ms_single=ms_single))
+    return out
+
+
 def block_stacks(mesh, blocks, n_blocks: int) -> list:
     """Rank target: for each ``block`` of ``blocks`` the pair
     (``map_blocks(block, n_blocks)`` over the mesh, the same without it)."""
@@ -195,6 +259,9 @@ def block_stacks(mesh, blocks, n_blocks: int) -> list:
              pmesh.map_blocks(block, n_blocks, None)) for block in blocks]
 
 
-def loaded_modules(mesh) -> list:
-    """Rank target: the names of the modules the rank has imported."""
+def loaded_modules(mesh, imports=()) -> list:
+    """Rank target: the names of the modules the rank has imported, after
+    importing the modules ``imports`` of this package."""
+    for name in imports:
+        resolve(f"{name}:__name__")
     return sorted(sys.modules)

@@ -31,11 +31,11 @@ GH-outer / closed-inner integral with u in place of B r, covariances off
 ``g2pp._g2_functional_cov`` (the sampler's own matrix).
 
 The Monte Carlo is plain PyTorch on the device: blocks drawn from their
-global index one after the other (no ``mesh`` before its second slice,
-PORT.md), antithetic legs, the normal CDF ``ops.accurate.nphi``
-(``jax.scipy.stats.norm.cdf`` bit
-for bit); the float32 LIBOR terms, strip lnA and discounts are computed
-on the host as the JAX package rounds them and copied to the device once.
+global index one after the other or sharded over a path mesh (``mesh=``,
+``parallel.mesh.map_blocks``), antithetic legs, the normal CDF
+``ops.accurate.nphi`` (``jax.scipy.stats.norm.cdf`` bit for bit); the
+float32 LIBOR terms, strip lnA and discounts are computed on the host as
+the JAX package rounds them and copied to the device once.
 """
 
 from __future__ import annotations
@@ -315,7 +315,7 @@ def _host32(*arrays):
 def _ratchet_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
                 spread: float, strike0: float, start: float, n: int,
                 tau: float, delta: float, n_paths: int, n_blocks: int,
-                rqmc: bool, dev):
+                rqmc: bool, dev, mesh=None):
     """The Hull-White ratchet estimator."""
     fixes, pays = _ratchet_dates(start, n, tau)
     sig_st, LT, r_det, i_det, lnA, B = _hw_states(cfg, sigma, market,
@@ -337,7 +337,7 @@ def _ratchet_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         lambda x: _ratchet_legs(
             x, LT, float(sig_st), r_det, i_det, None, lnA, B, b1, b2, sc,
             strike0=strike0, spread=spread, tau=tau, delta=delta, n=n,
-            prec=cfg.matmul_precision), rqmc=rqmc)
+            prec=cfg.matmul_precision), rqmc=rqmc, mesh=mesh)
     return _ratchet_estimate(rows, n_paths, float(cv_mean), rqmc)
 
 
@@ -353,7 +353,7 @@ def price_ratchet_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                       freq: float = 1.0, libor_tenor: float | None = None,
                       sigma=None, n_paths: int | None = None,
                       n_blocks: int = 1, rqmc: bool = False,
-                      device) -> RatchetResult:
+                      mesh=None, device) -> RatchetResult:
     """Monte Carlo ratchet-cap leg on exactly sampled multi-date (r, I)
     functionals, floating-leg control variate with its exact
     discrete-law mean.  ``rqmc=True`` draws each block from a digitally
@@ -369,7 +369,8 @@ def price_ratchet_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
     out = _ratchet_fn(cfg, key, sigma, market.to(dev), spread=float(spread),
                       strike0=strike0, start=start, n=n, tau=tau,
                       delta=delta, n_paths=int(n_paths),
-                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                      mesh=mesh)
     return RatchetResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -387,7 +388,7 @@ def vega_ratchet_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
                      freq: float = 1.0, libor_tenor: float | None = None,
                      sigma: float | None = None, eps: float = 1e-3,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     device) -> RatchetVega:
+                     mesh=None, device) -> RatchetVega:
     """CRN central-difference vega of the CV estimate (same key both
     legs; the functional Cholesky and the CV mean carry the sigma
     dependence smoothly), cross-checked against the fp64 quadrature
@@ -400,10 +401,10 @@ def vega_ratchet_cap(cfg: HWConfig, key: Key, market: MarketCurve, *,
               freq=freq, libor_tenor=delta)
     pm = price_ratchet_cap(cfg, key, market, sigma=sigma - eps,
                            n_paths=n_paths, n_blocks=n_blocks,
-                           device=device, **kw)
+                           device=device, mesh=mesh, **kw)
     pp = price_ratchet_cap(cfg, key, market, sigma=sigma + eps,
                            n_paths=n_paths, n_blocks=n_blocks,
-                           device=device, **kw)
+                           device=device, mesh=mesh, **kw)
     om, _ = ratchet_cap_quadrature(cfg, market, sigma=float(sigma) - eps,
                                    **kw)
     op, _ = ratchet_cap_quadrature(cfg, market, sigma=float(sigma) + eps,
@@ -535,7 +536,7 @@ def ratchet_cap_quadrature_g2(cfg: HWConfig, g: G2Params,
 def _ratchet_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                    market: MarketCurve, *, spread: float, strike0: float,
                    start: float, n: int, tau: float, delta: float,
-                   n_paths: int, n_blocks: int, rqmc: bool, dev):
+                   n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The G2++ ratchet estimator."""
     from .g2_note import _strip_lnA32
 
@@ -561,7 +562,7 @@ def _ratchet_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
         lambda x: _ratchet_legs(
             x, LT, None, zero, zero, disc0, lnA, None, b1, b2, sc,
             strike0=strike0, spread=spread, tau=tau, delta=delta, n=n,
-            prec=cfg.matmul_precision), rqmc=rqmc)
+            prec=cfg.matmul_precision), rqmc=rqmc, mesh=mesh)
     return _ratchet_estimate(rows, n_paths, float(cv_mean), rqmc)
 
 
@@ -572,7 +573,8 @@ def price_ratchet_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                          freq: float = 1.0,
                          libor_tenor: float | None = None,
                          n_paths: int | None = None, n_blocks: int = 1,
-                         rqmc: bool = False, device) -> RatchetResult:
+                         rqmc: bool = False,
+                         mesh=None, device) -> RatchetResult:
     """Monte Carlo G2++ ratchet-cap leg (Rao-Blackwell conditional
     caplets on the strip projection, floating-leg CV).  ``rqmc=True`` as
     in ``price_ratchet_cap``.  fp64 oracle: ``ratchet_cap_quadrature_g2``."""
@@ -584,7 +586,8 @@ def price_ratchet_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
     out = _ratchet_g2_fn(cfg, g, key, market, spread=float(spread),
                          strike0=strike0, start=start, n=n, tau=tau,
                          delta=delta, n_paths=int(n_paths),
-                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                         mesh=mesh)
     return RatchetResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -595,7 +598,7 @@ def vega_ratchet_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
                         freq: float = 1.0,
                         libor_tenor: float | None = None,
                         eps: float = 1e-3, n_paths: int | None = None,
-                        n_blocks: int = 1, device) -> RatchetVega:
+                        n_blocks: int = 1, mesh=None, device) -> RatchetVega:
     """CRN central-difference d price / d sigma (the x-factor vol),
     cross-checked against the fp64 quadrature's own FD."""
     resolve_device(device)
@@ -604,7 +607,7 @@ def vega_ratchet_cap_g2(cfg: HWConfig, g: G2Params, key: Key,
     kw = dict(spread=spread, strike0=strike0, start=start, tenor=tenor,
               freq=freq, libor_tenor=delta)
     gm, gp = g.bump_sigma(-eps), g.bump_sigma(eps)
-    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device)
+    mc = dict(n_paths=n_paths, n_blocks=n_blocks, device=device, mesh=mesh)
     pm = price_ratchet_cap_g2(cfg, gm, key, market, **kw, **mc)
     pp = price_ratchet_cap_g2(cfg, gp, key, market, **kw, **mc)
     om, _ = ratchet_cap_quadrature_g2(cfg, gm, market, **kw)

@@ -22,7 +22,8 @@ reads the call boundary CURVE r*(c) per date, and the MC applies it
 with two controls, the non-callable note and the call-at-T_1 leg.
 
 The MC is plain PyTorch on the device, blocks drawn from their global
-index one after the other (no ``mesh`` before its second slice, PORT.md); the
+index one after the other or sharded over a path mesh (``mesh=``,
+``parallel.mesh.map_blocks``: bit for bit the single run); the
 LIBOR terms are float32 scalars rounded as the JAX package rounds them.
 """
 
@@ -269,7 +270,7 @@ def _snowball_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
                  initial: float, spread: float, cap: float, floor: float,
                  start: float, n: int, tau: float, delta: float,
                  linear_mean: float, n_paths: int, n_blocks: int,
-                 rqmc: bool, dev):
+                 rqmc: bool, dev, mesh=None):
     """The snowball's estimator: (price, SE, raw price, raw SE, beta, mean
     final coupon); with ``rqmc`` the SEs go across the blocks (ddof 1)."""
     obs, specs = _snowball_specs(start, n, tau)
@@ -298,7 +299,8 @@ def _snowball_fn(cfg: HWConfig, key: Key, sigma, market: MarketCurve, *,
         legs = [leg(1.0), leg(-1.0)]
         return _moments(*[0.5 * (a + b) for a, b in zip(*legs)])
 
-    rows = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block, rqmc=rqmc)
+    rows = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block, rqmc=rqmc,
+                       mesh=mesh)
     s = rows.sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     price, se, mv, raw_se, beta = _cv_estimate(s, n_tot, linear_mean)
@@ -317,7 +319,7 @@ def price_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
                    tenor: float = 4.0, freq: float = 1.0,
                    libor_tenor: float | None = None, sigma=None,
                    n_paths: int | None = None, n_blocks: int = 1,
-                   rqmc: bool = False, device) -> SnowballResult:
+                   rqmc: bool = False, mesh=None, device) -> SnowballResult:
     """Monte Carlo snowball note from exactly sampled multi-date (r, I)
     states (antithetic), the unclipped linear snowball the control
     variate of exact mean.  Unbiased (no policy); the fp64 2-d DP
@@ -339,7 +341,7 @@ def price_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
                        floor=float(floor), start=start, n=n, tau=tau,
                        delta=delta, linear_mean=float(linear_mean),
                        n_paths=int(n_paths), n_blocks=int(n_blocks),
-                       rqmc=bool(rqmc), dev=dev)
+                       rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return SnowballResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -357,7 +359,7 @@ def vega_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
                   tenor: float = 4.0, freq: float = 1.0,
                   libor_tenor: float | None = None, eps: float = 1e-3,
                   n_paths: int | None = None, n_blocks: int = 1,
-                  device) -> SnowballVega:
+                  mesh=None, device) -> SnowballVega:
     """CRN central-difference vega (key reuse; the CV's exact mean is
     recomputed per bump) against the central difference of the fp64 2-d
     DP value.  No policy to freeze: the snowball has no exercise right."""
@@ -367,7 +369,7 @@ def vega_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
               start=start, tenor=tenor, freq=freq, libor_tenor=libor_tenor)
     dp_m = dp_oracle_snowball(cfg, market, sigma=cfg.sigma - eps, **kw)
     dp_p = dp_oracle_snowball(cfg, market, sigma=cfg.sigma + eps, **kw)
-    mc = dict(kw, n_paths=n_paths, n_blocks=n_blocks, device=device)
+    mc = dict(kw, n_paths=n_paths, n_blocks=n_blocks, device=device, mesh=mesh)
     p_m = price_snowball(cfg, key, market, sigma=cfg.sigma - eps,
                          **mc).price
     p_p = price_snowball(cfg, key, market, sigma=cfg.sigma + eps,
@@ -392,7 +394,8 @@ def _callable_snowball_fn(cfg: HWConfig, key: Key, sigma,
                           spread: float, cap: float, floor: float,
                           start: float, n: int, tau: float, delta: float,
                           boundaries: tuple, cs: tuple, plain_mean: float,
-                          z_mean: float, n_paths: int, n_blocks: int, dev):
+                          z_mean: float, n_paths: int, n_blocks: int, dev,
+                          mesh=None):
     """The callable snowball's estimator under the boundary-curve policy:
     (price, SE, raw price, raw SE, beta of the plain note, call fraction),
     two controls (the plain note, the call-at-T_1 leg)."""
@@ -435,7 +438,8 @@ def _callable_snowball_fn(cfg: HWConfig, key: Key, sigma,
                             Z.sum(), (Z * Z).sum(), (V * Y).sum(),
                             (V * Z).sum(), (Y * Z).sum(), F.sum()])
 
-    s = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block).sum(0)
+    s = _block_rows(key, n_paths, n_blocks, 2 * n, dev, block,
+                    mesh=mesh).sum(0)
     n_tot = 1.0 * n_paths * n_blocks
     mv, my, mz = s[0] / n_tot, s[2] / n_tot, s[4] / n_tot
     var_v = torch.clamp(s[1] / n_tot - mv * mv, min=0.0)
@@ -465,7 +469,7 @@ def price_callable_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
                             plain_mean: float | None = None,
                             n_paths: int | None = None, n_blocks: int = 1,
                             dp_kwargs: dict | None = None,
-                            device) -> CallableSnowballResult:
+                            mesh=None, device) -> CallableSnowballResult:
     """Monte Carlo upper bound for the issuer-callable snowball under the
     fixed boundary-curve policy r*(c) per call date (default: read off
     the fp64 2-d DP; any fixed issuer policy is an unbiased upper bound).
@@ -496,7 +500,7 @@ def price_callable_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
         boundaries=tuple(tuple(float(v) for v in row) for row in boundaries),
         cs=tuple(float(v) for v in c_grid), plain_mean=float(plain_mean),
         z_mean=float(z_mean), n_paths=int(n_paths), n_blocks=int(n_blocks),
-        dev=dev)
+        dev=dev, mesh=mesh)
     return CallableSnowballResult(*out, n_paths=int(n_paths) * int(n_blocks))
 
 
@@ -515,7 +519,7 @@ def vega_callable_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
                            libor_tenor: float | None = None,
                            eps: float = 1e-3, n_paths: int | None = None,
                            n_blocks: int = 1, dp_kwargs: dict | None = None,
-                           device) -> CallableSnowballVega:
+                           mesh=None, device) -> CallableSnowballVega:
     """CRN central-difference vega with the call boundary curves FROZEN at
     the base-sigma DP policy (envelope theorem at the issuer-optimal
     boundary), against the central difference of the fp64 DP value,
@@ -533,7 +537,7 @@ def vega_callable_snowball(cfg: HWConfig, key: Key, market: MarketCurve, *,
     dp_p = dp_oracle_callable_snowball(cfg, market, sigma=cfg.sigma + eps,
                                        **kw, **dpk)
     mc = dict(kw, boundaries=base.boundaries, c_grid=base.c_grid,
-              n_paths=n_paths, n_blocks=n_blocks, device=device)
+              n_paths=n_paths, n_blocks=n_blocks, device=device, mesh=mesh)
     p_m = price_callable_snowball(cfg, key, market, sigma=cfg.sigma - eps,
                                   plain_mean=dp_m.plain_price, **mc).price
     p_p = price_callable_snowball(cfg, key, market, sigma=cfg.sigma + eps,

@@ -32,7 +32,7 @@ port's copies of its helpers (``instruments._np_AB``, ``bermudan.
 _det_affine``, ``engine_linear._shock_shapes``, ``range_note._nphi``), so
 they equal the JAX package's.  The Monte Carlo is plain PyTorch on the
 device: blocks drawn from their global index one after the other
-(``range_note._block_rows``; no ``mesh`` before its second slice, PORT.md),
+or sharded over a path mesh (``range_note._block_rows``, ``mesh=``),
 antithetic legs, the product ``x @ LT`` through ``engine_linear.dot`` at the
 configuration's
 precision.  The bodies are called per call; the bond terms, deterministic
@@ -550,7 +550,7 @@ def price_exposure(cfg: HWConfig, key: Key, market: MarketCurve, *,
                    hazard: float = 0.02, recovery: float = 0.4,
                    sigma=None, n_paths: int | None = None,
                    n_blocks: int = 1, rqmc: bool = False,
-                   device) -> CVAResult:
+                   mesh=None, device) -> CVAResult:
     """Monte Carlo exposure profile + CVA on exactly-sampled multi-date
     (r, I) functionals, with the discounted swap value as per-date (and
     pd-weighted) control variate at its exact discrete-law mean.  fp64
@@ -565,7 +565,7 @@ def price_exposure(cfg: HWConfig, key: Key, market: MarketCurve, *,
                    tenor=tenor, freq=freq, start=start, payer=payer,
                    quantile=quantile, hazard=_haz(hazard),
                    recovery=float(recovery), n_paths=int(n_paths),
-                   n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                   n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev, mesh=mesh)
     prof = _profile_of(out, exposure_dates(cfg, tenor, freq, start),
                        out[-1], n_paths, n_blocks)
     return _cva_of(out, prof)
@@ -597,7 +597,7 @@ def vega_cva(cfg: HWConfig, key: Key, market: MarketCurve, *,
              quantile: float = 0.95, hazard: float = 0.02,
              recovery: float = 0.4, eps: float = 1e-3,
              n_paths: int | None = None, n_blocks: int = 1,
-             rqmc: bool = False, device) -> CVAVega:
+             rqmc: bool = False, mesh=None, device) -> CVAVega:
     """dCVA/dsigma three ways on one body: forward-mode jvp
     (``torch.func.jvp``; the positive part is a.s. differentiable and the
     CV mean is a function of sigma inside the body), CRN central
@@ -613,7 +613,7 @@ def vega_cva(cfg: HWConfig, key: Key, market: MarketCurve, *,
               quantile=quantile)
     mc = dict(hazard=_haz(hazard), recovery=float(recovery),
               n_paths=int(n_paths), n_blocks=int(n_blocks), rqmc=bool(rqmc),
-              dev=dev)
+              dev=dev, mesh=mesh)
     return _three_ways(
         cfg, lambda s: _swap_fn(cfg, key, s, market_h, **kw, **mc)[6],
         lambda s: exposure_oracle(cfg, market_h, sigma=s, hazard=hazard,
@@ -879,7 +879,8 @@ def netting_oracle(cfg: HWConfig, market: MarketCurve, legs, *,
 
 def _book_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
              legs: tuple, *, freq: float, start: float, n_paths: int,
-             n_blocks: int, rqmc: bool, dev, host_extra, sample, row):
+             n_blocks: int, rqmc: bool, dev, host_extra, sample, row,
+             mesh=None):
     """The shared netted-book estimator: (per-block rows, context).  On
     the host: the layout, the signed bond terms, the deterministic states,
     their variances and the CV means E[e^{-I_j} V_j] as float32 functions
@@ -910,7 +911,7 @@ def _book_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
         return row(ctx, *[0.5 * (a + b) for a, b in zip(*legs2)])
 
     return _block_rows(key, n_paths, n_blocks, 2 * ctx["m"], dev, block,
-                       rqmc), ctx
+                       rqmc, mesh), ctx
 
 
 def _hw_value(ctx, ro, it):
@@ -968,12 +969,14 @@ def _netting_body(book, value, pfe, dates: tuple, *, hazard,
 
 def _netting_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
                 pfe, legs: tuple, *, freq: float, start: float,
-                n_paths: int, n_blocks: int, rqmc: bool, dev, **kw):
+                n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None,
+                **kw):
     """The Hull-White netted book's estimator (``_netting_body`` on
     ``_book_fn``; ``kw``: hazard, recovery, bil, agg_weights)."""
     book = functools.partial(_book_fn, cfg, key, sigma, market_h, legs,
                              freq=freq, start=start, n_paths=n_paths,
-                             n_blocks=n_blocks, rqmc=rqmc, dev=dev)
+                             n_blocks=n_blocks, rqmc=rqmc, dev=dev,
+                             mesh=mesh)
     return _netting_body(book, _hw_value, pfe,
                          _legs_layout(cfg, legs, freq, start)[0],
                          n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
@@ -994,7 +997,7 @@ def price_netting(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                   quantile: float = 0.95, hazard: float = 0.02,
                   recovery: float = 0.4, sigma=None,
                   n_paths: int | None = None, n_blocks: int = 1,
-                  rqmc: bool = False, device) -> CVAResult:
+                  rqmc: bool = False, mesh=None, device) -> CVAResult:
     """Monte Carlo netted exposure + CVA of a swap portfolio on the same
     exact multi-date states; the netted discounted portfolio value is
     the CV at its exact mean.  fp64 oracle: ``netting_oracle``.  The
@@ -1009,7 +1012,8 @@ def price_netting(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
     out = _netting_fn(cfg, key, sigma, market_h, o.pfe, legs,
                       freq=float(freq), start=start, hazard=_haz(hazard),
                       recovery=float(recovery), n_paths=n_paths,
-                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                      n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                      mesh=mesh)
     return _cva_of(out, _profile_of(out, o.dates, out[-1], n_paths,
                                     n_blocks))
 
@@ -1019,7 +1023,7 @@ def vega_cva_netting(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                      quantile: float = 0.95, hazard: float = 0.02,
                      recovery: float = 0.4, eps: float = 1e-3,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     rqmc: bool = False, device) -> CVAVega:
+                     rqmc: bool = False, mesh=None, device) -> CVAVega:
     """dCVA/dsigma of the NETTED book, three ways on the netting body
     (the jvp / CRN-FD / oracle-FD protocol of ``vega_cva``; the CV mean is
     a function of sigma inside the body, so the tangent differentiates the
@@ -1034,7 +1038,7 @@ def vega_cva_netting(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
     pfe = netting_oracle(cfg, market_h, legs, **okw).pfe
     kw = dict(freq=float(freq), start=start, hazard=_haz(hazard),
               recovery=float(recovery), n_paths=n_paths,
-              n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+              n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return _three_ways(
         cfg, lambda s: _netting_fn(cfg, key, s, market_h, pfe, legs,
                                    **kw)[6],
@@ -1256,12 +1260,14 @@ def _collateral_body(book, value, pfe, dates: tuple, *, H: float, lag: int,
 
 def _collateral_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
                    pfe, legs: tuple, *, freq: float, start: float,
-                   n_paths: int, n_blocks: int, rqmc: bool, dev, **kw):
+                   n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None,
+                   **kw):
     """The Hull-White CSA estimator (``_collateral_body`` on ``_book_fn``;
     ``kw``: H, lag, hazard, recovery)."""
     book = functools.partial(_book_fn, cfg, key, sigma, market_h, legs,
                              freq=freq, start=start, n_paths=n_paths,
-                             n_blocks=n_blocks, rqmc=rqmc, dev=dev)
+                             n_blocks=n_blocks, rqmc=rqmc, dev=dev,
+                             mesh=mesh)
     return _collateral_body(book, _hw_value, pfe,
                             _legs_layout(cfg, legs, freq, start)[0],
                             n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
@@ -1274,7 +1280,7 @@ def price_collateral(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                      quantile: float = 0.95, hazard: float = 0.02,
                      recovery: float = 0.4, sigma=None,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     rqmc: bool = False, device) -> CVAResult:
+                     rqmc: bool = False, mesh=None, device) -> CVAResult:
     """Monte Carlo collateralized exposure + CVA under the threshold-H,
     lag-period-MPoR CSA; fp64 oracle ``collateral_oracle``.  The same
     exact multi-date states as ``price_netting``: the collateral is a
@@ -1291,7 +1297,8 @@ def price_collateral(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                          H=float(threshold), lag=int(lag), freq=float(freq),
                          start=start, hazard=_haz(hazard),
                          recovery=float(recovery), n_paths=n_paths,
-                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                         mesh=mesh)
     return _cva_of(out, _profile_of(out, o.dates, pfe, n_paths, n_blocks))
 
 
@@ -1429,7 +1436,7 @@ def price_bilateral(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                     spread_borrow: float = 0.005,
                     spread_lend: float = 0.005, sigma=None,
                     n_paths: int | None = None, n_blocks: int = 1,
-                    rqmc: bool = False, device) -> BilateralResult:
+                    rqmc: bool = False, mesh=None, device) -> BilateralResult:
     """Monte Carlo bilateral XVA on the netted portfolio: the BCVA and
     asymmetric-FVA headline numbers are dedicated per-path aggregate
     channels with their own optimal-beta CVs (exact means from the
@@ -1447,6 +1454,7 @@ def price_bilateral(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                       freq=float(freq), start=start, hazard=_haz(hazard),
                       recovery=float(recovery), n_paths=n_paths,
                       n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                      mesh=mesh,
                       bil=_bil_channels(wc, wo, wf, lgd_c, lgd_o,
                                         spread_borrow, spread_lend))
     return _bilateral_result(out, o, wc, wo, wf, lgd_c, lgd_o,
@@ -1606,7 +1614,7 @@ def _wwr_sample(ctx, V, D, Itot, l0: float, gm: float):
 def _wwr_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve, pfe,
             cvm, mg: float, ml: float, legs: tuple, *, freq: float,
             start: float, lambda0: float, gamma: float, recovery: float,
-            n_paths: int, n_blocks: int, rqmc: bool, dev):
+            n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The netted body with stochastic-intensity default weights: per path
     S_j = e^{-lambda0 t_j - gamma Itot_j}, the per-date exposure sample
     (S_{j-1} - S_j) D_j V_j^+ and its CV the same weighting of the signed
@@ -1635,7 +1643,7 @@ def _wwr_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve, pfe,
     per_block, ctx = _book_fn(
         cfg, key, sigma, market_h, legs, freq=freq, start=start,
         n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc, dev=dev,
-        host_extra=host_extra, sample=sample, row=row)
+        host_extra=host_extra, sample=sample, row=row, mesh=mesh)
     return _profile_reduce(per_block, m, n_paths, n_blocks, rqmc,
                            torch.tensor(cvm, dtype=torch.float64,
                                         device=dev),
@@ -1671,7 +1679,7 @@ def price_wwr(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
               freq: float = 1.0, start: float | None = None,
               quantile: float = 0.95, recovery: float = 0.4,
               sigma=None, n_paths: int | None = None, n_blocks: int = 1,
-              rqmc: bool = False, device) -> WWRResult:
+              rqmc: bool = False, mesh=None, device) -> WWRResult:
     """Monte Carlo wrong-way-risk CVA of a netted swap portfolio under
     lambda_t = lambda0 + gamma r_t, with pathwise gamma / lambda0
     deltas.  fp64 oracle: ``wwr_oracle``.  The profile's PFE/exceed
@@ -1698,7 +1706,7 @@ def price_wwr(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                   freq=float(freq), start=start, lambda0=float(lambda0),
                   gamma=float(gamma), recovery=float(recovery),
                   n_paths=n_paths, n_blocks=int(n_blocks), rqmc=bool(rqmc),
-                  dev=dev)
+                  dev=dev, mesh=mesh)
     return _wwr_result(out, _profile_of(out, on.dates, pfe, n_paths,
                                         n_blocks), recovery)
 
@@ -1793,7 +1801,7 @@ def mva_oracle(cfg: HWConfig, market: MarketCurve, legs, *,
 def _mva_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
             s_cond, cvm, legs: tuple, *, freq: float, start: float,
             quantile_im: float, spread_im: float, hazard, hazard_own,
-            n_paths: int, n_blocks: int, rqmc: bool, dev):
+            n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The netted body sampling the delta-normal IM: per path
     IM_j = z_q s_d_j |W_j(r_j)|, CV = the SIGNED gradient channel
     D_j z_q s_d_j W_j at its exact lognormal mean ``cvm``."""
@@ -1821,7 +1829,7 @@ def _mva_fn(cfg: HWConfig, key: Key, sigma, market_h: MarketCurve,
     per_block, ctx = _book_fn(
         cfg, key, sigma, market_h, legs, freq=freq, start=start,
         n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc, dev=dev,
-        host_extra=host_extra, sample=sample, row=row)
+        host_extra=host_extra, sample=sample, row=row, mesh=mesh)
     return _profile_reduce(per_block, m, n_paths, n_blocks, rqmc,
                            torch.tensor(cvm, dtype=torch.float64,
                                         device=dev),
@@ -1834,7 +1842,7 @@ def price_mva(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
               start: float | None = None, hazard: float = 0.02,
               hazard_own: float = 0.01, sigma=None,
               n_paths: int | None = None, n_blocks: int = 1,
-              rqmc: bool = False, device) -> MVAResult:
+              rqmc: bool = False, mesh=None, device) -> MVAResult:
     """Monte Carlo MVA under delta-normal dynamic IM on the netted
     multi-date states.  fp64 oracle: ``mva_oracle`` (exact tilted segment
     decomposition of the gradient sum)."""
@@ -1850,7 +1858,7 @@ def price_mva(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
                   quantile_im=float(quantile_im),
                   spread_im=float(spread_im), hazard=_haz(hazard),
                   hazard_own=_haz(hazard_own), n_paths=n_paths,
-                  n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                  n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return MVAResult(mva=out[6], std_error=out[7], raw_mva=out[8],
                      raw_std_error=out[9], beta=out[10], im=out[0],
                      im_std_error=out[1], dates=o.dates, delta=o.delta)
@@ -1922,7 +1930,7 @@ def price_kva(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
               cost_of_capital: float = 0.10, capital_ratio: float = 0.08,
               hazard: float = 0.02, hazard_own: float = 0.01, sigma=None,
               n_paths: int | None = None, n_blocks: int = 1,
-              rqmc: bool = False, device) -> KVAResult:
+              rqmc: bool = False, mesh=None, device) -> KVAResult:
     """Monte Carlo KVA on the netted multi-date states: the netting body
     with the pd aggregate weights swapped for the KVA weights (recovery
     pinned to 0 so the body's lgd factor is 1).  fp64 oracle:
@@ -1937,7 +1945,7 @@ def price_kva(cfg: HWConfig, key: Key, market: MarketCurve, legs, *,
     out = _netting_fn(cfg, key, sigma, market_h, o.pfe, legs,
                       freq=float(freq), start=start, hazard=_haz(hazard),
                       recovery=0.0, n_paths=n_paths, n_blocks=int(n_blocks),
-                      rqmc=bool(rqmc), dev=dev, agg_weights=w)
+                      rqmc=bool(rqmc), dev=dev, mesh=mesh, agg_weights=w)
     kr = float(np.float32(capital_ratio))
     return KVAResult(kva=out[6], std_error=out[7], raw_kva=out[8],
                      raw_std_error=out[9], beta=out[10],
@@ -1966,7 +1974,7 @@ def cva_cs01(cfg: HWConfig, key: Key, market: MarketCurve, legs, *, quotes,
              freq: float = 1.0, start: float | None = None,
              quantile: float = 0.95, n_paths: int | None = None,
              n_blocks: int = 1, rqmc: bool = False,
-             device) -> CS01Result:
+             mesh=None, device) -> CS01Result:
     """Bucketed credit deltas (CS01) of the netted CVA under a
     CDS-bootstrapped hazard curve.  The EE profile is independent of the
     credit side, so each bucket's delta is a host-side re-dot of the SAME
@@ -1995,7 +2003,7 @@ def cva_cs01(cfg: HWConfig, key: Key, market: MarketCurve, legs, *, quotes,
     r = price_netting(cfg, key, market, legs, freq=freq, start=start,
                       quantile=quantile, hazard=curve, recovery=recovery,
                       n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc,
-                      device=device)
+                      device=device, mesh=mesh)
     ee_mc = r.profile.ee.detach().cpu().numpy().astype(np.float64)
     ee_se = r.profile.ee_std_error.detach().cpu().numpy().astype(np.float64)
     ee_o = np.asarray(o.ee)
@@ -2245,7 +2253,8 @@ def _g2_book_value(lam, Ba, Bb, x, y):
 
 def _g2_book_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
                 legs: tuple, *, freq: float, start: float, n_paths: int,
-                n_blocks: int, rqmc: bool, dev, host_extra, sample, row):
+                n_blocks: int, rqmc: bool, dev, host_extra, sample, row,
+                mesh=None):
     """The shared netted G2++ estimator (``_book_fn``'s twin): (per-block
     rows, context).  On the host, float32 as the JAX package's jitted
     bodies compute them: P0 at the dates and the cashflow times
@@ -2276,7 +2285,7 @@ def _g2_book_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
         return row(ctx, *[0.5 * (a + b) for a, b in zip(*legs2)])
 
     return _block_rows(key, n_paths, n_blocks, 3 * m, dev, block,
-                       rqmc), ctx
+                       rqmc, mesh), ctx
 
 
 def _g2_value(ctx, x, y, I):
@@ -2289,11 +2298,12 @@ def _g2_value(ctx, x, y, I):
 
 def _g2_book(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
              legs: tuple, *, freq: float, start: float, n_paths: int,
-             n_blocks: int, rqmc: bool, dev):
+             n_blocks: int, rqmc: bool, dev, mesh=None):
     """(``_g2_book_fn`` with its arguments bound, the book's dates)."""
     book = functools.partial(_g2_book_fn, cfg, g, key, market_h, legs,
                              freq=freq, start=start, n_paths=n_paths,
-                             n_blocks=n_blocks, rqmc=rqmc, dev=dev)
+                             n_blocks=n_blocks, rqmc=rqmc, dev=dev,
+                             mesh=mesh)
     return book, exposure_dates(cfg, max(leg.tenor for leg in legs), freq,
                                 start)
 
@@ -2301,7 +2311,7 @@ def _g2_book(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
 def _netting_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                    market_h: MarketCurve, pfe, legs: tuple, *, freq: float,
                    start: float, n_paths: int, n_blocks: int, rqmc: bool,
-                   dev, **kw):
+                   dev, mesh=None, **kw):
     """G2++ twin of ``_netting_fn``: the exactly-sampled (x, y, I) per reset
     date are leg-independent, so the netted body concatenates the legs'
     signed, alive-masked bond terms along the cashflow axis
@@ -2309,7 +2319,7 @@ def _netting_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
     agg_weights)."""
     book, dates = _g2_book(cfg, g, key, market_h, legs, freq=freq,
                            start=start, n_paths=n_paths, n_blocks=n_blocks,
-                           rqmc=rqmc, dev=dev)
+                           rqmc=rqmc, dev=dev, mesh=mesh)
     return _netting_body(book, _g2_value, pfe, dates, n_paths=n_paths,
                          n_blocks=n_blocks, rqmc=rqmc, **kw)
 
@@ -2335,7 +2345,7 @@ def price_exposure_g2(cfg: HWConfig, g: G2Params, key: Key,
                       quantile: float = 0.95, hazard: float = 0.02,
                       recovery: float = 0.4, n_paths: int | None = None,
                       n_blocks: int = 1, rqmc: bool = False,
-                      device) -> CVAResult:
+                      mesh=None, device) -> CVAResult:
     """G2++ twin of ``price_exposure``: 3m exactly-sampled functionals
     (x, y, I per reset date), discounted-swap CV at its exact martingale
     mean, PFE levels from the fp64 conditional-CDF bisection (held by the
@@ -2353,7 +2363,7 @@ def price_exposure_g2(cfg: HWConfig, g: G2Params, key: Key,
                      freq=freq, start=start, payer=payer,
                      hazard=_haz(hazard), recovery=float(recovery),
                      n_paths=n_paths, n_blocks=int(n_blocks),
-                     rqmc=bool(rqmc), dev=dev)
+                     rqmc=bool(rqmc), dev=dev, mesh=mesh)
     prof = _profile_of(out, exposure_dates(cfg, tenor, freq, start),
                        out[-1], n_paths, n_blocks)
     return _cva_of(out, prof)
@@ -2488,7 +2498,7 @@ def price_netting_g2(cfg: HWConfig, g: G2Params, key: Key,
                      start: float | None = None, quantile: float = 0.95,
                      hazard: float = 0.02, recovery: float = 0.4,
                      n_paths: int | None = None, n_blocks: int = 1,
-                     rqmc: bool = False, device) -> CVAResult:
+                     rqmc: bool = False, mesh=None, device) -> CVAResult:
     """G2++ twin of ``price_netting``: netted exposure profile + CVA of a
     swap portfolio on the exactly-sampled (x, y, I) states; the netted
     discounted portfolio value is the CV at its exact martingale mean.
@@ -2502,7 +2512,8 @@ def price_netting_g2(cfg: HWConfig, g: G2Params, key: Key,
     out = _netting_g2_fn(cfg, g, key, market_h, o.pfe, legs,
                          freq=float(freq), start=start, hazard=_haz(hazard),
                          recovery=float(recovery), n_paths=n_paths,
-                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                         n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                         mesh=mesh)
     return _cva_of(out, _profile_of(out, o.dates, out[-1], n_paths,
                                     n_blocks))
 
@@ -2530,7 +2541,8 @@ def price_bilateral_g2(cfg: HWConfig, g: G2Params, key: Key,
                        spread_borrow: float = 0.005,
                        spread_lend: float = 0.005,
                        n_paths: int | None = None, n_blocks: int = 1,
-                       rqmc: bool = False, device) -> BilateralResult:
+                       rqmc: bool = False,
+                       mesh=None, device) -> BilateralResult:
     """G2++ twin of ``price_bilateral``: BCVA and asymmetric-FVA headline
     channels with their own optimal-beta CVs on the netted G2++ body.
     fp64 oracle: ``bilateral_oracle_g2``."""
@@ -2546,6 +2558,7 @@ def price_bilateral_g2(cfg: HWConfig, g: G2Params, key: Key,
                          freq=float(freq), start=start, hazard=_haz(hazard),
                          recovery=float(recovery), n_paths=n_paths,
                          n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                         mesh=mesh,
                          bil=_bil_channels(wc, wo, wf, lgd_c, lgd_o,
                                            spread_borrow, spread_lend))
     return _bilateral_result(out, o, wc, wo, wf, lgd_c, lgd_o,
@@ -2720,12 +2733,12 @@ def collateral_oracle_g2(cfg: HWConfig, g: G2Params, market: MarketCurve,
 def _collateral_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                       market_h: MarketCurve, pfe, legs: tuple, *,
                       freq: float, start: float, n_paths: int,
-                      n_blocks: int, rqmc: bool, dev, **kw):
+                      n_blocks: int, rqmc: bool, dev, mesh=None, **kw):
     """The G2++ CSA estimator (``_collateral_body`` on ``_g2_book_fn``;
     ``kw``: H, lag, hazard, recovery)."""
     book, dates = _g2_book(cfg, g, key, market_h, legs, freq=freq,
                            start=start, n_paths=n_paths, n_blocks=n_blocks,
-                           rqmc=rqmc, dev=dev)
+                           rqmc=rqmc, dev=dev, mesh=mesh)
     return _collateral_body(book, _g2_value, pfe, dates, n_paths=n_paths,
                             n_blocks=n_blocks, rqmc=rqmc, **kw)
 
@@ -2737,7 +2750,7 @@ def price_collateral_g2(cfg: HWConfig, g: G2Params, key: Key,
                         quantile: float = 0.95, hazard: float = 0.02,
                         recovery: float = 0.4, n_paths: int | None = None,
                         n_blocks: int = 1, rqmc: bool = False,
-                        device) -> CVAResult:
+                        mesh=None, device) -> CVAResult:
     """G2++ twin of ``price_collateral``: collateralized exposure + CVA
     under the threshold-H, lag-period-MPoR CSA on the exactly-sampled
     (x, y, I) states.  fp64 oracle: ``collateral_oracle_g2``."""
@@ -2754,7 +2767,7 @@ def price_collateral_g2(cfg: HWConfig, g: G2Params, key: Key,
                             freq=float(freq), start=start,
                             hazard=_haz(hazard), recovery=float(recovery),
                             n_paths=n_paths, n_blocks=int(n_blocks),
-                            rqmc=bool(rqmc), dev=dev)
+                            rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return _cva_of(out, _profile_of(out, o.dates, pfe, n_paths, n_blocks))
 
 
@@ -2888,7 +2901,7 @@ def wwr_oracle_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, legs, *,
 def _wwr_g2_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
                pfe, cvm, mg: float, ml: float, legs: tuple, *, freq: float,
                start: float, lambda0: float, gamma: float, recovery: float,
-               n_paths: int, n_blocks: int, rqmc: bool, dev):
+               n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """G2++ twin of ``_wwr_fn``: the netted G2++ body with
     stochastic-intensity default weights S_j = e^{-lambda0 t_j - gamma
     (phi_det_j + I_j)} and pathwise gamma / lambda0 delta channels (Itot =
@@ -2918,7 +2931,7 @@ def _wwr_g2_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
     per_block, ctx = _g2_book_fn(
         cfg, g, key, market_h, legs, freq=freq, start=start,
         n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc, dev=dev,
-        host_extra=host_extra, sample=sample, row=row)
+        host_extra=host_extra, sample=sample, row=row, mesh=mesh)
     return _profile_reduce(per_block, m, n_paths, n_blocks, rqmc,
                            _f32(cvm).to(dev), ctx["ones"], ctx["zeros"],
                            1.0 - recovery,
@@ -2931,7 +2944,7 @@ def price_wwr_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                  freq: float = 1.0, start: float | None = None,
                  quantile: float = 0.95, recovery: float = 0.4,
                  n_paths: int | None = None, n_blocks: int = 1,
-                 rqmc: bool = False, device) -> WWRResult:
+                 rqmc: bool = False, mesh=None, device) -> WWRResult:
     """G2++ twin of ``price_wwr``: wrong-way-risk CVA + pathwise gamma /
     lambda0 deltas on the exactly-sampled netted (x, y, I) states.  fp64
     oracle: ``wwr_oracle_g2``."""
@@ -2957,7 +2970,7 @@ def price_wwr_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                      freq=float(freq), start=start, lambda0=float(lambda0),
                      gamma=float(gamma), recovery=float(recovery),
                      n_paths=n_paths, n_blocks=int(n_blocks),
-                     rqmc=bool(rqmc), dev=dev)
+                     rqmc=bool(rqmc), dev=dev, mesh=mesh)
     return _wwr_result(out, _profile_of(out, on.dates, pfe, n_paths,
                                         n_blocks), recovery)
 
@@ -3058,7 +3071,7 @@ def mva_oracle_g2(cfg: HWConfig, g: G2Params, market: MarketCurve, legs, *,
 def _mva_g2_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
                cvm, legs: tuple, *, freq: float, start: float, delta: float,
                quantile_im: float, spread_im: float, hazard, hazard_own,
-               n_paths: int, n_blocks: int, rqmc: bool, dev):
+               n_paths: int, n_blocks: int, rqmc: bool, dev, mesh=None):
     """The G2++ MVA body: per path Q = g' Sigma_delta g on the netted
     (x, y, I) states, IM = z_q sqrt(Q), CV = the quadratic channel D Q at
     its exact tilted-lognormal mean ``cvm``."""
@@ -3092,7 +3105,7 @@ def _mva_g2_fn(cfg: HWConfig, g: G2Params, key: Key, market_h: MarketCurve,
     per_block, ctx = _g2_book_fn(
         cfg, g, key, market_h, legs, freq=freq, start=start,
         n_paths=n_paths, n_blocks=n_blocks, rqmc=rqmc, dev=dev,
-        host_extra=host_extra, sample=sample, row=row)
+        host_extra=host_extra, sample=sample, row=row, mesh=mesh)
     return _profile_reduce(per_block, m, n_paths, n_blocks, rqmc,
                            _f32(cvm).to(dev), ctx["wj"], ctx["zeros"], 1.0)
 
@@ -3103,7 +3116,7 @@ def price_mva_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                  start: float | None = None, hazard: float = 0.02,
                  hazard_own: float = 0.01, n_paths: int | None = None,
                  n_blocks: int = 1, rqmc: bool = False,
-                 device) -> MVAResult:
+                 mesh=None, device) -> MVAResult:
     """G2++ twin of ``price_mva``: the delta-normal dynamic IM's funded
     cost on the netted (x, y, I) states.  fp64 oracle: ``mva_oracle_g2``."""
     dev, _, n_paths, start, legs = _book_args(
@@ -3118,7 +3131,8 @@ def price_mva_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                      quantile_im=float(quantile_im),
                      spread_im=float(spread_im), hazard=_haz(hazard),
                      hazard_own=_haz(hazard_own), n_paths=n_paths,
-                     n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev)
+                     n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                     mesh=mesh)
     return MVAResult(mva=out[6], std_error=out[7], raw_mva=out[8],
                      raw_std_error=out[9], beta=out[10], im=out[0],
                      im_std_error=out[1], dates=o.dates, delta=o.delta)
@@ -3147,7 +3161,7 @@ def price_kva_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                  cost_of_capital: float = 0.10, capital_ratio: float = 0.08,
                  hazard: float = 0.02, hazard_own: float = 0.01,
                  n_paths: int | None = None, n_blocks: int = 1,
-                 rqmc: bool = False, device) -> KVAResult:
+                 rqmc: bool = False, mesh=None, device) -> KVAResult:
     """G2++ twin of ``price_kva`` on the netted (x, y, I) states: the
     netting body with the pd aggregate weights swapped for the KVA weights
     (recovery pinned to 0).  fp64 oracle: ``kva_oracle_g2``."""
@@ -3161,6 +3175,7 @@ def price_kva_g2(cfg: HWConfig, g: G2Params, key: Key, market: MarketCurve,
                          freq=float(freq), start=start, hazard=_haz(hazard),
                          recovery=0.0, n_paths=n_paths,
                          n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                         mesh=mesh,
                          agg_weights=w)
     kr = float(np.float32(capital_ratio))
     return KVAResult(kva=out[6], std_error=out[7], raw_kva=out[8],
@@ -3386,7 +3401,7 @@ def _berm_xva_fn(cfg: HWConfig, key: Key, market_h: MarketCurve,
                  sched: CouponSchedule, ex: tuple, *, strike: float,
                  payer: bool, hazard, recovery: float, n_paths: int,
                  n_blocks: int, rqmc: bool, dev, cheb: tuple, rstars, pfe,
-                 ym):
+                 ym, mesh=None):
     """The Bermudan-exposure body: exact (r, I) functionals at the exercise
     dates, the frozen DP boundary policy, per-date stopped-value CVs (exact
     means ``ym`` from the forward oracle).  The value function is V_j =
@@ -3445,7 +3460,8 @@ def _berm_xva_fn(cfg: HWConfig, key: Key, market_h: MarketCurve,
         X, Y, E = (0.5 * (a + b) for a, b in zip(*legs2))
         return _profile_rows(X, Y, E, ctx["pdw"])
 
-    per_block = _block_rows(key, n_paths, n_blocks, 2 * k, dev, block, rqmc)
+    per_block = _block_rows(key, n_paths, n_blocks, 2 * k, dev, block, rqmc,
+                            mesh)
     return _profile_reduce(per_block, k, n_paths, n_blocks, rqmc, ctx["ym"],
                            ctx["pdw"], ctx["dpdw"], 1.0 - recovery)
 
@@ -3456,7 +3472,8 @@ def price_bermudan_xva(cfg: HWConfig, key: Key, market: MarketCurve,
                        quantile: float = 0.95, hazard: float = 0.02,
                        recovery: float = 0.4, n_paths: int | None = None,
                        n_blocks: int = 1, rqmc: bool = False,
-                       n_grid: int = 1501, width: float = 8.5, device):
+                       n_grid: int = 1501, width: float = 8.5,
+                       mesh=None, device):
     """Monte Carlo Bermudan-swaption exposure profile + CVA under the
     frozen DP boundary policy (section comment).  fp64 oracle:
     ``bermudan_exposure_oracle``.  Returns (CVAResult, oracle)."""
@@ -3481,6 +3498,7 @@ def price_bermudan_xva(cfg: HWConfig, key: Key, market: MarketCurve,
                        payer=bool(payer), hazard=_haz(hazard),
                        recovery=float(recovery), n_paths=n_paths,
                        n_blocks=int(n_blocks), rqmc=bool(rqmc), dev=dev,
+                       mesh=mesh,
                        cheb=tuple(cheb), rstars=o.rstars, pfe=o.pfe,
                        ym=o.y_means)
     prof = _profile_of(out, ex, torch.tensor(o.pfe, dtype=F32, device=dev),
@@ -3641,7 +3659,7 @@ def _berm_xva_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
                     market_h: MarketCurve, sched: CouponSchedule, ex: tuple,
                     *, strike: float, payer: bool, hazard, recovery: float,
                     n_paths: int, n_blocks: int, rqmc: bool, dev, sol, pfe,
-                    ym):
+                    ym, mesh=None):
     """The G2++ Bermudan-exposure body: exact (x, y, I) functionals at the
     exercise dates, the frozen bilinear f = payoff - cont policy, the
     bilinear interpolation of the DP value grids on the device.  On the
@@ -3708,7 +3726,8 @@ def _berm_xva_g2_fn(cfg: HWConfig, g: G2Params, key: Key,
         X, Y, E = (0.5 * (a + b) for a, b in zip(*legs2))
         return _profile_rows(X, Y, E, ctx["pdw"])
 
-    per_block = _block_rows(key, n_paths, n_blocks, 3 * k, dev, block, rqmc)
+    per_block = _block_rows(key, n_paths, n_blocks, 3 * k, dev, block, rqmc,
+                            mesh)
     return _profile_reduce(per_block, k, n_paths, n_blocks, rqmc, ctx["ym"],
                            ctx["pdw"], ctx["dpdw"], 1.0 - recovery)
 
@@ -3720,7 +3739,7 @@ def price_bermudan_xva_g2(cfg: HWConfig, g: G2Params, key: Key,
                           hazard: float = 0.02, recovery: float = 0.4,
                           n_paths: int | None = None, n_blocks: int = 1,
                           rqmc: bool = False, n_grid: int = 121,
-                          width: float = 6.5, device):
+                          width: float = 6.5, mesh=None, device):
     """G2++ twin of ``price_bermudan_xva``.  fp64 oracle:
     ``bermudan_exposure_oracle_g2``.  Returns (CVAResult, oracle)."""
     dev = resolve_device(device)
@@ -3739,7 +3758,8 @@ def price_bermudan_xva_g2(cfg: HWConfig, g: G2Params, key: Key,
                           strike=float(strike), payer=bool(payer),
                           hazard=_haz(hazard), recovery=float(recovery),
                           n_paths=n_paths, n_blocks=int(n_blocks),
-                          rqmc=bool(rqmc), dev=dev, sol=sol, pfe=o.pfe,
+                          rqmc=bool(rqmc), dev=dev,
+                          mesh=mesh, sol=sol, pfe=o.pfe,
                           ym=o.y_means)
     prof = _profile_of(out, ex, torch.tensor(o.pfe, dtype=F32, device=dev),
                        n_paths, n_blocks)

@@ -1,9 +1,8 @@
 """The up-and-out cap in the port (``hullwhite_tpu_torch.barrier``) against
 the JAX package on the same key and market, and the mirrors of the tests
 of ``tests/test_barrier.py`` that need no mesh: the 7 tier-1 tests and the
-3 slow ones.  ``test_sharded_matches_single`` and
-``test_g2_sharded_matches_single`` wait for the mesh's second
-slice (ROADMAP Queue 1 item 3)."""
+3 slow ones, and ``test_sharded_matches_single`` and
+``test_g2_sharded_matches_single`` on a 4-rank mesh."""
 
 import math
 
@@ -25,6 +24,8 @@ from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import TOL, _mc_close, _rel_equal  # noqa: E402
 from test_torch_ratchet import _markets  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -240,3 +241,30 @@ def test_rqmc_agrees_and_tightens(market, dp):
     with pytest.raises(ValueError):
         barrier.price_ko_cap(CFG, KEY, market, rqmc=True, n_blocks=1,
                              device="cpu", **KW)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    ekw = dict(n_paths=1 << 12, n_blocks=8)
+    return mirror_runs({
+        "hw": _call(barrier.price_ko_cap, CFG, KEY, market, **KW, **ekw),
+        "g2": _call(barrier.price_ko_cap_g2, CFG, G2, KEY, market, **KW,
+                    **ekw)})
+
+
+def test_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["hw"]
+    assert abs(float(single.price) - float(shard.price)) < 1e-6
+    assert_bitwise(shard, single)
+
+
+def test_g2_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["g2"]
+    assert abs(float(single.price) - float(shard.price)) < 1e-6
+    assert_bitwise(shard, single)

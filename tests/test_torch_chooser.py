@@ -1,9 +1,9 @@
 """The chooser (flexi) cap and auto-cap in the port
 (``hullwhite_tpu_torch.chooser``) against the JAX package on the same key
 and market, and the mirrors of the tests of ``tests/test_chooser.py`` that
-need no mesh: the 11 tier-1 tests and the 6 slow ones.
-``test_mesh_matches_single`` and ``test_g2_mesh_matches_single`` wait for
-the mesh's second slice (ROADMAP Queue 1 item 3)."""
+need no mesh: the 11 tier-1 tests and the 6 slow ones, and
+``test_mesh_matches_single`` and ``test_g2_mesh_matches_single`` (slow, as
+there) on a 4-rank mesh."""
 
 import math
 
@@ -27,6 +27,8 @@ from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import TOL, _mc_close, _rel_equal  # noqa: E402
 from test_torch_ratchet import _markets  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -386,3 +388,33 @@ def test_rqmc_agrees_and_tightens(analytic_market, dp2):
     mc = chooser.price_chooser_cap(CFG, KEY, analytic_market, **kw)
     assert abs(float(rq.price) - dp2.price) < 6 * float(rq.std_error) + 1e-5
     assert float(rq.std_error) < 0.5 * float(mc.std_error)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(analytic_market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"hw": _call(
+        chooser.price_chooser_cap, CFG, KEY, analytic_market, k=2,
+        n_paths=1 << 12, n_blocks=8, **KW)})
+
+
+def test_mesh_matches_single(mesh_runs):
+    shard, single = mesh_runs["hw"]
+    np.testing.assert_allclose(float(shard.price), float(single.price),
+                               rtol=0, atol=2e-6)
+    assert_bitwise(shard, single)
+
+
+@pytest.mark.slow
+def test_g2_mesh_matches_single(analytic_market):
+    kw = dict(k=2, n_paths=1 << 12, n_blocks=8, **KW)
+    ((shard, single),) = mirror_runs({"g2": _call(
+        chooser.price_chooser_cap_g2, CFG, G2, KEY, analytic_market,
+        **kw)}).values()
+    assert abs(float(single.price) - float(shard.price)) < 1e-6
+    assert_bitwise(shard, single)

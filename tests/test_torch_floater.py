@@ -1,7 +1,7 @@
 """The callable capped floater in the port (``hullwhite_tpu_torch.floater``)
 against the JAX package on the same key and market, and the mirrors of
-the 8 tests of ``tests/test_floater.py`` that need no mesh (its
-``test_sharded_matches_single`` waits for the mesh's second slice)."""
+the 8 tests of ``tests/test_floater.py`` that need no mesh, and its
+``test_sharded_matches_single`` on a 4-rank mesh."""
 
 import math
 
@@ -23,6 +23,8 @@ from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import TOL, _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -292,3 +294,22 @@ def test_cli_notes(tmp_path, monkeypatch, capsys):
     g2 = r["callable_snowball_g2"]
     assert abs(g2["mc_price"] - g2["dp_price"]) < 5e-4
     assert len(r["capped_floater"]["boundaries"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(analytic_market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"floater": _call(
+        floater.price_capped_floater, CFG, KEY, analytic_market,
+        n_paths=512, n_blocks=8, **KW)})
+
+
+def test_sharded_matches_single(mesh_runs):
+    r8, r1 = mesh_runs["floater"]
+    assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    assert_bitwise(r8, r1)

@@ -1,9 +1,8 @@
 """The G2++ issuer-callable capped floater in the port
 (``hullwhite_tpu_torch.g2_note``) against the JAX package on the same key
 and market, and the mirrors of the floater tests of
-``tests/test_g2_note.py`` that need no mesh (its
-``test_floater_mesh_matches_single_device`` waits for the mesh's second
-slice)."""
+``tests/test_g2_note.py`` that need no mesh, and its
+``test_floater_mesh_matches_single_device`` on a 4-rank mesh."""
 
 import math
 
@@ -21,6 +20,8 @@ from hullwhite_tpu_torch import g2_note  # noqa: E402
 from test_torch_g2_note import (CFG, DPKW, G2, JCFG, JG2, KEY,  # noqa: E402
                                 SEED, SMALL, _markets, _p0)
 from test_torch_range_note import _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 FKW = dict(cap=0.016, spread=0.004, tenor=3.0, freq=1.0)
 
@@ -160,3 +161,25 @@ def test_one_period_refused(analytic_market):
                                         device="cpu")
     assert np.isfinite(g2_note.capped_floater_closed_form_g2(
         CFG, G2, analytic_market, cap=0.016, tenor=1.0)[0])
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(analytic_market, floater_dp):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"floater": _call(
+        g2_note.price_capped_floater_g2, CFG, G2, KEY, analytic_market,
+        boundaries=floater_dp.boundaries, n_blocks=8, **FKW)})
+
+
+def test_floater_mesh_matches_single_device(mesh_runs):
+    sharded, single = mesh_runs["floater"]
+    np.testing.assert_allclose(float(sharded.price), float(single.price),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(float(sharded.call_fraction),
+                               float(single.call_fraction), atol=1e-6)
+    assert_bitwise(sharded, single)

@@ -2,9 +2,8 @@
 (``hullwhite_tpu_torch.g2_note``) against the JAX package on the same key
 and market, the float32 strip scalars every G2++ note estimator reads,
 and the mirrors of the note and TARN tests of ``tests/test_g2_note.py``
-that need no mesh (its ``test_mesh_matches_single_device`` and
-``test_tarn_mesh_matches_single_device`` wait for the mesh's second
-slice)."""
+that need no mesh, and its ``test_mesh_matches_single_device`` and
+``test_tarn_mesh_matches_single_device`` on a 4-rank mesh."""
 
 import math
 
@@ -29,6 +28,8 @@ from hullwhite_tpu_torch.models import g2pp  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 # the JAX tests' configuration, key, parameters, products and grids
 JCFG, CFG = (jtiny(n_paths=1 << 13, path_block=1 << 11),
@@ -338,3 +339,37 @@ def test_vega_envelope_check(analytic_market):
                                     device="cpu", **KW)
     assert abs(float(nv.vega) - nv.dp_vega) < 0.05 * max(
         abs(nv.dp_vega), 1.0), (float(nv.vega), nv.dp_vega)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(analytic_market, dp):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({
+        "note": _call(g2_note.price_range_note_g2, CFG, G2, KEY,
+                      analytic_market, boundaries=dp.boundaries,
+                      n_blocks=8, **KW),
+        "tarn": _call(g2_note.price_tarn_g2, CFG, G2, KEY, analytic_market,
+                      target=0.045, n_blocks=8, **TKW)})
+
+
+def test_mesh_matches_single_device(mesh_runs):
+    sharded, single = mesh_runs["note"]
+    np.testing.assert_allclose(float(sharded.price), float(single.price),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(float(sharded.put_fraction),
+                               float(single.put_fraction), atol=1e-6)
+    assert_bitwise(sharded, single)
+
+
+def test_tarn_mesh_matches_single_device(mesh_runs):
+    sharded, single = mesh_runs["tarn"]
+    np.testing.assert_allclose(float(sharded.price), float(single.price),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(float(sharded.ko_fraction),
+                               float(single.ko_fraction), atol=1e-6)
+    assert_bitwise(sharded, single)

@@ -1,10 +1,10 @@
 """The G2++ snowball and issuer-callable snowball in the port
 (``hullwhite_tpu_torch.g2_note``) against the JAX package on the same key
 and market, and the mirrors of the snowball tests of
-``tests/test_g2_note.py`` that need no mesh (its
+``tests/test_g2_note.py`` that need no mesh, and its
 ``test_snowball_sharded_matches_single`` and
-``test_callable_snowball_sharded_matches_single`` wait for the mesh's
-second slice)."""
+``test_callable_snowball_sharded_matches_single`` (slow, as there) on a
+4-rank mesh."""
 
 import math
 
@@ -22,6 +22,8 @@ from hullwhite_tpu_torch import g2_note  # noqa: E402
 from test_torch_g2_note import (CFG, G2, JCFG, JG2, KEY, SEED,  # noqa: E402
                                 SMALL, _markets, _p0)
 from test_torch_range_note import _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 SKW = dict(initial=0.02, spread=0.013, cap=0.06, floor=0.0, tenor=3.0)
 SDPKW = dict(n_u=81, n_w=31, n_c=41, n_quad=10)
@@ -276,3 +278,37 @@ def test_snowball_rqmc_agrees_and_tightens(analytic_market, snow_dp):
     assert abs(float(rq.price) - snow_dp.price) \
         < 6 * float(rq.std_error) + 1e-4
     assert float(rq.std_error) < 0.25 * float(mc.std_error)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(analytic_market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"snowball": _call(
+        g2_note.price_snowball_g2, CFG, G2, KEY, analytic_market,
+        n_paths=512, n_blocks=8, **SKW)})
+
+
+def test_snowball_sharded_matches_single(mesh_runs):
+    r8, r1 = mesh_runs["snowball"]
+    assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    assert abs(float(r1.mean_final_coupon)
+               - float(r8.mean_final_coupon)) < 1e-6
+    assert_bitwise(r8, r1)
+
+
+@pytest.mark.slow
+def test_callable_snowball_sharded_matches_single(analytic_market,
+                                                  csnow_dp):
+    kw = dict(n_paths=512, n_blocks=8, boundaries=csnow_dp.boundaries,
+              c_grid=csnow_dp.c_grid, plain_mean=csnow_dp.plain_price,
+              **SKW)
+    ((r8, r1),) = mirror_runs({"callable": _call(
+        g2_note.price_callable_snowball_g2, CFG, G2, KEY, analytic_market,
+        **kw)}).values()
+    assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    assert_bitwise(r8, r1)

@@ -393,6 +393,7 @@ def test_every_module_imports_no_jax():
     names = set(proc.stdout.split())
     assert {"hullwhite_tpu_torch.parallel.mesh",
             "hullwhite_tpu_torch.parallel.launch",
+            "hullwhite_tpu_torch.parallel.dryrun",
             "hullwhite_tpu_torch.cli_sweep",
             "hullwhite_tpu_torch.cli_pipeline"} <= names
     assert len(names) >= 40, sorted(names)
@@ -408,4 +409,20 @@ def test_spawned_rank_imports_no_jax():
                       2, device="cpu")
     for names in mods:
         assert "hullwhite_tpu_torch.parallel.mesh" in names
+        assert not [m for m in names if _is_jax(m)]
+
+
+def test_spawned_dryrun_rank_imports_no_jax():
+    """A rank that has imported the mesh certificate and every module its
+    products come from imports neither JAX nor the JAX package."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    mods = ["hullwhite_tpu_torch." + m for m in (
+        "parallel.dryrun", "pricing", "grid", "instruments", "bermudan",
+        "models.g2pp", "rfr", "range_note", "snowball", "floater",
+        "g2_note", "chooser", "ratchet", "barrier", "xva", "kernels.fused")]
+    for names in launch.run(
+            "hullwhite_tpu_torch.parallel.launch:loaded_modules", 2, mods,
+            device="cpu"):
+        assert set(mods) <= set(names)
         assert not [m for m in names if _is_jax(m)]

@@ -1,9 +1,9 @@
 """The ratchet cap in the port (``hullwhite_tpu_torch.ratchet``) against the
 JAX package on the same key and market, and the mirrors of the tests of
-``tests/test_ratchet.py`` that need no mesh: the 8 tier-1 tests, and
-``test_g2_rqmc_collapses_se`` (slow, as in JAX) without its sharded half.
+``tests/test_ratchet.py``: the 8 tier-1 tests that need no mesh, and
+``test_g2_rqmc_collapses_se`` (slow, as in JAX) with its sharded half.
 ``test_sharded_matches_single`` and ``test_g2_sharded_matches_single``
-wait for the mesh's second slice (ROADMAP Queue 1 item 3)."""
+run on a 4-rank mesh."""
 
 import math
 
@@ -28,6 +28,8 @@ from hullwhite_tpu_torch.models.g2pp import G2Params  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import TOL, _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -293,3 +295,37 @@ def test_g2_rqmc_collapses_se(market):
     mc = ratchet.price_ratchet_cap_g2(CFG, G2, KEY, market, **kw)
     assert abs(float(rq.price) - q) < 6 * float(rq.std_error) + 2e-6
     assert float(rq.std_error) < 0.1 * float(mc.std_error)
+    # blocks key on the GLOBAL index: sharded RQMC == single-device
+    kw.pop("device")
+    ((r8, r1),) = mirror_runs({"rqmc": _call(
+        ratchet.price_ratchet_cap_g2, CFG, G2, KEY, market, rqmc=True,
+        **kw)}).values()
+    assert abs(float(r8.price) - float(rq.price)) < 1e-6
+    assert_bitwise(r8, r1)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({
+        "hw": _call(ratchet.price_ratchet_cap, CFG, KEY, market,
+                    spread=0.005, n_paths=1 << 12, n_blocks=8),
+        "g2": _call(ratchet.price_ratchet_cap_g2, CFG, G2, KEY, market,
+                    spread=0.002, n_paths=1 << 12, n_blocks=8)})
+
+
+def test_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["hw"]
+    assert abs(float(single.price) - float(shard.price)) < 1e-6
+    assert_bitwise(shard, single)
+
+
+def test_g2_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["g2"]
+    assert abs(float(single.price) - float(shard.price)) < 1e-6
+    assert_bitwise(shard, single)

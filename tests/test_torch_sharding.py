@@ -67,6 +67,29 @@ def _call(fn, *args, **kwargs):
     return (f"{fn.__module__}:{fn.__name__}", args, kwargs)
 
 
+def mirror_runs(calls: dict, n_ranks=RANKS) -> dict:
+    """``{name: (through the mesh, the same call with mesh=None)}`` for the
+    ``{name: _call(...)}`` of ``calls``, all through one rank group (a
+    file's sharded mirrors share one; the single-device reference runs in
+    the rank, on its one thread)."""
+    res = sharded(list(calls.values()), n_ranks=n_ranks, single=True)
+    return dict(zip(calls, res))
+
+
+def assert_bitwise(got, want):
+    """Every tensor, number and field of ``got`` equals ``want``'s bit for
+    bit: the sites that go through ``map_blocks`` only gather the single
+    run's (n_blocks, k) stack and reduce it as the single run does."""
+    a, b = _leaves(got), _leaves(want)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            torch.testing.assert_close(x, y, rtol=0, atol=0,
+                                       equal_nan=True)
+        else:
+            assert x == y or (x != x and y != y), (x, y)
+
+
 @pytest.fixture(scope="module")
 def market():
     return pricing.bootstrap_curve(CFG, KEY, device="cpu", **XLA)

@@ -2,7 +2,7 @@
 (``hullwhite_tpu_torch.snowball``) against the JAX package on the same key
 and market, and the mirrors of 10 of the 12 tests of
 ``tests/test_snowball.py`` (``test_callable_vega_envelope`` kept slow as
-there; its two sharded tests wait for the mesh's second slice)."""
+there) and its two sharded tests on a 4-rank mesh (slow, as there)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,8 @@ from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
 
 from test_torch_range_note import TOL, _mc_close, _rel_equal  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -248,3 +250,28 @@ def test_rqmc_agrees_and_tightens(analytic_market, dp):
     assert abs(float(rq.price) - dp.price) \
         < 6 * float(rq.std_error) + 1e-5
     assert float(rq.std_error) < 0.25 * float(mc.std_error)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.slow
+def test_sharded_matches_single(analytic_market):
+    kw = dict(n_paths=512, n_blocks=8, **KW)
+    ((r8, r1),) = mirror_runs({"snowball": _call(
+        snowball.price_snowball, CFG, KEY, analytic_market, **kw)}).values()
+    assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    assert_bitwise(r8, r1)
+
+
+@pytest.mark.slow
+def test_callable_sharded_matches_single(analytic_market, cdp):
+    kw = dict(n_paths=512, n_blocks=8, boundaries=cdp.boundaries,
+              c_grid=cdp.c_grid, plain_mean=cdp.plain_price, **KW)
+    ((r8, r1),) = mirror_runs({"callable": _call(
+        snowball.price_callable_snowball, CFG, KEY, analytic_market,
+        **kw)}).values()
+    assert abs(float(r1.price) - float(r8.price)) < 1e-6
+    assert_bitwise(r8, r1)

@@ -6,9 +6,9 @@ the same key and market, and the mirrors of the tests of
 ``test_bermudan_exposure_optional_stopping``, ``_one_date_is_european``,
 ``_mc_matches_oracle``, ``_payer_twin`` and
 ``test_g2_bermudan_exposure_mc_matches_oracle``.
-``test_bermudan_exposure_sharded_matches_single`` and
-``test_g2_bermudan_exposure_sharded_matches_single`` wait for the mesh's
-second slice (ROADMAP Queue 1 item 3).
+``test_bermudan_exposure_sharded_matches_single`` (slow, as in JAX) and
+``test_g2_bermudan_exposure_sharded_matches_single`` run on a 4-rank
+mesh.
 
 Tolerances: the layer's (test_torch_xva_exposure.py), with two stated
 differences. The Hull-White oracle's backward pass is the port's
@@ -51,6 +51,8 @@ from test_torch_xva_exposure import (  # noqa: E402
     CFG, CONFIGS, JCFG, JKEY, KEY, PARITY, TOL, _cva_close, _markets, _np,
     _rel_equal)
 from test_torch_xva_g2_exposure import G2, JG2  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 BERM_EX = (5.0, 6.0, 7.0, 8.0)
 G2_EX = (5.0, 6.0, 7.0)
@@ -284,3 +286,31 @@ def test_g2_bermudan_exposure_mc_matches_oracle(market, berm_sched):
     n = r.profile.n_paths
     tol = 5.0 * math.sqrt(0.05 * 0.95 / n) + 3e-3
     assert np.all(np.abs(_np(r.profile.exceed) - 0.05) < tol)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market, berm_sched):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"g2": _call(
+        xva.price_bermudan_xva_g2, CFG, G2, KEY, market, berm_sched,
+        (5.0, 6.0), n_paths=1 << 12, n_blocks=8, n_grid=61)})
+
+
+@pytest.mark.slow
+def test_bermudan_exposure_sharded_matches_single(market, berm_sched):
+    ((s8, s1),) = mirror_runs({"hw": _call(
+        xva.price_bermudan_xva, CFG, KEY, market, berm_sched, BERM_EX,
+        n_paths=1 << 12, n_blocks=8)}).values()
+    assert abs(float(s1[0].cva) - float(s8[0].cva)) < 1e-9
+    assert_bitwise(s8, s1)
+
+
+def test_g2_bermudan_exposure_sharded_matches_single(mesh_runs):
+    s8, s1 = mesh_runs["g2"]
+    assert abs(float(s1[0].cva) - float(s8[0].cva)) < 1e-9
+    assert_bitwise(s8, s1)

@@ -3,8 +3,9 @@ the oracles, ``price_exposure``, ``vega_cva``) against the JAX package on
 the same key and market, and the mirrors of the tests of
 ``tests/test_xva.py`` on it that need no mesh: the 7 tier-1 tests from
 ``test_oracle_matches_split_quadrature`` to
-``test_hazard_and_recovery_scaling`` (9 cases).  ``test_sharded_matches_
-single`` waits for the mesh's port (ROADMAP Queue 1 item 6).
+``test_hazard_and_recovery_scaling`` (9 cases), and
+``test_sharded_matches_single`` on a 4-rank mesh, whose sharded result is
+also held to the JAX package's on its 8-device mesh.
 
 Port vs JAX, measured at 2^12 paths x 2 blocks (4 RQMC shifts) over the
 layer's estimators (this file and test_torch_xva_netting.py /
@@ -46,6 +47,8 @@ from hullwhite_tpu_torch import HWConfig, convert, xva  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as hw  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 TINY = dict(n_paths=1 << 14, path_block=1 << 12)
 JCFG, CFG = jtiny(**TINY), ttiny(**TINY)
@@ -318,3 +321,38 @@ def test_hazard_and_recovery_scaling(market):
     up = xva.exposure_oracle(CFG, market, hazard=0.02 + eps).cva
     dn = xva.exposure_oracle(CFG, market, hazard=0.02 - eps).cva
     assert abs(o.hazard_delta - (up - dn) / (2 * eps)) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+MESH_KW = dict(n_paths=1 << 12, n_blocks=8)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"exposure": _call(xva.price_exposure, CFG, KEY,
+                                          market, **MESH_KW)})
+
+
+def test_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["exposure"]
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert np.allclose(_np(single.profile.ee), _np(shard.profile.ee),
+                       atol=1e-7)
+    assert_bitwise(shard, single)
+
+
+def test_port_mesh_matches_jax_mesh(markets, mesh_runs):
+    """The port's 4-rank ``price_exposure`` against the JAX package's on
+    its 8-device mesh (conftest), the same key and market: the tolerance
+    of the single-device exposure parity test."""
+    from hullwhite_tpu.parallel import mesh as jmesh
+
+    assert len(jax.devices()) == 8, "conftest must force 8 CPU devices"
+    want = jxva.price_exposure(JCFG, JKEY, markets[0],
+                               mesh=jmesh.path_mesh(), **MESH_KW)
+    _cva_close(mesh_runs["exposure"][0], want, rqmc=False)

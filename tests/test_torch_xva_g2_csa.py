@@ -7,8 +7,7 @@ on the same key and market, and the mirrors of the tests of
 ``test_g2_collateral_huge_threshold_is_uncollateralized``,
 ``test_g2_collateral_dominated`` and
 ``test_g2_collateral_oracle_vs_bruteforce_tensor_grid``.
-``test_g2_collateral_sharded_matches_single`` waits for the mesh's port
-(ROADMAP Queue 1).
+``test_g2_collateral_sharded_matches_single`` runs on a 4-rank mesh.
 
 The lag-1 oracle is the layer's dearest (~30 s a call on one CPU core
 for the three-swap book, in either package): the parity cases run a
@@ -41,6 +40,8 @@ from test_torch_xva_exposure import (  # noqa: E402
     _oracle_equal)
 from test_torch_xva_g2_exposure import G2, JG2  # noqa: E402
 from test_torch_xva_g2_netting import LEGS  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 SHORT = ((0.02, 2.0, False),)
 
@@ -195,3 +196,24 @@ def test_g2_collateral_mc_matches_oracle(market, lag):
         tol = 5.0 * math.sqrt(0.05 * 0.95 / n) + 2e-3
         exceed = _np(r.profile.exceed)[lag:]
         assert np.all(np.abs(exceed - 0.05) < tol)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"csa": _call(
+        xva.price_collateral_g2, CFG, G2, KEY, market, LEGS,
+        n_paths=1 << 12, n_blocks=8)})
+
+
+def test_g2_collateral_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["csa"]
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert np.allclose(np.asarray(single.profile.ee),
+                       np.asarray(shard.profile.ee), atol=1e-7)
+    assert_bitwise(shard, single)

@@ -6,8 +6,8 @@ it that need no mesh (the 4 tier-1 tests from
 ``test_g2_first_date_is_the_g2_swaption`` to
 ``test_g2_vega_matches_oracle``, 5 cases), and the check that the port's
 ``xva`` has every public top-level name of the JAX package's ``xva.py``
-(read with ``ast``, not imported).  ``test_g2_sharded_matches_single``
-waits for the mesh's port (ROADMAP Queue 1).
+(read with ``ast``, not imported), and
+``test_g2_sharded_matches_single`` on a 4-rank mesh.
 
 Tolerances (the layer's, as in test_torch_xva_exposure.py): the float64
 oracles 1e-12 relative; MC prices, EE profiles and channels 0.1 SE; SEs
@@ -43,6 +43,8 @@ from hullwhite_tpu_torch.models import g2pp  # noqa: E402
 from test_torch_xva_exposure import (  # noqa: E402
     CFG, CONFIGS, JCFG, JKEY, KEY, PARITY, TOL, _close, _cva_close, _markets,
     _np, _oracle_equal)
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 G2, JG2 = g2pp.G2Params(), jg2pp.G2Params()
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -197,3 +199,24 @@ def test_g2_pfe_exceedance(market):
 def test_g2_vega_matches_oracle(market):
     v = xva.vega_cva_g2(CFG, G2, KEY, market, n_blocks=2, device="cpu")
     assert abs(float(v.vega) - v.oracle_vega) < 0.05 * abs(v.oracle_vega)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    return mirror_runs({"exposure": _call(
+        xva.price_exposure_g2, CFG, G2, KEY, market, n_paths=1 << 12,
+        n_blocks=8)})
+
+
+def test_g2_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["exposure"]
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert np.allclose(np.asarray(single.profile.ee),
+                       np.asarray(shard.profile.ee), atol=1e-7)
+    assert_bitwise(shard, single)

@@ -7,8 +7,7 @@ on the same key and market, and the mirrors of the tests of
 ``test_g2_bilateral_symmetric_funding_collapses`` and
 ``test_g2_netting_one_leg_reduces_to_single`` (slow, as in JAX).
 ``test_g2_netting_sharded_matches_single`` and
-``test_g2_bilateral_sharded_matches_single`` wait for the mesh's port
-(ROADMAP Queue 1).  Tolerances and the measured gaps: the docstring of
+``test_g2_bilateral_sharded_matches_single`` run on a 4-rank mesh.  Tolerances and the measured gaps: the docstring of
 test_torch_xva_g2_exposure.py."""
 
 import math
@@ -27,6 +26,8 @@ from test_torch_xva_exposure import (  # noqa: E402
     CFG, CONFIGS, JCFG, JKEY, KEY, PARITY, TOL, _close, _cva_close, _markets,
     _np, _oracle_equal, _se_close)
 from test_torch_xva_g2_exposure import G2, JG2  # noqa: E402
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 LEGS = ((0.02, 4.0, False), (0.012, 3.0, True), (0.03, 2.0, False))
 BIL_KW = dict(hazard_own=0.03, recovery_own=0.3, spread_borrow=0.006,
@@ -204,3 +205,34 @@ def test_g2_bilateral_symmetric_funding_collapses(market):
                                 spread_borrow=0.005, spread_lend=0.005)
     assert abs(float(r.fva) - b.fva) < 1e-7
     assert float(r.fva_se) < 1e-7
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(market):
+    """The file's tier-1 sharded calls through one rank group."""
+    kw = dict(n_paths=1 << 12, n_blocks=8)
+    return mirror_runs({
+        "netting": _call(xva.price_netting_g2, CFG, G2, KEY, market, LEGS,
+                         **kw),
+        "bilateral": _call(xva.price_bilateral_g2, CFG, G2, KEY, market,
+                           LEGS, hazard_own=0.03, **kw)})
+
+
+def test_g2_netting_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["netting"]
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert np.allclose(np.asarray(single.profile.ee),
+                       np.asarray(shard.profile.ee), atol=1e-7)
+    assert_bitwise(shard, single)
+
+
+def test_g2_bilateral_sharded_matches_single(mesh_runs):
+    shard, single = mesh_runs["bilateral"]
+    assert abs(float(single.bcva) - float(shard.bcva)) < 1e-9
+    assert abs(float(single.fva) - float(shard.fva)) < 1e-10
+    assert_bitwise(shard, single)

@@ -7,8 +7,8 @@ need no mesh: the 12 tier-1 tests from
 ``test_netting_vega_three_ways`` (slow, as in JAX).
 ``test_netting_sharded_matches_single``,
 ``test_bilateral_sharded_matches_single`` and
-``test_collateral_sharded_matches_single`` wait for the mesh's port
-(ROADMAP Queue 1 item 6).  Tolerances and the measured gaps: the
+``test_collateral_sharded_matches_single`` run on a 4-rank mesh (slow, as
+in JAX).  Tolerances and the measured gaps: the
 docstring of test_torch_xva_exposure.py.  The lag-0 CSA's exceedance is
 not held: there the exposure min(V, H) equals H in float32 on every path
 with V > H, the level is H, and the comparison is a tie that the
@@ -30,6 +30,8 @@ from hullwhite_tpu_torch import xva  # noqa: E402
 from test_torch_xva_exposure import (  # noqa: E402
     CFG, CONFIGS, JCFG, JKEY, KEY, PARITY, TOL, _close, _cva_close, _markets,
     _np, _oracle_equal, _rel_equal, _se_close)
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 LEGS = ((0.02, 4.0, False), (0.012, 3.0, True), (0.03, 2.0, False))
 BIL_KW = dict(hazard_own=0.03, recovery_own=0.3, spread_borrow=0.006,
@@ -356,3 +358,40 @@ def test_collateral_mc_matches_oracle(market, lag):
         tol = 5.0 * math.sqrt(0.05 * 0.95 / n) + 2e-3
         exceed = _np(r.profile.exceed)[lag:]
         assert np.all(np.abs(exceed - 0.05) < tol)
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+MESH_KW = dict(n_paths=1 << 12, n_blocks=8)
+
+
+@pytest.mark.slow
+def test_netting_sharded_matches_single(market):
+    ((shard, single),) = mirror_runs({"netting": _call(
+        xva.price_netting, CFG, KEY, market, LEGS, **MESH_KW)}).values()
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert_bitwise(shard, single)
+
+
+@pytest.mark.slow
+def test_bilateral_sharded_matches_single(market):
+    ((shard, single),) = mirror_runs({"bilateral": _call(
+        xva.price_bilateral, CFG, KEY, market, LEGS, hazard_own=0.03,
+        **MESH_KW)}).values()
+    assert abs(float(single.bcva) - float(shard.bcva)) < 1e-9
+    assert abs(float(single.fva) - float(shard.fva)) < 1e-10
+    assert_bitwise(shard, single)
+
+
+@pytest.mark.slow
+def test_collateral_sharded_matches_single(market):
+    ((shard, single),) = mirror_runs({"csa": _call(
+        xva.price_collateral, CFG, KEY, market, LEGS,
+        **MESH_KW)}).values()
+    assert abs(float(single.cva) - float(shard.cva)) < 1e-9
+    assert np.allclose(np.asarray(single.profile.ee),
+                       np.asarray(shard.profile.ee), atol=1e-7)
+    assert_bitwise(shard, single)

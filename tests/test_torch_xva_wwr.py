@@ -7,7 +7,7 @@ need no mesh: the 8 tier-1 tests from
 and ``test_wwr_sign`` (slow, as in JAX) without their G2++ halves, which
 wait for the G2++ XVA slice.  ``test_wwr_sharded_matches_single``,
 ``test_mva_sharded_matches_single`` and ``test_kva_sharded_matches_single``
-wait for the mesh's port (ROADMAP Queue 1 item 6).  Tolerances and the
+(both models each, slow, as in JAX) run on a 4-rank mesh.  Tolerances and the
 measured gaps: the docstring of test_torch_xva_exposure.py; a per-date
 MVA margin whose SE is 0 (the gradient one-signed over the sampled bulk,
 so the CV is exact) is held to 4 float32 ulps of its value."""
@@ -27,6 +27,8 @@ from hullwhite_tpu_torch import xva  # noqa: E402
 from test_torch_xva_exposure import (  # noqa: E402
     CFG, CONFIGS, JCFG, JKEY, KEY, PARITY, TOL, _close, _markets, _np,
     _oracle_equal, _profile_close, _rel_equal, _se_close)
+from test_torch_sharding import (_call, assert_bitwise,  # noqa: E402
+                                 mirror_runs)
 
 LEGS = ((0.02, 4.0, False), (0.012, 3.0, True), (0.03, 2.0, False))
 # short payers + long receiver: the gradient W changes sign inside the
@@ -324,3 +326,54 @@ def test_kva_mc_matches_oracle(market):
     se = _np(r.capital_std_error)
     for j in range(len(o.dates)):
         assert abs(cap[j] - o.capital[j]) < 5.0 * se[j] + 1e-8
+
+
+# ---------------------------------------------------------------------------
+# sharded == single on a 4-rank gloo mesh (test_torch_sharding.py): JAX's
+# inputs and tolerance, and bit for bit (the block loop is map_blocks)
+# ---------------------------------------------------------------------------
+
+MESH_KW = dict(n_paths=1 << 12, n_blocks=8)
+
+
+@pytest.mark.slow
+def test_wwr_sharded_matches_single(market):
+    from test_torch_xva_g2_exposure import G2
+
+    kw = dict(MESH_KW, gamma=0.5)
+    runs = mirror_runs({
+        "hw": _call(xva.price_wwr, CFG, KEY, market, LEGS, **kw),
+        "g2": _call(xva.price_wwr_g2, CFG, G2, KEY, market, LEGS, **kw)})
+    s8, s1 = runs["hw"]
+    assert abs(float(s1.cva) - float(s8.cva)) < 1e-9
+    assert abs(float(s1.gamma_delta) - float(s8.gamma_delta)) < 1e-8
+    g8, g1 = runs["g2"]
+    assert abs(float(g1.cva) - float(g8.cva)) < 1e-9
+    assert_bitwise(runs["hw"][0], runs["hw"][1])
+    assert_bitwise(g8, g1)
+
+
+@pytest.mark.slow
+def test_mva_sharded_matches_single(market):
+    from test_torch_xva_g2_exposure import G2
+
+    runs = mirror_runs({
+        "hw": _call(xva.price_mva, CFG, KEY, market, MVA_LEGS, **MESH_KW),
+        "g2": _call(xva.price_mva_g2, CFG, G2, KEY, market, MVA_LEGS,
+                    **MESH_KW)})
+    for s8, s1 in runs.values():
+        assert abs(float(s1.mva) - float(s8.mva)) < 1e-12
+        assert_bitwise(s8, s1)
+
+
+@pytest.mark.slow
+def test_kva_sharded_matches_single(market):
+    from test_torch_xva_g2_exposure import G2
+
+    runs = mirror_runs({
+        "hw": _call(xva.price_kva, CFG, KEY, market, LEGS, **MESH_KW),
+        "g2": _call(xva.price_kva_g2, CFG, G2, KEY, market, LEGS,
+                    **MESH_KW)})
+    for s8, s1 in runs.values():
+        assert abs(float(s1.kva) - float(s8.kva)) < 1e-12
+        assert_bitwise(s8, s1)
