@@ -58,9 +58,10 @@ Phases (any failure raises and the script exits non-zero):
    float64 (the gate that shows TF32); ``cli all --reps 1`` and ``cli
    grid`` at full width per engine, held to phase 2's gates, the AD vega
    within 3% of the pathwise one, every vega-surface cell within
-   test_grid.py's bound of the closed form, and no kernel launched; ``cli
-   benchmark --reps 1`` (the engine table) with its price-consistency
-   PASS; ZBC and vega reruns bitwise on linear and exact; each engine's
+   test_grid.py's bound of the closed form, and no kernel launched outside
+   the engine table that ``all`` ends with (its fused tiers launch theirs);
+   the first ``cli all``'s engine table with its price-consistency PASS;
+   ZBC and vega reruns bitwise on linear and exact; each engine's
    time per Q1, Q2b and Q3 call, the generator's share of it and the
    phase's peak device memory, beside the card's name and power limit;
 6. RQMC and the European coupon-bond options / swaptions (plain PyTorch,
@@ -104,7 +105,7 @@ Phases (any failure raises and the script exits non-zero):
    SEs 1% relative); reruns bitwise; no kernel launched; per call
    (``price_bermudan`` at 2^17 x 8 and 2^20 x 1, ``bermudan_vega`` jvp,
    ``dp_oracle`` host wall only, ``price_cap`` and ``price_cms`` at 2^20)
-   the median and range of three wall times after a warm call, the host
+   the median and range of two wall times after a warm call, the host
    ms, the device-busy ms and device operations, and the phase's peak
    device memory, beside the card's name and power limit;
 8. calibration and the European half of G2++ (plain PyTorch on the card,
@@ -264,6 +265,26 @@ Phases (any failure raises and the script exits non-zero):
    mesh against the same call without it in the rank, every number
    within 1e-6 (bit for bit where the block loop is ``map_blocks``),
    with the ms per call with one rank and with two.
+17. (run right after phase 0: after phase 1's kernel work the kernel
+   timestamps the profiler reads no longer match the host's clock, and a
+   trace loses its kernels) the CUDA kernel analysis
+   (``utils/profile.py``) at full width: for
+   ``--engine fused_exact`` and ``--engine fused`` the vega step's report
+   (registers equal to the kept ptxas log's, no spill, at least one CTA
+   an SM, the limiting unit ``kernel_bounds``' bound unit, beside the
+   card's name and power limit) and every row of the launch datasheet
+   (the launch as the C entry's attribute query reports it: threads and
+   shared bytes within the kernel's and the card's per-block limits, at
+   least one CTA an SM); ``cli q3 --profile
+   --trace DIR`` against ``cli q3`` on the same key (the same results,
+   the report before the timed loop, the trace's kernel events as many
+   as the launch counters moved in the traced call); ``cli all --profile
+   --reps 1`` (q1-q3 held to phase 2's gates, the engine table's price
+   consistency PASS with its fused tiers, the exact trio's and the
+   table's full-step ZBC kernel's launches); ``python -m
+   hullwhite_tpu_torch.analyze`` on that run's ``data_torch/`` (rc 0,
+   every results file's task in the summary, the no-plot line where
+   matplotlib is missing).
 
 Then each kernel's bound (``kernels.roofline.kernel_bounds`` at its timed
 shape: the function's work, its integer instructions per word and its
@@ -289,6 +310,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -813,7 +835,8 @@ def check_results(cfg, engine, res, tag):
           f"{q3['sensitivity_fd_recalibrated']:.6f}")
     check(0.225 <= pw <= 0.236 and abs(pw - fd) / pw < 0.03,
           f"{engine} Q3 vega")
-    check_surface(cfg, engine, res["grid"], P, tag)
+    if "grid" in res:  # cli all runs no grid
+        check_surface(cfg, engine, res["grid"], P, tag)
     for q in ("q1", "q2b", "q3"):
         perf = res[q]["performance"]
         print(f"[{tag}] {engine}: {q} at {cfg.n_paths} pairs: "
@@ -1126,7 +1149,8 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
     held to phase 2's gates, the AD vega within 3% of the pathwise one and
     every vega-surface cell within test_grid.py's bound of the fp64 closed
     form on the q1 curve; returns the kernels' launch counts of the run
-    (none expected: the XLA tier is plain PyTorch) and its times."""
+    outside the engine table ``all`` ends with (none expected: the XLA
+    tier is plain PyTorch), its times and the table's results."""
     import numpy as np
 
     from hullwhite_tpu_torch import cli
@@ -1134,8 +1158,20 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
     from hullwhite_tpu_torch.models import oracles
 
     cwd = os.getcwd()
+    table = {}
+    run_table = cli.cmd_benchmark
+
+    def counted_table(args):
+        # the table's fused tiers launch their kernels: kept apart
+        before = fused.launch_counts()
+        rc = run_table(args)
+        table.update({k: v - before[k]
+                      for k, v in fused.launch_counts().items()})
+        return rc
+
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
+        cli.cmd_benchmark = counted_table
         try:
             fused.reset_launch_counts()
             for argv in (["all", "--reps", "1"], ["grid"]):
@@ -1145,14 +1181,21 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
                 print(f"[phase 5] {engine}: cli {' '.join(argv)}: rc {rc}, "
                       f"{time.perf_counter() - t0:.1f} s")
                 check(rc == 0, f"cli {argv[0]} --engine {engine} failed")
-            counts = fused.launch_counts()
+            counts = {k: v - table.get(k, 0)
+                      for k, v in fused.launch_counts().items()}
             res = {name: json.load(open(os.path.join(
                 "data_torch", f"{name}_results.json")))
                 for name in ("q1", "q2a", "q2b", "q3", "grid")}
+            engines = json.load(open(os.path.join(
+                "data_torch", "benchmark_engines.json")))["results"]
             paths = np.fromfile(os.path.join("data_torch", "r_paths.bin"),
                                 np.float32)
         finally:
+            cli.cmd_benchmark = run_table
             os.chdir(cwd)
+    print(f"[phase 5] {engine}: the engine table of cli all: consistency "
+          f"{'PASS' if engines['consistency_pass'] else 'FAIL'} over "
+          f"{sorted(engines['engines'])}; its launches {table}")
     check(paths.shape == (32 * (cfg.n_steps + 1),)
           and np.all(np.isfinite(paths)), "r_paths.bin")
     check_results(cfg, engine, res, "phase 5")
@@ -1188,37 +1231,7 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
         print(f"[phase 5] {engine}: {q} {ms:.1f} ms per call at "
               f"{cfg.n_paths} pairs; generator {cfg.n_blocks} x "
               f"{gen_ms[c]:.3f} ms = {share:.0%} of it")
-    return counts, times
-
-
-def phase5_benchmark(dev):
-    """``cli benchmark --reps 1``, the engine table at full width: it must
-    print its price-consistency PASS and exit 0."""
-    import contextlib
-    import io
-
-    from hullwhite_tpu_torch import cli
-
-    cwd = os.getcwd()
-    out = io.StringIO()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)
-        try:
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(["benchmark", "--reps", "1",
-                               "--device", str(dev)])
-            wall = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-    text = out.getvalue()
-    for line in text.splitlines():
-        print(f"[phase 5] benchmark | {line}")
-    gate = [ln for ln in text.splitlines()
-            if ln.startswith("price consistency")]
-    print(f"[phase 5] cli benchmark: rc {rc}, {wall:.1f} s")
-    check(rc == 0 and len(gate) == 1 and gate[0].endswith("PASS"),
-          "cli benchmark: the engine table's price consistency failed")
+    return counts, times, engines
 
 
 def phase5(dev, smi):
@@ -1232,11 +1245,15 @@ def phase5(dev, smi):
     torch.cuda.reset_peak_memory_stats(dev)
     gen_ms = phase5_generator(cfg, dev)
     phase5_engine_gate(cfg, dev)
-    counts, times = {}, {}
+    counts, times, tables = {}, {}, {}
     for engine in XLA_ENGINES:
-        counts[engine], times[engine] = phase5_main_path(cfg, dev, engine,
-                                                         gen_ms)
-    phase5_benchmark(dev)
+        counts[engine], times[engine], tables[engine] = phase5_main_path(
+            cfg, dev, engine, gen_ms)
+    # the engine table (``cli benchmark``'s) that each engine's cli all
+    # ends with
+    for engine, table in tables.items():
+        check(table["consistency_pass"] is True, f"cli all --engine "
+              f"{engine}: the engine table's price consistency failed")
     market = analytic_market(cfg, dev)
     for engine in ("linear", "exact"):
         a, b = (pricing.price_zbc(cfg, Key(11), market, engine=engine,
@@ -1770,7 +1787,7 @@ def _device_window(fn):
     return sum(ns) / 1e6, len(ns)
 
 
-def phase7_times(cfg, dev, market, smi, reps=3):
+def phase7_times(cfg, dev, market, smi, reps=2):
     """Per call, after one warm call of each: the synchronised wall ms of
     ``reps`` rounds (median, least, most), the host ms until the call
     returns, the device-busy ms and device operations of one profiler
@@ -4084,6 +4101,214 @@ def phase16(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the CUDA kernel analysis (utils/profile.py), cli q3 --profile /
+# --trace, cli all --profile with its engine table, and analyze
+# ---------------------------------------------------------------------------
+
+# (datasheet name, ptxas name and source) of each engine's vega step
+PROFILE_KERNELS = {"fused_exact": ("vega_exact",),
+                   "fused": ("vega_full", "vega_full_reduce")}
+# the kernels' names in the profiler's trace and their launch counters
+TRACE_KERNELS = {"fused_exact": (("vega_exact_kernel", "vega_exact"),),
+                 "fused": (("vega_full_kernel", "vega_full"),
+                           ("reduce_kernel", "vega_full"))}
+
+
+def _cli_out(argv, tag):
+    """``cli.main(argv)``, its stdout echoed and returned; rc 0 or fail."""
+    import contextlib
+    import io
+
+    from hullwhite_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[{tag}] | {line}")
+    print(f"[{tag}] cli {' '.join(argv)}: rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(rc == 0, f"cli {' '.join(argv)} failed")
+    return text
+
+
+def phase17_report(cfg, dev, engine, smi):
+    """The analysis of ``engine``'s vega step against the kept ptxas log,
+    the attribute queries and the roofline's bound unit."""
+    from hullwhite_tpu_torch.kernels import fused, roofline
+    from hullwhite_tpu_torch.utils import profile
+
+    rep = profile.kernel_report(cfg, engine, "vega", device=dev)
+    check([k["sheet"] for k in rep["kernels"]] == list(
+        PROFILE_KERNELS[engine]), f"{engine}: the report's kernels")
+    for k in rep["kernels"]:
+        print(f"[phase 17] {engine}: {k['name']} ({k['source']}): registers "
+              f"{k['registers']} (ptxas {k['ptxas_registers']}), spills "
+              f"{k['spill_stores']}/{k['spill_loads']} B, shared "
+              f"{k['static_smem']} + {k['dynamic_smem']} B, local "
+              f"{k['local_bytes']} B, threads {k['threads']} (max "
+              f"{k['max_threads']}), {k['ctas_per_sm']} CTAs/SM, grid "
+              f"{k['grid']} [{smi}]")
+        check(k["registers"] == k["ptxas_registers"],
+              f"{k['name']}: registers differ from the ptxas log's")
+        check(k["spill_stores"] == 0 and k["spill_loads"] == 0
+              and k["local_bytes"] == 0, f"{k['name']} spills")
+        check(k["ctas_per_sm"] >= 1, f"{k['name']}: no CTA fits an SM")
+    p = rep["peaks"]
+    bound = roofline.kernel_bounds(cfg, p["max_sm_mhz"], p["sms"])[
+        PROFILE_KERNELS[engine][0]]
+    lf = profile.limiting_factor(rep)
+    print(f"[phase 17] {engine}: limiting factor {lf['factor']} "
+          f"({lf['detail']}); kernel_bounds' unit {bound['bound_unit']}; "
+          f"card {rep['card']['sms']} SMs, {p['max_sm_mhz']:.0f} MHz, HBM "
+          f"{p['hbm_bytes_per_s'] / 1e12:.3f} TB/s [{smi}]")
+    check(lf["unit"] == bound["bound_unit"], f"{engine}: limiting unit "
+          f"{lf['unit']} is not kernel_bounds' {bound['bound_unit']}")
+    limit = rep["card"]["smem_per_block"]
+    for name, row in fused.smem_datasheet(cfg, device=dev).items():
+        print(f"[phase 17] datasheet {name}: threads {row['threads']} (max "
+              f"{row['max_threads']}), shared {row['dynamic_smem']} dynamic "
+              f"+ {row['static_smem']} static B (the kernel's dynamic limit "
+              f"{row['max_dynamic_smem']}, the card's {limit}), grid "
+              f"{row['grid']}, {row['registers']} registers, "
+              f"{row['ctas_per_sm']} CTAs/SM [{smi}]")
+        check(row["dynamic_smem"] + row["static_smem"] <= limit
+              and row["dynamic_smem"] <= row["max_dynamic_smem"]
+              and row["threads"] <= row["max_threads"]
+              and row["ctas_per_sm"] >= 1 and row["grid"] >= 1,
+              f"datasheet {name}: the launch does not fit")
+    return rep
+
+
+def phase17_q3(engine, dev, plain, smi):
+    """``cli q3 --profile --trace DIR`` in this process against ``cli q3``
+    on the same key (``plain``: its results and launches): the same
+    results; the report printed before the timed loop; the trace's kernel
+    events as many as the launch counters moved in the traced call, the
+    one call the flagged command adds.  Returns its launches."""
+    from hullwhite_tpu_torch.kernels import fused
+
+    trace_dir = os.path.abspath(f"trace_{engine}")
+    fused.reset_launch_counts()
+    text = _cli_out(["q3", "--engine", engine, "--device", str(dev),
+                     "--reps", "1", "--profile", "--trace", trace_dir],
+                    "phase 17")
+    counts = fused.launch_counts()
+    moved = {k: v - plain["launches"][k] for k, v in counts.items()}
+    flagged = json.load(open(os.path.join("data_torch", "q3_results.json")))
+    same = (flagged["results"] == plain["doc"]["results"]
+            and flagged["parameters"] == plain["doc"]["parameters"])
+    print(f"[phase 17] {engine}: q3_results.json results with --profile "
+          f"--trace equal to without: {same} (vega "
+          f"{flagged['results']['sensitivity_mc']!r})")
+    check(same, f"{engine}: --profile/--trace changed q3's results")
+    for line in ("CUDA kernel analysis", "limiting factor:",
+                 "Fused-kernel launch datasheet",
+                 f"[trace] profiler trace written to {trace_dir}/"):
+        check(line in text, f"{engine}: q3 --profile printed no {line!r}")
+    check(text.index("limiting factor:") < text.index("[pathwise"),
+          f"{engine}: the report did not precede the timed loop")
+    (name,) = os.listdir(trace_dir)
+    events = json.load(open(os.path.join(trace_dir, name)))["traceEvents"]
+    cats = sorted({str(e.get("cat")) for e in events})
+    # the port's kernels sit in an anonymous namespace (PyTorch's own
+    # reductions are at::native::reduce_kernel)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and ("anonymous namespace" in e["name"]
+                    or "_GLOBAL__N_" in e["name"])]
+    for kernel, counter in TRACE_KERNELS[engine]:
+        n = sum(kernel in k for k in kernels)
+        print(f"[phase 17] {engine}: trace {name} ({len(events)} events, "
+              f"categories {cats}): {n} {kernel} events, {counter} launches "
+              f"in the traced call {moved[counter]} [{smi}]")
+        check(n == moved[counter] > 0, f"{engine}: the trace holds {n} "
+              f"{kernel} events for {moved[counter]} launches")
+    return counts
+
+
+def phase17(dev, smi):
+    """The CUDA kernel analysis (module docstring, phase 17); returns the
+    kernels' launches of its cli runs."""
+    import importlib.util
+
+    from hullwhite_tpu_torch import HWConfig
+    from hullwhite_tpu_torch.analyze import NO_MATPLOTLIB
+    from hullwhite_tpu_torch.kernels import fused
+
+    t0 = time.perf_counter()
+    cfg = HWConfig()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fused.reset_launch_counts()
+            _cli_out(["q1", "--device", str(dev)], "phase 17")
+            launches = fused.launch_counts()
+            for engine in ("fused_exact", "fused"):
+                phase17_report(cfg, dev, engine, smi)
+                fused.reset_launch_counts()
+                _cli_out(["q3", "--engine", engine, "--device", str(dev),
+                          "--reps", "1"], "phase 17")
+                plain = {"launches": fused.launch_counts(),
+                         "doc": json.load(open(os.path.join(
+                             "data_torch", "q3_results.json")))}
+                flagged = phase17_q3(engine, dev, plain, smi)
+                launches = {k: v + plain["launches"][k] + flagged[k]
+                            for k, v in launches.items()}
+            os.makedirs("all")
+            os.chdir("all")
+            fused.reset_launch_counts()
+            _cli_out(["all", "--profile", "--reps", "1", "--device",
+                      str(dev)], "phase 17")
+            counts = fused.launch_counts()
+            res = {name: json.load(open(os.path.join(
+                "data_torch", f"{name}_results.json")))
+                for name in ("q1", "q2a", "q2b", "q3")}
+            table = json.load(open(os.path.join(
+                "data_torch", "benchmark_engines.json")))
+            written = sorted(os.listdir("data_torch"))
+            proc = subprocess.run(
+                [sys.executable, "-m", "hullwhite_tpu_torch.analyze",
+                 "--data-dir", "data_torch", "--plots-dir", "plots_torch"],
+                cwd=os.getcwd(), capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, PYTHONPATH=cwd))
+        finally:
+            os.chdir(cwd)
+    check_results(cfg, "fused_exact", res, "phase 17")
+    tiers = sorted(table["results"]["engines"])
+    print(f"[phase 17] cli all --profile: engine table over {tiers}: "
+          f"consistency {table['results']['consistency_pass']}; launches "
+          f"{counts}")
+    check(table["results"]["consistency_pass"] is True
+          and {"fused", "fused_exact"} <= set(tiers),
+          "cli all: the engine table's price consistency or its fused tiers")
+    for name in ("curve_exact", "zbc_exact", "vega_exact", "zbc_full"):
+        check(counts[name] > 0, f"cli all did not launch {name}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    summary = proc.stdout.splitlines()
+    for line in summary:
+        print(f"[phase 17] analyze | {line}")
+    tasks = [res[q]["task"] for q in res] + [table["task"]]
+    print(f"[phase 17] analyze: rc {proc.returncode}, files written "
+          f"{written}")
+    check(proc.returncode == 0, f"analyze failed: {proc.stderr[-2000:]}")
+    check("HULLWHITE_TPU_TORCH RUN SUMMARY" in summary, "analyze title")
+    for task in tasks:
+        check(any(line.startswith(f"[{task}]") for line in summary),
+              f"analyze's summary does not name {task}")
+    if importlib.util.find_spec("matplotlib") is None:
+        check(summary[-1] == NO_MATPLOTLIB, "analyze: no no-plot line")
+    else:
+        check(any(line.startswith("saved ") for line in summary),
+              "analyze made no plot")
+    print(f"[phase 17] phase wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4091,6 +4316,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     from hullwhite_tpu_torch import HWConfig, Key, pricing
     from hullwhite_tpu_torch.kernels import build
 
@@ -4113,6 +4339,9 @@ def main() -> int:
                 or "Performance Loss" in line:
             print(f"[phase 0] ptxas: {line.strip()}")
 
+    # phase 17 runs first: its traces need a context whose kernel
+    # timestamps still match the host's clock (PERF.md, open questions)
+    profile_counts = phase17(dev, smi)
     err, times, normals_launches = phase1(dev)
     # each path's run and its kernels; the surface kernel serves both
     # engines' cli grid
@@ -4258,6 +4487,15 @@ def main() -> int:
           "kernel zbc_exact was not launched by the certificate's path")
     launches["zbc_exact"] += dryrun_counts["zbc_exact"]
 
+    print(f"[phase 17] launches in the profile's runs (cli q1, q3 --profile "
+          f"--trace per fused engine, cli all --profile): {profile_counts}")
+    for name in ("curve_exact", "zbc_exact", "vega_exact", "vega_full",
+                 "zbc_full"):
+        check(profile_counts[name] > 0,
+              f"kernel {name} was not launched by the profile's path")
+    for name in launches:
+        launches[name] += profile_counts[name]
+
     replaces = {"curve_exact": "hullwhite_tpu/pallas/fused.py:356",
                 "zbc_exact": "hullwhite_tpu/pallas/fused.py:512",
                 "vega_exact": "hullwhite_tpu/pallas/fused.py:555",
@@ -4359,6 +4597,8 @@ def main() -> int:
                 "bound_by": b["bound_by"], "bound_unit": b["bound_unit"],
                 "library_ms": None}
 
+    print(f"[script] phases 0-17 took {time.perf_counter() - t_script:.1f} "
+          f"s [{smi}]")
     # kernels: the main paths', launches counted in each path's run (the
     # surface kernel's summed over both engines' cli grid; the sweep's
     # counted by its ranks and added to the exact tier's);

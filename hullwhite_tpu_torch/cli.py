@@ -5,6 +5,8 @@ sweep / pipeline / benchmark.
     python -m hullwhite_tpu_torch.cli q1                 # on the GPU
     python -m hullwhite_tpu_torch.cli q2 --validate 20
     python -m hullwhite_tpu_torch.cli q3
+    python -m hullwhite_tpu_torch.cli q3 --profile --trace traces  # analysis
+    python -m hullwhite_tpu_torch.cli all                # q1-q3, benchmark
     python -m hullwhite_tpu_torch.cli all --engine fused  # full-step tier
     python -m hullwhite_tpu_torch.cli all --engine linear # XLA engine tier
     python -m hullwhite_tpu_torch.cli q2 --qmc 65536     # + RQMC price
@@ -37,6 +39,11 @@ the JAX package's XLA engines in plain PyTorch on threefry block normals,
 (Cholesky sampling).  With a fused engine ``--paths`` must be a multiple
 of 32768, the exact option kernels' tile.  ``--qmc NPTS`` adds the
 randomized-QMC price (q2) and vega (q3) on NPTS Sobol points x 8 shifts.
+``q3 --profile`` (and ``all --profile``) prints the CUDA kernel analysis
+of the vega step and the fused kernels' launch datasheet before the timed
+loop (``utils/profile.py``); ``q3 --trace DIR`` writes a Chrome trace of
+one vega call (``torch.profiler``) into DIR.  ``all`` runs q1, q2, q3 and
+the engine table of ``benchmark``.
 ``swaption`` prices a European swaption by MC on an XLA engine (default
 ``exact``), by RQMC and by Jamshidian's decomposition; ``--bermudan`` adds
 the Bermudan with annual exercises (LSMC lower bound, martingale-CV lower
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -307,6 +315,19 @@ def cmd_q3(args):
 
     pricer = pricing.vega_pricer(cfg, engine=args.engine, device=dev)
     prep = pricer.prepare(cfg.sigma, cfg.sigma, market)
+    if getattr(args, "profile", False):
+        # the compile report before the hot launch, as the reference prints
+        # its occupancy analysis before the sensitivity kernel
+        from .utils.profile import (format_report, format_smem_datasheet,
+                                    kernel_report)
+
+        print("\n" + format_report(kernel_report(
+            cfg, args.engine, "vega", device=dev, market=market)))
+        print("\n" + format_smem_datasheet(cfg, device=dev))
+    if getattr(args, "trace", None):
+        _trace(lambda: pricer.run(key, prep), dev, args.trace,
+               f"q3_{args.engine}")
+        print(f"\n[trace] profiler trace written to {args.trace}/")
     dt, v = bench(pricer.run, key, prep, device=dev, n=args.reps)
     vega_pw = float(v[0] / v[1])
     ms = dt * 1e3
@@ -382,6 +403,33 @@ def cmd_q3(args):
                     performance=_perf(ms, cfg.n_paths, dev))
     hwio.summary_append("Q3: SENSITIVITY ANALYSIS", lines)
     return 0
+
+
+def _trace(fn, dev: torch.device, out_dir, name: str) -> Path:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and, on a card, CUDA
+    activities), written as a Chrome trace ``out_dir/<name>.trace.json``
+    (perfetto opens it).  On a card a trace without a kernel event
+    raises."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    path = Path(out_dir) / f"{name}.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    if dev.type == "cuda" and not any(
+            e.get("cat") == "kernel"
+            for e in json.loads(path.read_text())["traceEvents"]):
+        raise RuntimeError(f"the profiler recorded no kernel of the traced "
+                           f"call: {path}")
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -1576,6 +1624,14 @@ def main(argv=None):
                             "randomized QMC on NPTS points x 8 shifts")
         if name != "q2":
             p.add_argument("--eps", type=float, default=1e-3)
+            p.add_argument("--profile", action="store_true",
+                           help="print the CUDA kernel analysis of the vega "
+                                "step and the launch datasheet before the "
+                                "hot launch")
+        if name == "q3":
+            p.add_argument("--trace", metavar="DIR", default=None,
+                           help="write a torch.profiler Chrome trace of one "
+                                "hot vega call into DIR (perfetto)")
     ps = sub.add_parser("swaption", parents=[common])
     ps.add_argument("--rate", type=float, default=0.025)
     ps.add_argument("--tenor", type=float, default=5.0)
@@ -1817,6 +1873,9 @@ def main(argv=None):
     rc = cmd_q1(args)
     rc |= cmd_q2(args)
     rc |= cmd_q3(args)
+    # the engine table, as the JAX package's all ends (no sweep)
+    args.sweep, args.ab, args.roofline = False, None, False
+    rc |= cmd_benchmark(args)
     return rc
 
 

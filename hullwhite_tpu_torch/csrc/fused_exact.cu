@@ -743,6 +743,43 @@ int hw_option_normals(int32_t s0, int32_t s1, int32_t s2, int n_tiles,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch the wrappers make of one kernel of this file and what the card
+// reports of it (launch_report's out, LAUNCH_FIELDS ints): kind 0 the curve
+// kernel (for n_tiles, bf16, live and k as hw_curve_exact takes them), 1
+// zbc, 2 vega, 3 delta (n_tiles alone).
+int hw_exact_launch(int kind, int n_tiles, int bf16, int32_t live, int k, int* out) {
+  int ctas = 0;
+  if (kind == 0) {
+    const uint32_t mask = static_cast<uint32_t>(live);
+    cudaError_t err = curve_exact_ctas(n_tiles, bf16, mask, k, &ctas);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const CurveInstance inst = curve_exact_instance(bf16, k);
+    return static_cast<int>(launch_report(inst.kernel, 128 * inst.wgs,
+                                          curve_exact_smem(mask, bf16 ? 1 : SPLIT_PARTS), ctas,
+                                          out));
+  }
+  if (kind < 1 || kind > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const Walk& w = kind == 1 ? zbc_walk : kind == 2 ? vega_walk : delta_walk;
+  const cudaError_t err = walk_ctas(w, n_tiles, &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_report(w.kernel, WALK_THREADS, 0, ctas, out));
+}
+
+// The card's resources: out (6) = [SMs, max SM clock kHz, memory clock kHz,
+// memory bus width bits, shared bytes a CTA may opt in to, shared bytes an
+// SM].
+int hw_device_props(int* out) {
+  const cudaDeviceAttr attrs[6] = {
+      cudaDevAttrMultiProcessorCount, cudaDevAttrClockRate,
+      cudaDevAttrMemoryClockRate, cudaDevAttrGlobalMemoryBusWidth,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMaxSharedMemoryPerMultiprocessor};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i)
+    err = cudaDeviceGetAttribute(&out[i], attrs[i], dev);
+  return static_cast<int>(err);
+}
+
 const char* hw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

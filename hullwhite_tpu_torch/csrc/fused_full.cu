@@ -439,4 +439,32 @@ int hw_vega_full(int32_t s0, int32_t s1, int32_t s2, const float* W, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch the entries above make of one kernel of this file and what the
+// card reports of it (launch_report's out, LAUNCH_FIELDS ints), for n_tiles,
+// bf16 and nb as they take them: kind 0 the curve kernel, 1 zbc, 2 vega,
+// 3 the reduce of hw_vega_full (one CTA).
+int hw_full_launch(int kind, int n_tiles, int bf16, int nb, int* out) {
+  if (nb < 1 || n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int opt_smem = static_cast<int>(sizeof(float)) * 2 * nb * MIX_BLOCK;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kind == 0)
+    err = bf16 ? launch_report(curve_full_kernel<1>, CURVE_THREADS, 2 * PASS_BYTES,
+                               curve_full_ctas(n_tiles), out)
+               : launch_report(curve_full_kernel<SPLIT_PASSES>, CURVE_THREADS,
+                               2 * SPLIT_PASSES * PASS_BYTES, curve_full_ctas(n_tiles), out);
+  else if (kind == 1)
+    err = bf16 ? launch_report(zbc_full_kernel<true>, OPT_THREADS, opt_smem,
+                               option_full_ctas(n_tiles), out)
+               : launch_report(zbc_full_kernel<false>, OPT_THREADS, opt_smem,
+                               option_full_ctas(n_tiles), out);
+  else if (kind == 2)
+    err = bf16 ? launch_report(vega_full_kernel<true>, OPT_THREADS, opt_smem,
+                               option_full_ctas(n_tiles), out)
+               : launch_report(vega_full_kernel<false>, OPT_THREADS, opt_smem,
+                               option_full_ctas(n_tiles), out);
+  else if (kind == 3)
+    err = launch_report(reduce_kernel, REDUCE_THREADS, 0, 1, out);
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

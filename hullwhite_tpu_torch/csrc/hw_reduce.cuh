@@ -178,6 +178,33 @@ cudaError_t persistent_ctas(Kernel kernel, int threads, int smem, long long most
   return cudaSuccess;
 }
 
+// Fields of launch_report's out, in order (utils/profile.py, LAUNCH_FIELDS).
+constexpr int LAUNCH_FIELDS = 9;
+
+// What the card reports of one launch of `kernel` with `threads` threads,
+// `smem` bytes of dynamic shared memory and `grid` CTAs: out = [registers
+// a thread, static shared bytes, local bytes a thread, max threads a CTA,
+// threads a CTA, dynamic shared bytes, CTAs an SM (the occupancy query),
+// CTAs of the grid, max dynamic shared bytes].  Above the default 48 KB it
+// raises the kernel's shared-memory limit first, as the launch does.
+template <typename Kernel>
+cudaError_t launch_report(Kernel kernel, int threads, int smem, int grid, int* out) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const int v[LAUNCH_FIELDS] = {a.numRegs, static_cast<int>(a.sharedSizeBytes),
+                                static_cast<int>(a.localSizeBytes), a.maxThreadsPerBlock,
+                                threads, smem, per_sm, grid, a.maxDynamicSharedSizeBytes};
+  for (int i = 0; i < LAUNCH_FIELDS; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
 // The int32 triple of ops.rng.key_seed, reinterpreted as uint32 (the TPU
 // kernels' int32 arithmetic wraps like uint32).
 hw::Seeds make_seeds(int32_t s0, int32_t s1, int32_t s2) {

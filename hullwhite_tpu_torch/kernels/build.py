@@ -58,6 +58,9 @@ _SIGNATURES = {
     "hw_bm_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_exp_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     "hw_recip_peak": ([_I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "hw_exact_launch": ([_I, _I, _I, _I, _I, _P], _I),
+    "hw_full_launch": ([_I, _I, _I, _I, _P], _I),
+    "hw_device_props": ([_P], _I),
     "hw_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -65,6 +68,8 @@ _SIGNATURES = {
 # the compiler's resource report (kept beside the library, so a library
 # built before still has it); chip_smoke.py prints both.
 BUILD_INFO = {"seconds": None, "log": ""}
+# heads each command's section of the kept log: the line "== <source>"
+_SECTION = "== "
 
 
 def _sources():
@@ -137,7 +142,10 @@ def build() -> Path:
             codes += link_codes
             logs += link_logs
         BUILD_INFO["seconds"] = time.perf_counter() - t0
-        BUILD_INFO["log"] = "".join(logs)
+        # one section a command, headed by its source (ptxas_report)
+        names = [src.name for src in srcs] + ["link"]
+        BUILD_INFO["log"] = "".join(f"{_SECTION}{name}\n{log}"
+                                    for name, log in zip(names, logs))
         for cmd, code, log in zip(cmds, codes, logs):
             if code != 0:
                 raise RuntimeError(f"nvcc failed ({code}):\n"
@@ -161,10 +169,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def ptxas_report(log: str, kernel: str) -> list:
+def ptxas_report(log: str, kernel: str, source: str | None = None) -> list:
     """[(registers, spill store bytes, spill load bytes)] of each instance
     of ``kernel`` in an nvcc -Xptxas -v log, in the log's order; (-1, -1,
-    -1) where a field is missing."""
+    -1) where a field is missing.  ``kernel`` is matched in the mangled
+    name, so ``"vega_full_kernelILb0E"`` picks one instance of a template;
+    with ``source`` (a ``.cu`` file's name) only that file's section of a
+    log ``build`` wrote counts."""
+    if source is not None:
+        log = "".join(part[len(source) + 1:]
+                      for part in log.split(_SECTION)
+                      if part.startswith(source + "\n"))
     out, lines = [], log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and kernel in line:

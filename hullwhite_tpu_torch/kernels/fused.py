@@ -34,6 +34,10 @@ Every kernel has two versions here:
   chunk by tile chunk, used by the CPU tests and compared with the kernel
   on the card.
 
+``smem_datasheet`` lists each kernel's launch (threads, dynamic shared
+bytes, grid) under the names of the JAX package's VMEM datasheet, and
+``launch_attributes`` what the card reports of it (``utils/profile.py``).
+
 Tile geometry and salts equal the JAX package's, because they fix the
 random stream: exact curve tiles are 2 x (TILE_EXACT, PAD) normals (8192
 paths), exact option tiles (TILE_OPT, PAD) pairs of normals (32768 paths),
@@ -43,6 +47,7 @@ TILE_FULL_OPT paths, with the 128-step block index as the draw salt.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Sequence
 
@@ -1496,3 +1501,90 @@ def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Launch datasheet: the CUDA counterpart of the JAX package's VMEM datasheet
+# ---------------------------------------------------------------------------
+
+# Fields of the C entries' launch reports (hw_reduce.cuh, launch_report)
+LAUNCH_FIELDS = ("registers", "static_smem", "local_bytes", "max_threads",
+                 "threads", "dynamic_smem", "ctas_per_sm", "grid",
+                 "max_dynamic_smem")
+# name (JAX's vmem_datasheet keys, then the full-step vega's reduce):
+# (CUDA kernel, source, C entry, its kind, paths per JAX tile)
+SHEET_KERNELS = {
+    "curve_full": ("curve_full_kernel", "fused_full.cu", "hw_full_launch", 0,
+                   CURVE_FULL_TILE_PATHS),
+    "curve_exact": ("curve_exact_kernel", "fused_exact.cu",
+                    "hw_exact_launch", 0, CURVE_TILE_PATHS),
+    "zbc_exact": ("zbc_exact_kernel", "fused_exact.cu", "hw_exact_launch", 1,
+                  OPTION_TILE_PATHS),
+    "vega_exact": ("vega_exact_kernel", "fused_exact.cu", "hw_exact_launch",
+                   2, OPTION_TILE_PATHS),
+    "delta_exact": ("delta_exact_kernel", "fused_exact.cu",
+                    "hw_exact_launch", 3, OPTION_TILE_PATHS),
+    "zbc_full": ("zbc_full_kernel", "fused_full.cu", "hw_full_launch", 1,
+                 OPTION_FULL_TILE_PATHS),
+    "vega_full": ("vega_full_kernel", "fused_full.cu", "hw_full_launch", 2,
+                  OPTION_FULL_TILE_PATHS),
+    "vega_full_reduce": ("reduce_kernel", "fused_full.cu", "hw_full_launch",
+                         3, OPTION_FULL_TILE_PATHS),
+}
+
+
+def smem_datasheet(cfg: HWConfig, device="cpu") -> dict:
+    """Per fused kernel, under the names of the JAX package's
+    ``vmem_datasheet``: its JAX logical tile (``paths_per_tile``,
+    ``grid_tiles``, which the hash keys on); on a CUDA ``device`` also the
+    launch the wrapper makes for a call at ``cfg``, one over all
+    ``grid_tiles`` tiles, as its C entry reports it (``launch_attributes``:
+    threads, dynamic shared bytes, grid, registers, CTAs an SM).  TPU VMEM
+    has no counterpart: a kernel's shared memory is what its launch asks
+    for."""
+    on_card = torch.device(device).type == "cuda"
+    sheet = {}
+    for name, (kernel, source, _, _, tile) in SHEET_KERNELS.items():
+        if name == "vega_full_reduce":
+            continue
+        sheet[name] = {"kernel": kernel, "source": f"csrc/{source}",
+                       "paths_per_tile": tile,
+                       "grid_tiles": cfg.n_paths // tile}
+        if on_card:
+            sheet[name].update(launch_attributes(name, cfg))
+    return sheet
+
+
+def launch_attributes(name: str, cfg: HWConfig) -> dict:
+    """What the card reports of ``name``'s launch for a call at ``cfg``
+    (``SHEET_KERNELS``; the C entries' ``launch_report``: ``LAUNCH_FIELDS``)
+    on the current CUDA device; a failed query raises.  The exact curve's
+    shared bytes follow from the quad mask of its prepared weights."""
+    from . import build
+
+    _, _, entry, kind, tile = SHEET_KERNELS[name]
+    n_tiles = cfg.n_paths // tile
+    bf16 = int(cfg.matmul_precision != "highest")
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    lib = build.library()
+    if entry == "hw_exact_launch":
+        live = curve_prepared(cfg, hw.step_tables(
+            cfg, cfg.sigma, cfg.sigma, device="cpu")).live
+        code = lib.hw_exact_launch(kind, n_tiles, bf16, live_word(live),
+                                   cfg.n_mat - 1, out)
+    else:
+        code = lib.hw_full_launch(kind, n_tiles, bf16,
+                                  _n_blocks(cfg.n_steps_s1), out)
+    build.check(code, f"{name} launch attributes")
+    return dict(zip(LAUNCH_FIELDS, out))
+
+
+def device_properties() -> dict:
+    """The current CUDA device's resources (``hw_device_props``): SMs,
+    maximum SM clock and memory clock (kHz), memory bus width (bits), the
+    shared bytes a CTA may opt in to and an SM's."""
+    from . import build
+
+    out = (ctypes.c_int * 6)()
+    build.check(build.library().hw_device_props(out), "device properties")
+    return dict(zip(("sms", "max_sm_khz", "mem_khz", "bus_bits",
+                     "smem_per_block", "smem_per_sm"), out))

@@ -188,15 +188,20 @@ def run(target: str, n_ranks: int, *args, device="cuda",
 
 def call_each(mesh, calls, *, single: bool = False) -> list:
     """Rank target: each ``(function path, args, kwargs)`` of ``calls``
-    called with ``device=mesh.device`` and ``mesh=mesh``; with ``single``
-    each result is the pair (sharded, the same call with mesh=None)."""
-    out = []
-    for path, args, kwargs in calls:
-        fn = resolve(path)
-        res = fn(*args, **kwargs, device=mesh.device, mesh=mesh)
-        if single:
-            res = (res, fn(*args, **kwargs, device=mesh.device, mesh=None))
-        out.append(res)
+    called with ``device=mesh.device`` and ``mesh=mesh``.  With ``single``
+    each result is the pair (sharded, the same call with mesh=None): every
+    rank first makes every call through the mesh, then rank r makes the
+    meshless call of each i-th call with i % ranks == r, on its one thread,
+    and has None for the others, so the references cost one rank's time
+    instead of every rank's."""
+    out = [resolve(path)(*args, **kwargs, device=mesh.device, mesh=mesh)
+           for path, args, kwargs in calls]
+    if single:
+        out = [(res, resolve(path)(*args, **kwargs, device=mesh.device,
+                                   mesh=None)
+                if i % mesh.size == mesh.rank else None)
+               for i, (res, (path, args, kwargs))
+               in enumerate(zip(out, calls))]
     return out
 
 

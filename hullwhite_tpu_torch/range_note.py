@@ -55,6 +55,9 @@ from .ops.rng import Key, block_normals
 from .parallel import mesh as pmesh
 
 _nphi = np.vectorize(lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0))))
+_SQRT_2PI = math.sqrt(2.0 * math.pi)
+# elements of one row slab of ``_kernel_avg``'s (M, G) assembly (64 KiB)
+_SLAB_ELEMS = 1 << 13
 
 
 def _hermite_slopes(xs, Wv, brk):
@@ -104,22 +107,62 @@ def _kernel_avg(mu, s, xs, Wv, order="linear"):
     columns; the integral is linear in the values — the snowball and
     two-factor DPs batch their coupon levels / outer nodes this way)."""
     mu = np.atleast_1d(np.asarray(mu, np.float64))
-    z = (xs[None, :] - mu[:, None]) / s                # (M, G)
-    Phi = _ndtr(z)
-    phi = np.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
-    dPhi = Phi[:, 1:] - Phi[:, :-1]
-    dphi = phi[:, 1:] - phi[:, :-1]
     one_d = Wv.ndim == 1
     W2 = Wv[:, None] if one_d else Wv
     h = np.diff(xs)
     slope = np.diff(W2, axis=0) / h[:, None]           # (G-1, L)
-    out = dPhi @ W2[:-1, :]
-    out += ((mu[:, None] - xs[None, :-1]) * dPhi - s * dphi) @ slope
-    out += W2[0][None, :] * Phi[:, :1]
-    out += W2[-1][None, :] * (1.0 - Phi[:, -1:])
-    if order == "cubic":
+    M, G = mu.shape[0], xs.shape[0]
+    cubic = order == "cubic"
+    if cubic:
         span = xs[-1] - xs[0]
         brk = h <= 1e-4 * span / max(len(xs) - 1, 1)   # double nodes
+        live = ~brk
+        h_live = np.where(live, h, 1.0)
+        beta = np.where(live, s / h_live, 0.0)
+    # The (M, G) assembly runs in row slabs of ~_SLAB_ELEMS elements, whose
+    # temporaries stay in cache, into the (M, G-1) operands of the
+    # products; each element takes the same operations in the same order
+    # as over the whole array, so the result is the same bit for bit.
+    dPhi, lin = np.empty((M, G - 1)), np.empty((M, G - 1))
+    ends = np.empty((M, 2))                            # Phi_0, 1 - Phi_G-1
+    S1, S2, S3 = ((np.empty((M, G - 1)) for _ in range(3)) if cubic
+                  else (None, None, None))
+    rows = max(1, _SLAB_ELEMS // G)
+    for r in range(0, M, rows):
+        q = slice(r, r + rows)
+        m = mu[q, None]
+        z = (xs[None, :] - m) / s                      # (rows, G)
+        Phi = _ndtr(z)
+        zz = z * z
+        phi = np.exp(-0.5 * zz) / _SQRT_2PI
+        dP = np.subtract(Phi[:, 1:], Phi[:, :-1], out=dPhi[q])
+        dphi = phi[:, 1:] - phi[:, :-1]
+        dm = m - xs[None, :-1]
+        np.subtract(dm * dP, s * dphi, out=lin[q])
+        ends[q, 0] = Phi[:, 0]
+        ends[q, 1] = 1.0 - Phi[:, -1]
+        if cubic:
+            # Gaussian moments of t^p over the cell: t = alpha + beta z,
+            #   E0 = dPhi, E1 = int z phi = -dphi,
+            #   E2 = dPhi - (z phi)|, E3 = ((z^2+2) phi)|_b^a
+            alpha = dm / h_live
+            if brk.any():
+                alpha = np.where(live, alpha, 0.0)
+            E1 = -dphi
+            zphi = z * phi
+            E2 = dP - (zphi[:, 1:] - zphi[:, :-1])
+            z2phi = (zz + 2.0) * phi
+            E3 = z2phi[:, :-1] - z2phi[:, 1:]
+            aE0, bE1, bb = alpha * dP, beta * E1, beta * beta
+            np.add(aE0, bE1, out=S1[q])
+            np.add(alpha * (aE0 + 2.0 * bE1), bb * E2, out=S2[q])
+            np.add(alpha * alpha * (aE0 + 3.0 * beta * E1),
+                   bb * (3.0 * alpha * E2 + beta * E3), out=S3[q])
+    out = dPhi @ W2[:-1, :]
+    out += lin @ slope
+    out += W2[0][None, :] * ends[:, :1]
+    out += W2[-1][None, :] * ends[:, 1:]
+    if cubic:
         m_nodes = _hermite_slopes(xs, W2, brk)
         # Hermite-minus-chord correction on cell k, in t = (y-a)/h:
         #   d1 t + d2 t^2 + d3 t^3 with d1 = h m_a - dW,
@@ -131,23 +174,7 @@ def _kernel_avg(mu, s, xs, Wv, order="linear"):
         d1 = hma - dW
         d2 = 3.0 * dW - 2.0 * hma - hmb
         d3 = -2.0 * dW + hma + hmb
-        live = ~brk
         d1[brk], d2[brk], d3[brk] = 0.0, 0.0, 0.0
-        # Gaussian moments of t^p over the cell: t = alpha + beta z,
-        #   E0 = dPhi, E1 = int z phi = -dphi,
-        #   E2 = dPhi - (z phi)|, E3 = ((z^2+2) phi)|_b^a
-        alpha = np.where(live, (mu[:, None] - xs[None, :-1])
-                         / np.where(live, h, 1.0), 0.0)
-        beta = np.where(live, s / np.where(live, h, 1.0), 0.0)
-        zphi = z * phi
-        E1 = -dphi
-        E2 = dPhi - (zphi[:, 1:] - zphi[:, :-1])
-        z2phi = (z * z + 2.0) * phi
-        E3 = z2phi[:, :-1] - z2phi[:, 1:]
-        S1 = alpha * dPhi + beta * E1
-        S2 = alpha * (alpha * dPhi + 2.0 * beta * E1) + beta * beta * E2
-        S3 = (alpha * alpha * (alpha * dPhi + 3.0 * beta * E1)
-              + beta * beta * (3.0 * alpha * E2 + beta * E3))
         out += S1 @ d1 + S2 @ d2 + S3 @ d3
     return out[:, 0] if one_d else out
 

@@ -70,6 +70,8 @@ from .ratchet import _check_rqmc
 
 F32 = torch.float32
 _NDTRI = NormalDist().inv_cdf
+# elements of one row slab of ``_v_segments_rows``' sign-change scan
+_SCAN_SLAB = 1 << 14
 
 
 def swap_schedule(cfg: HWConfig, rate: float, tenor: float,
@@ -730,11 +732,19 @@ def _v_segments_rows(lx, Bs, K, mu, s: float, width: float = 10.0,
     ys, V0 = grid
     lo, hi = float(ys[0]), float(ys[-1])
     Kv = np.broadcast_to(np.asarray(K, np.float64), (n,))
-    V = V0 - Kv[:, None]                                # (n, n_scan)
-    flip = (V[:, :-1] == 0.0) | (V[:, :-1] * V[:, 1:] < 0.0)
-    rows, cols = np.nonzero(flip)
+    # the sign changes of V = V0 - K, (n, n_scan), in slabs of rows whose
+    # temporaries stay in cache; row-major order, as over the whole array
+    step = max(1, _SCAN_SLAB // V0.shape[1])
+    found = []
+    for r in range(0, n, step):
+        V = V0[r:r + step] - Kv[r:r + step, None]
+        flip = (V[:, :-1] == 0.0) | (V[:, :-1] * V[:, 1:] < 0.0)
+        rr, cc = np.nonzero(flip)
+        found.append((rr + r, cc))
+    rows = np.concatenate([f[0] for f in found])
+    cols = np.concatenate([f[1] for f in found])
     a_, b_ = ys[cols], ys[cols + 1]
-    fa = V[rows, cols]
+    fa = V0[rows, cols] - Kv[rows]
     lxr = lx[rows]
     Kr = Kv[rows]
     for _ in range(iters):

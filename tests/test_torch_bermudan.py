@@ -18,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import bermudan as jberm  # noqa: E402
 from hullwhite_tpu import greeks as jgreeks  # noqa: E402
 from hullwhite_tpu import instruments as jinst  # noqa: E402

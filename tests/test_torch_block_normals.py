@@ -11,6 +11,8 @@ from jax import lax
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu.ops.rng import block_normals as jblock_normals  # noqa: E402
 
 from hullwhite_tpu_torch.ops import rng  # noqa: E402

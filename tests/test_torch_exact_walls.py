@@ -34,6 +34,8 @@ from jax.experimental.pallas import tpu as pltpu
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
 from hullwhite_tpu.pallas import fused as jfused  # noqa: E402
 

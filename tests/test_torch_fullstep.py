@@ -21,6 +21,8 @@ from jax.experimental.pallas import tpu as pltpu
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import pricing as jpricing  # noqa: E402
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
 from hullwhite_tpu.models import hull_white as jhw  # noqa: E402
@@ -264,9 +266,10 @@ def test_full_step_gate(kind):
 
 
 def test_cli_all_fused_on_cpu(tmp_path, monkeypatch, capsys):
-    """q1 -> q2 -> q3 with --engine fused at the reference widths (1000
-    steps, 101 maturities) on the CPU; the engine is named in the header
-    and every results file."""
+    """q1 -> q2 -> q3 -> the engine table with --engine fused at the
+    reference widths (1000 steps, 101 maturities) on the CPU; the engine
+    is named in the header and every results file, and the table's prices
+    agree."""
     monkeypatch.chdir(tmp_path)
     tfused.reset_launch_counts()
     assert cli.main(["all", "--engine", "fused", "--paths", "32768",
@@ -280,6 +283,9 @@ def test_cli_all_fused_on_cpu(tmp_path, monkeypatch, capsys):
     assert abs(res["q1"]["results"]["P_0_10"] - 0.8768) < 2e-3
     assert 0.034 < res["q2b"]["results"]["ZBC_control_variate"] < 0.037
     assert 0.2 < res["q3"]["results"]["sensitivity_mc"] < 0.26
+    table = json.loads((data / "benchmark_engines.json").read_text())
+    assert table["results"]["consistency_pass"] is True
+    assert "price consistency" in out and "-> PASS" in out
     assert set(tfused.launch_counts().values()) == {0}  # CPU: plain versions
 
 

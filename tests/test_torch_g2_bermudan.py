@@ -20,6 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import instruments as jinst  # noqa: E402
 from hullwhite_tpu import range_note as jrange  # noqa: E402
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
@@ -410,16 +412,17 @@ def test_g2_bermudan_bracketed_by_dp_oracle(bracket3):
                            + float(res.upper_std_error)), (lo, up)
 
 
-def test_g2_bracket_contains_dp_oracle_within_eval_floor(analytic_market):
+def test_g2_bracket_contains_dp_oracle_within_eval_floor(analytic_market,
+                                                       bracket3):
     """At 2^15 paths, k = 3: the CV lower bound is at most the DP oracle
     plus 4 SE plus the reference's float32 evaluation floor, and the upper
     bound at least the oracle minus the same (the oracle on its 241 x 64
-    grid: the default 121 x 48 grid's bias is ~6e-6 at k = 3 and 5)."""
+    grid, ``bracket3``'s: the default 121 x 48 grid's bias is ~6e-6 at
+    k = 3 and 5)."""
     sched = _sched(CFG_F)
     res = g2pp.price_bermudan_g2(CFG_F, G2, KEY, analytic_market, sched,
                                  list(EX3), n_paths=1 << 15, device="cpu")
-    dp = g2pp.dp_oracle_g2(CFG_F, G2, analytic_market, sched, list(EX3),
-                           n_grid=241, n_quad=64)
+    dp = bracket3[2]
     cv, cv_se = float(res.price_cv), float(res.cv_std_error)
     up, up_se = float(res.upper), float(res.upper_std_error)
     assert cv <= dp + 4 * cv_se + EVAL_FLOOR, (cv, dp, cv_se)

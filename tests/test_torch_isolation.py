@@ -10,6 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu_torch import cli, pricing, tiny_config  # noqa: E402
 from hullwhite_tpu_torch.instruments import CouponSchedule  # noqa: E402
 from hullwhite_tpu_torch.models.g2pp import G2Params  # noqa: E402
@@ -35,11 +37,14 @@ def test_port_imports_no_jax():
             "hullwhite_tpu_torch.instruments, "
             "hullwhite_tpu_torch.bermudan, hullwhite_tpu_torch.range_note, "
             "hullwhite_tpu_torch.floater, hullwhite_tpu_torch.snowball, "
-            "hullwhite_tpu_torch.g2_note, hullwhite_tpu_torch.utils.native\n"
+            "hullwhite_tpu_torch.g2_note, hullwhite_tpu_torch.utils.native, "
+            "hullwhite_tpu_torch.utils.profile, hullwhite_tpu_torch.analyze\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hullwhite_tpu.')) "
             "or m == 'hullwhite_tpu')\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            # analyze imports matplotlib only to plot
+            "assert 'matplotlib' not in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

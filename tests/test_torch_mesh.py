@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu_torch import tiny_config  # noqa: E402
 from hullwhite_tpu_torch.ops import rng  # noqa: E402
 from hullwhite_tpu_torch.parallel import launch  # noqa: E402

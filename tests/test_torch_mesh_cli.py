@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu_torch import HWConfig, Key, cli, grid, pricing  # noqa: E402
 
 # the keys of the JAX package's sweep_results.json and pipeline_results.json

@@ -19,6 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu_torch import (barrier, chooser, floater,  # noqa: E402
                                  g2_note, ratchet, snowball, tiny_config,
                                  xva)

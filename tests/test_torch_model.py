@@ -14,6 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from hullwhite_tpu import config as jconfig  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import HWConfig as JHWConfig  # noqa: E402
 from hullwhite_tpu import ratchet as jrt  # noqa: E402
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402

@@ -21,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import pricing as jpricing  # noqa: E402
 from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
 from hullwhite_tpu.parallel import mesh as jmesh  # noqa: E402
@@ -52,15 +54,21 @@ def _leaves(obj):
 def sharded(calls, n_ranks=RANKS, single=False):
     """The results of ``calls`` through an n-rank mesh, after checking that
     every rank returned the same, bit for bit; with ``single`` each is the
-    pair (through the mesh, the same call without it in the rank: on the
+    pair (through the mesh, the same call without it in a rank: on the
     rank's one thread, where a regression fit can round otherwise than on
-    the test's two)."""
+    the test's two; ``launch.call_each`` spreads these over the ranks)."""
     res = launch.run(CALL_EACH, n_ranks, calls, device="cpu", single=single)
-    for other in res[1:]:
-        for a, b in zip(_leaves(res[0]), _leaves(other)):
+    meshed = [[pair[0] for pair in r] for r in res] if single else res
+    for other in meshed[1:]:
+        for a, b in zip(_leaves(meshed[0]), _leaves(other)):
             assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
                     else a == b)
-    return res[0]
+    if not single:
+        return res[0]
+    pairs = [(res[0][i][0], res[i % n_ranks][i][1])
+             for i in range(len(calls))]
+    assert all(one is not None for _, one in pairs)
+    return pairs
 
 
 def _call(fn, *args, **kwargs):
@@ -70,8 +78,7 @@ def _call(fn, *args, **kwargs):
 def mirror_runs(calls: dict, n_ranks=RANKS) -> dict:
     """``{name: (through the mesh, the same call with mesh=None)}`` for the
     ``{name: _call(...)}`` of ``calls``, all through one rank group (a
-    file's sharded mirrors share one; the single-device reference runs in
-    the rank, on its one thread)."""
+    file's sharded mirrors share one)."""
     res = sharded(list(calls.values()), n_ranks=n_ranks, single=True)
     return dict(zip(calls, res))
 

@@ -20,6 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from torch_blas import one_blas_thread  # noqa: E402,F401
+
 from hullwhite_tpu import xva as jxva  # noqa: E402
 
 from hullwhite_tpu_torch import xva  # noqa: E402
