@@ -23,7 +23,17 @@ Phases (any failure raises and the script exits non-zero):
    then at the timed shape (2^20 pairs; the exp and reciprocal walls at
    2^24, as the roofline times them) each kernel's device time (with its
    reduce pass; the curve kernels' in both precisions) and its
-   plain version's wall time per call;
+   plain version's wall time per call; then the normal CDF kernel
+   (``nphi_kernel``, ``csrc/accurate.cu``) against its plain version run
+   on the card and on the CPU, bit for bit on 400,001 points of [-9, 9],
+   200,001 of [-8, 8], 6001 of [-30, 30], +-0 and 4 x 2^22 seeded normals
+   scaled by 3, two runs bitwise, its ``torch.func.jvp`` tangent on the
+   card within 2 ulp of the CPU's (on each grid's first 2^20 elements);
+   at 2^24 elements its device time, its
+   bound (8 bytes an element over the card's HBM rate, or its float32
+   operations over the card's FP32 rate), the plain version's wall,
+   ``torch.special.ndtr``'s device time (the library call) and the
+   former card route's (erf32 and ``torch.special.erfc``);
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
    q3 --validate 5 and grid, first with ``--engine fused_exact`` (exact
@@ -85,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
    operations, and the phase's peak device memory, beside the card's
    name and power limit;
 7. the Bermudan swaption and the multi-date instruments (plain PyTorch on
-   the card, no hand-written kernel; the DP oracle in host float64 and
+   the card but the normal CDF kernel ``nphi``; the DP oracle in host float64 and
    the C++ sweep built at first use) at full width on a ``cli q1 --engine
    exact`` curve: ``cli swaption --bermudan --delta`` receiver (with
    ``--bermudan-sweep``) and payer, tenor 5, 2^20 paths, five annual
@@ -102,14 +112,15 @@ Phases (any failure raises and the script exits non-zero):
    blocks, k = 5) ``bermudan_vega`` jvp against fd (upper within 1e-3,
    lower 5e-2) and the RQMC bracket around the DP within 5 SE + 1e-6;
    ``price_bermudan`` at 2^14 paths, k = 3, card vs CPU (prices 1e-6,
-   SEs 1% relative); reruns bitwise; no kernel launched; per call
-   (``price_bermudan`` at 2^17 x 8 and 2^20 x 1, ``bermudan_vega`` jvp,
+   SEs 1% relative); reruns bitwise; no kernel but ``nphi`` launched,
+   ``nphi`` at least once; per call (``price_bermudan`` at 2^17 x 8 and 2^20 x 1, ``bermudan_vega`` jvp,
    ``dp_oracle`` host wall only, ``price_cap`` and ``price_cms`` at 2^20)
    the median and range of two wall times after a warm call, the host
    ms, the device-busy ms and device operations, and the phase's peak
    device memory, beside the card's name and power limit;
 8. calibration and the European half of G2++ (plain PyTorch on the card,
-   no hand-written kernel; the closed forms and the calibrations in host
+   no hand-written kernel but ``nphi`` in ``cli g2pp``'s Bermudan line;
+   the closed forms and the calibrations in host
    float64) at full width on the fp64 oracle curve written as the q1
    market: ``cli calibrate`` (Hull-White a within 1e-4 and sigma within
    1e-5, G2++ sigma and eta within 1e-5 and rho within 1e-3 of the truth),
@@ -121,13 +132,13 @@ Phases (any failure raises and the script exits non-zero):
    closed-form FD; ``cli cms --g2`` under its z-gate; ``price_zbc_g2``,
    ``price_swaption_g2_qmc`` and ``bootstrap_curve_g2`` on the card
    against the CPU (``G2_CARD_CPU_TOL``); ``price_zbc_g2`` reruns bitwise;
-   no kernel launched; per call (the ZBC, swaption, surface and CMS at
+   no kernel but ``nphi`` launched, ``nphi`` at least once; per call (the ZBC, swaption, surface and CMS at
    2^20 paths, the curve at 2^18, the RQMC ZBC and its vega at 2^16 x 8,
    ``calibrate_g2`` on the host) the median and range of five wall
    times, the host ms, the device-busy ms and device operations, and the
    phase's peak device memory, beside the card's name and power limit;
 9. the G2++ Bermudan and the backward-looking RFR caps (plain PyTorch on
-   the card, no hand-written kernel; the DP oracle and the closed forms in
+   the card but the normal CDF kernel ``nphi``; the DP oracle and the closed forms in
    host float64) at full width on the fp64 oracle curve written as the q1
    market: ``cli g2pp`` with its Bermudan at the CLI defaults (2^20 paths,
    five annual exercises of the 5-year 2.5% receiver), ``cli rfr --g2``
@@ -141,7 +152,7 @@ Phases (any failure raises and the script exits non-zero):
    paths against the European oracle's and the DP oracle's FD; the
    Bermudan (k = 2, 2^12 paths) and two RFR caps on the card against the
    CPU (``G2B_CARD_CPU_TOL``); the k = 5 Bermudan reruns bitwise; no
-   kernel launched; per call (the Bermudan at k = 3 and 5, the DP oracle
+   kernel but ``nphi`` launched, ``nphi`` at least once; per call (the Bermudan at k = 3 and 5, the DP oracle
    on the host, the RFR caps at 2^20, the RQMC cap at 2^17 x 8) the
    median and range of the wall times, the host ms, the device-busy ms
    and device operations, and the phase's peak device memory, beside the
@@ -182,7 +193,9 @@ Phases (any failure raises and the script exits non-zero):
    operations, each DP oracle's host wall, and the phase's peak device
    memory and wall, beside the card's name and power limit.
 12. the exotics layer (``ratchet``, ``barrier``, ``chooser``: plain
-   PyTorch on the card, no hand-written kernel; host float64 oracles) on
+   PyTorch on the card but the normal CDF kernel ``nphi`` of the ratchet
+   caps' caplets, the knock-out caps' on the host; host float64 oracles)
+   on
    phase 10's curve: ``cli exotics`` at full width (2^20 paths; its four
    G2++ DPs on ``G2_SMALL_GRID``, as phase 10's ``cli notes``, the
    Hull-White ones at the command's grids) with its 15 agreement lines
@@ -195,8 +208,8 @@ Phases (any failure raises and the script exits non-zero):
    ``G2_SMALL_GRID``); the nine new price_* calls (the ratchet plain,
    RQMC at 2^17 x 8 and G2++, the knock-out cap under both models, the
    chooser and the auto-cap under both models) at 2^14 on the card
-   against the CPU (0.1 SE); reruns bitwise; no kernel launched; per
-   call at 2^20 the median and range of the wall times, the host ms, the
+   against the CPU (0.1 SE); reruns bitwise; no kernel but ``nphi``
+   launched, ``nphi`` at least once; per call at 2^20 the median and range of the wall times, the host ms, the
    device-busy ms and device operations, and the phase's peak device
    memory and wall, beside the card's name and power limit.
 13. the Hull-White XVA layer (``credit``, ``xva``: plain PyTorch on the
@@ -256,7 +269,9 @@ Phases (any failure raises and the script exits non-zero):
    JAX package's ``dryrun_multichip``, 51 checks: every product priced
    through a 2-rank mesh and without it in each rank, within 1e-6, the
    Bermudans 2e-6; the ``fused_exact`` ZBC from each rank's base tile,
-   whose ``zbc_exact`` launches join that kernel's count) on two gloo
+   whose ``zbc_exact`` launches join that kernel's count, and the
+   Bermudan and ratchet mirrors, whose ``nphi`` launches join
+   that kernel's) on two gloo
    ranks on the card, then its companion (the core trio and the uneven
    blocks' rejection) on four; then at full width (``HWConfig()``) the
    ``price_*`` functions of the note, exotic and XVA modules and
@@ -265,9 +280,10 @@ Phases (any failure raises and the script exits non-zero):
    mesh against the same call without it in the rank, every number
    within 1e-6 (bit for bit where the block loop is ``map_blocks``),
    with the ms per call with one rank and with two.
-17. (run right after phase 0: after phase 1's kernel work the kernel
-   timestamps the profiler reads no longer match the host's clock, and a
-   trace loses its kernels) the CUDA kernel analysis
+17. (run right after phase 0; each traced command in a process of its
+   own: after kernel work in a process the kernel timestamps the profiler
+   reads drift off the host's clock, and a trace loses its kernels) the
+   CUDA kernel analysis
    (``utils/profile.py``) at full width: for
    ``--engine fused_exact`` and ``--engine fused`` the vega step's report
    (registers equal to the kept ptxas log's, no spill, at least one CTA
@@ -300,7 +316,8 @@ surface or normals kernel may spill: their registers and spills are
 printed from the build's ptxas log, kept beside the library).
 The last
 two lines are a JSON object of
-per-kernel numbers and the contract line {"ok": true, "device": {...}}.
+per-kernel numbers (``nphi``'s launches summed over phases 7, 8, 9, 12
+and 16) and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
 nothing of JAX.
 """
@@ -324,6 +341,21 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def reset_counts():
+    """Every wrapper's launch count to 0: the fused kernels' and nphi's."""
+    from hullwhite_tpu_torch.kernels import accurate, fused
+
+    fused.reset_launch_counts()
+    accurate.reset_launch_counts()
+
+
+def kernel_counts() -> dict:
+    """Kernel launches per wrapper since the last ``reset_counts``."""
+    from hullwhite_tpu_torch.kernels import accurate, fused
+
+    return {**fused.launch_counts(), **accurate.launch_counts()}
 
 
 # the exact tier's unit walls; the exp and reciprocal walls are timed at
@@ -722,6 +754,141 @@ def phase1(dev):
                   f" ms")
     return err, times, normals_launches
 
+
+
+# nphi's checks: bit for bit against its plain version on these grids (the
+# CPU tests' and 4 x 2^22 seeded normals scaled by 3, its timed shape), its
+# tangent within NPHI_TANGENT_ULPS of the CPU's on at most NPHI_JVP_ELEMS
+# elements of each grid (the CPU's jvp of 2^24 would take seconds)
+NPHI_TIMED = (4, 1 << 22)
+NPHI_TANGENT_ULPS = 2
+NPHI_JVP_ELEMS = 1 << 20
+
+
+def _ulps(a, b) -> float:
+    """Largest |a - b| in float32 ulps of b (tensors on the CPU)."""
+    import numpy as np
+
+    a, b = a.numpy().astype(np.float64), b.numpy()
+    ulp = np.spacing(np.abs(b)).astype(np.float64)
+    return float(np.max(np.abs(a - b) / ulp)) if a.size else 0.0
+
+
+def phase1_nphi(dev, smi):
+    """``nphi_kernel`` (``kernels.accurate.nphi``) against its plain
+    version run on the card and on the CPU, bit for bit on every grid, two
+    runs bitwise equal, the ``torch.func.jvp`` tangent on the card within
+    NPHI_TANGENT_ULPS of the CPU's (on a grid's first NPHI_JVP_ELEMS
+    elements); then at 2^24 elements the kernel's
+    device time, ``torch.special.ndtr``'s (the library call, not XLA's
+    rounding), the former card route's (erf32 near 0, torch.special.erfc
+    in the tails) and the plain version's wall, and the bound.  Returns
+    the kernel's ``kernels`` entry without its launches."""
+    import numpy as np
+    import torch
+
+    from hullwhite_tpu_torch.kernels import accurate as kacc
+    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.ops import accurate
+    from hullwhite_tpu_torch.utils.profile import card_peaks
+    from hullwhite_tpu_torch.utils.timing import bench
+
+    rng = np.random.default_rng(2026)
+    grids = {
+        "[-9, 9] x 400001": np.linspace(-9.0, 9.0, 400_001, dtype=np.float32),
+        "[-8, 8] x 200001": np.linspace(-8.0, 8.0, 200_001, dtype=np.float32),
+        "[-30, 30] x 6001": np.linspace(-30.0, 30.0, 6001, dtype=np.float32),
+        "+-0": np.float32([0.0, -0.0]),
+        "4 x 2^22 normals x 3": (3.0 * rng.standard_normal(NPHI_TIMED))
+        .astype(np.float32)}
+    t_phase = time.perf_counter()
+    err, ulps = 0.0, 0.0
+    for name, x in grids.items():
+        xc = torch.from_numpy(x)
+        xd = xc.to(dev)
+        kacc.reset_launch_counts()
+        k1 = kacc.nphi(xd)
+        k2 = kacc.nphi(xd)
+        torch.cuda.synchronize()
+        check(kacc.nphi.launches == 2, f"nphi {name}: "
+              f"{kacc.nphi.launches} launches for 2 calls")
+        on_card = accurate.nphi_plain(xd).cpu()
+        on_cpu = accurate.nphi_plain(xc)
+        k1, k2 = k1.cpu(), k2.cpu()
+        bits = {w: int((k1.view(torch.int32) != v.view(torch.int32)).sum())
+                for w, v in (("rerun", k2), ("plain on the card", on_card),
+                             ("plain on the CPU", on_cpu))}
+        err = max(err, float((k1.double() - on_cpu.double()).abs().max()))
+        xj = xc.reshape(-1)[:NPHI_JVP_ELEMS]
+        t = torch.from_numpy(rng.standard_normal(xj.shape).astype(np.float32))
+        y_d, t_d = torch.func.jvp(accurate.nphi, (xj.to(dev),), (t.to(dev),))
+        y_c, t_c = torch.func.jvp(accurate.nphi, (xj,), (t,))
+        u = _ulps(t_d.cpu(), t_c)
+        ulps = max(ulps, u)
+        same_primal = torch.equal(y_d.cpu(), y_c)
+        print(f"[phase 1] nphi {name}: elements differing in bits from "
+              f"{bits}; jvp on the card: primal bitwise the CPU's "
+              f"{same_primal}, tangent within {u:.1f} ulp of the CPU's")
+        check(not any(bits.values()), f"nphi {name}: not bit for bit "
+              f"{bits}")
+        check(same_primal and u <= NPHI_TANGENT_ULPS,
+              f"nphi {name}: jvp primal {same_primal}, tangent {u} ulp")
+
+    xc = torch.from_numpy(grids["4 x 2^22 normals x 3"])
+    xd = xc.to(dev)
+    half_sqrt_2 = accurate._HALF_SQRT_2
+
+    def former_route():  # the card route before the kernel, timed only
+        w = xd * half_sqrt_2
+        z = w.abs()
+        e = torch.special.erfc(z)
+        y = torch.where(z < half_sqrt_2, 1.0 + accurate.erf32(w),
+                        torch.where(w > 0.0, 2.0 - e, e))
+        return accurate._flush(0.5 * y)
+
+    def plain():
+        return accurate.nphi_plain(xd)
+
+    def kernel():
+        return kacc.nphi(xd)
+
+    kacc.reset_launch_counts()
+    p1 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+    k1 = device_ms(kernel, 20, 3)
+    k2 = device_ms(kernel, 20, 3)
+    p2 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+    lib = min(device_ms(lambda: torch.special.ndtr(xd), 20, 3)
+              for _ in range(2))
+    old = min(device_ms(former_route, 5, 3) for _ in range(2))
+    props = fused.device_properties()
+    peaks = card_peaks(props["sms"], props["max_sm_khz"] / 1e3,
+                       props["mem_khz"] / 1e3, props["bus_bits"])
+    n = xc.numel()
+    bytes_ms = 8.0 * n / peaks["hbm_bytes_per_s"] * 1e3
+    flops = kacc.nphi_flops(xc)
+    ops_ms = flops / peaks["fp32_flops_per_s"] * 1e3
+    bound = max(bytes_ms, ops_ms)
+    ms = min(k1, k2)
+    print(f"[phase 1] time at 2^{n.bit_length() - 1} elements: nphi: kernel "
+          f"{ms:.4f} ms (runs {k1:.4f} / {k2:.4f}), plain {min(p1, p2):.4f}"
+          f" ms (runs {p1:.4f} / {p2:.4f}), torch.special.ndtr {lib:.4f} ms,"
+          f" former card route {old:.4f} ms [{smi}]")
+    print(f"[bounds] nphi: {bound:.5f} ms (bytes {bytes_ms:.5f} ms: "
+          f"{8 * n} B at {peaks['hbm_bytes_per_s'] / 1e12:.3f} TB/s; "
+          f"operations {ops_ms:.5f} ms: {flops} fp32 FLOPs at "
+          f"{peaks['fp32_flops_per_s'] / 1e12:.1f} TFLOP/s; {ms:.5f} ms "
+          f"measured, {bound / ms:.1%} of bound)")
+    check(bound <= ms, "nphi ran faster than its bound: the count is wrong")
+    print(f"[phase 1] nphi checks and times: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"name": "nphi", "route": "cuda",
+            "source": "hullwhite_tpu_torch/csrc/accurate.cu",
+            "replaces": "hullwhite_tpu/ops/accurate.py:76",
+            "max_abs_err": err, "tangent_ulps": ulps, "ms": ms,
+            "plain_ms": min(p1, p2), "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_unit": "HBM bandwidth" if bytes_ms >= ops_ms
+            else "FP32 FMA pipe", "library_ms": lib, "former_ms": old}
 
 def deterministic_gate(cfg, dev, engine, market):
     """The option kernel's own random field fed through an engine that
@@ -1581,7 +1748,7 @@ def phase6(dev, smi):
 # ---------------------------------------------------------------------------
 # phase 7: the Bermudan swaption and the multi-date instruments (caps, CMS,
 # CMS spread, range accrual), plain PyTorch on the card (no hand-written
-# kernel on these calls) and the fp64 DP oracle on the host
+# kernel on these calls but nphi) and the fp64 DP oracle on the host
 # ---------------------------------------------------------------------------
 
 # bench.py's Bermudan setting: 2^17 paths x 8 blocks, five annual exercises
@@ -1863,11 +2030,10 @@ def phase7(dev, smi):
     import torch
 
     from hullwhite_tpu_torch import HWConfig
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     market, swaption, sweep, cap, cms = phase7_cli(cfg, dev)
     phase7_gates(swaption, sweep, cap, cms)
@@ -1879,12 +2045,13 @@ def phase7(dev, smi):
     print(f"[phase 7] peak device memory of the Bermudan/multi-date phase: "
           f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
           f" s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
 # phase 8: calibration and the European half of G2++ (plain PyTorch on the
-# card, no hand-written kernel on these calls; the closed forms and the
+# card, no hand-written kernel on these calls but nphi in cli g2pp's
+# Bermudan; the closed forms and the
 # calibrations in host float64)
 # ---------------------------------------------------------------------------
 
@@ -2117,11 +2284,10 @@ def phase8(dev, smi):
     import torch
 
     from hullwhite_tpu_torch import HWConfig
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     docs = phase8_cli(cfg, dev)
     phase8_gates(cfg, docs)
@@ -2133,13 +2299,14 @@ def phase8(dev, smi):
     print(f"[phase 8] peak device memory of the calibration/G2++ phase: "
           f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
           f" s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
 # phase 9: the G2++ Bermudan (closed-form dual proxy, fp64 2-d DP oracle,
 # vega, curve delta) and the backward-looking RFR caps, plain PyTorch on
-# the card (no hand-written kernel on these calls) and host float64 oracles
+# the card (no hand-written kernel on these calls but nphi) and host
+# float64 oracles
 # ---------------------------------------------------------------------------
 
 G2B_EX3 = (5.0, 6.0, 7.0)
@@ -2411,11 +2578,10 @@ def phase9(dev, smi):
     import torch
 
     from hullwhite_tpu_torch import HWConfig
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     g2doc, rfr_runs = phase9_cli(cfg, dev)
     phase9_rfr_gates(rfr_runs)
@@ -2428,7 +2594,7 @@ def phase9(dev, smi):
     print(f"[phase 9] peak device memory of the G2++ Bermudan/RFR phase: "
           f"{peak:.2f} GiB [{smi}]; phase wall {time.perf_counter() - t0:.1f}"
           f" s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -2695,11 +2861,10 @@ def phase10(dev, smi):
     import torch
 
     from hullwhite_tpu_torch import HWConfig, Key
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     market, notes = phase10_cli(cfg, dev)
     for name, r in notes.items():
@@ -2718,7 +2883,7 @@ def phase10(dev, smi):
     print(f"[phase 10] times per call [{smi}]: " + json.dumps(times))
     print(f"[phase 10] peak device memory of the note phase: {peak:.2f} GiB "
           f"[{smi}]; phase wall {time.perf_counter() - t0:.1f} s")
-    return fused.launch_counts(), market
+    return kernel_counts(), market
 
 # ---------------------------------------------------------------------------
 # phase 11: the G2++ note layer (the puttable range note, the TARN, the
@@ -2901,12 +3066,11 @@ def phase11(dev, smi, market):
     import torch
 
     from hullwhite_tpu_torch import HWConfig, Key
-    from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.models import g2pp
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     dps, dp_wall = phase11_direct(cfg, dev, g2pp.G2Params(), market, smi)
     phase11_card_vs_cpu(cfg, dev, market, dps)
@@ -2918,14 +3082,14 @@ def phase11(dev, smi, market):
     print(f"[phase 11] peak device memory of the G2++ note phase: "
           f"{peak:.2f} GiB [{smi}]; phase wall "
           f"{time.perf_counter() - t0:.1f} s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
 # phase 12: the exotics layer (the ratchet cap, the up-and-out cap, the
 # chooser cap and auto-cap, each under Hull-White and G2++), plain PyTorch
-# on the card (no hand-written kernel on these calls) and host float64
-# oracles
+# on the card (no hand-written kernel on these calls but nphi) and host
+# float64 oracles
 # ---------------------------------------------------------------------------
 
 # cli exotics' products at its defaults (tenor 3, cap rate 1.3%, barrier
@@ -3149,13 +3313,12 @@ def phase12(dev, smi, market):
     import torch
 
     from hullwhite_tpu_torch import HWConfig, Key
-    from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.models import g2pp
 
     cfg = HWConfig()
     g = g2pp.G2Params()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res, cli_wall = phase12_cli(cfg, dev, market)
     for name in ("ratchet_cap", "ratchet_cap_g2", "ko_cap", "ko_cap_g2",
@@ -3175,7 +3338,7 @@ def phase12(dev, smi, market):
     print(f"[phase 12] peak device memory of the exotics phase: {peak:.2f} "
           f"GiB [{smi}]; cli exotics {cli_wall:.1f} s; phase wall "
           f"{time.perf_counter() - t0:.1f} s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -3415,11 +3578,10 @@ def phase13(dev, smi, market):
     import torch
 
     from hullwhite_tpu_torch import HWConfig, Key
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res, cli_wall = phase13_cli(cfg, dev, market)
     for name, z in (("cva", res["cva_z"]),
@@ -3451,7 +3613,7 @@ def phase13(dev, smi, market):
     print(f"[phase 13] peak device memory of the XVA phase: {peak:.2f} GiB "
           f"[{smi}]; cli xva {cli_wall:.1f} s; phase wall "
           f"{time.perf_counter() - t0:.1f} s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -3697,13 +3859,12 @@ def phase14(dev, smi, market):
     import torch
 
     from hullwhite_tpu_torch import HWConfig, Key
-    from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.models.g2pp import G2Params
 
     cfg = HWConfig()
     g2 = G2Params()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     wall = phase14_oracles(cfg, g2, market, smi)
     res, cli_wall, fresh = phase14_cli(cfg, dev, market)
@@ -3738,7 +3899,7 @@ def phase14(dev, smi, market):
           f"[{smi}]: " + json.dumps(times))
     print(f"[phase 14] peak device memory of the phase: {peak:.2f} GiB "
           f"[{smi}]; phase wall {time.perf_counter() - t0:.1f} s")
-    return fused.launch_counts()
+    return kernel_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -4183,28 +4344,77 @@ def phase17_report(cfg, dev, engine, smi):
     return rep
 
 
-def phase17_q3(engine, dev, plain, smi):
-    """``cli q3 --profile --trace DIR`` in this process against ``cli q3``
-    on the same key (``plain``: its results and launches): the same
-    results; the report printed before the timed loop; the trace's kernel
-    events as many as the launch counters moved in the traced call, the
-    one call the flagged command adds.  Returns its launches."""
-    from hullwhite_tpu_torch.kernels import fused
+# ``cli q3 --profile --trace trace`` then ``cli q3`` (the arguments) in a
+# fresh process; the last line holds each run's rc, output, launches and
+# q3_results.json
+_TRACED_Q3 = """\
+import contextlib, io, json, os, sys
+from hullwhite_tpu_torch import cli
+from hullwhite_tpu_torch.kernels import fused
 
-    trace_dir = os.path.abspath(f"trace_{engine}")
+def run(argv):
     fused.reset_launch_counts()
-    text = _cli_out(["q3", "--engine", engine, "--device", str(dev),
-                     "--reps", "1", "--profile", "--trace", trace_dir],
-                    "phase 17")
-    counts = fused.launch_counts()
-    moved = {k: v - plain["launches"][k] for k, v in counts.items()}
-    flagged = json.load(open(os.path.join("data_torch", "q3_results.json")))
-    same = (flagged["results"] == plain["doc"]["results"]
-            and flagged["parameters"] == plain["doc"]["parameters"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    with open(os.path.join("data_torch", "q3_results.json")) as f:
+        doc = json.load(f)
+    return {"argv": argv, "rc": rc, "text": out.getvalue(),
+            "launches": fused.launch_counts(), "doc": doc}
+
+argv = sys.argv[1:]
+flagged = run(argv + ["--profile", "--trace", os.path.abspath("trace")])
+plain = run(argv)
+print(json.dumps({"flagged": flagged, "plain": plain}))
+"""
+
+
+def phase17_start_q3(engine, dev, root):
+    """Starts ``engine``'s traced and plain ``cli q3`` in a process of its
+    own, in a directory ``engine`` holding a copy of ``data_torch/``: a
+    fresh CUDA context, as a user's command has (in a process that has
+    run kernel work before, the profiler's kernel timestamps may fall
+    outside its window and the trace loses its kernels)."""
+    import shutil
+
+    shutil.copytree("data_torch", os.path.join(engine, "data_torch"))
+    argv = ["q3", "--engine", engine, "--device", str(dev), "--reps", "1"]
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", _TRACED_Q3, *argv], cwd=engine,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=root))
+
+
+def phase17_q3(engine, started, smi):
+    """``cli q3 --profile --trace DIR`` against ``cli q3`` on the same key,
+    in the process ``phase17_start_q3`` started: the same results; the
+    report printed before the timed loop; the trace's kernel events as
+    many as the launch counters moved in the traced call, the one call
+    the flagged command adds.  Returns both runs' launches."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=300)
+    lines = out.splitlines()
+    check(proc.returncode == 0 and lines,
+          f"{engine}: the q3 process failed: {err[-3000:]}")
+    runs = json.loads(lines[-1])
+    flagged, plain = runs["flagged"], runs["plain"]
+    for run in (flagged, plain):
+        for line in run["text"].splitlines():
+            print(f"[phase 17] | {line}")
+        print(f"[phase 17] cli {' '.join(run['argv'])}: rc {run['rc']}")
+        check(run["rc"] == 0, f"cli {' '.join(run['argv'])} failed")
+    print(f"[phase 17] {engine}: both q3 runs in their own process "
+          f"{time.perf_counter() - t0:.1f} s")
+    moved = {k: v - plain["launches"][k]
+             for k, v in flagged["launches"].items()}
+    same = (flagged["doc"]["results"] == plain["doc"]["results"]
+            and flagged["doc"]["parameters"] == plain["doc"]["parameters"])
     print(f"[phase 17] {engine}: q3_results.json results with --profile "
           f"--trace equal to without: {same} (vega "
-          f"{flagged['results']['sensitivity_mc']!r})")
+          f"{flagged['doc']['results']['sensitivity_mc']!r})")
     check(same, f"{engine}: --profile/--trace changed q3's results")
+    text = flagged["text"]
+    trace_dir = os.path.abspath(os.path.join(engine, "trace"))
     for line in ("CUDA kernel analysis", "limiting factor:",
                  "Fused-kernel launch datasheet",
                  f"[trace] profiler trace written to {trace_dir}/"):
@@ -4226,7 +4436,8 @@ def phase17_q3(engine, dev, plain, smi):
               f"in the traced call {moved[counter]} [{smi}]")
         check(n == moved[counter] > 0, f"{engine}: the trace holds {n} "
               f"{kernel} events for {moved[counter]} launches")
-    return counts
+    return {k: v + plain["launches"][k]
+            for k, v in flagged["launches"].items()}
 
 
 def phase17(dev, smi):
@@ -4247,17 +4458,20 @@ def phase17(dev, smi):
             fused.reset_launch_counts()
             _cli_out(["q1", "--device", str(dev)], "phase 17")
             launches = fused.launch_counts()
-            for engine in ("fused_exact", "fused"):
-                phase17_report(cfg, dev, engine, smi)
-                fused.reset_launch_counts()
-                _cli_out(["q3", "--engine", engine, "--device", str(dev),
-                          "--reps", "1"], "phase 17")
-                plain = {"launches": fused.launch_counts(),
-                         "doc": json.load(open(os.path.join(
-                             "data_torch", "q3_results.json")))}
-                flagged = phase17_q3(engine, dev, plain, smi)
-                launches = {k: v + plain["launches"][k] + flagged[k]
-                            for k, v in launches.items()}
+            engines = ("fused_exact", "fused")
+            started = {}
+            try:
+                for engine in engines:
+                    started[engine] = phase17_start_q3(engine, dev, cwd)
+                for engine in engines:
+                    phase17_report(cfg, dev, engine, smi)
+                for engine in engines:
+                    q3 = phase17_q3(engine, started[engine], smi)
+                    launches = {k: v + q3[k] for k, v in launches.items()}
+            finally:
+                for _, proc in started.values():
+                    proc.kill()
+                    proc.wait()
             os.makedirs("all")
             os.chdir("all")
             fused.reset_launch_counts()
@@ -4339,10 +4553,12 @@ def main() -> int:
                 or "Performance Loss" in line:
             print(f"[phase 0] ptxas: {line.strip()}")
 
-    # phase 17 runs first: its traces need a context whose kernel
-    # timestamps still match the host's clock (PERF.md, open questions)
+    # phase 17 runs first, its traced commands each in a fresh process:
+    # a trace needs a context whose kernel timestamps still match the
+    # host's clock (PERF.md, open questions)
     profile_counts = phase17(dev, smi)
     err, times, normals_launches = phase1(dev)
+    nphi_entry = phase1_nphi(dev, smi)
     # each path's run and its kernels; the surface kernel serves both
     # engines' cli grid
     paths = {"fused_exact": ("curve_exact", "zbc_exact", "vega_exact",
@@ -4412,29 +4628,29 @@ def main() -> int:
     check(not any(qmc_counts.values()), "an RQMC or swaption call launched "
           "a kernel")
 
-    berm_counts = phase7(dev, smi)
-    print(f"[phase 7] launches of the hand-written kernels in the Bermudan "
-          f"and multi-date calls (cli swaption --bermudan, cap, cms, the "
-          f"direct calls, card vs CPU, the timings): "
-          f"{sum(berm_counts.values())} (plain PyTorch)")
-    check(not any(berm_counts.values()), "a Bermudan or multi-date call "
-          "launched a kernel")
+    # the phases whose products take the normal CDF on the card (the
+    # Bermudan proxies, the ratchet caps' caplets; the knock-out caps take
+    # it on the host) launch nphi and no other kernel
+    nphi_launches = {}
 
-    g2_counts = phase8(dev, smi)
-    print(f"[phase 8] launches of the hand-written kernels in the "
-          f"calibration and G2++ calls (cli calibrate, g2pp, grid --engine "
-          f"exact, cms --g2, card vs CPU, the timings): "
-          f"{sum(g2_counts.values())} kernel launches (plain PyTorch)")
-    check(not any(g2_counts.values()), "a calibration or G2++ call "
-          "launched a kernel")
+    def only_nphi(phase, counts, what):
+        others = {k: v for k, v in counts.items() if k != "nphi" and v}
+        print(f"[{phase}] launches of the hand-written kernels in {what}: "
+              f"nphi {counts['nphi']}, others {sum(others.values())}")
+        check(not others, f"{phase}: a kernel other than nphi was "
+              f"launched: {others}")
+        check(counts["nphi"] > 0, f"{phase}: nphi was not launched")
+        nphi_launches[phase] = counts["nphi"]
 
-    g2b_counts = phase9(dev, smi)
-    print(f"[phase 9] launches of the hand-written kernels in the G2++ "
-          f"Bermudan and RFR calls (cli g2pp, rfr --g2 [--averaged|--rqmc], "
-          f"the direct calls, card vs CPU, the timings): "
-          f"{sum(g2b_counts.values())} kernel launches (plain PyTorch)")
-    check(not any(g2b_counts.values()), "a G2++ Bermudan or RFR call "
-          "launched a kernel")
+    only_nphi("phase 7", phase7(dev, smi), "the Bermudan and multi-date "
+              "calls (cli swaption --bermudan, cap, cms, the direct calls, "
+              "card vs CPU, the timings)")
+    only_nphi("phase 8", phase8(dev, smi), "the calibration and G2++ calls "
+              "(cli calibrate, g2pp with its Bermudan line, grid --engine "
+              "exact, cms --g2, card vs CPU, the timings)")
+    only_nphi("phase 9", phase9(dev, smi), "the G2++ Bermudan and RFR calls "
+              "(cli g2pp, rfr --g2 [--averaged|--rqmc], the direct calls, "
+              "card vs CPU, the timings)")
 
     note_counts, note_market = phase10(dev, smi)
     print(f"[phase 10] launches of the hand-written kernels in the note "
@@ -4450,12 +4666,8 @@ def main() -> int:
     check(not any(g2_note_counts.values()), "a G2++ note call launched a "
           "kernel")
 
-    exotic_counts = phase12(dev, smi, note_market)
-    print(f"[phase 12] launches of the hand-written kernels in the exotics "
-          f"calls (cli exotics, the oracles, card vs CPU, the timings): "
-          f"{sum(exotic_counts.values())} kernel launches (plain PyTorch)")
-    check(not any(exotic_counts.values()), "an exotics call launched a "
-          "kernel")
+    only_nphi("phase 12", phase12(dev, smi, note_market), "the exotics "
+              "calls (cli exotics, the oracles, card vs CPU, the timings)")
 
     xva_counts = phase13(dev, smi, note_market)
     print(f"[phase 13] launches of the hand-written kernels in the XVA "
@@ -4486,6 +4698,12 @@ def main() -> int:
     check(dryrun_counts["zbc_exact"] > 0,
           "kernel zbc_exact was not launched by the certificate's path")
     launches["zbc_exact"] += dryrun_counts["zbc_exact"]
+    # its Bermudan and ratchet mirrors take the normal CDF on the card
+    check(dryrun_counts["nphi"] > 0,
+          "kernel nphi was not launched by the certificate's path")
+    nphi_launches["phase 16"] = dryrun_counts["nphi"]
+    print(f"[phase 16] nphi launches by phase (7, 8, 9 and 12 in this "
+          f"process, 16 by the certificate's ranks): {nphi_launches}")
 
     print(f"[phase 17] launches in the profile's runs (cli q1, q3 --profile "
           f"--trace per fused engine, cli all --profile): {profile_counts}")
@@ -4604,8 +4822,11 @@ def main() -> int:
     # counted by its ranks and added to the exact tier's);
     # check_kernels: the generator's check kernel, launches counted in its
     # own window
+    # nphi: launches summed over the phases whose products take it
+    nphi_entry["launches"] = sum(nphi_launches.values())
     print(json.dumps({
-        "kernels": [entry(name, n) for name, n in launches.items()],
+        "kernels": [entry(name, n) for name, n in launches.items()]
+        + [nphi_entry],
         "check_kernels": [entry("option_normals", normals_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

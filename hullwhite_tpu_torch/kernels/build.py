@@ -61,6 +61,7 @@ _SIGNATURES = {
     "hw_exact_launch": ([_I, _I, _I, _I, _I, _P], _I),
     "hw_full_launch": ([_I, _I, _I, _I, _P], _I),
     "hw_device_props": ([_P], _I),
+    "hw_nphi": ([_P, _P, ctypes.c_int64, _P], _I),
     "hw_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -20,11 +20,13 @@ Beyond |x| ~ 87 the clamped scale keeps the result finite but not exp:
 the reference behaves so and the port reproduces it (PORT.md).
 
 ``nphi`` is the normal CDF as ``jax.scipy.stats.norm.cdf`` computes it
-(``ndtr``: erf near 0, erfc in the tails), bit for bit on the CPU: both
-are XLA's float32 approximations (``erf32``, ``erfc32``), and the
-subnormal results are flushed to zero as XLA's CPU code flushes them; on
-the card the tails take ``torch.special.erfc``.  ``npdf`` is the PDF
-through ``exp32``.
+(``ndtr``: erf near 0, erfc in the tails), bit for bit on both devices:
+both are XLA's float32 approximations (``erf32``, ``erfc32``), and the
+subnormal results are flushed to zero as XLA's CPU code flushes them.  On
+a CUDA tensor it launches the hand-written kernel ``csrc/accurate.cu``
+(``kernels.accurate.nphi``), on the CPU it runs the plain version
+``nphi_plain``; its forward-mode derivative is JAX's rule for ``ndtr``.
+``npdf`` is the PDF through ``exp32``.
 
 ``cephes_exp`` and ``cephes_log`` are the float32 exp and log that XLA's
 CPU code emits for ``jnp.exp`` and ``jnp.log`` (Cephes' polynomials, the
@@ -49,6 +51,8 @@ _INV = [1.0, 1.0, 0.5, 1.0 / 6.0, 1.0 / 24.0, 1.0 / 120.0, 1.0 / 720.0,
         1.0 / 5040.0]
 _INV_SQRT_2PI = 0.3989422804014327
 _TINY = 2.0 ** -126  # the least normal float32
+_HALF_SQRT_2 = 0.5 * float(np.float32(math.sqrt(2.0)))  # exact in float32
+_TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 # XLA's float32 erf: x P(x^2) / Q(x^2) on x clamped to erfinv(1 - 2^-23)
 _ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
               0.050955695062380861, 0.18520832239976145, 1.128379143519084)
@@ -179,20 +183,61 @@ def erfc32(x: torch.Tensor) -> torch.Tensor:
 
 
 @_host_slabs
-def nphi(x) -> torch.Tensor:
+def nphi_plain(x) -> torch.Tensor:
     """Standard normal CDF, ``jax.scipy.special.ndtr``'s formula over XLA's
     float32 erf and erfc: ``jax.scipy.stats.norm.cdf`` bit for bit on the
-    CPU.  On a CUDA tensor the tails take ``torch.special.erfc`` (one
-    operation, within ~1.2e-6 relative of XLA's): ``erfc32``'s ~130 would
-    make the G2++ Bermudan's calls ~4 times slower on the card (PORT.md)."""
+    CPU.  The plain version of ``kernels.accurate.nphi``'s kernel, which
+    repeats its arithmetic rounding for rounding."""
     x = _as_f32(x)
-    half_sqrt_2 = _f32(0.5 * _f32(math.sqrt(2.0)))
-    w = x * half_sqrt_2
+    w = x * _HALF_SQRT_2
     z = w.abs()
-    e = torch.special.erfc(z) if z.is_cuda else erfc32(z)
-    y = torch.where(z < half_sqrt_2, 1.0 + erf32(w),
+    e = erfc32(z)
+    y = torch.where(z < _HALF_SQRT_2, 1.0 + erf32(w),
                     torch.where(w > 0.0, 2.0 - e, e))
     return _flush(0.5 * y)
+
+
+def _nphi_tangent(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """JAX's tangent of ``norm.cdf`` at x along t, bit for bit on the CPU:
+    ``ndtr``'s rule through the ``jvp``s of erf and erfc, 0.5 (2/sqrt(pi))
+    e^{-w^2} (t 0.5 sqrt(2)) with w = x 0.5 sqrt(2), the exp XLA's
+    (``cephes_exp``), each product's subnormal result flushed as XLA's CPU
+    code flushes it, to a zero of its sign."""
+    def flush(v):
+        return torch.where(v.abs() < _TINY, v * 0.0, v)
+
+    w = x * _HALF_SQRT_2
+    e = flush(cephes_exp(-(w * w)))
+    q = flush((t.to(torch.float32) * _HALF_SQRT_2) * e)
+    return flush(0.5 * flush(_f32(_TWO_OVER_SQRT_PI) * q))
+
+
+class _Nphi(torch.autograd.Function):
+    """``nphi``: the kernel on a CUDA tensor, the plain version on the CPU
+    (``kernels.accurate.nphi``), with JAX's forward-mode rule, so that
+    ``torch.func.jvp`` differentiates through the kernel's launch."""
+
+    @staticmethod
+    def forward(x):
+        from ..kernels import accurate as kernel
+
+        return kernel.nphi(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, x_dot):
+        (x,) = ctx.saved_tensors
+        return _nphi_tangent(x, x_dot)
+
+
+def nphi(x) -> torch.Tensor:
+    """Standard normal CDF, ``jax.scipy.stats.norm.cdf`` bit for bit on
+    either device: the kernel of ``csrc/accurate.cu`` on a CUDA tensor
+    (one launch a call), ``nphi_plain`` on the CPU."""
+    return _Nphi.apply(_as_f32(x))
 
 
 def npdf(x) -> torch.Tensor:

@@ -197,7 +197,7 @@ def certify_rank(mesh) -> dict:
     values, the fused ZBC and this rank's kernel launches.  Rank 0 prints
     one line per check."""
     from .. import bermudan, grid, instruments, pricing
-    from ..kernels import fused
+    from ..kernels import accurate, fused
     from ..models import g2pp
     from ..ops.rng import Key
 
@@ -206,6 +206,7 @@ def certify_rank(mesh) -> dict:
     t0 = time.monotonic()
     deltas = {}
     fused.reset_launch_counts()
+    accurate.reset_launch_counts()
 
     def check(name, sharded, single, tol=TOL):
         d = _delta(sharded, single)
@@ -291,7 +292,9 @@ def certify_rank(mesh) -> dict:
     assert 0.5 < core["P10"] < 1.0, core["P10"]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return dict(deltas=deltas, core=core, launches=fused.launch_counts(),
+    return dict(deltas=deltas, core=core,
+                launches={**fused.launch_counts(),
+                          **accurate.launch_counts()},
                 seconds=time.monotonic() - t0)
 
 

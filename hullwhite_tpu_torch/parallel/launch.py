@@ -7,9 +7,10 @@ analogue of the JAX package's self-provisioned virtual device mesh).
 Each rank is a process started with ``spawn`` (which CUDA requires) that
 imports the target's module, joins a ``torch.distributed`` group through a
 rendezvous file in a fresh temporary directory (no TCP port, so
-concurrent launches never clash), runs with one intra-op thread and
-one-thread BLAS and OpenMP pools (``ONE_THREAD``), builds
-its ``mesh.path_mesh`` and calls ``target(mesh, *args, **kwargs)``.  The
+concurrent launches never clash), meets its peers at a barrier, runs with
+one intra-op thread and one-thread BLAS and OpenMP pools (``ONE_THREAD``),
+builds its ``mesh.path_mesh`` and calls ``target(mesh, *args,
+**kwargs)``.  The
 ranks are placed round-robin on the visible CUDA devices
 (``device="cuda"``) or all on the CPU (``device="cpu"``).  The group is
 NCCL when every rank has a card of its own and gloo otherwise.
@@ -104,6 +105,10 @@ def _rank_main(rank, n_ranks, backend, device, rendezvous, out_dir,
             backend, init_method=f"file://{rendezvous}", world_size=n_ranks,
             rank=rank, device_id=device if backend == "nccl" else None)
         try:
+            # every rank meets its peers first: a rank whose target makes
+            # no collective would otherwise tear its group down (and close
+            # its sockets) while a peer is still connecting to it
+            dist.barrier()
             target, args, kwargs = pickle.loads(payload)
             mesh = pmesh.path_mesh(device=device)
             result = resolve(target)(mesh, *to_device(args, device),

@@ -3,6 +3,8 @@
 ``exp=`` keyword of ``models.hull_white`` against the JAX package on the
 CPU."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,8 @@ from hullwhite_tpu.ops.interp import uinterp as juinterp  # noqa: E402
 
 from hullwhite_tpu_torch import convert  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch.kernels import accurate as kaccurate  # noqa: E402
+from hullwhite_tpu_torch.kernels import build  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as hw  # noqa: E402
 from hullwhite_tpu_torch.ops import accurate  # noqa: E402
 from hullwhite_tpu_torch.ops.interp import uinterp  # noqa: E402
@@ -116,6 +120,53 @@ def test_nphi_bitwise_norm_cdf(jitted):
     want = np.asarray(fn(jnp.asarray(x)))
     got = accurate.nphi(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("tangent", ["ones", "normals"])
+def test_nphi_jvp_matches_jax(tangent):
+    """torch.func.jvp of nphi (its forward-mode rule, JAX's for ndtr)
+    against jax.jvp of norm.cdf on the 200,001 + 6001-point grid of
+    test_nphi_bitwise_norm_cdf and at +-0, along unit tangents and along
+    seeded normal ones: within 0 ulp, bit for bit with the signs of the
+    flushed zeros, and the primal too."""
+    from jax.scipy.stats import norm
+
+    x = np.concatenate([np.linspace(-8.0, 8.0, 200_001, dtype=np.float32),
+                        np.linspace(-30.0, 30.0, 6001, dtype=np.float32),
+                        np.float32([0.0, -0.0])])
+    t = (np.ones_like(x) if tangent == "ones" else
+         np.random.default_rng(25).standard_normal(x.size).astype(np.float32))
+    want, want_t = jax.jit(lambda x, t: jax.jvp(norm.cdf, (x,), (t,)))(
+        jnp.asarray(x), jnp.asarray(t))
+    got, got_t = torch.func.jvp(accurate.nphi, (torch.from_numpy(x),),
+                                (torch.from_numpy(t),))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    np.testing.assert_array_equal(_bits(got_t.numpy()), _bits(want_t))
+
+
+def test_nphi_kernel_is_wired():
+    """nphi has one route on each device: the CUDA kernel (its source in
+    csrc/, its C entry bound with a 64-bit count) on the card, the plain
+    version on the CPU, which launches nothing; the card's library erfc is
+    gone from it."""
+    src = (build.CSRC.parent / "ops" / "accurate.py").read_text()
+    assert "special.erfc" not in src and "torch.erfc" not in src
+    cu = (build.CSRC / "accurate.cu").read_text()
+    assert "nphi_kernel" in cu and "int hw_nphi(" in cu
+    assert build._SIGNATURES["hw_nphi"][0][2] is ctypes.c_int64
+    x = torch.linspace(-9.0, 9.0, 70_001)
+    kaccurate.reset_launch_counts()
+    np.testing.assert_array_equal(_bits(kaccurate.nphi(x).numpy()),
+                                  _bits(accurate.nphi_plain(x).numpy()))
+    np.testing.assert_array_equal(_bits(accurate.nphi(x.double()).numpy()),
+                                  _bits(accurate.nphi_plain(x).numpy()))
+    assert kaccurate.nphi(torch.empty(0, 3)).shape == (0, 3)
+    assert kaccurate.launch_counts() == {"nphi": 0}  # CPU: plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        kaccurate.nphi(torch.empty(3, device="meta"))
+    # the flop count by branch: erf, erfc's T, its P and R, the underflow
+    assert kaccurate.nphi_flops(torch.tensor([0.0, 1.2, 2.0, 4.0, 20.0])) \
+        == 26 + 18 + 45 + 43 + 3
 
 
 @pytest.mark.parametrize("lo, hi, n", [(-0.3, 0.5, 1501), (0.0, 10.0, 101),

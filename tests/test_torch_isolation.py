@@ -431,3 +431,18 @@ def test_spawned_dryrun_rank_imports_no_jax():
             device="cpu"):
         assert set(mods) <= set(names)
         assert not [m for m in names if _is_jax(m)]
+
+
+def test_back_to_back_launches_on_four_ranks():
+    """Three launches in a row of a target that makes no collective, on
+    four gloo CPU ranks: each rank meets its peers before its target runs,
+    so none tears its group down while a peer is still connecting."""
+    from hullwhite_tpu_torch.parallel import launch
+
+    for _ in range(3):
+        mods = launch.run(
+            "hullwhite_tpu_torch.parallel.launch:loaded_modules", 4,
+            device="cpu")
+        assert len(mods) == 4
+        for names in mods:
+            assert "hullwhite_tpu_torch.parallel.mesh" in names
