@@ -29,11 +29,21 @@ Phases (any failure raises and the script exits non-zero):
    200,001 of [-8, 8], 6001 of [-30, 30], +-0 and 4 x 2^22 seeded normals
    scaled by 3, two runs bitwise, its ``torch.func.jvp`` tangent on the
    card within 2 ulp of the CPU's (on each grid's first 2^20 elements);
-   at 2^24 elements its device time, its
-   bound (8 bytes an element over the card's HBM rate, or its float32
-   operations over the card's FP32 rate), the plain version's wall,
-   ``torch.special.ndtr``'s device time (the library call) and the
-   former card route's (erf32 and ``torch.special.erfc``);
+   against the plain version on the card over all 2^32 float32 bit
+   patterns (256 chunks of 2^24, a NaN for a NaN, the differing elements
+   counted by ndtr's class), and again in launches of 2^18 elements (its
+   small launches' kernel, ``nphi_small_kernel``); bit for bit on views whose base is not 16-byte
+   aligned (the normals and the bit patterns of [0.5, 2) and [-2, -0.5),
+   so that the kernel's scalar-load instance runs whole tiles); with a
+   cold L2 (``utils.nphi_bench.cold_ms``: inputs and outputs rotated)
+   its device time and ``torch.special.ndtr``'s (the library call) at
+   2^24 elements and on the arguments of one (2^18, 24) call, one (2^18,
+   24, n) call and the median-sized ``nphi`` call of phase 9's k = 5
+   G2++ Bermudan (captured from a ``price_bermudan_g2`` call, with its
+   calls' sizes), each beside its bound (8 bytes an
+   element over the card's HBM rate, or its float32 operations over the
+   card's FP32 rate); at 2^24 the plain version's wall and the former
+   card route's device time (erf32 and ``torch.special.erfc``);
 2. both main paths at full width (HWConfig(): 2^20 pairs, 1000 steps, 101
    maturities) through the CLI a user runs, q1, q2 --validate 5,
    q3 --validate 5 and grid, first with ``--engine fused_exact`` (exact
@@ -312,12 +322,18 @@ walls' innermost loops (the exact ZBC, vega and delta kernels' and the
 normals kernel's also per element, the surface kernel's per maturity;
 each curve kernel must hold tensor-core instructions, the full-step one
 no FFMA loop, and no instance of the exact curve, ZBC, vega, delta,
-surface or normals kernel may spill: their registers and spills are
-printed from the build's ptxas log, kept beside the library).
-The last
-two lines are a JSON object of
-per-kernel numbers (``nphi``'s launches summed over phases 7, 8, 9, 12
-and 16) and the contract line {"ok": true, "device": {...}}.
+surface, normals or nphi kernel may spill: their registers and spills
+are printed from the build's ptxas log, kept beside the library);
+``nphi_kernel``'s instructions per element by pipe (its tile loop's sort
+and each class loop) and what a thread issues per element on each timed
+input.  Phase 16 prints ``nphi``'s launches and elements in each of
+phases 7, 8, 9, 12 and 16 (with the quartiles of its launches' sizes in
+7, 8, 9 and 12, and their launches by kernel: ``nphi_kernel`` above
+2^18 elements, ``nphi_small_kernel`` at most; each must run) and their
+time above the bound at the (2^18, 24) slab's measured rate.  The last
+two lines are a JSON object of per-kernel numbers (``nphi``'s launches
+and elements summed over phases 7, 8, 9, 12 and 16, and its launches by
+kernel in 7-12) and the contract line {"ok": true, "device": {...}}.
 Without CUDA the script fails before printing any result.  It imports
 nothing of JAX.
 """
@@ -344,18 +360,25 @@ def check(cond, msg):
 
 
 def reset_counts():
-    """Every wrapper's launch count to 0: the fused kernels' and nphi's."""
-    from hullwhite_tpu_torch.kernels import accurate, fused
+    """Every wrapper's launch count (and nphi's sizes) to 0."""
+    from hullwhite_tpu_torch import kernels
 
-    fused.reset_launch_counts()
-    accurate.reset_launch_counts()
+    kernels.reset_launch_counts()
 
 
 def kernel_counts() -> dict:
     """Kernel launches per wrapper since the last ``reset_counts``."""
-    from hullwhite_tpu_torch.kernels import accurate, fused
+    from hullwhite_tpu_torch import kernels
 
-    return {**fused.launch_counts(), **accurate.launch_counts()}
+    return kernels.launch_counts()
+
+
+def nphi_sizes() -> dict:
+    """nphi's launches by their elements since the last
+    ``reset_counts``."""
+    from hullwhite_tpu_torch import kernels
+
+    return kernels.launch_sizes()["nphi"]
 
 
 # the exact tier's unit walls; the exp and reciprocal walls are timed at
@@ -684,9 +707,9 @@ def phase1(dev):
         kern, plain = pair(name, n_tiles, prec)
         if name == "option_normals" and normals_launches is None:
             # the check kernel's own window: the main path never runs it
-            fused.reset_launch_counts()
+            reset_counts()
             k = kern()
-            normals_launches = fused.launch_counts()["option_normals"]
+            normals_launches = kernel_counts()["option_normals"]
         else:
             k = kern()
         if name in WALK_KERNELS:
@@ -757,10 +780,10 @@ def phase1(dev):
 
 
 # nphi's checks: bit for bit against its plain version on these grids (the
-# CPU tests' and 4 x 2^22 seeded normals scaled by 3, its timed shape), its
+# CPU tests' and the timed row's 4 x 2^22 seeded normals scaled by 3,
+# utils.nphi_bench.normals_input) and over every float32 bit pattern, its
 # tangent within NPHI_TANGENT_ULPS of the CPU's on at most NPHI_JVP_ELEMS
 # elements of each grid (the CPU's jvp of 2^24 would take seconds)
-NPHI_TIMED = (4, 1 << 22)
 NPHI_TANGENT_ULPS = 2
 NPHI_JVP_ELEMS = 1 << 20
 
@@ -779,17 +802,26 @@ def phase1_nphi(dev, smi):
     version run on the card and on the CPU, bit for bit on every grid, two
     runs bitwise equal, the ``torch.func.jvp`` tangent on the card within
     NPHI_TANGENT_ULPS of the CPU's (on a grid's first NPHI_JVP_ELEMS
-    elements); then at 2^24 elements the kernel's
-    device time, ``torch.special.ndtr``'s (the library call, not XLA's
-    rounding), the former card route's (erf32 near 0, torch.special.erfc
-    in the tails) and the plain version's wall, and the bound.  Returns
-    the kernel's ``kernels`` entry without its launches."""
+    elements); against the plain version on the card over all 2^32 float32
+    bit patterns (a NaN for a NaN; the differing elements by ndtr's
+    class), in launches of 2^24 and of SMALL elements (the small
+    launches' kernel); bit for bit on views whose base is not 16-byte aligned (the
+    kernel's scalar-load instance over whole tiles); then with a cold L2
+    the kernel's device time and ``torch.special.ndtr``'s (the library
+    call, not XLA's rounding) at 2^24 elements and on the arguments of one
+    (2^18, 24) call, one (2^18, 24, n) call and the median-sized call of
+    phase 9's k = 5 G2++ Bermudan, each beside its bound; at
+    2^24 also the former card route's (erf32 near 0, torch.special.erfc in
+    the tails) and the plain version's wall.  Returns the kernel's
+    ``kernels`` entry without its launches, with each shape's numbers."""
     import numpy as np
     import torch
 
+    from hullwhite_tpu_torch import HWConfig
     from hullwhite_tpu_torch.kernels import accurate as kacc
-    from hullwhite_tpu_torch.kernels import fused
+    from hullwhite_tpu_torch.kernels import build, fused
     from hullwhite_tpu_torch.ops import accurate
+    from hullwhite_tpu_torch.utils import nphi_bench
     from hullwhite_tpu_torch.utils.profile import card_peaks
     from hullwhite_tpu_torch.utils.timing import bench
 
@@ -799,14 +831,13 @@ def phase1_nphi(dev, smi):
         "[-8, 8] x 200001": np.linspace(-8.0, 8.0, 200_001, dtype=np.float32),
         "[-30, 30] x 6001": np.linspace(-30.0, 30.0, 6001, dtype=np.float32),
         "+-0": np.float32([0.0, -0.0]),
-        "4 x 2^22 normals x 3": (3.0 * rng.standard_normal(NPHI_TIMED))
-        .astype(np.float32)}
+        "4 x 2^22 normals x 3": nphi_bench.normals_input()}
     t_phase = time.perf_counter()
     err, ulps = 0.0, 0.0
     for name, x in grids.items():
         xc = torch.from_numpy(x)
         xd = xc.to(dev)
-        kacc.reset_launch_counts()
+        reset_counts()
         k1 = kacc.nphi(xd)
         k2 = kacc.nphi(xd)
         torch.cuda.synchronize()
@@ -834,8 +865,50 @@ def phase1_nphi(dev, smi):
         check(same_primal and u <= NPHI_TANGENT_ULPS,
               f"nphi {name}: jvp primal {same_primal}, tangent {u} ulp")
 
-    xc = torch.from_numpy(grids["4 x 2^22 normals x 3"])
-    xd = xc.to(dev)
+    t0 = time.perf_counter()
+    every = nphi_bench.exhaustive(kacc.nphi, dev)
+    print(f"[phase 1] nphi over all 2^32 float32 bit patterns "
+          f"({every['elements']} elements, 256 chunks of 2^24 from "
+          f"torch.arange, against the plain version on the card, a NaN for "
+          f"a NaN): elements differing by class {every['differing']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(every["elements"] == 1 << 32 and not any(
+        every["differing"].values()),
+          f"nphi: not bit for bit over every float32 {every['differing']}")
+    # the same over launches of SMALL elements: nphi_small_kernel's
+    t0 = time.perf_counter()
+    small = nphi_bench.exhaustive(nphi_bench.in_slices(
+        nphi_bench.launcher(build.library()), nphi_bench.SMALL), dev)
+    print(f"[phase 1] nphi_small_kernel over all 2^32 float32 bit patterns "
+          f"(launches of {nphi_bench.SMALL} elements, against the plain "
+          f"version on the card, a NaN for a NaN): elements differing by "
+          f"class {small['differing']}; {time.perf_counter() - t0:.1f} s")
+    check(small["elements"] == 1 << 32 and not any(
+        small["differing"].values()), f"nphi_small_kernel: not bit for bit "
+          f"over every float32 {small['differing']}")
+
+    # a view one float past a 16-byte boundary takes the scalar-load
+    # instance, over whole tiles and the ragged last one
+    offset = {"4 x 2^22 normals x 3": torch.from_numpy(
+        grids["4 x 2^22 normals x 3"]).to(dev)}
+    for lo in (0x3F000000, 0xBF000000):  # [0.5, 2) and (-2, -0.5]
+        x = nphi_bench.bits_chunk(lo, 1 << 24, dev)
+        offset[f"bits {lo:#x} + 2^24"] = x
+    for name, x in offset.items():
+        view = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+        view.copy_(x)
+        check(view.data_ptr() % 16 != 0, f"nphi {name}: the view is aligned")
+        reset_counts()
+        diff = nphi_bench.differing(kacc.nphi, view)
+        check(kacc.nphi.launches == 1, f"nphi {name}: "
+              f"{kacc.nphi.launches} launches for 1 call")
+        print(f"[phase 1] nphi on a view 4 bytes past a 16-byte boundary, "
+              f"{name} ({x.numel()} elements): elements differing by class "
+              f"from the plain version {diff}")
+        check(not any(diff.values()),
+              f"nphi {name} unaligned: not bit for bit {diff}")
+
+    xd = torch.from_numpy(grids["4 x 2^22 normals x 3"]).to(dev)
     half_sqrt_2 = accurate._HALF_SQRT_2
 
     def former_route():  # the card route before the kernel, timed only
@@ -849,46 +922,72 @@ def phase1_nphi(dev, smi):
     def plain():
         return accurate.nphi_plain(xd)
 
-    def kernel():
-        return kacc.nphi(xd)
-
-    kacc.reset_launch_counts()
-    p1 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
-    k1 = device_ms(kernel, 20, 3)
-    k2 = device_ms(kernel, 20, 3)
-    p2 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
-    lib = min(device_ms(lambda: torch.special.ndtr(xd), 20, 3)
-              for _ in range(2))
-    old = min(device_ms(former_route, 5, 3) for _ in range(2))
+    t0 = time.perf_counter()
+    slabs, _, sizes = nphi_bench.slab_inputs(HWConfig(), dev)
+    inputs = {"normals": xd, **slabs}
+    print(f"[phase 1] nphi's arguments captured from a k = 5 "
+          f"price_bermudan_g2 call: "
+          + str({k: list(v.shape) for k, v in inputs.items()})
+          + f"; its {sum(sizes.values())} calls' elements: quartiles "
+          f"{nphi_bench.size_quantiles(sizes)}, "
+          f"{sum(n * k for n, k in sizes.items()) / sum(sizes.values()):.0f}"
+          f" a call; {time.perf_counter() - t0:.1f} s")
+    kernel = nphi_bench.launcher(build.library())
     props = fused.device_properties()
     peaks = card_peaks(props["sms"], props["max_sm_khz"] / 1e3,
                        props["mem_khz"] / 1e3, props["bus_bits"])
-    n = xc.numel()
-    bytes_ms = 8.0 * n / peaks["hbm_bytes_per_s"] * 1e3
-    flops = kacc.nphi_flops(xc)
-    ops_ms = flops / peaks["fp32_flops_per_s"] * 1e3
-    bound = max(bytes_ms, ops_ms)
-    ms = min(k1, k2)
-    print(f"[phase 1] time at 2^{n.bit_length() - 1} elements: nphi: kernel "
-          f"{ms:.4f} ms (runs {k1:.4f} / {k2:.4f}), plain {min(p1, p2):.4f}"
-          f" ms (runs {p1:.4f} / {p2:.4f}), torch.special.ndtr {lib:.4f} ms,"
-          f" former card route {old:.4f} ms [{smi}]")
-    print(f"[bounds] nphi: {bound:.5f} ms (bytes {bytes_ms:.5f} ms: "
-          f"{8 * n} B at {peaks['hbm_bytes_per_s'] / 1e12:.3f} TB/s; "
-          f"operations {ops_ms:.5f} ms: {flops} fp32 FLOPs at "
-          f"{peaks['fp32_flops_per_s'] / 1e12:.1f} TFLOP/s; {ms:.5f} ms "
-          f"measured, {bound / ms:.1%} of bound)")
-    check(bound <= ms, "nphi ran faster than its bound: the count is wrong")
+    shapes = {}
+    for name, x in inputs.items():
+        bits = int((kacc.nphi(x).view(torch.int32)
+                    != accurate.nphi_plain(x).view(torch.int32)).sum())
+        check(bits == 0, f"nphi {name}: {bits} elements differ in bits "
+              "from the plain version")
+        k1, k2 = (nphi_bench.cold_ms(kernel, x) for _ in range(2))
+        lib = min(nphi_bench.cold_ms(nphi_bench.ndtr_into, x)
+                  for _ in range(2))
+        n = x.numel()
+        bytes_ms = nphi_bench.bytes_bound_ms(n, peaks["hbm_bytes_per_s"])
+        flops = kacc.nphi_flops(x)
+        ops_ms = flops / peaks["fp32_flops_per_s"] * 1e3
+        bound, ms = max(bytes_ms, ops_ms), min(k1, k2)
+        shares = nphi_bench.class_shares(x)
+        shapes[name] = {"shape": list(x.shape), "elements": n, "ms": ms,
+                        "library_ms": lib, "bound_ms": bound,
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations", "class_shares": shares}
+        print(f"[phase 1] time of {name} {list(x.shape)} ({n} elements, "
+              f"cold L2): nphi: kernel {ms:.5f} ms (runs {k1:.5f} / "
+              f"{k2:.5f}), torch.special.ndtr {lib:.5f} ms; class shares "
+              + str({c: round(v, 4) for c, v in shares.items()})
+              + f" [{smi}]")
+        print(f"[bounds] nphi {name}: {bound:.5f} ms (bytes {bytes_ms:.5f} "
+              f"ms: {8 * n} B at {peaks['hbm_bytes_per_s'] / 1e12:.3f} TB/s;"
+              f" operations {ops_ms:.5f} ms: {flops} fp32 FLOPs at "
+              f"{peaks['fp32_flops_per_s'] / 1e12:.1f} TFLOP/s; {ms:.5f} ms "
+              f"measured, {bound / ms:.1%} of bound)")
+        check(bound <= ms, f"nphi {name} ran faster than its bound: the "
+              "count is wrong")
+    p1 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+    p2 = bench(plain, device=dev, n=2, k=2)[0] * 1e3
+    old = min(device_ms(former_route, 5, 3) for _ in range(2))
+    print(f"[phase 1] at 2^24 elements: nphi's plain version {min(p1, p2):.4f}"
+          f" ms (runs {p1:.4f} / {p2:.4f}), former card route {old:.4f} ms "
+          f"[{smi}]")
     print(f"[phase 1] nphi checks and times: "
           f"{time.perf_counter() - t_phase:.1f} s")
+    row = shapes["normals"]
     return {"name": "nphi", "route": "cuda",
             "source": "hullwhite_tpu_torch/csrc/accurate.cu",
             "replaces": "hullwhite_tpu/ops/accurate.py:76",
-            "max_abs_err": err, "tangent_ulps": ulps, "ms": ms,
-            "plain_ms": min(p1, p2), "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_unit": "HBM bandwidth" if bytes_ms >= ops_ms
-            else "FP32 FMA pipe", "library_ms": lib, "former_ms": old}
+            "max_abs_err": err, "tangent_ulps": ulps, "ms": row["ms"],
+            "plain_ms": min(p1, p2), "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bound_unit": "HBM bandwidth" if row["bound_by"] == "bytes"
+            else "FP32 FMA pipe", "library_ms": row["library_ms"],
+            "former_ms": old, "small_differing_over_all_float32":
+            small["differing"], "differing_over_all_float32":
+            every["differing"], "shapes": shapes}
+
 
 def deterministic_gate(cfg, dev, engine, market):
     """The option kernel's own random field fed through an engine that
@@ -931,14 +1030,13 @@ def phase2(dev, engine):
     engine``, then its deterministic gate; returns the launch counts of the
     CLI run alone (reset just before it, read just after it)."""
     from hullwhite_tpu_torch import HWConfig, cli
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            fused.reset_launch_counts()
+            reset_counts()
             for argv in (["q1"], ["q2", "--validate", "5"],
                          ["q3", "--validate", "5"], ["grid"]):
                 t0 = time.perf_counter()
@@ -947,7 +1045,7 @@ def phase2(dev, engine):
                 print(f"[phase 2] {engine}: cli {' '.join(argv)}: rc {rc}, "
                       f"{time.perf_counter() - t0:.1f} s")
                 check(rc == 0, f"cli {argv[0]} --engine {engine} failed")
-            counts = fused.launch_counts()
+            counts = kernel_counts()
             market = cli.hwio.load_market(cfg, device=dev)
             d_price, d_beta, n_tiles = deterministic_gate(cfg, dev, engine,
                                                           market)
@@ -1056,11 +1154,11 @@ def phase2_delta(dev):
     market = analytic_market(cfg, dev)
     key = Key(13)
     eps = 2e-4
-    fused.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     delta = float(pricing.pathwise_delta(cfg, key, market, device=dev))
     gamma = float(greeks.gamma_zbc(cfg, key, market, eps=eps, device=dev))
-    counts = fused.launch_counts()
+    counts = kernel_counts()
     wall = time.perf_counter() - t0
 
     P1, P2 = float(market.P[cfg.n_mat // 2]), float(market.P[-1])
@@ -1130,16 +1228,15 @@ def phase2_roofline(dev, times):
     exact Q1 time within 5% of the same kernels' phase-1 device times.
     Returns the launch counts of the CLI run alone."""
     from hullwhite_tpu_torch import cli
-    from hullwhite_tpu_torch.kernels import fused
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            fused.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             rc = cli.main(["benchmark", "--roofline", "--device", str(dev)])
-            counts = fused.launch_counts()
+            counts = kernel_counts()
             print(f"[phase 2] cli benchmark --roofline: rc {rc}, "
                   f"{time.perf_counter() - t0:.1f} s")
             check(rc == 0, "cli benchmark --roofline failed")
@@ -1321,7 +1418,6 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
     import numpy as np
 
     from hullwhite_tpu_torch import cli
-    from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.models import oracles
 
     cwd = os.getcwd()
@@ -1330,17 +1426,17 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
 
     def counted_table(args):
         # the table's fused tiers launch their kernels: kept apart
-        before = fused.launch_counts()
+        before = kernel_counts()
         rc = run_table(args)
         table.update({k: v - before[k]
-                      for k, v in fused.launch_counts().items()})
+                      for k, v in kernel_counts().items()})
         return rc
 
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         cli.cmd_benchmark = counted_table
         try:
-            fused.reset_launch_counts()
+            reset_counts()
             for argv in (["all", "--reps", "1"], ["grid"]):
                 t0 = time.perf_counter()
                 rc = cli.main(argv + ["--engine", engine,
@@ -1349,7 +1445,7 @@ def phase5_main_path(cfg, dev, engine, gen_ms):
                       f"{time.perf_counter() - t0:.1f} s")
                 check(rc == 0, f"cli {argv[0]} --engine {engine} failed")
             counts = {k: v - table.get(k, 0)
-                      for k, v in fused.launch_counts().items()}
+                      for k, v in kernel_counts().items()}
             res = {name: json.load(open(os.path.join(
                 "data_torch", f"{name}_results.json")))
                 for name in ("q1", "q2a", "q2b", "q3", "grid")}
@@ -1483,7 +1579,6 @@ def phase6_cli(cfg, dev):
     results and the kernels' launch counts of the two swaption runs."""
     import re
 
-    from hullwhite_tpu_torch.kernels import fused
     from hullwhite_tpu_torch.utils import io as hwio
 
     argv = ["--device", str(dev), "--reps", "1"]
@@ -1502,14 +1597,14 @@ def phase6_cli(cfg, dev):
             # model only on a curve the model reprices
             market = analytic_market(cfg, dev)
             hwio.save_market(cfg, market)
-            fused.reset_launch_counts()
+            reset_counts()
             swaption = {}
             for payer in (False, True):
                 _cli(["swaption", "--tenor", "4", *argv]
                      + (["--payer"] if payer else []), "phase 6")
                 swaption[payer] = json.load(open(os.path.join(
                     "data_torch", "swaption_results.json")))["results"]
-            counts = fused.launch_counts()
+            counts = kernel_counts()
             q3 = json.load(open(os.path.join("data_torch",
                                              "q3_results.json")))
         finally:
@@ -1727,15 +1822,14 @@ def phase6(dev, smi):
     import torch
 
     from hullwhite_tpu_torch import HWConfig
-    from hullwhite_tpu_torch.kernels import fused
 
     cfg = HWConfig()
     torch.cuda.reset_peak_memory_stats(dev)
     market, P_q1, q2, q3, swaption, counts = phase6_cli(cfg, dev)
-    fused.reset_launch_counts()
+    reset_counts()
     phase6_gates(cfg, dev, market, P_q1, q2, q3, swaption)
     phase6_card_vs_cpu(cfg, dev, market)
-    for name, n in fused.launch_counts().items():
+    for name, n in kernel_counts().items():
         counts[name] += n
     times = phase6_times(cfg, dev, market, smi)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -4147,7 +4241,7 @@ MESH2_XVAS = ("xva", "xva_netting", "xva_csa", "xva_bilateral", "g2_netting",
 def phase16_dryrun(dev, t_phase):
     """``dryrun_multichip(2)`` on the card, then its 4-rank companion if
     the phase's budget allows; returns the certificate's kernel launches
-    (counted by its ranks)."""
+    and nphi's elements (counted by its ranks)."""
     from hullwhite_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
@@ -4174,7 +4268,7 @@ def phase16_dryrun(dev, t_phase):
         print(f"[phase 16] companion skipped: the phase had spent "
               f"{spent:.1f} s of its {MESH2_COMPANION_BUDGET_S:.0f} s "
               "budget before it")
-    return out["launches"]
+    return out["launches"], out["elements"]
 
 
 def _leaf_delta(a, b):
@@ -4251,15 +4345,16 @@ def phase16_full_width(dev, smi):
 
 def phase16(dev, smi):
     """The mesh's second slice (module docstring, phase 16); returns the
-    certificate's kernel launches, counted by its ranks."""
+    certificate's kernel launches and nphi's elements, counted by its
+    ranks."""
     t0 = time.perf_counter()
-    launches = phase16_dryrun(dev, t0)
+    launches, elements = phase16_dryrun(dev, t0)
     t1 = time.perf_counter()
     phase16_full_width(dev, smi)
     print(f"[phase 16] phase wall {time.perf_counter() - t0:.1f} s "
           f"(certificate {t1 - t0:.1f} s, full width "
           f"{time.perf_counter() - t1:.1f} s)")
-    return launches
+    return launches, elements
 
 
 # ---------------------------------------------------------------------------
@@ -4349,18 +4444,17 @@ def phase17_report(cfg, dev, engine, smi):
 # q3_results.json
 _TRACED_Q3 = """\
 import contextlib, io, json, os, sys
-from hullwhite_tpu_torch import cli
-from hullwhite_tpu_torch.kernels import fused
+from hullwhite_tpu_torch import cli, kernels
 
 def run(argv):
-    fused.reset_launch_counts()
+    kernels.reset_launch_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     with open(os.path.join("data_torch", "q3_results.json")) as f:
         doc = json.load(f)
     return {"argv": argv, "rc": rc, "text": out.getvalue(),
-            "launches": fused.launch_counts(), "doc": doc}
+            "launches": kernels.launch_counts(), "doc": doc}
 
 argv = sys.argv[1:]
 flagged = run(argv + ["--profile", "--trace", os.path.abspath("trace")])
@@ -4447,7 +4541,6 @@ def phase17(dev, smi):
 
     from hullwhite_tpu_torch import HWConfig
     from hullwhite_tpu_torch.analyze import NO_MATPLOTLIB
-    from hullwhite_tpu_torch.kernels import fused
 
     t0 = time.perf_counter()
     cfg = HWConfig()
@@ -4455,9 +4548,9 @@ def phase17(dev, smi):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            fused.reset_launch_counts()
+            reset_counts()
             _cli_out(["q1", "--device", str(dev)], "phase 17")
-            launches = fused.launch_counts()
+            launches = kernel_counts()
             engines = ("fused_exact", "fused")
             started = {}
             try:
@@ -4474,10 +4567,10 @@ def phase17(dev, smi):
                     proc.wait()
             os.makedirs("all")
             os.chdir("all")
-            fused.reset_launch_counts()
+            reset_counts()
             _cli_out(["all", "--profile", "--reps", "1", "--device",
                       str(dev)], "phase 17")
-            counts = fused.launch_counts()
+            counts = kernel_counts()
             res = {name: json.load(open(os.path.join(
                 "data_torch", f"{name}_results.json")))
                 for name in ("q1", "q2a", "q2b", "q3")}
@@ -4533,6 +4626,7 @@ def main() -> int:
     t_script = time.perf_counter()
     from hullwhite_tpu_torch import HWConfig, Key, pricing
     from hullwhite_tpu_torch.kernels import build
+    from hullwhite_tpu_torch.utils import nphi_bench
 
     # phase 0
     smi = nvidia_smi_line()
@@ -4631,7 +4725,10 @@ def main() -> int:
     # the phases whose products take the normal CDF on the card (the
     # Bermudan proxies, the ratchet caps' caplets; the knock-out caps take
     # it on the host) launch nphi and no other kernel
-    nphi_launches = {}
+    nphi_launches, nphi_elems, nphi_quartiles = {}, {}, {}
+    # hw_nphi's launches by kernel, from their sizes (nphi_small_kernel
+    # takes those of at most SMALL elements)
+    nphi_by_kernel = {"nphi_kernel": 0, "nphi_small_kernel": 0}
 
     def only_nphi(phase, counts, what):
         others = {k: v for k, v in counts.items() if k != "nphi" and v}
@@ -4641,6 +4738,12 @@ def main() -> int:
               f"launched: {others}")
         check(counts["nphi"] > 0, f"{phase}: nphi was not launched")
         nphi_launches[phase] = counts["nphi"]
+        sizes = nphi_sizes()
+        nphi_elems[phase] = sum(n * k for n, k in sizes.items())
+        nphi_quartiles[phase] = nphi_bench.size_quantiles(sizes)
+        for n, k in sizes.items():
+            nphi_by_kernel["nphi_small_kernel" if n <= nphi_bench.SMALL
+                           else "nphi_kernel"] += k
 
     only_nphi("phase 7", phase7(dev, smi), "the Bermudan and multi-date "
               "calls (cli swaption --bermudan, cap, cms, the direct calls, "
@@ -4692,7 +4795,7 @@ def main() -> int:
               f"kernel {name} was not launched by the sweep path")
         launches[name] += sweep_counts[name]
 
-    dryrun_counts = phase16(dev, smi)
+    dryrun_counts, dryrun_elems = phase16(dev, smi)
     print(f"[phase 16] launches in the certificate's run (dryrun_multichip"
           f"({MESH2_RANKS}), counted by its ranks): {dryrun_counts}")
     check(dryrun_counts["zbc_exact"] > 0,
@@ -4702,8 +4805,26 @@ def main() -> int:
     check(dryrun_counts["nphi"] > 0,
           "kernel nphi was not launched by the certificate's path")
     nphi_launches["phase 16"] = dryrun_counts["nphi"]
+    nphi_elems["phase 16"] = dryrun_elems["nphi"]
+    # the device time above the bound, at the (2^18, 24) slab's measured
+    # ms per element (phase 1)
+    slab = nphi_entry["shapes"]["slab"]
+    gap = (slab["ms"] - slab["bound_ms"]) / slab["elements"]
+    for phase, n in nphi_launches.items():
+        e = nphi_elems[phase]
+        quartiles = (f", quartiles of a launch's elements "
+                     f"{nphi_quartiles[phase]}" if phase in nphi_quartiles
+                     else "")
+        print(f"[phase 16] nphi in {phase}: {n} launches, {e} elements "
+              f"({e / n:.0f} a launch{quartiles}), {e * gap:.1f} ms above "
+              f"the bound at the slab's rate")
     print(f"[phase 16] nphi launches by phase (7, 8, 9 and 12 in this "
-          f"process, 16 by the certificate's ranks): {nphi_launches}")
+          f"process, 16 by the certificate's ranks): {nphi_launches}; "
+          f"elements {sum(nphi_elems.values())}, "
+          f"{sum(nphi_elems.values()) * gap:.1f} ms above the bound; by "
+          f"kernel in phases 7, 8, 9 and 12: {nphi_by_kernel}")
+    for name, n in nphi_by_kernel.items():
+        check(n > 0, f"kernel {name} was not launched by phases 7-12")
 
     print(f"[phase 17] launches in the profile's runs (cli q1, q3 --profile "
           f"--trace per fused engine, cli all --profile): {profile_counts}")
@@ -4785,9 +4906,23 @@ def main() -> int:
                 check(name == "curve_exact"
                       or not any(loop["ffma"] for loop in loops),
                       f"{name} loops over an FFMA product")
+        # nphi: its tile loop's sort and each class loop, per element,
+        # and what a thread issues per element on each timed input
+        costs = nphi_bench.loop_costs(funcs)
+        print(f"[sass] nphi_kernel instructions per element by pipe (sort: "
+              f"the tile loop without its class loops, over a thread's "
+              f"elements; each class loop over its elements): {costs}")
+        issued = {name: round(nphi_bench.per_element(
+            costs, row["class_shares"]), 2)
+            for name, row in nphi_entry["shapes"].items()
+            if row["elements"] > nphi_bench.SMALL}
+        print(f"[sass] nphi_kernel instructions a thread issues per element "
+              f"on each timed input that it takes (its class shares): "
+              f"{issued}")
     for kernel in ("curve_exact_kernel", "zbc_exact_kernel",
                    "vega_exact_kernel", "delta_exact_kernel",
-                   "grid_exact_kernel", "option_normals_kernel"):
+                   "grid_exact_kernel", "option_normals_kernel",
+                   "nphi_kernel", "nphi_small_kernel"):
         check(build.BUILD_INFO["log"], "no ptxas log for the library: "
               "registers and spills unchecked")
         report = build.ptxas_report(build.BUILD_INFO["log"], kernel)
@@ -4824,6 +4959,8 @@ def main() -> int:
     # own window
     # nphi: launches summed over the phases whose products take it
     nphi_entry["launches"] = sum(nphi_launches.values())
+    nphi_entry["elements"] = sum(nphi_elems.values())
+    nphi_entry["launches_by_kernel"] = nphi_by_kernel
     print(json.dumps({
         "kernels": [entry(name, n) for name, n in launches.items()]
         + [nphi_entry],

@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from . import grid, pricing
+from . import grid, kernels, pricing
 from .cli import _cfg, _device_name, _key, grid_axes
-from .kernels import fused
 from .ops.payoffs import cv_estimate
 from .parallel import launch
 from .utils import io as hwio
@@ -45,7 +44,7 @@ def sweep_rank(mesh, cfg, key, engine: str, reps: int) -> dict:
     """Rank target of ``cli sweep``: the four products over ``mesh``; the
     times in ms per call and the kernels' launches on this rank."""
     dev = mesh.device
-    fused.reset_launch_counts()
+    kernels.reset_launch_counts()
     out = {}
 
     def timed(name, pricer, *prep_args):
@@ -72,7 +71,7 @@ def sweep_rank(mesh, cfg, key, engine: str, reps: int) -> dict:
     g = grid.price_zbc_grid(cfg, key, market, *grid_axes(cfg), engine=engine,
                             mesh=mesh, device=dev)
     out["grid_mid"] = float(g.price[2, -1])
-    out["launches"] = fused.launch_counts()
+    out["launches"] = kernels.launch_counts()
     return out
 
 

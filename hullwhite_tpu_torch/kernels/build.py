@@ -162,7 +162,14 @@ def build() -> Path:
 @lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+    return load(build())
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """A kernel library built by ``build`` (this tree's, or another
+    checkout's of the same C interface), loaded with its C entries'
+    signatures."""
+    lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

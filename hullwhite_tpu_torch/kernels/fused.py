@@ -27,7 +27,7 @@ Every kernel has two versions here:
   ``csrc/fused_exact.cu``, ``csrc/fused_grid.cu``, ``csrc/fused_full.cu``
   or ``csrc/fused_peak.cu`` or raises; on the CPU it runs the plain version.  There is no other
   fallback.  Each wrapper
-  counts its kernel launches (``launch_counts``).  The seed triple
+  counts its kernel launches (``kernels.launch_counts``).  The seed triple
   (``kernel_seeds``) and the option consts stay on the host and go to the
   kernels by value.
 * the plain version (``*_plain``): the same arithmetic in PyTorch, tile
@@ -59,6 +59,7 @@ from ..models import hull_white as hw
 from ..ops import engine_exact, engine_linear
 from ..ops.accurate import _fma
 from ..ops.rng import Key, key_seed
+from . import register
 
 PAD = 128              # lane padding of the maturity axis
 SEED_STRIDE = 1000003  # odd stride decorrelating per-tile seeds
@@ -1488,18 +1489,7 @@ _WRAPPERS = {"curve_exact": curve_exact, "zbc_exact": zbc_exact,
              "draw_peak": draw_peak, "bitops_peak": bitops_peak,
              "bm_peak": bm_peak, "exp_peak": exp_peak,
              "recip_peak": recip_peak}
-for _w in _WRAPPERS.values():
-    _w.launches = 0
-
-
-def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: w.launches for name, w in _WRAPPERS.items()}
-
-
-def reset_launch_counts() -> None:
-    for w in _WRAPPERS.values():
-        w.launches = 0
+register(_WRAPPERS)
 
 
 # ---------------------------------------------------------------------------

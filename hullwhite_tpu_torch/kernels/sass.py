@@ -111,14 +111,21 @@ def pipe_of(opcode: str) -> str:
     return "alu"
 
 
-def innermost_loops(instrs) -> list:
-    """Bodies (instruction lists) of the loops that contain no other loop:
-    a backward branch to an earlier address closes a loop."""
+def loop_spans(instrs) -> list:
+    """(first, last) addresses of every loop: a backward branch to an
+    earlier address closes a loop."""
     spans = []
     for addr, op, args in instrs:
         m = re.match(r"0x([0-9a-f]+)", args)
         if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
             spans.append((int(m.group(1), 16), addr))
+    return spans
+
+
+def innermost_loops(instrs) -> list:
+    """Bodies (instruction lists) of the loops that contain no other
+    loop."""
+    spans = loop_spans(instrs)
     inner = [s for s in spans if not any(
         t != s and s[0] <= t[0] and t[1] <= s[1] for t in spans)]
     return [[i for i in instrs if lo <= i[0] <= hi] for lo, hi in inner]

@@ -194,10 +194,9 @@ def certify_rank(mesh) -> dict:
     """Rank target: every product of the certificate through ``mesh`` and
     with ``mesh=None`` in this rank.  Raises AssertionError on the first
     check out of its tolerance; returns the deltas by check name, the core
-    values, the fused ZBC and this rank's kernel launches.  Rank 0 prints
-    one line per check."""
-    from .. import bermudan, grid, instruments, pricing
-    from ..kernels import accurate, fused
+    values, the fused ZBC and this rank's kernel launches and nphi's
+    elements.  Rank 0 prints one line per check."""
+    from .. import bermudan, grid, instruments, kernels, pricing
     from ..models import g2pp
     from ..ops.rng import Key
 
@@ -205,8 +204,7 @@ def certify_rank(mesh) -> dict:
     say = mesh.rank == 0
     t0 = time.monotonic()
     deltas = {}
-    fused.reset_launch_counts()
-    accurate.reset_launch_counts()
+    kernels.reset_launch_counts()
 
     def check(name, sharded, single, tol=TOL):
         d = _delta(sharded, single)
@@ -293,8 +291,8 @@ def certify_rank(mesh) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return dict(deltas=deltas, core=core,
-                launches={**fused.launch_counts(),
-                          **accurate.launch_counts()},
+                launches=kernels.launch_counts(),
+                elements=kernels.element_counts(),
                 seconds=time.monotonic() - t0)
 
 
@@ -359,8 +357,8 @@ def dryrun_multichip(n_ranks: int, *, device,
     with ``companion``, the core trio and uneven-block rejection on
     2 n_ranks ranks.  Prints one line per check (rank 0) and a closing
     line; raises if any check fails.  Returns rank 0's result, with every
-    rank's kernel launches (``launches``, summed) and the companion's
-    deltas."""
+    rank's kernel launches and nphi's elements (``launches``,
+    ``elements``, summed) and the companion's deltas."""
     from . import launch
 
     ranks = launch.run("hullwhite_tpu_torch.parallel.dryrun:certify_rank",
@@ -371,11 +369,12 @@ def dryrun_multichip(n_ranks: int, *, device,
         # every rank certifies the same gathered results
         assert list(res["deltas"]) == names, (r, list(res["deltas"]))
         assert res["deltas"] == out["deltas"], r
-    launches = {}
+    summed = {"launches": {}, "elements": {}}
     for res in ranks:
-        for k, v in res["launches"].items():
-            launches[k] = launches.get(k, 0) + v
-    out = dict(out, launches=launches)
+        for what, counts in summed.items():
+            for k, v in res[what].items():
+                counts[k] = counts.get(k, 0) + v
+    out = dict(out, **summed)
     if companion:
         out["companion"] = run_companion(2 * n_ranks, device=device)
     print(_core_msg(n_ranks, out["core"])

@@ -23,6 +23,7 @@ from hullwhite_tpu.ops.interp import uinterp as juinterp  # noqa: E402
 
 from hullwhite_tpu_torch import convert  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import accurate as kaccurate  # noqa: E402
 from hullwhite_tpu_torch.kernels import build  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as hw  # noqa: E402
@@ -122,6 +123,39 @@ def test_nphi_bitwise_norm_cdf(jitted):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+# ndtr's branch edges in x, each the least float32 x >= 0 on the far side
+# (the kernel sorts a tile by these classes): |w| = 0.5 sqrt 2 (erf to
+# erfc's T), |w| = 1 (T to P), |w| = 2 (P to R), erfc's underflow at w^2 =
+# ERFC_MAXLOG, the exp's clamp at w^2 = 88.376..., and the x < 0 where
+# the result turns subnormal and is flushed to 0
+_NPHI_EDGES = {"erf_to_near": 1.0, "near_to_p": 1.4142137,
+               "p_to_r": 2.8284273, "erfc_underflow": 13.320875,
+               "exp_clamp": 13.294831, "flush_to_zero": -12.949953}
+_F32 = np.finfo(np.float32)
+_SPECIALS = np.float32([0.0, -0.0, np.inf, -np.inf, _F32.smallest_subnormal,
+                        -_F32.smallest_subnormal, _F32.tiny, -_F32.tiny,
+                        _F32.max, -_F32.max, np.nan])
+
+
+@pytest.mark.parametrize("jitted", [False, True])
+@pytest.mark.parametrize("edge", sorted(_NPHI_EDGES))
+def test_nphi_bitwise_at_branch_edges(edge, jitted):
+    """nphi is norm.cdf bit for bit (a NaN for a NaN) at +-64 ulps around
+    each of ndtr's branch edges, on both signs, and at the specials."""
+    from jax.scipy.stats import norm
+
+    x0 = np.float32(abs(_NPHI_EDGES[edge]))
+    near = (x0.view(np.int32) + np.arange(-64, 65, dtype=np.int32)).view(
+        np.float32)
+    x = np.concatenate([near, -near, _SPECIALS])
+    fn = jax.jit(norm.cdf) if jitted else norm.cdf
+    want = np.asarray(fn(jnp.asarray(x)))
+    got = accurate.nphi(torch.from_numpy(x)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
 @pytest.mark.parametrize("tangent", ["ones", "normals"])
 def test_nphi_jvp_matches_jax(tangent):
     """torch.func.jvp of nphi (its forward-mode rule, JAX's for ndtr)
@@ -155,18 +189,56 @@ def test_nphi_kernel_is_wired():
     assert "nphi_kernel" in cu and "int hw_nphi(" in cu
     assert build._SIGNATURES["hw_nphi"][0][2] is ctypes.c_int64
     x = torch.linspace(-9.0, 9.0, 70_001)
-    kaccurate.reset_launch_counts()
+    tkernels.reset_launch_counts()
     np.testing.assert_array_equal(_bits(kaccurate.nphi(x).numpy()),
                                   _bits(accurate.nphi_plain(x).numpy()))
     np.testing.assert_array_equal(_bits(accurate.nphi(x.double()).numpy()),
                                   _bits(accurate.nphi_plain(x).numpy()))
     assert kaccurate.nphi(torch.empty(0, 3)).shape == (0, 3)
-    assert kaccurate.launch_counts() == {"nphi": 0}  # CPU: plain version
+    assert tkernels.launch_counts()["nphi"] == 0  # CPU: plain version
+    assert tkernels.element_counts() == {"nphi": 0}
+    assert tkernels.launch_sizes() == {"nphi": {}}
     with pytest.raises(ValueError, match="unsupported device"):
         kaccurate.nphi(torch.empty(3, device="meta"))
     # the flop count by branch: erf, erfc's T, its P and R, the underflow
     assert kaccurate.nphi_flops(torch.tensor([0.0, 1.2, 2.0, 4.0, 20.0])) \
         == 26 + 18 + 45 + 43 + 3
+
+
+def test_nphi_bench_helpers():
+    """The card's checks' helpers on the CPU: the bench's tile (elements a
+    thread sorts) and its small launches' limit are the kernel source's;
+    a launcher over slices; a chunk of bit patterns and the
+    per-class count of differing bits (0 for the plain version, which the
+    CPU's wrapper runs); the quantiles of launch sizes."""
+    import re
+
+    from hullwhite_tpu_torch.utils import nphi_bench
+
+    cu = (build.CSRC / "accurate.cu").read_text()
+    groups = re.search(r"constexpr int GROUPS = (\d+);", cu)
+    assert "constexpr int PER_THREAD = 4 * GROUPS;" in cu
+    assert nphi_bench.PER_THREAD == 4 * int(groups.group(1))
+    small = re.search(r"constexpr int64_t SMALL = 1 << (\d+);", cu)
+    assert nphi_bench.SMALL == 1 << int(small.group(1))
+    x = nphi_bench.bits_chunk(0x3F7FFF00, 512, "cpu")
+    assert x[0].item() == np.int32(0x3F7FFF00).view(np.float32)
+    assert x[-1].view(torch.int32).item() == 0x3F7FFF00 + 511
+    assert nphi_bench.bits_chunk((1 << 32) - 2, 2, "cpu").view(
+        torch.int32).tolist() == [-2, -1]
+    diff = nphi_bench.differing(kaccurate.nphi, x)
+    assert set(diff) == set(kaccurate.NPHI_CLASSES)
+    assert not any(diff.values())
+    assert nphi_bench.size_quantiles({10: 1, 20: 2, 40: 1}) == [10, 20, 20]
+    seen = []
+
+    def launch(x, y):
+        seen.append(x.numel())
+        y.copy_(accurate.nphi_plain(x))
+
+    got = nphi_bench.in_slices(launch, 200)(x)
+    assert seen == [200, 200, 112] and torch.equal(got, kaccurate.nphi(x))
+    assert nphi_bench.size_quantiles({5: 3, 7: 1}, (0.5, 1.0)) == [5, 7]
 
 
 @pytest.mark.parametrize("lo, hi, n", [(-0.3, 0.5, 1501), (0.0, 10.0, 101),

@@ -32,6 +32,7 @@ from hullwhite_tpu.pallas import fused as jfused  # noqa: E402
 
 from hullwhite_tpu_torch import cli, convert, pricing  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import fused as tfused  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as thw  # noqa: E402
 from hullwhite_tpu_torch.ops import engine_linear as tlinear  # noqa: E402
@@ -271,7 +272,7 @@ def test_cli_all_fused_on_cpu(tmp_path, monkeypatch, capsys):
     is named in the header and every results file, and the table's prices
     agree."""
     monkeypatch.chdir(tmp_path)
-    tfused.reset_launch_counts()
+    tkernels.reset_launch_counts()
     assert cli.main(["all", "--engine", "fused", "--paths", "32768",
                      "--device", "cpu", "--reps", "1"]) == 0
     out = capsys.readouterr().out
@@ -286,7 +287,7 @@ def test_cli_all_fused_on_cpu(tmp_path, monkeypatch, capsys):
     table = json.loads((data / "benchmark_engines.json").read_text())
     assert table["results"]["consistency_pass"] is True
     assert "price consistency" in out and "-> PASS" in out
-    assert set(tfused.launch_counts().values()) == {0}  # CPU: plain versions
+    assert set(tkernels.launch_counts().values()) == {0}  # CPU: plain versions
 
 
 def test_full_wrappers_check_their_operands():

@@ -28,6 +28,7 @@ from hullwhite_tpu.pallas import fused as jfused  # noqa: E402
 
 from hullwhite_tpu_torch import HWConfig, cli, convert, grid  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import fused as tfused  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as thw  # noqa: E402
 from hullwhite_tpu_torch.models import oracles  # noqa: E402
@@ -263,7 +264,7 @@ def test_grid_kernel_size_bound():
         tfused.grid_exact(seeds, big._replace(Ks=big.Ks[:0]), 1)
     with pytest.raises(ValueError):
         tfused.grid_exact(seeds, ok._replace(consts=ok.consts[:-1]), 1)
-    assert tfused.launch_counts()["grid_exact"] == 0  # CPU: plain version
+    assert tkernels.launch_counts()["grid_exact"] == 0  # CPU: plain version
 
 
 def test_cli_grid(tmp_path, monkeypatch, capsys):

@@ -22,6 +22,7 @@ from hullwhite_tpu.ops import payoffs as jpayoffs  # noqa: E402
 from hullwhite_tpu.pallas import fused as jfused  # noqa: E402
 
 from hullwhite_tpu_torch import config as tconfig, convert  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import fused as tfused  # noqa: E402
 from hullwhite_tpu_torch.models import hull_white as thw  # noqa: E402
 from hullwhite_tpu_torch.ops import engine_exact as texact  # noqa: E402
@@ -227,7 +228,7 @@ def test_wrappers_check_their_operands():
 
 def test_cpu_tensors_count_no_kernel_launch():
     """The CPU takes the plain version: no kernel launch is counted."""
-    tfused.reset_launch_counts()
+    tkernels.reset_launch_counts()
     seeds = tfused.kernel_seeds(Key(1), "zbc")
     tfused.option_normals(seeds, 1, device="cpu")
     tfused.zbc_exact(seeds, tfused.OptionPrepared(
@@ -237,5 +238,5 @@ def test_cpu_tensors_count_no_kernel_launch():
                        tfused.CurvePrepared(W, torch.zeros(tfused.PAD),
                                             *tfused.curve_exact_operands(W)),
                        1, 10)
-    assert tfused.launch_counts() == {name: 0 for name in
-                                      tfused.launch_counts()}
+    assert tkernels.launch_counts() == {name: 0 for name in
+                                      tkernels.launch_counts()}

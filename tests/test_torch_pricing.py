@@ -19,6 +19,7 @@ from hullwhite_tpu import tiny_config as jtiny  # noqa: E402
 
 from hullwhite_tpu_torch import cli, greeks, pricing  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import fused  # noqa: E402
 from hullwhite_tpu_torch.ops.payoffs import cv_estimate  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
@@ -154,4 +155,4 @@ def test_cli_round_trip(tmp_path, monkeypatch, capsys):
     assert q1["performance"]["device"] == "cpu"
     q2b = json.loads((data / "q2b_results.json").read_text())
     assert 0.034 < q2b["results"]["ZBC_control_variate"] < 0.037
-    assert fused.launch_counts()["zbc_exact"] == 0  # CPU: plain versions
+    assert tkernels.launch_counts()["zbc_exact"] == 0  # CPU: plain versions

@@ -32,6 +32,7 @@ from hullwhite_tpu.ops.rng import block_normals as jblock_normals  # noqa: E402
 from hullwhite_tpu_torch import cli, convert, greeks, grid  # noqa: E402
 from hullwhite_tpu_torch import pricing  # noqa: E402
 from hullwhite_tpu_torch import tiny_config as ttiny  # noqa: E402
+from hullwhite_tpu_torch import kernels as tkernels  # noqa: E402
 from hullwhite_tpu_torch.kernels import fused  # noqa: E402
 from hullwhite_tpu_torch.ops.payoffs import cv_estimate  # noqa: E402
 from hullwhite_tpu_torch.ops.rng import Key  # noqa: E402
@@ -302,7 +303,7 @@ def test_cli_benchmark_engine_table_and_sweep(tmp_path, monkeypatch, capsys):
     them, the price-consistency gate PASS, the path_block sweep; only
     data_torch/ is written and no kernel launches."""
     monkeypatch.chdir(tmp_path)
-    fused.reset_launch_counts()
+    tkernels.reset_launch_counts()
     assert cli.main(["benchmark", "--device", "cpu", "--paths", "8192",
                      "--reps", "1", "--sweep"]) == 0
     out = capsys.readouterr().out
@@ -313,7 +314,7 @@ def test_cli_benchmark_engine_table_and_sweep(tmp_path, monkeypatch, capsys):
     assert set(doc["engines"]) == {"linear", "exact", "scan"}
     assert doc["consistency_pass"] is True
     assert set(doc["block_sweep"]) == {"8192"}
-    assert set(fused.launch_counts().values()) == {0}
+    assert set(tkernels.launch_counts().values()) == {0}
 
 
 def test_cli_benchmark_ab_precision(tmp_path, monkeypatch, capsys):
